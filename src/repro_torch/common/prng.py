@@ -1,0 +1,99 @@
+"""Threefry-2x32 keys and draws, bit-exact to ``jax.random`` (jax 0.9 with
+``jax_threefry_partitionable=True``, its default).
+
+The port needs the reference's exact random numbers wherever a key reaches
+the wire or the model: the b=1 upload dither, the flush's broadcast seeds,
+the CNN's dropout mask and the simulator's key stream. The law, checked
+against the installed jax in ``tests/test_torch_prng.py``:
+
+* ``PRNGKey(s)`` is the word pair ``[0, s]`` (``s`` < 2**32);
+* with ``(w0_i, w1_i) = threefry2x32(key, (hi=0, lo=i))``, ``split(key, n)[i]``
+  is ``(w0_i, w1_i)`` and a 32-bit draw of n elements is ``w0_i ^ w1_i``;
+* ``uniform`` puts the top 23 bits into the mantissa of 1.x and subtracts 1;
+* ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
+
+A key is a CPU int64 tensor of shape (2,) holding the two uint32 words.
+torch has no uint32 shifts or adds on the CPU, so every word lives in an
+int64 and is masked back to 32 bits after each add or shift.
+"""
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """The key of a non-negative 32-bit seed: words ``[0, seed]``."""
+    seed = int(seed)
+    if not 0 <= seed <= MASK32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+    return torch.tensor([0, seed], dtype=torch.int64)
+
+
+def _key_words(key) -> tuple:
+    words = torch.as_tensor(key).reshape(-1).tolist()
+    if len(words) != 2:
+        raise ValueError(f"a key holds two uint32 words, got {words}")
+    return int(words[0]) & MASK32, int(words[1]) & MASK32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
+    """The threefry-2x32 block cipher (20 rounds) of counter words
+    ``(x0, x1)`` under ``key``; int64 tensors of uint32 values in and out."""
+    k0, k1 = _key_words(key)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def _counter_words(key, n: int, device):
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    return threefry2x32(key, torch.zeros_like(lo), lo)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: a (num, 2) int64 stack of keys."""
+    w0, w1 = _counter_words(key, int(num), "cpu")
+    return torch.stack([w0, w1], dim=1)
+
+
+def bits(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits`` at 32 bits: uint32 values in an int64 tensor."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    w0, w1 = _counter_words(key, n, device if device is not None else "cpu")
+    return (w0 ^ w1).reshape(shape)
+
+
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
+    b = bits(key, shape, device)
+    # the mantissa word fits in an int32, so the view is the f32 bit pattern
+    one_x = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return one_x - 1.0
+
+
+def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (p as f32)."""
+    return uniform(key, shape, device) < p
+
+
+def key_words_i32(keys: torch.Tensor) -> torch.Tensor:
+    """Keys (int64 tensors of uint32 words) as int32 tensors holding the
+    same bit patterns — what a kernel reads as uint32."""
+    return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)

@@ -1,0 +1,151 @@
+"""Wire protocol: message framing and exact byte accounting.
+
+Counterpart of ``repro/core/protocol.py``. Every upload and broadcast is a
+``Message`` carrying a real packed payload (uint8 qsgd codes + bucket norms,
+or the f32 vector for identity). Bytes follow the paper's Appendix E model
+on the whole flattened model: ``bits`` per coordinate plus one f32 norm per
+128-coordinate bucket for qsgd, 32 bits per coordinate for identity.
+Broadcasts fan out: one server message reaches every client still training,
+so ``TrafficMeter.record`` takes the receiver count.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+from repro_torch.core.quantizers import (Quantizer, TreeLayout,
+                                         packed_identity_payload,
+                                         packed_qsgd_payload)
+
+CLIENT_UPDATE = "client_update"
+HIDDEN_BROADCAST = "hidden_broadcast"
+
+
+@dataclasses.dataclass
+class Message:
+    kind: str
+    payload: Any  # packed payload dict (quantizers.packed_*_payload)
+    wire_bytes: float
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def frame_packed_message(kind: str, quantizer: Quantizer, enc: dict,
+                         **meta) -> Message:
+    """Frame an already-encoded packed payload (e.g. the broadcast bits of
+    the server flush) as a wire Message."""
+    return Message(kind=kind, payload=enc,
+                   wire_bytes=quantizer.wire_bytes_packed(enc["layout"]),
+                   meta=dict(meta))
+
+
+def frame_cohort_messages(kind: str, quantizer: Quantizer, out: dict,
+                          layout: TreeLayout, *,
+                          version: int = 0) -> List[Message]:
+    """Frame a client step's output — ``{"packed", "norms"}`` stacks for
+    qsgd, a ``{"flat"}`` stack for identity — as one Message per member,
+    all of model ``version``."""
+    n = layout.total_size
+    wire = quantizer.wire_bytes_packed(layout)
+    if quantizer.spec.kind == "qsgd":
+        encs = [packed_qsgd_payload(p, nm, quantizer.spec.bits, n, layout)
+                for p, nm in zip(out["packed"], out["norms"])]
+    else:
+        encs = [packed_identity_payload(f, n, layout) for f in out["flat"]]
+    return [Message(kind=kind, payload=enc, wire_bytes=wire,
+                    meta={"version": version}) for enc in encs]
+
+
+def payload_wire_bytes(enc) -> Optional[float]:
+    """Exact framed bytes of one packed payload, from the payload itself."""
+    if not isinstance(enc, dict) or enc.get("format") != "packed":
+        return None
+    if enc.get("kind") == "qsgd":
+        n = int(enc["n"])
+        return (enc["bits"] * n + 32 * math.ceil(n / 128)) / 8.0
+    if enc.get("kind") == "identity":
+        return 32 * int(enc["n"]) / 8.0
+    return None
+
+
+def payload_kind_label(enc) -> str:
+    """Per-kind bucket label for traffic accounting ("qsgd4", "identity")."""
+    if not isinstance(enc, dict):
+        return "tree"
+    kind = enc.get("kind")
+    if kind == "qsgd":
+        return f"qsgd{enc['bits']}"
+    return "other" if kind is None else str(kind)
+
+
+def decode_message_flat(quantizer: Quantizer, msg: Message):
+    """Decode a packed message to its flat f32 vector (no unflatten)."""
+    return quantizer.decode_flat(msg.payload)
+
+
+@dataclasses.dataclass
+class TrafficMeter:
+    """Accumulates the paper's communication metrics.
+
+    ``broadcast_bytes`` counts downlink fan-out (``n_receivers`` times the
+    message); ``broadcast_wire_bytes`` keeps the single-copy total so
+    kB-per-broadcast stays comparable to the paper's tables.
+    """
+
+    uploads: int = 0
+    broadcasts: int = 0
+    upload_bytes: float = 0.0
+    broadcast_bytes: float = 0.0
+    broadcast_wire_bytes: float = 0.0
+    broadcast_receivers: int = 0
+    # uploads rejected by the staleness drop policy: the uplink bytes were
+    # spent, but the update never entered the buffer
+    uploads_dropped: int = 0
+    dropped_bytes: float = 0.0
+    uploads_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
+    upload_bytes_by_kind: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+    def _upload_size(self, msg: Message) -> float:
+        actual = payload_wire_bytes(msg.payload)
+        return msg.wire_bytes if actual is None else actual
+
+    def record(self, msg: Message, n_receivers: int = 1):
+        if msg.kind == CLIENT_UPDATE:
+            wire = self._upload_size(msg)
+            self.uploads += 1
+            self.upload_bytes += wire
+            label = payload_kind_label(msg.payload)
+            self.uploads_by_kind[label] = self.uploads_by_kind.get(label, 0) + 1
+            self.upload_bytes_by_kind[label] = (
+                self.upload_bytes_by_kind.get(label, 0.0) + wire)
+        else:
+            self.broadcasts += 1
+            self.broadcast_bytes += msg.wire_bytes * n_receivers
+            self.broadcast_wire_bytes += msg.wire_bytes
+            self.broadcast_receivers += n_receivers
+
+    def record_dropped(self, msg: Message):
+        """An upload rejected at the server (staleness bound exceeded)."""
+        self.uploads_dropped += 1
+        self.dropped_bytes += self._upload_size(msg)
+
+    def summary(self) -> Dict[str, float]:
+        by_kind = {f"kB_per_upload/{k}": self.upload_bytes_by_kind[k] / c / 1e3
+                   for k, c in self.uploads_by_kind.items() if c}
+        return {
+            "uploads": self.uploads,
+            "broadcasts": self.broadcasts,
+            "upload_MB": self.upload_bytes / 1e6,
+            "broadcast_MB": self.broadcast_bytes / 1e6,
+            "kB_per_upload": (self.upload_bytes / self.uploads / 1e3
+                              if self.uploads else 0.0),
+            **by_kind,
+            "kB_per_broadcast": (self.broadcast_wire_bytes / self.broadcasts
+                                 / 1e3 if self.broadcasts else 0.0),
+            "mean_broadcast_fanout": (self.broadcast_receivers
+                                      / self.broadcasts
+                                      if self.broadcasts else 0.0),
+            "uploads_dropped": self.uploads_dropped,
+            "dropped_MB": self.dropped_bytes / 1e6,
+        }

@@ -1,0 +1,274 @@
+"""QAFeL: Quantized Asynchronous Federated Learning (Algorithms 1-3).
+
+Counterpart of ``repro/core/qafel.py`` on one device. The algorithm is
+generic over the task: a ``loss_fn(params, batch, key) -> scalar tensor``
+over a nested-dict parameter tree.
+
+The server state is flat: ``x``, ``x-hat`` and the momentum are f32 vectors
+in the coordinate space of one ``TreeLayout``, on the run's device. A flush
+is ``kernels.ops.server_flush_step``: the fused dequantize-accumulate of the
+K packed uploads, momentum and server update, the broadcast quantize-pack
+and the hidden-state apply of the decoded broadcast bits.
+
+FedBuff is QAFeL with identity quantizers (``core.fedbuff``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common import prng
+from repro_torch.common.device import resolve_device
+from repro_torch.common.tree import tree_leaves
+from repro_torch.core.buffer import UpdateBuffer
+from repro_torch.core.protocol import (CLIENT_UPDATE, HIDDEN_BROADCAST,
+                                       Message, TrafficMeter,
+                                       frame_cohort_messages,
+                                       frame_packed_message)
+from repro_torch.core.quantizers import (Quantizer, TreeLayout, flatten_tree,
+                                         make_quantizer,
+                                         packed_identity_payload,
+                                         packed_qsgd_payload,
+                                         qsgd_encode_flat2d)
+from repro_torch.core.staleness import StalenessMonitor
+from repro_torch.kernels.ref import fma_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class QAFeLConfig:
+    client_lr: float = 0.01
+    server_lr: float = 1.0
+    server_momentum: float = 0.0  # FedBuff's beta (0.3 in the paper's runs)
+    buffer_size: int = 10  # K
+    local_steps: int = 1  # P
+    client_quantizer: Any = "qsgd4"  # "identity" -> FedBuff upload
+    server_quantizer: Any = "qsgd4"
+    staleness_scaling: bool = True  # 1/sqrt(1+tau) down-weighting
+    # 0 = unbounded; > 0 rejects uploads with tau > max_staleness before
+    # they reach the buffer (counted in the TrafficMeter / StalenessMonitor)
+    max_staleness: int = 0
+
+    def cq(self) -> Quantizer:
+        return make_quantizer(self.client_quantizer)
+
+    def sq(self) -> Quantizer:
+        return make_quantizer(self.server_quantizer)
+
+
+# ---------------------------------------------------------------------------
+# Round math
+# ---------------------------------------------------------------------------
+
+
+def local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
+              batches, keys):
+    """Algorithm 2 lines 2-4: P plain SGD steps from the flat ``y0_flat``
+    (``layout``'s coordinates), step p on ``batches[..][p]`` with
+    ``keys[p]``; the loss sees the parameter tree. Returns the final flat
+    parameters.
+
+    The step ``y - lr*g`` is rounded once, as one fused multiply-add: the
+    reference's jitted scan body compiles to ``fma(-lr, g, y)`` on XLA:CPU,
+    and with a separately rounded product the two packages drift apart by
+    an ulp per step even where their gradients agree bit for bit. It runs
+    on the flat vector: one elementwise chain for the whole model."""
+    grad_fn = torch.func.grad(loss_fn)
+    neg_lr = -float(np.float32(lr))  # the f32 learning rate, as XLA has it
+    y = y0_flat
+    for p in range(len(keys)):
+        batch = {k: v[p] for k, v in batches.items()}
+        g = grad_fn(layout.unflatten(y), batch, keys[p])
+        g_flat = torch.cat([gi.reshape(-1) for gi in tree_leaves(g)])
+        y = fma_f32(g_flat, neg_lr, y)
+    return y
+
+
+def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
+                  x_hat_flat, batches, key):
+    """Algorithm 2: y_0 <- x-hat; P local SGD steps; delta = y_P - y_0
+    (the text's sign convention, as in the reference), all flat in
+    ``layout``'s coordinates. ``batches`` leaves have leading dim P.
+    Returns the unquantized flat delta."""
+    keys = prng.split(key, qcfg.local_steps)
+    y_final = local_sgd(loss_fn, qcfg.client_lr, layout, x_hat_flat,
+                        batches, keys)
+    return y_final - x_hat_flat
+
+
+def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
+                       hidden_flat, batches, k_train, k_enc) -> dict:
+    """One client, flat x-hat in, wire payload out: train
+    (``client_update``) and encode the (1, d) delta — the qsgd upload with
+    the threefry dither of ``k_enc``.
+
+    Returns ``{"packed", "norms"}`` stacks for qsgd, ``{"flat"}`` for
+    identity (whose flat delta IS the wire payload).
+    """
+    flat2d = client_update(loss_fn, qcfg, layout, hidden_flat, batches,
+                           k_train)[None]
+    if spec.kind == "qsgd":
+        packed, norms = qsgd_encode_flat2d(flat2d, k_enc, spec.bits,
+                                           threefry=True)
+        return {"packed": packed, "norms": norms}
+    return {"flat": flat2d}
+
+
+def server_apply_flat(x, momentum, delta, *, lr, beta):
+    """The FedBuff server update (Algorithm 1 line 12 + server momentum):
+    m <- beta m + Delta-bar; x <- x + eta_g m. Each product and sum is its
+    own rounded operation, as the reference pins them. ``beta`` None
+    disables momentum. Returns ``(x_new, momentum_new)``."""
+    if beta is not None:
+        momentum = beta * momentum + delta
+    else:
+        momentum = delta
+    return lr * momentum + x, momentum
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServerState:
+    """Flat server state on one device: the full-precision model ``x``, the
+    shared hidden state ``x-hat`` and the momentum, in one layout's
+    coordinates; ``t`` is the server step (model version)."""
+
+    x_flat: torch.Tensor
+    hidden_flat: torch.Tensor
+    momentum_flat: torch.Tensor
+    layout: TreeLayout
+    t: int = 0
+
+    @staticmethod
+    def init(params0, device) -> "ServerState":
+        flat, layout = flatten_tree(params0, device)
+        return ServerState(x_flat=flat, hidden_flat=flat.clone(),
+                           momentum_flat=torch.zeros_like(flat),
+                           layout=layout, t=0)
+
+    @property
+    def n(self) -> int:
+        return self.layout.total_size
+
+    @property
+    def x(self):
+        """Tree view of the full-precision server model."""
+        return self.layout.unflatten(self.x_flat)
+
+
+class QAFeL:
+    """Server and client logic of Algorithms 1-3, driven by an event loop
+    (``sim.events``). ``device=None`` means CUDA; the tests pass "cpu"."""
+
+    def __init__(self, qcfg: QAFeLConfig, loss_fn: Callable, params0,
+                 device=None):
+        self.qcfg = qcfg
+        self.loss_fn = loss_fn
+        self.cq = qcfg.cq()
+        self.sq = qcfg.sq()
+        self.device = resolve_device(device)
+        self.state = ServerState.init(params0, self.device)
+        self.buffer = UpdateBuffer(capacity=qcfg.buffer_size,
+                                   quantizer=self.cq)
+        self.meter = TrafficMeter()
+        self.staleness = StalenessMonitor(max_allowed=qcfg.max_staleness)
+
+    # -- client side ------------------------------------------------------
+    def run_client(self, batches, key, client=None) -> Tuple[Message, int]:
+        """Algorithm 2 on the CURRENT hidden state; returns (message,
+        version). ``k_train, k_enc = split(key)`` as in the reference.
+        ``client`` is accepted for the reference's signature."""
+        del client
+        k_train, k_enc = prng.split(key)
+        st = self.state
+        out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
+                                 st.layout, st.hidden_flat, batches,
+                                 k_train, k_enc)
+        msg = frame_cohort_messages(CLIENT_UPDATE, self.cq, out, st.layout,
+                                    version=st.t)[0]
+        return msg, st.t
+
+    # -- server side ------------------------------------------------------
+    def receive(self, msg: Message, key,
+                n_receivers: int = 1) -> Optional[Message]:
+        """Algorithm 1 lines 5-16: buffer the packed upload (undecoded);
+        at K uploads flush and return the broadcast message.
+        ``n_receivers`` is the broadcast's fan-out for byte accounting."""
+        version = msg.meta["version"]
+        if version > self.state.t:
+            raise ValueError(
+                f"message version {version} is ahead of the server clock "
+                f"t={self.state.t} (clock skew or replay)")
+        payload = msg.payload
+        if (payload.get("kind") != self.cq.spec.kind
+                or payload.get("bits") not in (None, self.cq.spec.bits)):
+            raise ValueError("the port buffers uploads of the client "
+                             f"quantizer only ({self.cq.spec.label()})")
+        tau = self.state.t - version
+        if self.staleness.would_drop(tau):
+            self.meter.record_dropped(msg)
+            self.staleness.record_dropped(tau)
+            return None
+        self.meter.record(msg)
+        self.staleness.observe(tau)
+        w = (1.0 / math.sqrt(1.0 + tau)) if self.qcfg.staleness_scaling else 1.0
+        self.buffer.add_encoded(payload, weight=w)
+        if not self.buffer.full:
+            return None
+        return self._flush(key, n_receivers)
+
+    def _flush(self, key, n_receivers: int) -> Message:
+        """Algorithm 1 lines 11-16. The broadcast carries
+        q^t = Q_s(x^{t+1} - x-hat^t), and the server applies the decoded
+        wire bits themselves — the increment every client decodes — which
+        keeps all x-hat replicas bit-identical."""
+        from repro_torch.kernels import ops as kops
+
+        st = self.state
+        if self.buffer.layout != st.layout:  # before drain() resets it
+            raise ValueError("buffered uploads do not match the server's "
+                             "parameter layout")
+        batch = self.buffer.drain()
+        qsgd_broadcast = self.sq.spec.kind == "qsgd"
+        sbits = self.sq.spec.bits if qsgd_broadcast else None
+        beta = self.qcfg.server_momentum if self.qcfg.server_momentum else None
+        x_new, h_new, m_new, payload = kops.server_flush_step(
+            st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
+            batch.norms, batch.weights, batch.extra,
+            key.reshape(1, -1) if qsgd_broadcast else None,
+            bits=batch.bits, sbits=sbits, n=batch.n,
+            lr=self.qcfg.server_lr, beta=beta)
+        if qsgd_broadcast:
+            enc = packed_qsgd_payload(payload[0], payload[1], sbits, batch.n,
+                                      st.layout)
+        else:
+            enc = packed_identity_payload(payload[0], batch.n, st.layout)
+        bmsg = frame_packed_message(HIDDEN_BROADCAST, self.sq, enc, t=st.t)
+        self.meter.record(bmsg, n_receivers=n_receivers)
+        self.state = ServerState(x_flat=x_new, hidden_flat=h_new,
+                                 momentum_flat=m_new, layout=st.layout,
+                                 t=st.t + 1)
+        return bmsg
+
+    # -- invariant checks / metrics ----------------------------------------
+    def hidden_drift(self) -> float:
+        """|| x - x-hat || / || x || — the quantization term of Lemma F.9."""
+        x, h = self.state.x_flat, self.state.hidden_flat
+        d = x - h
+        num = torch.sqrt(torch.sum(d * d))
+        den = torch.clamp(torch.sqrt(torch.sum(x * x)), min=1e-30)
+        return float(num / den)
+
+    def metrics(self, drift: bool = False) -> Dict[str, Any]:
+        """The metrics surface (``obs.metrics.collect``): traffic,
+        staleness, server steps and, on request, the hidden drift."""
+        from repro_torch.obs.metrics import collect
+        return collect(self.meter, self.staleness, self.state.t,
+                       drift=self.hidden_drift() if drift else None)

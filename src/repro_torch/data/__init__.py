@@ -1,0 +1,5 @@
+"""Synthetic data and non-IID federated partitioning (numpy)."""
+from repro_torch.data.federated import FederatedPartition, dirichlet_partition
+from repro_torch.data.synthetic import SyntheticCelebA
+
+__all__ = ["FederatedPartition", "SyntheticCelebA", "dirichlet_partition"]

@@ -1,0 +1,105 @@
+"""Wire-layout entry points around the kernels, and the server flush.
+
+Counterpart of ``repro/kernels/ops.py``. A message of n elements lives on
+the wire as ``rows_for(n) = ceil(n / 128)`` packed code rows plus one f32
+bucket norm per row; the tail of the last row is zero-padded here (zero
+elements encode to zero codes) and sliced off after decoding. The
+reference's second, kernel-tile layout (rows padded to 256) has no
+counterpart: the CUDA kernels take wire rows as they come.
+
+``server_flush_step`` is the whole QAFeL buffer flush (Algorithm 1 lines
+11-16) as a short chain of launches: the fused dequantize-accumulate, the
+FedBuff momentum and server update, the broadcast quantize-pack and the
+hidden-state apply of the decoded broadcast bits.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import prng
+from repro_torch.kernels import buffer_agg as _agg
+from repro_torch.kernels import qsgd as _qsgd
+from repro_torch.kernels.ref import LANES
+
+BUCKET = LANES  # one f32 norm per 128-element row
+
+
+def rows_for(n: int) -> int:
+    """Number of 128-lane rows (= bucket norms) of a length-n message."""
+    return (n + BUCKET - 1) // BUCKET
+
+
+def _rows2d(flat: torch.Tensor) -> torch.Tensor:
+    """(..., n) f32 -> (..., rows_for(n), 128), zero-padding the last row."""
+    n = flat.shape[-1]
+    pad = rows_for(n) * BUCKET - n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(*flat.shape[:-1], rows_for(n), BUCKET).contiguous()
+
+
+def qsgd_quantize(flat: torch.Tensor, key, bits: int = 4):
+    """Quantize one flat f32 message with the threefry dither
+    ``uniform(key, (rows, 128))`` (the reference's b=1 wire convention).
+    Returns (packed uint8 (rows, 16*bits), norms f32 (rows,))."""
+    x2d = _rows2d(flat.to(torch.float32))
+    u2d = prng.uniform(key, x2d.shape, device=x2d.device)
+    return _qsgd.qsgd_quantize_pack(x2d, u2d, bits)
+
+
+def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
+    """Quantize a (B, n) stack in one launch; message b's dither is the
+    counter hash keyed by the two words of ``keys[b]``. Returns (packed
+    uint8 (B, rows, 16*bits), norms f32 (B, rows))."""
+    x3d = _rows2d(flat_batch.to(torch.float32))
+    return _qsgd.qsgd_quantize_pack_batch(x3d, keys, bits)
+
+
+def qsgd_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,
+                    n: int) -> torch.Tensor:
+    """Dequantize wire-layout codes back to a flat f32 vector of length n."""
+    return _qsgd.qsgd_unpack_dequantize(packed, norms, bits).reshape(-1)[:n]
+
+
+def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
+                     weights: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Fused weighted dequantized sum of the K buffered messages -> (n,)."""
+    out2d = _agg.buffer_aggregate(packed_stack, norms, weights, bits)
+    return out2d.reshape(-1)[:n]
+
+
+def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
+                      weights, extra, key2d, *, bits, sbits, n: int,
+                      lr: float, beta):
+    """The QAFeL buffer flush on the flat server state.
+
+    1. fused dequantize-accumulate of the K packed uploads (plus the
+       pre-scaled flat ``extra`` of identity arrivals),
+    2. FedBuff server momentum and update (``core.qafel.server_apply_flat``),
+    3. broadcast diff ``x^{t+1} - x-hat^t`` quantize-packed with the
+       counter-hash dither keyed by ``key2d`` (``sbits``-bit qsgd), or the
+       raw diff itself when ``sbits`` is None (identity server quantizer),
+    4. hidden-state apply of the *decoded broadcast bits* — the exact
+       increment every client replica applies.
+
+    ``stack`` may be None (no packed uploads), ``beta`` None (no momentum).
+    Returns ``(x_new, hidden_new, momentum_new, payload)`` with payload
+    ``(packed, norms)`` for a qsgd broadcast or ``(diff,)`` for identity.
+    """
+    from repro_torch.core.qafel import server_apply_flat  # kernels stay core-free
+
+    if stack is not None:
+        delta = buffer_aggregate(stack, norms, weights, bits, n)
+        if extra is not None:
+            delta = extra + delta
+    else:
+        delta = extra
+    x_new, m_new = server_apply_flat(x_flat, momentum_flat, delta,
+                                     lr=lr, beta=beta)
+    diff = x_new - hidden_flat
+    if sbits is None:  # identity server quantizer: the diff IS the payload
+        return x_new, hidden_flat + diff, m_new, (diff,)
+    bp3, bn3 = qsgd_quantize_batch(diff[None], key2d, sbits)
+    bpacked, bnorms = bp3[0], bn3[0]
+    q = qsgd_dequantize(bpacked, bnorms, sbits, n)
+    return x_new, hidden_flat + q, m_new, (bpacked, bnorms)

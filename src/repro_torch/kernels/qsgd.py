@@ -1,0 +1,133 @@
+"""Wrappers of the three qsgd wire kernels (CUDA C++ in ``csrc/``).
+
+Counterpart of ``repro/kernels/qsgd.py``. Wire format per message of n
+elements: ``rows = ceil(n/128)`` rows of 128 lanes, one f32 L2 norm per row
+(bucket) and one ``bits``-bit code per element — a sign bit (MSB) over the
+stochastically rounded level in [0, s], s = 2**(bits-1) - 1 — packed
+little-endian, ``8 // bits`` codes per byte. bits is 2, 4 or 8.
+
+Each wrapper checks its inputs, allocates its outputs and then either runs
+the kernel's plain PyTorch version (``kernels.ref``) for a CPU tensor or
+launches the kernel on the current CUDA stream for a CUDA tensor, adding
+one to ``LAUNCHES[name]`` per launch. Any other device raises; there is no
+fallback from the card to the plain version.
+
+The TPU kernels' 256-row tile padding has no counterpart: the CUDA kernels
+mask the ragged edge themselves and take wire-layout rows as they come.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import prng
+from repro_torch.common.device import to_device
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ref import LANES
+
+# launches per kernel since the last reset (``kernels.reset_launches``)
+LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_quantize_pack_batch": 0,
+            "qsgd_unpack_dequantize": 0}
+
+
+def check_bits(bits: int) -> None:
+    if bits not in (2, 4, 8):
+        raise ValueError(f"packed qsgd needs bits in (2, 4, 8), got {bits}")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` has the dtype, shape (None = any extent) and
+    device given and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != ts for s, ts in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); raise for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def qsgd_quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
+    """Quantize + pack an f32 (rows, 128) message with caller-given f32
+    (rows, 128) uniforms. Returns (packed uint8 (rows, 16*bits), norms f32
+    (rows,))."""
+    check_bits(bits)
+    rows = x2d.shape[0]
+    check_tensor("x2d", x2d, torch.float32, (None, LANES), x2d.device)
+    check_tensor("u2d", u2d, torch.float32, (rows, LANES), x2d.device)
+    if not on_card(x2d):
+        return _ref.quantize_pack(x2d, u2d, bits)
+    packed = torch.empty((rows, LANES * bits // 8), dtype=torch.uint8,
+                         device=x2d.device)
+    norms = torch.empty((rows,), dtype=torch.float32, device=x2d.device)
+    if rows:
+        fn = _build.entry("quantize_pack")
+        _build.check("qsgd_quantize_pack", fn(
+            x2d.data_ptr(), u2d.data_ptr(), packed.data_ptr(),
+            norms.data_ptr(), rows, bits,
+            torch.cuda.current_stream(x2d.device).cuda_stream))
+        LAUNCHES["qsgd_quantize_pack"] += 1
+    return packed, norms
+
+
+def qsgd_quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor,
+                             bits: int):
+    """Quantize + pack an f32 (B, rows, 128) stack; the dither is the
+    in-kernel counter hash keyed by each message's seed words ``seeds[b]``
+    ((B, 2) int64 holding uint32 values, on any device) and the element
+    index ``row*128 + lane``. Returns (packed uint8 (B, rows, 16*bits),
+    norms f32 (B, rows))."""
+    check_bits(bits)
+    b, rows = x3d.shape[0], x3d.shape[1]
+    check_tensor("x3d", x3d, torch.float32, (None, None, LANES), x3d.device)
+    seeds = torch.as_tensor(seeds, dtype=torch.int64).reshape(-1, 2)
+    if seeds.shape[0] != b:
+        raise ValueError(f"seeds: {seeds.shape[0]} pairs for {b} messages")
+    if not on_card(x3d):
+        return _ref.quantize_pack_batch(x3d, seeds, bits)
+    words = to_device(prng.key_words_i32(seeds.cpu()).contiguous(),
+                      x3d.device)
+    packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,
+                         device=x3d.device)
+    norms = torch.empty((b, rows), dtype=torch.float32, device=x3d.device)
+    if b * rows:
+        fn = _build.entry("quantize_pack_batch")
+        _build.check("qsgd_quantize_pack_batch", fn(
+            x3d.data_ptr(), words.data_ptr(), packed.data_ptr(),
+            norms.data_ptr(), b, rows, bits,
+            torch.cuda.current_stream(x3d.device).cuda_stream))
+        LAUNCHES["qsgd_quantize_pack_batch"] += 1
+    return packed, norms
+
+
+def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    """Inverse of ``qsgd_quantize_pack``: packed uint8 (rows, 16*bits) +
+    norms f32 (rows,) -> f32 (rows, 128)."""
+    check_bits(bits)
+    rows = packed.shape[0]
+    check_tensor("packed", packed, torch.uint8, (None, LANES * bits // 8),
+                 packed.device)
+    check_tensor("norms", norms, torch.float32, (rows,), packed.device)
+    if not on_card(packed):
+        return _ref.unpack_dequantize(packed, norms, bits)
+    out = torch.empty((rows, LANES), dtype=torch.float32, device=packed.device)
+    if rows:
+        fn = _build.entry("unpack_dequantize")
+        _build.check("qsgd_unpack_dequantize", fn(
+            packed.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, bits,
+            torch.cuda.current_stream(packed.device).cuda_stream))
+        LAUNCHES["qsgd_unpack_dequantize"] += 1
+    return out

@@ -1,0 +1,201 @@
+"""Plain PyTorch versions of the four qsgd / buffer kernels.
+
+Each function computes exactly what its CUDA kernel computes, bit for bit,
+and exactly what the JAX reference computes on XLA:CPU. The wrappers in
+``kernels.qsgd`` and ``kernels.buffer_agg`` run these on CPU tensors; the
+tests compare them with ``repro.kernels.ops`` and ``chip_smoke.py`` compares
+them with the kernels on the card. The rounding follows the reference's
+laws on purpose, and a reduction or product written the "natural" torch way
+would differ in about a third of the rows or elements:
+
+* bucket norm: four partial sums, partial w adding ``x[32w+j]**2`` for
+  j = 0..31 in order (multiply and add rounded separately), then
+  ``((p0+p1)+p2)+p3`` and ``sqrt``; ``torch.sum`` takes another order;
+* codes: ``inv = s / max(norm, 1e-30)`` as a true division (torch's
+  ``scalar / tensor`` would take a reciprocal first), ``level = |x|*inv``,
+  stochastic round against the dither, sign bit as the MSB, codes packed
+  little-endian into bytes;
+* dequantize: ``(sign*mag) * (norm * fl32(1/s))`` — XLA rewrites the
+  division by s as a product with the f32 reciprocal;
+* buffer aggregate: ``scale_k = (w_k*n_k) * fl32(1/s)`` and
+  ``acc = fma(sign*mag, scale_k, acc)`` over ascending k from zero;
+* square root: correctly rounded, which torch's CPU ``sqrt`` is not.
+
+Counter-hash words are uint32 values held in int64 tensors (torch has no
+uint32 shifts or adds on the CPU), masked after every add and multiply.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LANES = 128  # bucket size: one norm per 128-element row
+MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def levels(bits: int) -> int:
+    """Magnitude levels s of a ``bits``-bit code (one bit is the sign)."""
+    return (1 << (bits - 1)) - 1
+
+
+def reciprocal_levels(bits: int) -> float:
+    """fl32(1/s): the f32 reciprocal XLA multiplies by in place of ``/ s``."""
+    return float(np.float32(1.0) / np.float32(levels(bits)))
+
+
+def sqrt_f32(t: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root of a non-negative f32 tensor.
+
+    torch's CPU ``sqrt`` is off by one ulp on about 0.7% of inputs, so the
+    root is taken in float64 and then corrected against the two midpoints
+    around it: a midpoint of adjacent f32 values has 25 significant bits,
+    so its square is exact in float64 and the comparison decides the
+    rounding exactly. On the card ``sqrt`` is already exact and the
+    correction changes nothing."""
+    t64 = t.to(torch.float64)
+    r = torch.sqrt(t64).to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    mid = (r.to(torch.float64) + up.to(torch.float64)) * 0.5
+    r = torch.where(mid * mid < t64, up, r)
+    down = torch.nextafter(r, torch.zeros_like(r))
+    mid = (r.to(torch.float64) + down.to(torch.float64)) * 0.5
+    return torch.where(mid * mid > t64, down, r)
+
+
+def bucket_norms(x2d: torch.Tensor) -> torch.Tensor:
+    """Per-row L2 norm of an f32 (rows, 128) array in the reference's sum
+    order (four in-order partials of 32 squares, combined left to right)."""
+    sq = (x2d * x2d).reshape(-1, 4, 32)
+    acc = sq[:, :, 0]
+    for j in range(1, 32):
+        acc = acc + sq[:, :, j]
+    total = ((acc[:, 0] + acc[:, 1]) + acc[:, 2]) + acc[:, 3]
+    return sqrt_f32(total)
+
+
+def _pack(code: torch.Tensor, bits: int) -> torch.Tensor:
+    per_byte = 8 // bits
+    grouped = code.reshape(code.shape[0], LANES // per_byte, per_byte)
+    shifts = torch.arange(per_byte, device=code.device) * bits
+    return (grouped << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
+    """f32 (rows, 128) message + f32 (rows, 128) uniforms -> (packed uint8
+    (rows, 128*bits//8), norms f32 (rows,))."""
+    s = levels(bits)
+    norm = bucket_norms(x2d)
+    inv = torch.where(norm > 0.0,
+                      torch.full_like(norm, float(s))
+                      / torch.clamp(norm, min=1e-30),
+                      torch.zeros_like(norm))
+    level = x2d.abs() * inv[:, None]
+    low = torch.floor(level)
+    xi = low + (u2d < (level - low)).to(torch.float32)
+    xi = torch.clamp(xi, max=float(s)).to(torch.int64)
+    code = ((x2d < 0.0).to(torch.int64) << (bits - 1)) | xi
+    return _pack(code, bits), norm
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 without overflowing int64: split c into 16-bit
+    halves so every partial product stays below 2**49."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def hash_uniform(seeds: torch.Tensor, rows: int):
+    """The counter-hash dither of the batched kernel: for message b and
+    element index ``row*128 + lane``, two fmix32 rounds keyed by
+    ``seeds[b]``, top 24 bits scaled into [0, 1).
+    ``seeds`` is (B, 2) int64 holding uint32 words; returns f32
+    (B, rows, 128) on the seeds' device."""
+    dev = seeds.device
+    row = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    lane = torch.arange(LANES, dtype=torch.int64, device=dev)[None, :]
+    idx = row * LANES + lane
+    s0 = (seeds[:, 0] & MASK32).reshape(-1, 1, 1)
+    s1 = (seeds[:, 1] & MASK32).reshape(-1, 1, 1)
+    x = _fmix32((_mul32(idx, _GOLDEN)[None] + s0) & MASK32)
+    x = _fmix32(x ^ s1)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor, bits: int):
+    """f32 (B, rows, 128) stack + (B, 2) int64 seed words -> (packed uint8
+    (B, rows, 128*bits//8), norms f32 (B, rows)); the dither is
+    ``hash_uniform``, so a message's codes do not depend on the batch."""
+    b, rows, _ = x3d.shape
+    u = hash_uniform(seeds.to(x3d.device), rows)
+    packed, norms = quantize_pack(x3d.reshape(b * rows, LANES),
+                                  u.reshape(b * rows, LANES), bits)
+    return packed.reshape(b, rows, -1), norms.reshape(b, rows)
+
+
+def signed_magnitudes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Unpack uint8 (..., rows, 128*bits//8) codes to f32 ``sign*mag``
+    (..., rows, 128)."""
+    per_byte = 8 // bits
+    shifts = torch.arange(per_byte, device=packed.device) * bits
+    codes = (packed.to(torch.int64)[..., None] >> shifts) & ((1 << bits) - 1)
+    codes = codes.reshape(*packed.shape[:-1], LANES)
+    mag = (codes & levels(bits)).to(torch.float32)
+    sign = 1.0 - 2.0 * ((codes >> (bits - 1)) & 1).to(torch.float32)
+    return sign * mag
+
+
+def unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int):
+    """Packed uint8 (rows, 128*bits//8) + norms f32 (rows,) -> f32
+    (rows, 128) = (sign*mag) * (norm * fl32(1/s))."""
+    scale = norms * reciprocal_levels(bits)
+    return signed_magnitudes(packed, bits) * scale[:, None]
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor):
+    """Single-rounded f32 ``a*b + c`` of f32 operands (``b`` a tensor or an
+    f32-representable Python number) whose product is exact in float64
+    (two f32 significands give at most 48 bits). The sum is taken in float64,
+    rounded to odd with its exact TwoSum error, then rounded to f32: round
+    to odd at 53 bits followed by round to nearest at 24 bits is the
+    correctly rounded result, so no double-rounding case remains."""
+    p = a.to(torch.float64) * (b.to(torch.float64)
+                               if isinstance(b, torch.Tensor) else float(b))
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - c64
+    err = (c64 - (s - bb)) + (p - bb)
+    sbits = s.view(torch.int64)
+    even = (sbits & 1) == 0
+    away = (err > 0) == (s > 0)
+    step = torch.where(away, torch.ones_like(sbits), -torch.ones_like(sbits))
+    sbits = torch.where((err != 0) & even, sbits + step, sbits)
+    return sbits.view(torch.float64).to(torch.float32)
+
+
+def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,
+                     weights: torch.Tensor, bits: int) -> torch.Tensor:
+    """sum_k w_k * dequant(stack[k], norms[k]) over ascending k, each step
+    one fused multiply-add; stack uint8 (K, rows, 128*bits//8), norms f32
+    (K, rows), weights f32 (K,) -> f32 (rows, 128)."""
+    rcp = reciprocal_levels(bits)
+    scales = [((weights[k] * norms[k]) * rcp)[:, None]
+              for k in range(stack.shape[0])]
+    if len(scales) == 1:
+        # XLA folds the one-step loop's ``0 + p`` to ``p``, which keeps the
+        # sign of a zero product; the kernel does the same
+        return signed_magnitudes(stack[0], bits) * scales[0]
+    acc = torch.zeros((stack.shape[1], LANES), dtype=torch.float32,
+                      device=stack.device)
+    for k, scale in enumerate(scales):
+        acc = fma_f32(signed_magnitudes(stack[k], bits), scale, acc)
+    return acc

@@ -1,0 +1,162 @@
+"""The plain PyTorch versions of the four kernels (repro_torch.kernels.ref,
+reached through the wrappers on CPU tensors) against the JAX package's
+jitted entry points (repro.kernels.ops), with torch.equal: codes, norms and
+f32 values bit for bit. The JAX side runs its own CPU routes, which its
+test_fast_routes_match_interpreted_pallas pins to the interpreted kernels.
+The CUDA kernels against their plain versions: test_torch_kernels_card."""
+import fractions
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import qsgd as jqsgd
+from repro_torch import kernels as tkernels
+from repro_torch.common import prng
+from repro_torch.kernels import ops, ref
+
+BITS = (2, 4, 8)
+# ragged tails, one exact row count, one row, and the CNN's 624 rows
+SIZES = (1, 200, 2048, 4100)
+
+
+def _msg(rng, n, zero_row=True):
+    x = (rng.standard_normal(n) * rng.uniform(1e-3, 10)).astype(np.float32)
+    if zero_row and n > 128:
+        x[128:256] = 0.0  # an all-zero bucket: norm 0, codes 0
+    return x
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def _key(seed):
+    k = jax.random.split(jax.random.PRNGKey(seed))[1]
+    return k, torch.from_numpy(np.asarray(k).astype(np.int64))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_quantize_matches_jax(bits, n):
+    rng = np.random.default_rng(n * 10 + bits)
+    x = _msg(rng, n)
+    jk, tk = _key(n + bits)
+    jp, jn = jops.qsgd_quantize(jnp.asarray(x), jk, bits)
+    tp, tn = ops.qsgd_quantize(torch.from_numpy(x), tk, bits)
+    assert tp.dtype == torch.uint8 and tuple(tp.shape) == jp.shape
+    assert _bits_equal(jp, tp) and _bits_equal(jn, tn)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_quantize_batch_matches_jax(bits, n):
+    rng = np.random.default_rng(n * 10 + bits + 1)
+    x = np.stack([_msg(rng, n, zero_row=(b == 1)) for b in range(3)])
+    keys = jax.random.split(jax.random.PRNGKey(n), 3)
+    jp, jn = jops.qsgd_quantize_batch(jnp.asarray(x), keys, bits)
+    tp, tn = ops.qsgd_quantize_batch(
+        torch.from_numpy(x), torch.from_numpy(np.asarray(keys).astype(np.int64)),
+        bits)
+    assert _bits_equal(jp, tp) and _bits_equal(jn, tn)
+
+
+@pytest.mark.parametrize("rows", (1, 9, 624))
+def test_hash_uniform_matches_jax(rows):
+    seeds = np.array([[0, 1], [0x9E3779B9, 0xFFFFFFFF], [12345, 678]],
+                     np.uint32)
+    lane = jax.lax.broadcasted_iota(jnp.uint32, (rows, 128), 1)
+    row = jax.lax.broadcasted_iota(jnp.uint32, (rows, 128), 0)
+    idx = row * jnp.uint32(128) + lane
+    want = np.stack([np.asarray(jqsgd._hash_uniform(
+        jnp.uint32(s0), jnp.uint32(s1), idx)) for s0, s1 in seeds])
+    got = ref.hash_uniform(torch.from_numpy(seeds.astype(np.int64)), rows)
+    assert _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_dequantize_matches_jax(bits, n):
+    rng = np.random.default_rng(n * 10 + bits + 2)
+    jk, _ = _key(n)
+    jp, jn = jops.qsgd_quantize(jnp.asarray(_msg(rng, n)), jk, bits)
+    jd = jops.qsgd_dequantize(jp, jn, bits, n)
+    td = ops.qsgd_dequantize(torch.from_numpy(np.array(jp)),
+                             torch.from_numpy(np.array(jn)), bits, n)
+    assert tuple(td.shape) == (n,)
+    assert _bits_equal(jd, td)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("k", (1, 4, 10))
+def test_buffer_aggregate_matches_jax(bits, k):
+    n = 2000
+    rng = np.random.default_rng(100 * k + bits)
+    stack, norms = [], []
+    for i in range(k):
+        p, nm = jops.qsgd_quantize(jnp.asarray(_msg(rng, n, zero_row=i == 0)),
+                                   jax.random.PRNGKey(i), bits)
+        stack.append(np.asarray(p))
+        norms.append(np.asarray(nm))
+    taus = rng.integers(0, 5, size=k)
+    w = (np.asarray([1.0 / np.sqrt(1.0 + t) for t in taus], np.float32)
+         / np.float32(k)).astype(np.float32)
+    stack, norms = np.stack(stack), np.stack(norms)
+    ja = jops.buffer_aggregate(jnp.asarray(stack), jnp.asarray(norms),
+                               jnp.asarray(w), bits, n)
+    ta = ops.buffer_aggregate(torch.from_numpy(stack),
+                              torch.from_numpy(norms), torch.from_numpy(w),
+                              bits, n)
+    assert _bits_equal(ja, ta)
+
+
+def test_fma_f32_rounds_once():
+    """A case that float64 then float32 rounding gets wrong: the exact sum
+    lies just below an f32 midpoint, the float64 sum ON it, and ties-to-even
+    then picks the far neighbour. 2**36 + 1 = 4097 * 16773121."""
+    a = torch.tensor([-4097 * 2.0**-30], dtype=torch.float32)
+    b = torch.tensor([16773121 * 2.0**-30], dtype=torch.float32)
+    c = torch.tensor([1 + 2.0**-22], dtype=torch.float32)
+    exact = (fractions.Fraction(a.item()) * fractions.Fraction(b.item())
+             + fractions.Fraction(c.item()))
+    third = fractions.Fraction(1, 2**24)
+    assert exact == 1 + 3 * third - fractions.Fraction(1, 2**60)
+    naive = (a.double() * b.double() + c.double()).float()
+    assert naive.item() == 1 + 2.0**-22  # the double-rounding error
+    assert ref.fma_f32(a, b, c).item() == 1 + 2.0**-23  # correctly rounded
+
+
+def test_sqrt_f32_correctly_rounded():
+    rng = np.random.default_rng(3)
+    v = np.concatenate([rng.uniform(0, 1e4, 20000),
+                        rng.uniform(0, 1e-30, 100), [0.0, 1.0, 4.0]])
+    v = v.astype(np.float32)
+    got = ref.sqrt_f32(torch.from_numpy(v)).numpy()
+    assert _bits_equal(np.sqrt(v), got)
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.zeros(4, 128)
+    u = torch.zeros(4, 128)
+    with pytest.raises(ValueError):
+        tkernels.qsgd.qsgd_quantize_pack(x, u, 3)
+    with pytest.raises(TypeError):
+        tkernels.qsgd.qsgd_quantize_pack(x.double(), u, 4)
+    with pytest.raises(ValueError):
+        tkernels.qsgd.qsgd_quantize_pack(x, u[:3], 4)
+    with pytest.raises(ValueError):
+        tkernels.qsgd.qsgd_quantize_pack(x.t().contiguous().t(), u, 4)
+    with pytest.raises(ValueError):
+        tkernels.qsgd.qsgd_quantize_pack(x.to("meta"), u.to("meta"), 4)
+
+
+def test_cpu_tensors_launch_nothing():
+    tkernels.reset_launches()
+    ops.qsgd_quantize(torch.ones(300), prng.PRNGKey(0), 4)
+    assert all(v == 0 for v in tkernels.launches().values())
