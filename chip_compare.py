@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Two checkouts of the PyTorch/CUDA port on one GPU, measured in turns.
+
+    python3 chip_compare.py BEFORE_DIR AFTER_DIR [--pairs 2]
+
+Each measurement runs ``python3 chip_compare.py --measure DIR`` in a fresh
+process that imports only ``DIR/src/repro_torch`` (its kernels build into
+``DIR/build``), in the order before, after, after, before for each pair,
+and prints one JSON line:
+
+* the b=1 upload (``kernels.ops.qsgd_quantize``) and the buffer aggregate
+  (``kernels.ops.buffer_aggregate``, K = 10) at the CNN's size (79,842
+  parameters, qsgd4) and at d = 1e8: median device ms per call (CUDA
+  events, ``chip_smoke.device_ms``);
+* device launches of one upload at the CNN's size and of one client step
+  (``torch.profiler``);
+* the CNN main path of ``chip_smoke.py`` (``AsyncFLSimulator`` driving
+  ``QAFeL``, 100 uploads, concurrency 16): wall time, uploads/s and the
+  client-step and flush medians (host clock around synchronized calls).
+
+The last lines are the card's name and power limit and one JSON object
+with each metric's median per checkout. Uses only entry points that both
+checkouts have; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CNN_N, K, BITS, BIG_N = 79_842, 10, 4, 100_000_000
+UPLOADS, CONCURRENCY = 100, 16
+
+
+def measure(tree: Path) -> dict:
+    """Every metric of one checkout, on the card."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    from chip_smoke import device_launches, device_ms
+    from repro_torch.common import prng
+    from repro_torch.common.device import resolve_device
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import AsyncFLSimulator, SimConfig
+
+    dev = resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    key = prng.split(prng.PRNGKey(1))[1]
+    out = {"tree": str(tree)}
+    for label, n, reps in (("cnn", CNN_N, 50), ("d1e8", BIG_N, 5)):
+        flat = torch.randn(n, generator=gen, device=dev) * 0.01
+        rows = ops.rows_for(n)
+        stack = torch.randint(0, 256, (K, rows, 16 * BITS), generator=gen,
+                              device=dev, dtype=torch.uint8)
+        norms = torch.rand((K, rows), generator=gen, device=dev)
+        w = torch.rand(K, generator=gen, device=dev) / K
+        out[f"upload_ms_{label}"] = device_ms(
+            lambda: ops.qsgd_quantize(flat, key, BITS), reps)
+        out[f"aggregate_ms_{label}"] = device_ms(
+            lambda: ops.buffer_aggregate(stack, norms, w, BITS, n), reps)
+        del flat, stack, norms
+        torch.cuda.empty_cache()
+
+    task = fc.celeba_task(dev)
+    algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(0, device=dev),
+                 device=dev)
+    delta = torch.randn(algo.state.n, generator=gen, device=dev) * 1e-3
+    ops.qsgd_quantize(delta, key, BITS)
+    out["upload_launches"] = sum(c for _, c in device_launches(
+        lambda: ops.qsgd_quantize(delta, key, BITS)))
+    keys = prng.split(prng.PRNGKey(6), 12)
+    batches = [task.client_batches(i, keys[2 * i]) for i in range(6)]
+    algo.run_client(batches[0], keys[1])
+    out["client_step_launches"] = sum(c for _, c in device_launches(
+        lambda: [algo.run_client(batches[i], keys[2 * i + 1])
+                 for i in range(1, 6)])) / 5
+
+    algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(0, device=dev),
+                 device=dev)
+    spans = {"client": [], "flush": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[name].append(time.perf_counter() - t0)
+            return result
+        return call
+
+    algo.run_client = timed("client", algo.run_client)
+    algo._flush = timed("flush", algo._flush)
+    sim = AsyncFLSimulator(algo, SimConfig(concurrency=CONCURRENCY,
+                                           max_uploads=UPLOADS,
+                                           eval_every_steps=3),
+                           task.client_batches, task.eval_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(main_wall_s=wall, uploads_per_s=res.uploads / wall,
+               client_ms_median=1e3 * statistics.median(spans["client"]),
+               flush_ms_median=1e3 * statistics.median(spans["flush"]),
+               replicas_in_sync=bool(res.metrics["replicas_in_sync"]))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("trees", nargs="*", type=Path)
+    ap.add_argument("--measure", type=Path)
+    ap.add_argument("--pairs", type=int, default=2)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 2
+    if args.measure is not None:
+        print(json.dumps(measure(args.measure.resolve())), flush=True)
+        return 0
+    before, after = (t.resolve() for t in args.trees)
+    runs = {"before": [], "after": []}
+    for _ in range(args.pairs):
+        for name, tree in (("before", before), ("after", after),
+                           ("after", after), ("before", before)):
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--measure",
+                 str(tree)], cwd=ROOT, capture_output=True, text=True,
+                check=True)
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps({"run": name, **line}), flush=True)
+            runs[name].append(line)
+    metrics = [k for k, v in runs["after"][0].items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    summary = {name: {m: statistics.median(r[m] for r in rs)
+                      for m in metrics} for name, rs in runs.items()}
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(json.dumps({"summary": summary,
+                      "in_sync": all(r["replicas_in_sync"]
+                                     for rs in runs.values() for r in rs)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,34 +6,44 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), timed;
+2. build of the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once), timed; the int32 instructions
+   per element of the in-kernel threefry dither, counted from the built
+   SASS (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit
    (``torch.equal`` on the bit patterns), at the main path's shapes (the
    CNN: 624 rows, K = 10, qsgd4) and at d = 1e8 (781,250 rows): median
-   device time per launch, the plain version's time and the bound;
-4. the main path through its entry points: ``AsyncFLSimulator`` driving
+   device time per launch, the plain version's time and the bound with its
+   formula; then the b=1 upload at d = 1e8 before (``prng.uniform`` + the
+   given-uniforms kernel) and after (the fused entry), in one run;
+4. the b=1 upload under ``torch.profiler``: device launches of one
+   ``ops.qsgd_quantize`` (exactly one) against the old composition's, and
+   device launches per client step;
+5. the main path through its entry points: ``AsyncFLSimulator`` driving
    ``QAFeL`` on the paper's CNN at full width (79,842 parameters), the
    federated example's configuration, concurrency 16, 100 uploads, with the
    launch counters set to 0 just before and read just after;
-5. a short second run of the main path under ``torch.profiler``: the
+6. a short second run of the main path under ``torch.profiler``: the
    device's idle share and its busiest kernels;
-6. the server path on the card against the CPU's plain versions on
+7. the server path on the card against the CPU's plain versions on
    identical uploads, and the quickstart on both devices, bit for bit;
-7. one line listing every kernel with its launches, times and bound;
-8. last, ``{"ok": true, "device": {...}}``.
+8. one line listing every kernel with its launches, times and bound;
+9. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Times come from CUDA events
 (kernels) or the host clock around synchronized work (the main path syncs
-around every client step, flush and eval to time them); the bounds
-use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (float32, no tensor
-cores).
+around every client step, flush and eval to time them). The bounds use
+the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (float32, no tensor
+cores), and for integer work 64 int32 lanes per SM (the CUDA programming
+guide's rate for compute capability 9.0) at the card's SM count and
+maximum SM clock (``nvidia-smi``).
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -43,7 +53,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-CNN_ROWS, CNN_K, BITS = 624, 10, 4
+INT32_LANES_PER_SM = 64  # CUDA programming guide, compute capability 9.0
+# SASS opcodes issued on the per-lane int32 pipes (the uniform datapath's
+# U* instructions run once per warp and are not counted)
+INT32_OPCODES = frozenset((
+    "IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "IMAD", "IMUL", "LEA",
+    "ISETP", "IMNMX", "VIMNMX", "PRMT", "IABS", "SEL", "SGXT", "BMSK",
+    "BREV", "FLO", "POPC"))
+CNN_N, CNN_ROWS, CNN_K, BITS = 79_842, 624, 10, 4
 BIG_ROWS = 781_250  # d = 1e8
 MAIN_UPLOADS, CONCURRENCY = 100, 16
 
@@ -82,10 +99,51 @@ def bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def kernel_cases(rows: int, k: int, dev):
-    """Inputs of the four kernels at ``rows`` wire rows (K messages for the
-    aggregate), their byte and operation counts, and the TPU kernel each
-    replaces."""
+def sass_int32_ops(lib: Path, kernel: str) -> int:
+    """Int32 instructions in the SASS of the kernel whose (mangled) name
+    contains ``kernel``, in the built library ``lib``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          line)
+            count += bool(m and m.group(1) in INT32_OPCODES)
+    return count
+
+
+def dither_ops(build_dir: Path):
+    """Int32 instructions per element of the in-kernel threefry dither:
+    the fused kernel's int32 SASS instructions minus those of the
+    given-uniforms kernel (the same row body, reading u instead), over the
+    four elements a thread quantizes."""
+    fused = sass_int32_ops(build_dir / "libquantize_pack_threefry.so",
+                           "quantize_pack_threefry_kernel")
+    given = sass_int32_ops(build_dir / "libquantize_pack.so",
+                           "quantize_pack_kernel")
+    per_element = (fused - given) / 4
+    emit({"phase": "sass", "fused_int32_instructions": fused,
+          "given_u_int32_instructions": given,
+          "dither_int32_per_element": per_element,
+          "formula": "(int32 SASS of quantize_pack_threefry_kernel - int32 "
+                     "SASS of quantize_pack_kernel) / 4 elements per thread"})
+    if per_element < 60:  # 20 rounds of add, rotate and xor at the least
+        raise AssertionError(f"dither counted at {per_element} int32 "
+                             "instructions per element: the SASS parse failed")
+    return per_element
+
+
+def kernel_cases(rows: int, k: int, dev, dither_int32: float,
+                 int32_ops_per_s: float):
+    """Inputs of the five kernels at ``rows`` wire rows (K messages for the
+    aggregate), their byte and operation counts with the rate that bounds
+    the operations, and the TPU kernel each replaces."""
     import torch
 
     from repro_torch.common import prng
@@ -95,12 +153,16 @@ def kernel_cases(rows: int, k: int, dev):
     x = torch.randn((rows, 128), generator=gen, device=dev) * 0.01
     x[rows // 2] = 0.0  # an all-zero bucket
     u = prng.uniform(prng.PRNGKey(1), (rows, 128), device=dev)
+    key = torch.tensor([0x9E3779B9, 0xFFFFFFF0])  # both words >= 2**31
     keys = prng.split(prng.PRNGKey(2), k)
     stack, norms = qsgd.qsgd_quantize_pack_batch(
         x[None].expand(k, rows, 128).contiguous(), keys, BITS)
     w = torch.rand(k, generator=gen, device=dev) / k
     code_b = 128 * BITS // 8
     n = rows * 128
+    # the b=1 upload takes the flat message: the CNN's is ragged
+    n_flat = CNN_N if rows == CNN_ROWS else n
+    f32 = (F32_OPS_PER_S, "float32")
     return {
         "qsgd_quantize_pack": dict(
             source="src/repro_torch/kernels/csrc/quantize_pack.cu",
@@ -108,14 +170,25 @@ def kernel_cases(rows: int, k: int, dev):
             fn=qsgd.qsgd_quantize_pack, args=(x, u, BITS),
             bytes=n * 8 + rows * (code_b + 4),
             bytes_formula="rows*128*(4 x + 4 u) + rows*(128*bits/8 + 4)",
-            ops=n * 8 + rows * 4),
+            ops=n * 8 + rows * 4, rate=f32),
+        "qsgd_quantize_pack_threefry": dict(
+            source="src/repro_torch/kernels/csrc/quantize_pack_threefry.cu",
+            replaces="src/repro/kernels/qsgd.py:70",
+            fn=qsgd.qsgd_quantize_pack_threefry,
+            args=(x.reshape(-1)[:n_flat], key, BITS),
+            bytes=n_flat * 4 + rows * (code_b + 4),
+            bytes_formula="n*4 x + rows*(128*bits/8 + 4)",
+            ops=n_flat * dither_int32,
+            ops_formula=f"n*{dither_int32} int32 (SASS) / "
+                        "(SMs*64*max SM clock)",
+            rate=(int32_ops_per_s, "int32")),
         "qsgd_quantize_pack_batch": dict(
             source="src/repro_torch/kernels/csrc/quantize_pack_batch.cu",
             replaces="src/repro/kernels/qsgd.py:160",
             fn=qsgd.qsgd_quantize_pack_batch, args=(x[None], keys[:1], BITS),
             bytes=n * 4 + 8 + rows * (code_b + 4),
             bytes_formula="B*rows*128*4 x + B*8 seeds + B*rows*(128*bits/8 + 4)",
-            ops=n * 20 + rows * 4),
+            ops=n * 20 + rows * 4, rate=f32),
         "qsgd_unpack_dequantize": dict(
             source="src/repro_torch/kernels/csrc/unpack_dequantize.cu",
             replaces="src/repro/kernels/qsgd.py:356",
@@ -123,14 +196,14 @@ def kernel_cases(rows: int, k: int, dev):
             args=(stack[0], norms[0], BITS),
             bytes=rows * (code_b + 4) + n * 4,
             bytes_formula="rows*(128*bits/8 + 4) + rows*128*4 out",
-            ops=n * 4),
+            ops=n * 4, rate=f32),
         "buffer_aggregate": dict(
             source="src/repro_torch/kernels/csrc/buffer_aggregate.cu",
             replaces="src/repro/kernels/buffer_agg.py:61",
             fn=buffer_agg.buffer_aggregate, args=(stack, norms, w, BITS),
             bytes=k * rows * (code_b + 4) + k * 4 + n * 4,
             bytes_formula="K*rows*(128*bits/8 + 4) + K*4 + rows*128*4 out",
-            ops=k * n * 6),
+            ops=k * n * 6, rate=f32),
     }
 
 
@@ -138,18 +211,21 @@ def plain_of(name):
     from repro_torch.kernels import ref
 
     return {"qsgd_quantize_pack": ref.quantize_pack,
+            "qsgd_quantize_pack_threefry": ref.quantize_pack_threefry,
             "qsgd_quantize_pack_batch": ref.quantize_pack_batch,
             "qsgd_unpack_dequantize": ref.unpack_dequantize,
             "buffer_aggregate": ref.buffer_aggregate}[name]
 
 
-def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int):
+def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int,
+                  dither_int32: float, int32_ops_per_s: float):
     """Each kernel against its plain version at one shape; returns the
     per-kernel measurements."""
     import torch
 
     out = {}
-    for name, case in kernel_cases(rows, k, dev).items():
+    for name, case in kernel_cases(rows, k, dev, dither_int32,
+                                   int32_ops_per_s).items():
         got = case["fn"](*case["args"])
         want = plain_of(name)(*case["args"])
         torch.cuda.synchronize()
@@ -161,8 +237,9 @@ def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int):
         if not equal:
             raise AssertionError(f"{name} at rows={rows}: kernel and plain "
                                  f"version differ (max abs err {err})")
-        bound_ms = 1e3 * max(case["bytes"] / HBM_BYTES_PER_S,
-                             case["ops"] / F32_OPS_PER_S)
+        ops_rate, ops_type = case["rate"]
+        bytes_s, ops_s = case["bytes"] / HBM_BYTES_PER_S, case["ops"] / ops_rate
+        bound_ms = 1e3 * max(bytes_s, ops_s)
         out[name] = dict(
             source=case["source"], replaces=case["replaces"],
             equal=equal, max_abs_err=err,
@@ -170,18 +247,122 @@ def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int):
             plain_ms=device_ms(lambda: plain_of(name)(*case["args"]),
                                plain_reps),
             bound_ms=bound_ms,
-            bound_by=("bytes" if case["bytes"] / HBM_BYTES_PER_S
-                      >= case["ops"] / F32_OPS_PER_S else "operations"),
-            bytes=case["bytes"], bytes_formula=case["bytes_formula"])
+            bound_by="bytes" if bytes_s >= ops_s else "operations",
+            bytes=case["bytes"], bytes_formula=case["bytes_formula"],
+            bytes_ms=1e3 * bytes_s, ops=case["ops"], ops_type=ops_type,
+            ops_ms=1e3 * ops_s,
+            ops_formula=case.get("ops_formula", f"counted / {ops_type} peak"))
         emit({"phase": "kernel", "name": name, "rows": rows, "k": k,
               **{key: v for key, v in out[name].items()
                  if key not in ("source", "replaces")}})
     return out
 
 
-def run_main_path(dev):
+def upload_before_after(dev, reps: int = 5):
+    """The b=1 upload at d = 1e8 as it was (``prng.uniform`` drawn as int64
+    tensor ops, then the given-uniforms kernel) and as it is (the fused
+    entry, ``ops.qsgd_quantize``), timed in turns in this run."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import ops, qsgd
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flat = torch.randn(BIG_ROWS * 128, generator=gen, device=dev) * 0.01
+    key = prng.split(prng.PRNGKey(4))[1]
+
+    def before():
+        x2d = flat.reshape(BIG_ROWS, 128)
+        return qsgd.qsgd_quantize_pack(
+            x2d, prng.uniform(key, x2d.shape, device=dev), BITS)
+
+    def after():
+        return ops.qsgd_quantize(flat, key, BITS)
+
+    equal = all(bits_equal(a, b) for a, b in zip(before(), after()))
+    times = {"before_ms": [], "after_ms": []}
+    for fn, name in ((before, "before_ms"), (after, "after_ms"),
+                     (after, "after_ms"), (before, "before_ms")):
+        times[name].append(device_ms(fn, reps))
+    record = {"phase": "upload_d1e8", "rows": BIG_ROWS, "equal": equal,
+              **{k: statistics.median(v) for k, v in times.items()},
+              "runs": times}
+    emit(record)
+    if not equal:
+        raise AssertionError("fused upload differs from uniform + kernel")
+    torch.cuda.empty_cache()
+    return record
+
+
+def device_launches(fn) -> list:
+    """(name, count) of every device activity (kernels, copies, sets) that
+    ``torch.profiler`` records while ``fn`` runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def upload_launches(dev, steps: int = 5):
+    """Device launches of one b=1 upload at the CNN's size (the fused entry
+    against the old composition) and of one whole client step."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.kernels import ops, qsgd
+    from repro_torch.models.cnn import init_cnn
+
+    task = fc.celeba_task(dev)
+    algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(2, device=dev),
+                 device=dev)
+    n = algo.state.n
+    assert n == CNN_N
+    delta = torch.randn(n, device=dev) * 1e-3
+    key = prng.split(prng.PRNGKey(5))[1]
+
+    def old_upload():
+        x2d = ops.rows2d(delta)
+        return qsgd.qsgd_quantize_pack(
+            x2d, prng.uniform(key, x2d.shape, device=dev), BITS)
+
+    for fn in (old_upload, lambda: ops.qsgd_quantize(delta, key, BITS)):
+        fn()  # warm up: the build and the first launches
+    new = device_launches(lambda: ops.qsgd_quantize(delta, key, BITS))
+    old = device_launches(old_upload)
+    keys = prng.split(prng.PRNGKey(6), 2 * (steps + 1))
+    batches = [task.client_batches(i, keys[2 * i]) for i in range(steps + 1)]
+    algo.run_client(batches[0], keys[1])
+
+    def client_steps():
+        for i in range(1, steps + 1):
+            algo.run_client(batches[i], keys[2 * i + 1])
+
+    per_step = sum(c for _, c in device_launches(client_steps)) / steps
+    record = {"phase": "upload_launches", "n": n,
+              "upload_device_launches": sum(c for _, c in new),
+              "upload_kernels": [name for name, _ in new],
+              "old_upload_device_launches": sum(c for _, c in old),
+              "client_step_device_launches": per_step}
+    emit(record)
+    if (record["upload_device_launches"] != 1
+            or "quantize_pack_threefry" not in new[0][0]):
+        raise AssertionError(f"the b=1 upload launched {new}, not the one "
+                             "fused kernel")
+    return record
+
+
+def run_main_path(dev, client_step_launches: float):
     """The sequential simulator on the full-width CNN; returns its record
-    and the launch counts of exactly this run."""
+    (with the device launches per client step measured beside it) and the
+    launch counts of exactly this run."""
     import torch
 
     from repro_torch import kernels
@@ -239,10 +420,12 @@ def run_main_path(dev):
         "upload_bytes": algo.meter.upload_bytes == res.uploads * 42_417,
         # the payload itself: whole 64-byte code rows plus the norms
         "payload_bytes": set(payload_bytes) == {624 * 64 + 624 * 4},
-        "n_params": algo.state.n == 79_842,
+        "n_params": algo.state.n == CNN_N,
         "accuracy_finite": math.isfinite(res.final_accuracy),
         "state_finite": bool(torch.isfinite(algo.state.x_flat).all()),
-        "K1_per_client": launches["qsgd_quantize_pack"] >= res.uploads,
+        "K1_per_client": launches["qsgd_quantize_pack_threefry"]
+        >= res.uploads,
+        "given_u_K1_off_path": launches["qsgd_quantize_pack"] == 0,
         "K2_per_flush": launches["qsgd_quantize_pack_batch"] == flushes > 0,
         "K3_per_flush": launches["qsgd_unpack_dequantize"] >= flushes > 0,
         "K4_per_flush": launches["buffer_aggregate"] == flushes > 0,
@@ -257,6 +440,7 @@ def run_main_path(dev):
               "bytes_per_upload": wire, "payload_bytes": payload_bytes[0],
               "final_accuracy": res.final_accuracy,
               "hidden_drift": m["hidden_drift"], "tau_max": m["tau_max"],
+              "client_step_device_launches": client_step_launches,
               "launches": launches, "checks": checks}
     emit(record)
     failed = [k for k, ok in checks.items() if not ok]
@@ -371,26 +555,38 @@ def main() -> int:
     from repro_torch.common.device import resolve_device
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    def query(fields: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+
+    smi = query("name,power.limit")
     print(smi, flush=True)
     dev = resolve_device("cuda")
+    max_sm_mhz = float(query("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_ops_per_s = sms * INT32_LANES_PER_SM * max_sm_mhz * 1e6
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "name": torch.cuda.get_device_name(0)})
+          "name": torch.cuda.get_device_name(0), "sms": sms,
+          "max_sm_mhz": max_sm_mhz, "int32_ops_per_s": int32_ops_per_s})
 
     t0 = time.perf_counter()
     build_dir = _build.build_all(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": str(build_dir.relative_to(ROOT))})
+    dither_int32 = dither_ops(build_dir)
 
-    cnn = check_kernels(CNN_ROWS, CNN_K, dev, reps=50, plain_reps=10)
-    big = check_kernels(BIG_ROWS, CNN_K, dev, reps=10, plain_reps=3)
+    cnn = check_kernels(CNN_ROWS, CNN_K, dev, 50, 10, dither_int32,
+                        int32_ops_per_s)
+    big = check_kernels(BIG_ROWS, CNN_K, dev, 10, 3, dither_int32,
+                        int32_ops_per_s)
     torch.cuda.empty_cache()
+    upload_before_after(dev)
 
-    record, launches = run_main_path(dev)
+    steps = upload_launches(dev)
+    record, launches = run_main_path(dev, steps["client_step_device_launches"])
     profile_window(dev)
     check_against_cpu(dev)
 
@@ -404,6 +600,7 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "equal": m["equal"], "bytes_formula": m["bytes_formula"],
+            "ops_formula": m["ops_formula"],
             "d1e8": {"ms": b["ms"], "plain_ms": b["plain_ms"],
                      "bound_ms": b["bound_ms"], "equal": b["equal"],
                      "max_abs_err": b["max_abs_err"]}})

@@ -32,7 +32,8 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64)
 
 
-def _key_words(key) -> tuple:
+def key_words(key) -> tuple:
+    """The two uint32 words of a key, as Python ints."""
     words = torch.as_tensor(key).reshape(-1).tolist()
     if len(words) != 2:
         raise ValueError(f"a key holds two uint32 words, got {words}")
@@ -46,7 +47,7 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     """The threefry-2x32 block cipher (20 rounds) of counter words
     ``(x0, x1)`` under ``key``; int64 tensors of uint32 values in and out."""
-    k0, k1 = _key_words(key)
+    k0, k1 = key_words(key)
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32

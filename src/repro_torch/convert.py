@@ -12,13 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 
 
-def params_from_jax(tree_of_numpy, device="cpu"):
+def params_from_jax(tree_of_numpy, device=None):
     """A nested dict of arrays (e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the same tree of f32 tensors on ``device``. Feed the result to
+    -> the same tree of f32 tensors on ``device`` (None: the CUDA device,
+    as every entry point of the port). Feed the result to
     ``models.cnn.CNN`` for the ``nn.Module`` view."""
+    dev = resolve_device(device)
     return tree_map(
-        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev),
         tree_of_numpy)

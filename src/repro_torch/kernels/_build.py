@@ -33,9 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_U32 = ctypes.c_uint32
 # C signature of each library's one entry point (the name is the library's)
 SIGNATURES = {
     "quantize_pack": ("qsgd_quantize_pack", (_P, _P, _P, _P, _LL, _I, _P)),
+    "quantize_pack_threefry": ("qsgd_quantize_pack_threefry",
+                               (_P, _LL, _P, _P, _I, _U32, _U32, _P)),
     "quantize_pack_batch": ("qsgd_quantize_pack_batch",
                             (_P, _P, _P, _P, _LL, _LL, _I, _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize", (_P, _P, _P, _LL, _I, _P)),
@@ -102,7 +105,8 @@ def build_all(verbose: bool = False) -> Path:
 def entry(name: str):
     """The C entry point of kernel library ``name``, built on first use,
     with its argument types set (every pointer and the stream as
-    ``c_void_p``) and an ``int`` (``cudaError_t``) result."""
+    ``c_void_p``, key words as ``c_uint32``) and an ``int``
+    (``cudaError_t``) result."""
     fn = _loaded.get(name)
     if fn is None:
         out = build_all()

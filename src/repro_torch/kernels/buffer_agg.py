@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.qsgd import check_bits, check_tensor, on_card
+from repro_torch.kernels.qsgd import (check_aligned, check_bits,
+                                     check_tensor, on_card)
 from repro_torch.kernels.ref import LANES
 
 # launches since the last reset (``kernels.reset_launches``)
@@ -35,6 +36,7 @@ def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
         raise ValueError("buffer_aggregate needs at least one message")
     if not on_card(packed_stack):
         return _ref.buffer_aggregate(packed_stack, norms, weights, bits)
+    check_aligned("packed_stack", packed_stack)
     out = torch.empty((rows, LANES), dtype=torch.float32, device=dev)
     if rows:
         fn = _build.entry("buffer_aggregate")

@@ -12,39 +12,220 @@
 // XLA folds the loop's 0 + p to p, keeping a zero product's sign; so does
 // this kernel.
 //
-// Mapping: one thread per output element, looping over k, so each code
-// byte and norm is read once per element group and the f32 result written
-// once — the minimum traffic of the flush's first stage.
+// Bound: bytes. It reads K*(bits/8) B per element plus K*4 B per row and
+// writes 4 B per element (K = 10, d = 1e8, qsgd4: 0.93 GB, 0.278 ms at
+// 3.35 TB/s); at the CNN's 624 rows a launch is latency-bound.
 //
-// Bound: reads K*(bits/8) B per element plus K*4 B per row, writes 4 B per
-// element; memory-bound for large messages (K = 10, d = 1e8, qsgd4: about
-// 0.9 GB), latency-bound at the CNN's 624 rows.
+// Design, against that bound:
+// * A row is 128*bits/8 bytes of codes. A thread owns one code vector of
+//   WORDS 32-bit words (128/bits codes at WORDS = 4) and reads it in every
+//   message: K loads (ld.global.nc.v4 at WORDS = 4) plus its K norms, all
+//   issued before the first FMA. K is a template parameter up to 16 (loads
+//   and FMA chains fully unrolled); a larger K goes in stages of 8 loads in
+//   flight.
+// * 16-byte vectors (WORDS = 4) when the grid has at least four blocks per
+//   SM; below that (the CNN's 624 rows: 2,496 such threads on 132 SMs) each
+//   thread's serial decode stream, not memory, sets the time, so a message
+//   that small takes one word per thread and four times the threads.
+// * sign*mag without a conversion instruction: a funnel shift puts the
+//   magnitude bits under the constant 0x4B000000, the f32 2^23 + mag, and
+//   subtracting 2^23 leaves mag exactly; OR-ing the sign bit in gives
+//   (1 - 2*sign) * mag bit for bit, -0.0 included. Four int32 and two f32
+//   instructions per code and message, the integer half about 0.24 ms at
+//   K = 10, d = 1e8 (132 SMs x 64 int32 lanes x 1.98 GHz): close to the
+//   byte bound.
+// * A thread's outputs are contiguous. A warp passes them through shared
+//   memory (float4 slots XOR-swizzled, so neither the writes nor the reads
+//   conflict on banks) and stores float4s lane after lane: each warp-wide
+//   store covers whole 128-byte lines.
 #include "qsgd_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;              // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxUnrolled = 16;       // largest K with its own kernel
+constexpr int kStage = 8;              // loads in flight per stage above it
+constexpr int kWideBlocksPerSm = 4;    // 16-byte vectors from this grid on
 
-__global__ void buffer_aggregate_kernel(const uint8_t* __restrict__ packed,
-                                        const float* __restrict__ norms,
-                                        const float* __restrict__ weights,
-                                        float* __restrict__ out, int k_count,
-                                        long long rows, int bits) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows * qsgd::kLanes) return;
-  const long long row = i / qsgd::kLanes;
-  const int lane = (int)(i % qsgd::kLanes);
-  const int in_lanes = qsgd::kLanes * bits / 8;
-  const float rcp = __frcp_rn(qsgd::levels(bits));
-  float acc = 0.0f;
-  for (int k = 0; k < k_count; ++k) {
-    const uint8_t* p_row = packed + ((long long)k * rows + row) * in_lanes;
-    const float sm = qsgd::signed_magnitude(p_row, lane, bits);
-    const float scale =
-        __fmul_rn(__fmul_rn(weights[k], norms[(long long)k * rows + row]), rcp);
-    acc = (k_count == 1) ? __fmul_rn(sm, scale) : __fmaf_rn(sm, scale, acc);
+template <int BITS, int WORDS>
+struct Vec {
+  static constexpr int kCodes = 32 * WORDS / BITS;  // codes per thread
+  static constexpr int kQuads = kCodes / 4;  // float4 outputs per thread
+  // float4 slots per thread in one pass through shared memory
+  static constexpr int kPass = kQuads < 8 ? kQuads : 8;
+  static constexpr int kPerRow = 4 * BITS / WORDS;  // threads per row
+};
+
+template <int WORDS>
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ p,
+                                           uint32_t w[WORDS]) {
+  if constexpr (WORDS == 4) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else {
+    w[0] = __ldg(p);
   }
-  out[i] = acc;
+}
+
+// sign*mag of code c (a compile-time index after unrolling) of the words.
+template <int BITS>
+__device__ __forceinline__ float signed_mag(const uint32_t* w, int c) {
+  const uint32_t word = w[c * BITS / 32];
+  const int sh = c * BITS % 32;  // the code's bits: [sh, sh + BITS)
+  // the magnitude to the top (the sign bit leaves), then under the exponent
+  // of 2^23: (hi:lo) >> (33 - BITS) with hi << (BITS - 1) == 0x4B000000
+  const uint32_t lo = word << (33 - BITS - sh);
+  const uint32_t biased =
+      __funnelshift_r(lo, 0x4B000000u >> (BITS - 1), 33 - BITS);
+  const float mag = __fsub_rn(__uint_as_float(biased), 8388608.0f);
+  const uint32_t sign = (word << (32 - BITS - sh)) & 0x80000000u;
+  return __uint_as_float(__float_as_uint(mag) | sign);
+}
+
+// Messages k0..k0+N-1 into acc: N loads and N scales first, then per code
+// the FMA chain over the N messages in ascending order. `code` points at
+// this thread's words in message k0, `norm` at its row's norm.
+template <int BITS, int WORDS, int N, bool kFold>
+__device__ __forceinline__ void accumulate(
+    const uint32_t* __restrict__ code, const float* __restrict__ norm,
+    const float* __restrict__ w, long long msg_words, long long rows,
+    float rcp, float acc[Vec<BITS, WORDS>::kCodes]) {
+  uint32_t q[N][WORDS];
+  float scale[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) load_words<WORDS>(code + j * msg_words, q[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    scale[j] = __fmul_rn(__fmul_rn(__ldg(w + j), __ldg(norm + j * rows)), rcp);
+  }
+#pragma unroll
+  for (int c = 0; c < Vec<BITS, WORDS>::kCodes; ++c) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float sm = signed_mag<BITS>(q[j], c);
+      acc[c] = kFold ? __fmul_rn(sm, scale[j]) : __fmaf_rn(sm, scale[j], acc[c]);
+    }
+  }
+}
+
+// XOR swizzle of a thread's kPass float4 slots: any 8 consecutive lanes
+// touch 8 distinct 16-byte bank groups, writing by owner or reading lane
+// after lane.
+template <int PASS>
+__device__ __forceinline__ int swizzle(int owner) {
+  return (owner / (8 / PASS)) % PASS;
+}
+
+// The warp's 32 threads' outputs (contiguous floats from thread `t0`'s
+// first) to out, through `tile` (32 * kPass float4 of shared memory), in
+// passes of kPass float4 per thread.
+template <int BITS, int WORDS>
+__device__ __forceinline__ void store_warp(
+    const float acc[Vec<BITS, WORDS>::kCodes], float4* tile,
+    float4* __restrict__ out, long long t0, long long threads, int lane) {
+  using V = Vec<BITS, WORDS>;
+#pragma unroll
+  for (int p = 0; p < V::kQuads / V::kPass; ++p) {
+#pragma unroll
+    for (int f = 0; f < V::kPass; ++f) {
+      const int c = 4 * (p * V::kPass + f);
+      tile[lane * V::kPass + (f ^ swizzle<V::kPass>(lane))] =
+          make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < V::kPass; ++j) {
+      const int slot = j * 32 + lane;
+      const int owner = slot / V::kPass;
+      const int f = slot % V::kPass;
+      if (t0 + owner < threads) {
+        out[(t0 + owner) * V::kQuads + p * V::kPass + f] =
+            tile[owner * V::kPass + (f ^ swizzle<V::kPass>(owner))];
+      }
+    }
+    __syncwarp();  // the tile is rewritten by the next pass
+  }
+}
+
+// KN = K for K <= kMaxUnrolled; KN = 0 for any larger K (stages of kStage,
+// then the remainder one message at a time).
+template <int BITS, int WORDS, int KN>
+__global__ void __launch_bounds__(kThreads)
+    buffer_aggregate_kernel(const uint32_t* __restrict__ packed,
+                            const float* __restrict__ norms,
+                            const float* __restrict__ weights,
+                            float4* __restrict__ out, int k_count,
+                            long long rows) {
+  using V = Vec<BITS, WORDS>;
+  __shared__ float4 tiles[kWarps][32 * V::kPass];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long threads = rows * V::kPerRow;
+  const long long msg_words = rows * BITS * 4;  // 32-bit words per message
+  const long long t0 = ((long long)blockIdx.x * kWarps + warp) * 32;
+  // lanes past the end recompute the last thread's codes and store
+  // nothing, so the whole warp reaches the passes through shared memory
+  const long long t = min(t0 + lane, threads - 1);
+  const long long row = t / V::kPerRow;
+  const uint32_t* code = packed + t * WORDS;
+  const float rcp = __frcp_rn(qsgd::levels(BITS));
+  float acc[V::kCodes];
+#pragma unroll
+  for (int c = 0; c < V::kCodes; ++c) acc[c] = 0.0f;
+  if constexpr (KN > 0) {
+    accumulate<BITS, WORDS, KN, KN == 1>(code, norms + row, weights,
+                                         msg_words, rows, rcp, acc);
+  } else {
+    int k = 0;
+    for (; k + kStage <= k_count; k += kStage) {
+      accumulate<BITS, WORDS, kStage, false>(code + k * msg_words,
+                                             norms + k * rows + row,
+                                             weights + k, msg_words, rows,
+                                             rcp, acc);
+    }
+    for (; k < k_count; ++k) {
+      accumulate<BITS, WORDS, 1, false>(code + k * msg_words,
+                                        norms + k * rows + row, weights + k,
+                                        msg_words, rows, rcp, acc);
+    }
+  }
+  store_warp<BITS, WORDS>(acc, tiles[warp], out, t0, threads, lane);
+}
+
+// The kernel for k_count: KN = k_count up to kMaxUnrolled, else KN = 0.
+template <int BITS, int WORDS, int KN>
+void launch(const uint32_t* packed, const float* norms, const float* weights,
+            float4* out, int k_count, long long rows, cudaStream_t stream) {
+  if constexpr (KN <= kMaxUnrolled) {
+    if (k_count != KN) {
+      launch<BITS, WORDS, KN + 1>(packed, norms, weights, out, k_count, rows,
+                                  stream);
+      return;
+    }
+  }
+  constexpr int kKernelK = KN <= kMaxUnrolled ? KN : 0;
+  const long long threads = rows * Vec<BITS, WORDS>::kPerRow;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  buffer_aggregate_kernel<BITS, WORDS, kKernelK>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(packed, norms, weights, out,
+                                                  k_count, rows);
+}
+
+template <int BITS>
+void launch_bits(const uint32_t* packed, const float* norms,
+                 const float* weights, float4* out, int k_count,
+                 long long rows, int sms, cudaStream_t stream) {
+  const long long wide_blocks =
+      (rows * Vec<BITS, 4>::kPerRow + kThreads - 1) / kThreads;
+  if (wide_blocks >= (long long)kWideBlocksPerSm * sms) {
+    launch<BITS, 4, 1>(packed, norms, weights, out, k_count, rows, stream);
+  } else {
+    launch<BITS, 1, 1>(packed, norms, weights, out, k_count, rows, stream);
+  }
 }
 
 }  // namespace
@@ -52,10 +233,22 @@ __global__ void buffer_aggregate_kernel(const uint8_t* __restrict__ packed,
 extern "C" int buffer_aggregate(const void* packed, const void* norms,
                                 const void* weights, void* out, int k_count,
                                 long long rows, int bits, void* stream) {
-  const long long blocks = (rows * qsgd::kLanes + kThreads - 1) / kThreads;
-  buffer_aggregate_kernel<<<(unsigned)blocks, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const float*)norms, (const float*)weights,
-      (float*)out, k_count, rows, bits);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const auto p = (const uint32_t*)packed;
+  const auto n = (const float*)norms;
+  const auto w = (const float*)weights;
+  const auto o = (float4*)out;
+  const auto s = (cudaStream_t)stream;
+  switch (bits) {
+    case 2: launch_bits<2>(p, n, w, o, k_count, rows, sms, s); break;
+    case 4: launch_bits<4>(p, n, w, o, k_count, rows, sms, s); break;
+    case 8: launch_bits<8>(p, n, w, o, k_count, rows, sms, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -54,16 +54,26 @@ __device__ __forceinline__ uint32_t encode(float x, float inv, float u,
   return ((x < 0.0f ? 1u : 0u) << (bits - 1)) | (uint32_t)xi;
 }
 
-// Quantize and pack one row. Lanes 4t..4t+3 belong to thread t, so a
-// thread's four codes are exactly bits/2 whole output bytes (the codes pack
-// little-endian, 8/bits per byte): byte offset t*bits/2 of the row.
+// Lanes 4t..4t+3 of a 128-lane row as one 16-byte load; the row must be
+// 16-byte aligned (the wrappers check the base pointer, rows are 512 B).
+__device__ __forceinline__ void load_lanes(const float* __restrict__ x_row,
+                                           int t, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(x_row) + t);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// Quantize and pack one row whose lanes 4t..4t+3 thread t holds in v[], so
+// a thread's four codes are exactly bits/2 whole output bytes (the codes
+// pack little-endian, 8/bits per byte): byte offset t*bits/2 of the row.
+// `dither(lane)` is the uniform of that lane.
 template <typename Dither>
 __device__ __forceinline__ void quantize_pack_row(
-    const float* __restrict__ x_row, uint8_t* __restrict__ out_row,
+    const float v[4], uint8_t* __restrict__ out_row,
     float* __restrict__ norm_out, float* sq, int t, int bits,
     Dither dither) {
-  float v[4];
-  for (int i = 0; i < 4; ++i) v[i] = x_row[4 * t + i];
   const float norm = bucket_norm(v, sq, t);
   const float s = levels(bits);
   const float inv =

@@ -6,9 +6,10 @@
 // In:  x f32 (rows, 128), u f32 (rows, 128) uniforms in [0, 1).
 // Out: packed uint8 (rows, 128*bits/8), norms f32 (rows,); bits in {2,4,8}.
 //
-// Mapping: one warp per 128-lane row, four lanes per thread (a thread's four
-// codes fill bits/2 whole bytes, so no two threads share a byte); eight rows
-// per block, the ragged last block masked by row. The norm's squares go
+// Mapping: one warp per 128-lane row, four lanes per thread (one float4
+// load of x; a thread's four codes fill bits/2 whole bytes, so no two
+// threads share a byte); eight rows per block, the ragged last block masked
+// by row. The norm's squares go
 // through shared memory so four threads can sum them in the reference's
 // order (qsgd_common.cuh).
 //
@@ -38,9 +39,10 @@ __global__ void quantize_pack_kernel(const float* __restrict__ x,
   const long long row = (long long)blockIdx.x * qsgd::kWarpsPerBlock + warp;
   if (row >= rows) return;  // whole warp leaves together
   const int out_lanes = qsgd::kLanes * bits / 8;
-  qsgd::quantize_pack_row(x + row * qsgd::kLanes, packed + row * out_lanes,
-                          norms + row, sq[warp], t, bits,
-                          GivenUniforms{u + row * qsgd::kLanes});
+  float v[4];
+  qsgd::load_lanes(x + row * qsgd::kLanes, t, v);
+  qsgd::quantize_pack_row(v, packed + row * out_lanes, norms + row, sq[warp],
+                          t, bits, GivenUniforms{u + row * qsgd::kLanes});
 }
 
 }  // namespace

@@ -54,8 +54,10 @@ __global__ void quantize_pack_batch_kernel(const float* __restrict__ x,
   const int out_lanes = qsgd::kLanes * bits / 8;
   const HashUniforms dither{
       seeds[2 * b], seeds[2 * b + 1], (uint32_t)row * (uint32_t)qsgd::kLanes};
-  qsgd::quantize_pack_row(x + g * qsgd::kLanes, packed + g * out_lanes,
-                          norms + g, sq[warp], t, bits, dither);
+  float v[4];
+  qsgd::load_lanes(x + g * qsgd::kLanes, t, v);
+  qsgd::quantize_pack_row(v, packed + g * out_lanes, norms + g, sq[warp], t,
+                          bits, dither);
 }
 
 }  // namespace

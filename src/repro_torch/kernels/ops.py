@@ -16,42 +16,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import prng
 from repro_torch.kernels import buffer_agg as _agg
 from repro_torch.kernels import qsgd as _qsgd
-from repro_torch.kernels.ref import LANES
-
-BUCKET = LANES  # one f32 norm per 128-element row
-
-
-def rows_for(n: int) -> int:
-    """Number of 128-lane rows (= bucket norms) of a length-n message."""
-    return (n + BUCKET - 1) // BUCKET
-
-
-def _rows2d(flat: torch.Tensor) -> torch.Tensor:
-    """(..., n) f32 -> (..., rows_for(n), 128), zero-padding the last row."""
-    n = flat.shape[-1]
-    pad = rows_for(n) * BUCKET - n
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(*flat.shape[:-1], rows_for(n), BUCKET).contiguous()
+from repro_torch.kernels.ref import rows2d, rows_for  # noqa: F401 (re-export)
 
 
 def qsgd_quantize(flat: torch.Tensor, key, bits: int = 4):
     """Quantize one flat f32 message with the threefry dither
     ``uniform(key, (rows, 128))`` (the reference's b=1 wire convention).
-    Returns (packed uint8 (rows, 16*bits), norms f32 (rows,))."""
-    x2d = _rows2d(flat.to(torch.float32))
-    u2d = prng.uniform(key, x2d.shape, device=x2d.device)
-    return _qsgd.qsgd_quantize_pack(x2d, u2d, bits)
+    On the card this is one launch: the kernel pads the ragged last row
+    and draws the dither itself. Returns (packed uint8 (rows, 16*bits),
+    norms f32 (rows,))."""
+    return _qsgd.qsgd_quantize_pack_threefry(
+        flat.to(torch.float32).contiguous(), key, bits)
 
 
 def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
     """Quantize a (B, n) stack in one launch; message b's dither is the
     counter hash keyed by the two words of ``keys[b]``. Returns (packed
     uint8 (B, rows, 16*bits), norms f32 (B, rows))."""
-    x3d = _rows2d(flat_batch.to(torch.float32))
+    x3d = rows2d(flat_batch.to(torch.float32))
     return _qsgd.qsgd_quantize_pack_batch(x3d, keys, bits)
 
 

@@ -1,4 +1,4 @@
-"""Wrappers of the three qsgd wire kernels (CUDA C++ in ``csrc/``).
+"""Wrappers of the qsgd wire kernels (CUDA C++ in ``csrc/``).
 
 Counterpart of ``repro/kernels/qsgd.py``. Wire format per message of n
 elements: ``rows = ceil(n/128)`` rows of 128 lanes, one f32 L2 norm per row
@@ -14,6 +14,13 @@ fallback from the card to the plain version.
 
 The TPU kernels' 256-row tile padding has no counterpart: the CUDA kernels
 mask the ragged edge themselves and take wire-layout rows as they come.
+Kernels that load 16 bytes at a time need 16-byte aligned inputs on the
+card; the wrappers raise for any other.
+
+The b=1 upload has two entries: ``qsgd_quantize_pack`` takes the uniforms
+from the caller (the TPU kernel's own signature) and
+``qsgd_quantize_pack_threefry`` draws the threefry uniforms inside the
+kernel, so the upload is one launch and the uniforms never reach memory.
 """
 from __future__ import annotations
 
@@ -26,8 +33,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import LANES
 
 # launches per kernel since the last reset (``kernels.reset_launches``)
-LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_quantize_pack_batch": 0,
-            "qsgd_unpack_dequantize": 0}
+LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_quantize_pack_threefry": 0,
+            "qsgd_quantize_pack_batch": 0, "qsgd_unpack_dequantize": 0}
 
 
 def check_bits(bits: int) -> None:
@@ -47,6 +54,13 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary (the kernels'
+    vector loads need it; a fresh allocation always does)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs 16-byte aligned data")
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -69,6 +83,7 @@ def qsgd_quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
     check_tensor("u2d", u2d, torch.float32, (rows, LANES), x2d.device)
     if not on_card(x2d):
         return _ref.quantize_pack(x2d, u2d, bits)
+    check_aligned("x2d", x2d)
     packed = torch.empty((rows, LANES * bits // 8), dtype=torch.uint8,
                          device=x2d.device)
     norms = torch.empty((rows,), dtype=torch.float32, device=x2d.device)
@@ -79,6 +94,36 @@ def qsgd_quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
             norms.data_ptr(), rows, bits,
             torch.cuda.current_stream(x2d.device).cuda_stream))
         LAUNCHES["qsgd_quantize_pack"] += 1
+    return packed, norms
+
+
+def qsgd_quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
+    """Quantize + pack one flat f32 (n,) message over its zero-padded
+    ``rows = ceil(n/128)`` rows with the dither ``prng.uniform(key,
+    (rows, 128))``, which the kernel draws itself (a key is two uint32
+    words, see ``common.prng``). Returns (packed uint8 (rows, 16*bits),
+    norms f32 (rows,)). The counter law is pinned for ``rows*128 < 2**32``
+    only, so larger messages raise."""
+    check_bits(bits)
+    check_tensor("flat", flat, torch.float32, (None,), flat.device)
+    n = flat.shape[0]
+    rows = _ref.rows_for(n)
+    if rows * LANES >= 2 ** 32:
+        raise ValueError(f"flat: {rows} rows; the threefry dither needs "
+                         "rows*128 < 2**32")
+    if not on_card(flat):
+        return _ref.quantize_pack_threefry(flat, key, bits)
+    check_aligned("flat", flat)
+    k0, k1 = prng.key_words(key)
+    packed = torch.empty((rows, LANES * bits // 8), dtype=torch.uint8,
+                         device=flat.device)
+    norms = torch.empty((rows,), dtype=torch.float32, device=flat.device)
+    if rows:
+        fn = _build.entry("quantize_pack_threefry")
+        _build.check("qsgd_quantize_pack_threefry", fn(
+            flat.data_ptr(), n, packed.data_ptr(), norms.data_ptr(), bits,
+            k0, k1, torch.cuda.current_stream(flat.device).cuda_stream))
+        LAUNCHES["qsgd_quantize_pack_threefry"] += 1
     return packed, norms
 
 
@@ -97,6 +142,7 @@ def qsgd_quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"seeds: {seeds.shape[0]} pairs for {b} messages")
     if not on_card(x3d):
         return _ref.quantize_pack_batch(x3d, seeds, bits)
+    check_aligned("x3d", x3d)
     words = to_device(prng.key_words_i32(seeds.cpu()).contiguous(),
                       x3d.device)
     packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four qsgd / buffer kernels.
+"""Plain PyTorch versions of the qsgd / buffer kernels.
 
 Each function computes exactly what its CUDA kernel computes, bit for bit,
 and exactly what the JAX reference computes on XLA:CPU. The wrappers in
@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.common import prng
 
 LANES = 128  # bucket size: one norm per 128-element row
 MASK32 = 0xFFFFFFFF
@@ -74,6 +76,20 @@ def bucket_norms(x2d: torch.Tensor) -> torch.Tensor:
     return sqrt_f32(total)
 
 
+def rows_for(n: int) -> int:
+    """Number of 128-lane rows (= bucket norms) of a length-n message."""
+    return (n + LANES - 1) // LANES
+
+
+def rows2d(flat: torch.Tensor) -> torch.Tensor:
+    """(..., n) f32 -> (..., rows_for(n), 128), zero-padding the last row."""
+    n = flat.shape[-1]
+    pad = rows_for(n) * LANES - n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(*flat.shape[:-1], rows_for(n), LANES).contiguous()
+
+
 def _pack(code: torch.Tensor, bits: int) -> torch.Tensor:
     per_byte = 8 // bits
     grouped = code.reshape(code.shape[0], LANES // per_byte, per_byte)
@@ -96,6 +112,15 @@ def quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
     xi = torch.clamp(xi, max=float(s)).to(torch.int64)
     code = ((x2d < 0.0).to(torch.int64) << (bits - 1)) | xi
     return _pack(code, bits), norm
+
+
+def quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
+    """f32 (n,) message quantized with the threefry dither ``uniform(key,
+    (rows, 128))`` over its zero-padded rows -> (packed uint8
+    (rows, 128*bits//8), norms f32 (rows,)): the b=1 upload."""
+    x2d = rows2d(flat)
+    return quantize_pack(x2d, prng.uniform(key, x2d.shape, device=flat.device),
+                         bits)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

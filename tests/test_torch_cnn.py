@@ -49,7 +49,7 @@ def _torch_batch(batch):
 
 def test_params_from_jax_round_trip(setup):
     np_params = jax.tree.map(np.asarray, setup["params"])
-    tparams = params_from_jax(np_params)
+    tparams = params_from_jax(np_params, device="cpu")
     back = tree_map(lambda t: t.detach().numpy(), CNN(tparams).tree())
     assert jax.tree.structure(back) == jax.tree.structure(np_params)
     for a, b in zip(jax.tree.leaves(np_params), jax.tree.leaves(back)):
@@ -68,7 +68,8 @@ def test_init_cnn_shapes_match_reference(setup):
 
 
 def test_loss_and_grad_match_jax(setup):
-    tparams = params_from_jax(jax.tree.map(np.asarray, setup["params"]))
+    tparams = params_from_jax(jax.tree.map(np.asarray, setup["params"]),
+                              device="cpu")
     tkey = torch.from_numpy(np.asarray(setup["key"]).astype(np.int64))
     grads, loss = torch.func.grad_and_value(
         lambda p, b, k: cnn_loss(p, b, train=True, key=k)[0])(
@@ -81,7 +82,7 @@ def test_loss_and_grad_match_jax(setup):
 def test_module_forward_and_accuracy_match_jax(setup):
     np_params = jax.tree.map(np.asarray, setup["params"])
     tb = _torch_batch(setup["batch"])
-    model = CNN(params_from_jax(np_params))
+    model = CNN(params_from_jax(np_params, device="cpu"))
     with torch.no_grad():
         logits = model(tb["images"])
     jb = {k: jnp.asarray(v) for k, v in setup["batch"].items()}
@@ -99,7 +100,8 @@ def test_dropout_mask_is_the_reference_mask(setup):
     jl = np.asarray(jax.jit(lambda p, b, k: jloss(p, b, train=True, key=k)[1])(
         setup["params"], jb, setup["key"]))
     tkey = torch.from_numpy(np.asarray(setup["key"]).astype(np.int64))
-    tl = cnn_loss(params_from_jax(np_params), _torch_batch(setup["batch"]),
+    tl = cnn_loss(params_from_jax(np_params, device="cpu"),
+                  _torch_batch(setup["batch"]),
                   train=True, key=tkey)[1].detach().numpy()
     np.testing.assert_allclose(tl, jl, rtol=RTOL, atol=ATOL)
 

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package; everything imports with jax
+"""The port stands alone: no module of src/repro_torch, and neither
+chip_smoke.py nor chip_compare.py, imports jax or the JAX package; everything imports with jax
 blocked; and an entry point left to its default device (CUDA) raises when
 there is no CUDA instead of falling back to the CPU."""
 import ast
@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "chip_compare.py"]
 
 
 def _modules():
@@ -50,7 +51,7 @@ def test_everything_imports_with_jax_blocked():
         "import importlib\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_compare\n"
         "assert not any(m.startswith(('jax', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -63,6 +64,7 @@ def test_everything_imports_with_jax_blocked():
 
 def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.common.device import resolve_device
+    from repro_torch.convert import params_from_jax
     from repro_torch.core import QAFeL, QAFeLConfig
     from repro_torch.examples import federated_celeba, quickstart
 
@@ -75,4 +77,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
         quickstart.run(uploads=1, verbose=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         federated_celeba.main(["--uploads", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": [0.0, 1.0]})
     assert resolve_device("cpu") == torch.device("cpu")

@@ -21,6 +21,9 @@ from repro_torch.kernels import ops, ref
 BITS = (2, 4, 8)
 # ragged tails, one exact row count, one row, and the CNN's 624 rows
 SIZES = (1, 200, 2048, 4100)
+# key words on both sides of 2**31: the kernel takes them as uint32 values
+HIGH_KEYS = ((0x80000000, 0xFFFFFFFF), (0xDEADBEEF, 0x9E3779B9),
+             (7, 0x80000001))
 
 
 def _msg(rng, n, zero_row=True):
@@ -52,6 +55,69 @@ def test_quantize_matches_jax(bits, n):
     tp, tn = ops.qsgd_quantize(torch.from_numpy(x), tk, bits)
     assert tp.dtype == torch.uint8 and tuple(tp.shape) == jp.shape
     assert _bits_equal(jp, tp) and _bits_equal(jn, tn)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("key", HIGH_KEYS)
+@pytest.mark.parametrize("n", (200, 4100))
+def test_threefry_quantize_matches_jax_high_keys(bits, key, n):
+    """The fused b=1 entry's plain version, through its wrapper and
+    directly, against the reference's upload for raw keys whose words are
+    >= 2**31; ragged n with an all-zero bucket."""
+    rng = np.random.default_rng(n + bits)
+    x = _msg(rng, n)
+    jp, jn = jops.qsgd_quantize(jnp.asarray(x),
+                                jnp.asarray(np.array(key, np.uint32)), bits)
+    tk = torch.tensor(key, dtype=torch.int64)
+    for tp, tn in (tkernels.qsgd.qsgd_quantize_pack_threefry(
+                       torch.from_numpy(x), tk, bits),
+                   ref.quantize_pack_threefry(torch.from_numpy(x), tk, bits)):
+        assert _bits_equal(jp, tp) and _bits_equal(jn, tn)
+
+
+def _threefry_np(k0, k1, x1):
+    """threefry2x32((k0, k1), (0, x1)) on numpy uint32 arrays: the
+    per-element law the fused kernel implements (csrc/threefry.cuh)."""
+    def rotl(v, r):
+        return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+    ks = [np.uint32(k0), np.uint32(k1),
+          np.uint32(k0) ^ np.uint32(k1) ^ np.uint32(0x1BD11BDA)]
+    x0 = np.zeros_like(x1) + ks[0]
+    x1 = x1 + ks[1]
+    for g in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[g % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return x0, x1
+
+
+@pytest.mark.parametrize("key", ((0, 42),) + HIGH_KEYS)
+def test_counter_law_matches_prng_uniform(key):
+    """Element i of uniform(key, (rows, 128)) is one cipher call on the
+    counter (0, i): b = w0 ^ w1, u = f32((b >> 9) | 0x3F800000) - 1."""
+    rows = 9
+    i = np.arange(rows * 128, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        w0, w1 = _threefry_np(*key, i)
+    u = (((w0 ^ w1) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
+    u = (u - np.float32(1.0)).reshape(rows, 128)
+    got = prng.uniform(torch.tensor(key, dtype=torch.int64), (rows, 128))
+    assert _bits_equal(u, got)
+
+
+def test_threefry_wrapper_rejects_counter_overflow():
+    """rows*128 >= 2**32 would wrap the 32-bit counter: refused before any
+    allocation or device dispatch (a meta tensor carries only the shape)."""
+    key = prng.PRNGKey(0)
+    with pytest.raises(ValueError, match=r"2\*\*32"):
+        tkernels.qsgd.qsgd_quantize_pack_threefry(
+            torch.empty(2**32 - 127, device="meta"), key, 4)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tkernels.qsgd.qsgd_quantize_pack_threefry(
+            torch.empty(2**32 - 128, device="meta"), key, 4)
 
 
 @pytest.mark.parametrize("bits", BITS)

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card:
+"""The CUDA kernels against their plain PyTorch versions, on the card:
 codes, norms and f32 values bit for bit (signed zeros included), and one
 launch counted per call. Needs a CUDA device and nvcc; without a device
 every case skips with the reason. Imports no JAX, so it runs where the
@@ -15,6 +15,8 @@ from repro_torch.common import prng
 from repro_torch.kernels import ref
 
 BITS = (2, 4, 8)
+# key words on both sides of 2**31: a uint32 argument must not sign-extend
+KEYS = ((0, 0), (0x80000000, 0xFFFFFFFF), (0xDEADBEEF, 0x9E3779B9))
 
 
 def _card():
@@ -30,6 +32,8 @@ def _inputs(kernel, bits, rows, k, seed=0):
     x[rows // 2] = 0.0  # an all-zero bucket
     if kernel == "qsgd_quantize_pack":
         return (x, prng.uniform(prng.PRNGKey(seed), (rows, 128)), bits)
+    if kernel == "qsgd_quantize_pack_threefry":
+        return (x.reshape(-1), torch.tensor(KEYS[1]), bits)
     if kernel == "qsgd_quantize_pack_batch":
         return (x[None].repeat(2, 1, 1) * torch.tensor([1.0, -3.0])[:, None, None],
                 prng.split(prng.PRNGKey(seed), 2), bits)
@@ -43,6 +47,8 @@ def _inputs(kernel, bits, rows, k, seed=0):
 
 _WRAPPERS = {
     "qsgd_quantize_pack": (tkernels.qsgd.qsgd_quantize_pack, ref.quantize_pack),
+    "qsgd_quantize_pack_threefry": (tkernels.qsgd.qsgd_quantize_pack_threefry,
+                                    ref.quantize_pack_threefry),
     "qsgd_quantize_pack_batch": (tkernels.qsgd.qsgd_quantize_pack_batch,
                                  ref.quantize_pack_batch),
     "qsgd_unpack_dequantize": (tkernels.qsgd.qsgd_unpack_dequantize,
@@ -50,6 +56,16 @@ _WRAPPERS = {
     "buffer_aggregate": (tkernels.buffer_agg.buffer_aggregate,
                          ref.buffer_aggregate),
 }
+
+
+def _assert_bits_equal(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:  # bit patterns: signed zeros too
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
@@ -65,11 +81,64 @@ def test_kernel_matches_plain_on_card(kernel, bits):
         got = wrapper(*args)
         torch.cuda.synchronize()
         assert tkernels.launches()[kernel] == before + 1
-        want = plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape
-            if g.dtype == torch.float32:  # bit patterns: signed zeros too
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            assert torch.equal(g, w)
+        _assert_bits_equal(got, plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("key", KEYS)
+def test_threefry_quantize_ragged_messages(bits, key):
+    """The in-kernel dither on ragged lengths (the kernel pads the last row
+    itself), an all-zero bucket and keys with high words set."""
+    dev = _card()
+    rng = np.random.default_rng(bits)
+    for n in (1, 127, 129, 79_842, 128 * 1001 - 5):
+        x = torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32))
+        x[128:256] = 0.0
+        x, k = x.to(dev), torch.tensor(key)
+        before = tkernels.launches()["qsgd_quantize_pack_threefry"]
+        got = tkernels.qsgd.qsgd_quantize_pack_threefry(x, k, bits)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_quantize_pack_threefry"] == before + 1
+        _assert_bits_equal(got, ref.quantize_pack_threefry(x, k, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("k", (1, 3, 10, 33))
+def test_buffer_aggregate_every_k(bits, k):
+    """K = 1 (the folded product keeps -0.0), K inside the unrolled range
+    and K = 33 (stages of 8, then the remainder), on odd row counts on both
+    sides of the switch from one code word per thread to 16-byte vectors
+    (40,001 rows fill an H100 four blocks per SM at every bit width). The
+    codes are random bytes: every byte is a valid pair, quad or octet of
+    codes, signed zeros included."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits * 100 + k)
+    for rows in (1, 625, 1001, 40_001):
+        p = torch.randint(0, 256, (k, rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand((k, rows), generator=gen, device=dev) * 3.0
+        nm[:, rows // 2] = 0.0  # an all-zero bucket
+        w = torch.rand(k, generator=gen, device=dev) / k
+        before = tkernels.launches()["buffer_aggregate"]
+        got = tkernels.buffer_agg.buffer_aggregate(p, nm, w, bits)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["buffer_aggregate"] == before + 1
+        want = ref.buffer_aggregate(p, nm, w, bits)
+        _assert_bits_equal(got, want)
+        if k == 1:
+            assert bool((want.view(torch.int32) == -2**31).any())  # a -0.0
+
+
+@pytest.mark.gpu
+def test_misaligned_inputs_raise():
+    dev = _card()
+    flat = torch.zeros(1025, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        tkernels.qsgd.qsgd_quantize_pack_threefry(flat, prng.PRNGKey(0), 4)
+    stack = torch.zeros(2 * 64 + 1, dtype=torch.uint8, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        tkernels.buffer_agg.buffer_aggregate(
+            stack.reshape(2, 1, 64), torch.ones(2, 1, device=dev),
+            torch.ones(2, device=dev), 4)

@@ -76,7 +76,7 @@ def test_cnn_simulator_matches_reference():
     task = federated_celeba.celeba_task("cpu", n_samples=N_SAMPLES,
                                         n_clients=N_CLIENTS)
     tres = federated_celeba.run_one(
-        task, params_from_jax(jax.tree.map(np.asarray, params0)),
+        task, params_from_jax(jax.tree.map(np.asarray, params0), device="cpu"),
         federated_celeba.qafel_config(), SimConfig(**kw), "cpu")
     jm, tm = jres.metrics, tres.metrics
     assert tm["replicas_in_sync"] and jm["replicas_in_sync"]
