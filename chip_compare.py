@@ -8,10 +8,15 @@ process that imports only ``DIR/src/repro_torch`` (its kernels build into
 ``DIR/build``), in the order before, after, after, before for each pair,
 and prints one JSON line:
 
-* the b=1 upload (``kernels.ops.qsgd_quantize``) and the buffer aggregate
-  (``kernels.ops.buffer_aggregate``, K = 10) at the CNN's size (79,842
-  parameters, qsgd4) and at d = 1e8: median device ms per call (CUDA
-  events, ``chip_smoke.device_ms``);
+* the b=1 upload (``kernels.ops.qsgd_quantize``), the buffer aggregate
+  (``kernels.ops.buffer_aggregate``, K = 10), the broadcast encode as the
+  flush calls it (``kernels.ops.qsgd_quantize_batch``, B = 1, the key on
+  the CPU) and the broadcast decode (``kernels.ops.qsgd_dequantize``) at
+  the CNN's size (79,842 parameters, qsgd4) and at d = 1e8: median device
+  ms per call (CUDA events, ``chip_smoke.device_ms``);
+* int32 SASS instructions of the built kernels (``cuobjdump``): the
+  aggregate's kernels summed over their instantiations, and the threefry
+  dither per element of the fused b=1 upload;
 * device launches of one upload at the CNN's size and of one client step
   (``torch.profiler``);
 * the CNN main path of ``chip_smoke.py`` (``AsyncFLSimulator`` driving
@@ -42,19 +47,29 @@ def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import torch
 
-    from chip_smoke import device_launches, device_ms
+    from chip_smoke import (device_launches, device_ms, per_element,
+                            sass_int32_ops)
     from repro_torch.common import prng
     from repro_torch.common.device import resolve_device
     from repro_torch.core import QAFeL
     from repro_torch.examples import federated_celeba as fc
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.models.cnn import init_cnn
     from repro_torch.sim import AsyncFLSimulator, SimConfig
 
     dev = resolve_device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     key = prng.split(prng.PRNGKey(1))[1]
+    key2d = key.reshape(1, -1)
     out = {"tree": str(tree)}
+    build = _build.build_all()
+    out["aggregate_int32_sass"] = sum(sass_int32_ops(
+        build / "libbuffer_aggregate.so", "buffer_aggregate_kernel").values())
+    out["upload_dither_int32_per_element"] = per_element(
+        sass_int32_ops(build / "libquantize_pack_threefry.so",
+                       "quantize_pack_threefry_kernel"),
+        sass_int32_ops(build / "libquantize_pack.so", "quantize_pack_kernel"),
+        4)["total"]
     for label, n, reps in (("cnn", CNN_N, 50), ("d1e8", BIG_N, 5)):
         flat = torch.randn(n, generator=gen, device=dev) * 0.01
         rows = ops.rows_for(n)
@@ -66,6 +81,10 @@ def measure(tree: Path) -> dict:
             lambda: ops.qsgd_quantize(flat, key, BITS), reps)
         out[f"aggregate_ms_{label}"] = device_ms(
             lambda: ops.buffer_aggregate(stack, norms, w, BITS, n), reps)
+        out[f"broadcast_encode_ms_{label}"] = device_ms(
+            lambda: ops.qsgd_quantize_batch(flat[None], key2d, BITS), reps)
+        out[f"broadcast_decode_ms_{label}"] = device_ms(
+            lambda: ops.qsgd_dequantize(stack[0], norms[0], BITS, n), reps)
         del flat, stack, norms
         torch.cuda.empty_cache()
 

@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
-   per element of the in-kernel threefry dither, counted from the built
-   SASS (``cuobjdump -sass``);
+   per element of the in-kernel threefry dither and of the batched
+   encode's counter hash, by pipe, and the decode kernels' int32
+   instruction counts, from the built SASS (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit
    (``torch.equal`` on the bit patterns), at the main path's shapes (the
    CNN: 624 rows, K = 10, qsgd4) and at d = 1e8 (781,250 rows): median
@@ -18,7 +19,8 @@ Phases, each printing one JSON line:
    given-uniforms kernel) and after (the fused entry), in one run;
 4. the b=1 upload under ``torch.profiler``: device launches of one
    ``ops.qsgd_quantize`` (exactly one) against the old composition's, and
-   device launches per client step;
+   device launches per client step; and one broadcast encode as the flush
+   makes it (``ops.qsgd_quantize_batch``): exactly one device activity;
 5. the main path through its entry points: ``AsyncFLSimulator`` driving
    ``QAFeL`` on the paper's CNN at full width (79,842 parameters), the
    federated example's configuration, concurrency 16, 100 uploads, with the
@@ -35,9 +37,12 @@ exits non-zero before printing any result. Times come from CUDA events
 (kernels) or the host clock around synchronized work (the main path syncs
 around every client step, flush and eval to time them). The bounds use
 the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (float32, no tensor
-cores), and for integer work 64 int32 lanes per SM (the CUDA programming
-guide's rate for compute capability 9.0) at the card's SM count and
-maximum SM clock (``nvidia-smi``).
+cores), and for integer work 64 lanes per SM and clock on each of the
+two pipes that take int32 instructions (the CUDA programming guide's rate
+for compute capability 9.0): IMAD and IMUL issue on the FMA pipe, the
+other int32 instructions on the int32 ALU, so the two overlap and the
+larger count bounds; at the card's SM count and maximum SM clock
+(``nvidia-smi``).
 """
 from __future__ import annotations
 
@@ -53,13 +58,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-INT32_LANES_PER_SM = 64  # CUDA programming guide, compute capability 9.0
-# SASS opcodes issued on the per-lane int32 pipes (the uniform datapath's
-# U* instructions run once per warp and are not counted)
-INT32_OPCODES = frozenset((
-    "IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "IMAD", "IMUL", "LEA",
-    "ISETP", "IMNMX", "VIMNMX", "PRMT", "IABS", "SEL", "SGXT", "BMSK",
-    "BREV", "FLO", "POPC"))
+INT32_LANES_PER_SM = 64  # per pipe; CUDA programming guide, capability 9.0
+# SASS opcodes of per-lane int32 work (the uniform datapath's U*
+# instructions run once per warp and are not counted); IMAD and IMUL issue
+# on the FMA pipe, the others on the int32 ALU
+FMA_PIPE_OPCODES = frozenset(("IMAD", "IMUL"))
+INT32_OPCODES = FMA_PIPE_OPCODES | frozenset((
+    "IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "LEA", "ISETP", "IMNMX",
+    "VIMNMX", "PRMT", "IABS", "SEL", "SGXT", "BMSK", "BREV", "FLO", "POPC"))
 CNN_N, CNN_ROWS, CNN_K, BITS = 79_842, 624, 10, 4
 BIG_ROWS = 781_250  # d = 1e8
 MAIN_UPLOADS, CONCURRENCY = 100, 16
@@ -99,55 +105,121 @@ def bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def sass_int32_ops(lib: Path, kernel: str) -> int:
-    """Int32 instructions in the SASS of the kernel whose (mangled) name
-    contains ``kernel``, in the built library ``lib``."""
+def sass_int32_ops(lib: Path, kernel: str) -> dict:
+    """Int32 instructions in the SASS of the kernels whose (mangled) name
+    contains ``kernel``, in the built library ``lib``, by pipe: ``fma``
+    (IMAD, IMUL) and ``alu`` (the others)."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    count, inside = 0, False
+    counts = {"fma": 0, "alu": 0}
+    inside = False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
         elif inside:
-            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                          line)
-            count += bool(m and m.group(1) in INT32_OPCODES)
-    return count
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z0-9]+)", line)
+            if m and m.group(1) in INT32_OPCODES:
+                pipe = "fma" if m.group(1) in FMA_PIPE_OPCODES else "alu"
+                counts[pipe] += 1
+    return counts
 
 
-def dither_ops(build_dir: Path):
-    """Int32 instructions per element of the in-kernel threefry dither:
-    the fused kernel's int32 SASS instructions minus those of the
+def per_element(work: dict, base: dict, elements: int) -> dict:
+    """Int32 instructions per element of what ``work`` has beyond ``base``,
+    for ``elements`` elements per thread: ``total`` over both pipes, and by
+    pipe (a pipe where ``work`` has fewer counts 0); ``bound`` is the larger
+    pipe's, the one that sets the time."""
+    pipes = {p: max(0, work[p] - base[p]) / elements for p in ("fma", "alu")}
+    total = (sum(work.values()) - sum(base.values())) / elements
+    return {**pipes, "total": total, "bound": max(pipes.values())}
+
+
+def dither_ops(build_dir: Path) -> dict:
+    """Int32 instructions per element of the in-kernel threefry dither, by
+    pipe: the fused kernel's int32 SASS instructions minus those of the
     given-uniforms kernel (the same row body, reading u instead), over the
     four elements a thread quantizes."""
     fused = sass_int32_ops(build_dir / "libquantize_pack_threefry.so",
                            "quantize_pack_threefry_kernel")
     given = sass_int32_ops(build_dir / "libquantize_pack.so",
                            "quantize_pack_kernel")
-    per_element = (fused - given) / 4
+    ops = per_element(fused, given, 4)
     emit({"phase": "sass", "fused_int32_instructions": fused,
           "given_u_int32_instructions": given,
-          "dither_int32_per_element": per_element,
+          "dither_int32_per_element": ops["total"],
+          "dither_int32_per_element_by_pipe": ops,
           "formula": "(int32 SASS of quantize_pack_threefry_kernel - int32 "
-                     "SASS of quantize_pack_kernel) / 4 elements per thread"})
-    if per_element < 60:  # 20 rounds of add, rotate and xor at the least
-        raise AssertionError(f"dither counted at {per_element} int32 "
+                     "SASS of quantize_pack_kernel) / 4 elements per thread, "
+                     "by pipe (fma: IMAD, IMUL; alu: the others)"})
+    if ops["total"] < 60:  # 20 rounds of add, rotate and xor at the least
+        raise AssertionError(f"dither counted at {ops['total']} int32 "
                              "instructions per element: the SASS parse failed")
-    return per_element
+    return ops
 
 
-def kernel_cases(rows: int, k: int, dev, dither_int32: float,
-                 int32_ops_per_s: float):
+def batch_encode_ops(build_dir: Path) -> dict:
+    """Int32 instructions per element of the batched encode's counter hash
+    (K2), by pipe, in each of its two qsgd4 kernels (``whole``: messages of
+    whole aligned rows; ``general``: any message): the kernel's int32 SASS
+    instructions minus those of the same source built with
+    ``QSGD_BATCH_CONSTANT_DITHER`` (a constant dither in place of the hash),
+    over the 32 elements a thread quantizes per loop pass (the loop body is
+    the kernel's only copy of the encode). Printed beside them, the int32
+    SASS counts of the decode kernels (K3, and K4 summed over its
+    instantiations) so that they can be compared between checkouts."""
+    from repro_torch.kernels import _build
+
+    lib = build_dir / "libquantize_pack_batch.so"
+    base_lib = build_dir / "libquantize_pack_batch_constant_dither.so"
+    if not base_lib.exists():
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        "-DQSGD_BATCH_CONSTANT_DITHER", "-I", str(_build.CSRC),
+                        "-o", str(base_lib),
+                        str(_build.CSRC / "quantize_pack_batch.cu")],
+                       capture_output=True, text=True, check=True)
+    record, ops = {"phase": "sass_decode_encode"}, {}
+    for variant, flag in (("whole", 1), ("general", 0)):
+        name = f"quantize_pack_batch_kernelILi4ELb{flag}E"
+        hashed = sass_int32_ops(lib, name)
+        constant = sass_int32_ops(base_lib, name)
+        ops[variant] = per_element(hashed, constant, 32)
+        record[f"batch_encode_{variant}"] = {
+            "int32_instructions": hashed,
+            "constant_dither_int32_instructions": constant,
+            "hash_int32_per_element": ops[variant]}
+    emit({**record,
+          "formula": "(int32 SASS of quantize_pack_batch_kernel<4, kWhole> "
+                     "- int32 SASS of it built with a constant dither) / 32 "
+                     "elements per thread and loop pass, for each kWhole, by "
+                     "pipe (fma: IMAD, IMUL; alu: the others)",
+          "unpack_dequantize_int32_instructions": sass_int32_ops(
+              build_dir / "libunpack_dequantize.so",
+              "unpack_dequantize_kernel"),
+          "buffer_aggregate_int32_instructions": sass_int32_ops(
+              build_dir / "libbuffer_aggregate.so", "buffer_aggregate_kernel")})
+    for variant, o in ops.items():
+        if o["total"] < 16:  # two fmix32 rounds at the least
+            raise AssertionError(f"counter hash ({variant} kernel) counted at "
+                                 f"{o['total']} int32 instructions per "
+                                 "element: the SASS parse failed")
+    return ops
+
+
+def kernel_cases(rows: int, k: int, dev, dither_int32: dict,
+                 hash_int32: dict, int32_ops_per_s: float):
     """Inputs of the five kernels at ``rows`` wire rows (K messages for the
     aggregate), their byte and operation counts with the rate that bounds
-    the operations, and the TPU kernel each replaces."""
+    the operations, and the TPU kernel each replaces. The int32 counts per
+    element are ``dither_ops``' and ``batch_encode_ops``' (the larger pipe
+    bounds; for K2, that of the kernel the message takes)."""
     import torch
 
     from repro_torch.common import prng
-    from repro_torch.kernels import buffer_agg, qsgd
+    from repro_torch.kernels import buffer_agg, qsgd, ref
 
     gen = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn((rows, 128), generator=gen, device=dev) * 0.01
@@ -160,14 +232,18 @@ def kernel_cases(rows: int, k: int, dev, dither_int32: float,
     w = torch.rand(k, generator=gen, device=dev) / k
     code_b = 128 * BITS // 8
     n = rows * 128
-    # the b=1 upload takes the flat message: the CNN's is ragged
+    # the b=1 upload and the broadcast encode take the flat message: the
+    # CNN's is ragged
     n_flat = CNN_N if rows == CNN_ROWS else n
+    hash_ops = hash_int32["whole" if n_flat % 128 == 0 else "general"]
     f32 = (F32_OPS_PER_S, "float32")
+    int32 = (int32_ops_per_s, "int32")
     return {
         "qsgd_quantize_pack": dict(
             source="src/repro_torch/kernels/csrc/quantize_pack.cu",
             replaces="src/repro/kernels/qsgd.py:70",
-            fn=qsgd.qsgd_quantize_pack, args=(x, u, BITS),
+            fn=qsgd.qsgd_quantize_pack, plain=ref.quantize_pack,
+            args=(x, u, BITS),
             bytes=n * 8 + rows * (code_b + 4),
             bytes_formula="rows*128*(4 x + 4 u) + rows*(128*bits/8 + 4)",
             ops=n * 8 + rows * 4, rate=f32),
@@ -175,24 +251,33 @@ def kernel_cases(rows: int, k: int, dev, dither_int32: float,
             source="src/repro_torch/kernels/csrc/quantize_pack_threefry.cu",
             replaces="src/repro/kernels/qsgd.py:70",
             fn=qsgd.qsgd_quantize_pack_threefry,
+            plain=ref.quantize_pack_threefry,
             args=(x.reshape(-1)[:n_flat], key, BITS),
             bytes=n_flat * 4 + rows * (code_b + 4),
             bytes_formula="n*4 x + rows*(128*bits/8 + 4)",
-            ops=n_flat * dither_int32,
-            ops_formula=f"n*{dither_int32} int32 (SASS) / "
+            ops=n_flat * dither_int32["bound"],
+            ops_formula=f"n*max(fma {dither_int32['fma']}, alu "
+                        f"{dither_int32['alu']}) int32 per element (SASS) / "
                         "(SMs*64*max SM clock)",
-            rate=(int32_ops_per_s, "int32")),
+            rate=int32),
+        # as the flush calls it: one flat message, seed words from the CPU
         "qsgd_quantize_pack_batch": dict(
             source="src/repro_torch/kernels/csrc/quantize_pack_batch.cu",
             replaces="src/repro/kernels/qsgd.py:160",
-            fn=qsgd.qsgd_quantize_pack_batch, args=(x[None], keys[:1], BITS),
-            bytes=n * 4 + 8 + rows * (code_b + 4),
-            bytes_formula="B*rows*128*4 x + B*8 seeds + B*rows*(128*bits/8 + 4)",
-            ops=n * 20 + rows * 4, rate=f32),
+            fn=qsgd.qsgd_quantize_pack_batch_flat,
+            plain=lambda f, s, b: ref.quantize_pack_batch(ref.rows2d(f), s, b),
+            args=(x.reshape(-1)[:n_flat][None], keys[:1], BITS),
+            bytes=n_flat * 4 + 8 + rows * (code_b + 4),
+            bytes_formula="B*n*4 x + B*8 seeds + B*rows*(128*bits/8 + 4)",
+            ops=n_flat * hash_ops["bound"],
+            ops_formula=f"B*n*max(fma {hash_ops['fma']}, alu "
+                        f"{hash_ops['alu']}) int32 per element (SASS) / "
+                        "(SMs*64*max SM clock)",
+            rate=int32),
         "qsgd_unpack_dequantize": dict(
             source="src/repro_torch/kernels/csrc/unpack_dequantize.cu",
             replaces="src/repro/kernels/qsgd.py:356",
-            fn=qsgd.qsgd_unpack_dequantize,
+            fn=qsgd.qsgd_unpack_dequantize, plain=ref.unpack_dequantize,
             args=(stack[0], norms[0], BITS),
             bytes=rows * (code_b + 4) + n * 4,
             bytes_formula="rows*(128*bits/8 + 4) + rows*128*4 out",
@@ -200,34 +285,26 @@ def kernel_cases(rows: int, k: int, dev, dither_int32: float,
         "buffer_aggregate": dict(
             source="src/repro_torch/kernels/csrc/buffer_aggregate.cu",
             replaces="src/repro/kernels/buffer_agg.py:61",
-            fn=buffer_agg.buffer_aggregate, args=(stack, norms, w, BITS),
+            fn=buffer_agg.buffer_aggregate, plain=ref.buffer_aggregate,
+            args=(stack, norms, w, BITS),
             bytes=k * rows * (code_b + 4) + k * 4 + n * 4,
             bytes_formula="K*rows*(128*bits/8 + 4) + K*4 + rows*128*4 out",
             ops=k * n * 6, rate=f32),
     }
 
 
-def plain_of(name):
-    from repro_torch.kernels import ref
-
-    return {"qsgd_quantize_pack": ref.quantize_pack,
-            "qsgd_quantize_pack_threefry": ref.quantize_pack_threefry,
-            "qsgd_quantize_pack_batch": ref.quantize_pack_batch,
-            "qsgd_unpack_dequantize": ref.unpack_dequantize,
-            "buffer_aggregate": ref.buffer_aggregate}[name]
-
-
 def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int,
-                  dither_int32: float, int32_ops_per_s: float):
+                  dither_int32: dict, hash_int32: dict,
+                  int32_ops_per_s: float):
     """Each kernel against its plain version at one shape; returns the
     per-kernel measurements."""
     import torch
 
     out = {}
-    for name, case in kernel_cases(rows, k, dev, dither_int32,
+    for name, case in kernel_cases(rows, k, dev, dither_int32, hash_int32,
                                    int32_ops_per_s).items():
         got = case["fn"](*case["args"])
-        want = plain_of(name)(*case["args"])
+        want = case["plain"](*case["args"])
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -244,7 +321,7 @@ def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int,
             source=case["source"], replaces=case["replaces"],
             equal=equal, max_abs_err=err,
             ms=device_ms(lambda: case["fn"](*case["args"]), reps),
-            plain_ms=device_ms(lambda: plain_of(name)(*case["args"]),
+            plain_ms=device_ms(lambda: case["plain"](*case["args"]),
                                plain_reps),
             bound_ms=bound_ms,
             bound_by="bytes" if bytes_s >= ops_s else "operations",
@@ -356,6 +433,32 @@ def upload_launches(dev, steps: int = 5):
             or "quantize_pack_threefry" not in new[0][0]):
         raise AssertionError(f"the b=1 upload launched {new}, not the one "
                              "fused kernel")
+    return record
+
+
+def broadcast_encode_launches(dev):
+    """Device activities of one broadcast encode as the flush makes it
+    (``ops.qsgd_quantize_batch`` of the CNN-sized flat diff, B = 1, the key
+    on the CPU): exactly one, the batched kernel, with no padding pass and
+    no copy of the seed words."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import ops
+
+    diff = torch.randn(CNN_N, device=dev) * 1e-3
+    key2d = prng.split(prng.PRNGKey(7))[1].reshape(1, -1)
+    ops.qsgd_quantize_batch(diff[None], key2d, BITS)  # warm up
+    got = device_launches(lambda: ops.qsgd_quantize_batch(diff[None], key2d,
+                                                          BITS))
+    record = {"phase": "broadcast_encode_launches", "n": CNN_N,
+              "device_activities": sum(c for _, c in got),
+              "activities": [name for name, _ in got]}
+    emit(record)
+    if (record["device_activities"] != 1
+            or "quantize_pack_batch" not in got[0][0]):
+        raise AssertionError(f"one broadcast encode ran {got}, not the one "
+                             "batched kernel")
     return record
 
 
@@ -577,15 +680,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": str(build_dir.relative_to(ROOT))})
     dither_int32 = dither_ops(build_dir)
+    hash_int32 = batch_encode_ops(build_dir)
 
     cnn = check_kernels(CNN_ROWS, CNN_K, dev, 50, 10, dither_int32,
-                        int32_ops_per_s)
+                        hash_int32, int32_ops_per_s)
     big = check_kernels(BIG_ROWS, CNN_K, dev, 10, 3, dither_int32,
-                        int32_ops_per_s)
+                        hash_int32, int32_ops_per_s)
     torch.cuda.empty_cache()
     upload_before_after(dev)
 
     steps = upload_launches(dev)
+    broadcast_encode_launches(dev)
     record, launches = run_main_path(dev, steps["client_step_device_launches"])
     profile_window(dev)
     check_against_cpu(dev)

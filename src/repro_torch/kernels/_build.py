@@ -34,13 +34,23 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
+SEEDS_BY_VALUE = 64  # messages whose seed words ride in the launch's params
+
+
+class SeedWords(ctypes.Structure):
+    """The batched kernel's by-value seed parameter: words 2b and 2b+1 are
+    message b's (csrc/quantize_pack_batch.cu, ``SeedWords``)."""
+    _fields_ = [("w", _U32 * (2 * SEEDS_BY_VALUE))]
+
+
 # C signature of each library's one entry point (the name is the library's)
 SIGNATURES = {
     "quantize_pack": ("qsgd_quantize_pack", (_P, _P, _P, _P, _LL, _I, _P)),
     "quantize_pack_threefry": ("qsgd_quantize_pack_threefry",
                                (_P, _LL, _P, _P, _I, _U32, _U32, _P)),
     "quantize_pack_batch": ("qsgd_quantize_pack_batch",
-                            (_P, _P, _P, _P, _LL, _LL, _I, _P)),
+                            (_P, _LL, _LL, _LL, _I, SeedWords, _P, _P, _P,
+                             _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize", (_P, _P, _P, _LL, _I, _P)),
     "buffer_aggregate": ("buffer_aggregate", (_P, _P, _P, _P, _I, _LL, _I, _P)),
 }
@@ -105,7 +115,8 @@ def build_all(verbose: bool = False) -> Path:
 def entry(name: str):
     """The C entry point of kernel library ``name``, built on first use,
     with its argument types set (every pointer and the stream as
-    ``c_void_p``, key words as ``c_uint32``) and an ``int``
+    ``c_void_p``, key words as ``c_uint32``, batched seed words as the
+    ``SeedWords`` structure) and an ``int``
     (``cudaError_t``) result."""
     fn = _loaded.get(name)
     if fn is None:

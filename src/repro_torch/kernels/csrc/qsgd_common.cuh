@@ -22,6 +22,14 @@ constexpr int kLanes = 128;          // one bucket norm per 128-element row
 constexpr int kWarpsPerBlock = 8;    // rows per block of the row kernels
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// The current device's SM count (the runtime caches it).
+inline cudaError_t sm_count(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 __device__ __forceinline__ float levels(int bits) {
   return (float)((1 << (bits - 1)) - 1);
 }
@@ -87,20 +95,6 @@ __device__ __forceinline__ void quantize_pack_row(
     out_row[t * nbytes + j] = (uint8_t)((word >> (8 * j)) & 0xffu);
   }
   if (t == 0) *norm_out = norm;
-}
-
-// sign*mag of lane `lane` from its packed row, as XLA computes it:
-// (1 - 2*sign_bit) * mag, both exact.
-__device__ __forceinline__ float signed_magnitude(
-    const uint8_t* __restrict__ p_row, int lane, int bits) {
-  const int per_byte = 8 / bits;
-  const uint32_t byte = p_row[lane / per_byte];
-  const uint32_t code = (byte >> ((lane % per_byte) * bits)) &
-                        ((1u << bits) - 1u);
-  const float mag = (float)(code & ((1u << (bits - 1)) - 1u));
-  const float sign =
-      __fsub_rn(1.0f, __fmul_rn(2.0f, (float)((code >> (bits - 1)) & 1u)));
-  return __fmul_rn(sign, mag);
 }
 
 }  // namespace qsgd

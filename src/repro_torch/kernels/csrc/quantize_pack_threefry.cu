@@ -24,8 +24,9 @@
 // kernel, over the 4 elements of a thread (chip_smoke.py counts them with
 // cuobjdump -sass at each run): (459 - 192) / 4 = 66.75 per element with
 // CUDA 12.8, against 20 rounds of add, funnel-shift rotate and xor plus 10
-// key-injection adds. Bound = n * 66.75 / (132 SMs x 64 int32 lanes x
-// 1.98 GHz max SM clock) = 0.399 ms at d = 1e8, three times the byte
+// key-injection adds: 47.0 on the int32 ALU and 19.75 IMADs, which issue on
+// the FMA pipe (64 lanes per SM each). Bound = n * 47.0 / (132 SMs x 64
+// lanes x 1.98 GHz max SM clock) = 0.281 ms at d = 1e8, twice the byte
 // bound: the kernel is bound by integer issue, not by memory.
 #include "qsgd_common.cuh"
 #include "threefry.cuh"

@@ -32,11 +32,12 @@ def qsgd_quantize(flat: torch.Tensor, key, bits: int = 4):
 
 
 def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
-    """Quantize a (B, n) stack in one launch; message b's dither is the
-    counter hash keyed by the two words of ``keys[b]``. Returns (packed
-    uint8 (B, rows, 16*bits), norms f32 (B, rows))."""
-    x3d = rows2d(flat_batch.to(torch.float32))
-    return _qsgd.qsgd_quantize_pack_batch(x3d, keys, bits)
+    """Quantize a (B, n) stack in one launch (the kernel pads the ragged
+    last rows); message b's dither is the counter hash keyed by the two
+    words of ``keys[b]``. Returns (packed uint8 (B, rows, 16*bits), norms
+    f32 (B, rows))."""
+    return _qsgd.qsgd_quantize_pack_batch_flat(
+        flat_batch.to(torch.float32).contiguous(), keys, bits)
 
 
 def qsgd_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,

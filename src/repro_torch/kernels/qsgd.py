@@ -17,6 +17,11 @@ mask the ragged edge themselves and take wire-layout rows as they come.
 Kernels that load 16 bytes at a time need 16-byte aligned inputs on the
 card; the wrappers raise for any other.
 
+The batched encode has two entries on one kernel:
+``qsgd_quantize_pack_batch`` takes the TPU kernel's (B, rows, 128) layout
+and ``qsgd_quantize_pack_batch_flat`` a flat (B, n) stack, whose ragged
+rows the kernel pads itself (the flush's broadcast encode, one launch).
+
 The b=1 upload has two entries: ``qsgd_quantize_pack`` takes the uniforms
 from the caller (the TPU kernel's own signature) and
 ``qsgd_quantize_pack_threefry`` draws the threefry uniforms inside the
@@ -127,35 +132,82 @@ def qsgd_quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
     return packed, norms
 
 
+def seed_words(seeds: torch.Tensor):
+    """The (B, 2) seed words (int64 holding uint32 values) as the batched
+    kernel's by-value parameter: a ``SeedWords`` whose words 2b, 2b+1 are
+    ``seeds[b]`` for B <= ``SEEDS_BY_VALUE``, else None (the kernel then
+    reads them from a device buffer)."""
+    b = seeds.shape[0]
+    if b > _build.SEEDS_BY_VALUE:
+        return None
+    words = _build.SeedWords()
+    words.w[:2 * b] = [int(w) & 0xFFFFFFFF for w in seeds.reshape(-1).tolist()]
+    return words
+
+
+def _check_seeds(seeds, b: int) -> torch.Tensor:
+    seeds = torch.as_tensor(seeds, dtype=torch.int64).reshape(-1, 2)
+    if seeds.shape[0] != b:
+        raise ValueError(f"seeds: {seeds.shape[0]} pairs for {b} messages")
+    return seeds
+
+
+def _launch_batch(x: torch.Tensor, n: int, stride: int, b: int,
+                  seeds: torch.Tensor, bits: int):
+    """The batched kernel on B messages of n elements, message b at
+    ``x.data_ptr() + 4*b*stride``; the kernel zero-pads each ragged last
+    row. Seed words go by value, or for B above the cap through a device
+    buffer."""
+    check_aligned("x", x)
+    rows = _ref.rows_for(n)
+    packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,
+                         device=x.device)
+    norms = torch.empty((b, rows), dtype=torch.float32, device=x.device)
+    if b * rows:
+        words, on_dev = seed_words(seeds), None
+        if words is None:
+            on_dev = to_device(prng.key_words_i32(seeds.cpu()).contiguous(),
+                               x.device)
+            words = _build.SeedWords()
+        fn = _build.entry("quantize_pack_batch")
+        _build.check("qsgd_quantize_pack_batch", fn(
+            x.data_ptr(), n, stride, b, bits, words,
+            None if on_dev is None else on_dev.data_ptr(), packed.data_ptr(),
+            norms.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream))
+        LAUNCHES["qsgd_quantize_pack_batch"] += 1
+    return packed, norms
+
+
 def qsgd_quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor,
                              bits: int):
     """Quantize + pack an f32 (B, rows, 128) stack; the dither is the
     in-kernel counter hash keyed by each message's seed words ``seeds[b]``
-    ((B, 2) int64 holding uint32 values, on any device) and the element
-    index ``row*128 + lane``. Returns (packed uint8 (B, rows, 16*bits),
-    norms f32 (B, rows))."""
+    ((B, 2) int64 holding uint32 values, best on the CPU: up to
+    ``SEEDS_BY_VALUE`` messages they ride in the launch itself) and the
+    element index ``row*128 + lane``. Returns (packed uint8
+    (B, rows, 16*bits), norms f32 (B, rows))."""
     check_bits(bits)
     b, rows = x3d.shape[0], x3d.shape[1]
     check_tensor("x3d", x3d, torch.float32, (None, None, LANES), x3d.device)
-    seeds = torch.as_tensor(seeds, dtype=torch.int64).reshape(-1, 2)
-    if seeds.shape[0] != b:
-        raise ValueError(f"seeds: {seeds.shape[0]} pairs for {b} messages")
+    seeds = _check_seeds(seeds, b)
     if not on_card(x3d):
         return _ref.quantize_pack_batch(x3d, seeds, bits)
-    check_aligned("x3d", x3d)
-    words = to_device(prng.key_words_i32(seeds.cpu()).contiguous(),
-                      x3d.device)
-    packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,
-                         device=x3d.device)
-    norms = torch.empty((b, rows), dtype=torch.float32, device=x3d.device)
-    if b * rows:
-        fn = _build.entry("quantize_pack_batch")
-        _build.check("qsgd_quantize_pack_batch", fn(
-            x3d.data_ptr(), words.data_ptr(), packed.data_ptr(),
-            norms.data_ptr(), b, rows, bits,
-            torch.cuda.current_stream(x3d.device).cuda_stream))
-        LAUNCHES["qsgd_quantize_pack_batch"] += 1
-    return packed, norms
+    return _launch_batch(x3d, rows * LANES, rows * LANES, b, seeds, bits)
+
+
+def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
+                                  bits: int):
+    """``qsgd_quantize_pack_batch`` of a flat f32 (B, n) stack over each
+    message's zero-padded ``rows = ceil(n/128)`` rows: the same kernel,
+    which pads the ragged last rows itself, so the call is one launch."""
+    check_bits(bits)
+    check_tensor("flat2d", flat2d, torch.float32, (None, None),
+                 flat2d.device)
+    b, n = flat2d.shape
+    seeds = _check_seeds(seeds, b)
+    if not on_card(flat2d):
+        return _ref.quantize_pack_batch(_ref.rows2d(flat2d), seeds, bits)
+    return _launch_batch(flat2d, n, n, b, seeds, bits)
 
 
 def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
@@ -169,6 +221,7 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
     check_tensor("norms", norms, torch.float32, (rows,), packed.device)
     if not on_card(packed):
         return _ref.unpack_dequantize(packed, norms, bits)
+    check_aligned("packed", packed)
     out = torch.empty((rows, LANES), dtype=torch.float32, device=packed.device)
     if rows:
         fn = _build.entry("unpack_dequantize")

@@ -4,6 +4,7 @@ jitted entry points (repro.kernels.ops), with torch.equal: codes, norms and
 f32 values bit for bit. The JAX side runs its own CPU routes, which its
 test_fast_routes_match_interpreted_pallas pins to the interpreted kernels.
 The CUDA kernels against their plain versions: test_torch_kernels_card."""
+import ctypes
 import fractions
 
 import jax
@@ -180,6 +181,30 @@ def test_buffer_aggregate_matches_jax(bits, k):
                               torch.from_numpy(norms), torch.from_numpy(w),
                               bits, n)
     assert _bits_equal(ja, ta)
+
+
+@pytest.mark.parametrize("b", (1, 3, 64, 65))
+def test_seed_words_by_value(b):
+    """The batched kernel's seed words: up to the cap (64 messages) they
+    ride in the launch as a struct of 2*cap uint32 words, words 2b and 2b+1
+    being message b's, the same bit patterns the kernel would otherwise
+    read from a device buffer (``prng.key_words_i32``), high words
+    included; above the cap there is no struct."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(b)
+    seeds = torch.from_numpy(
+        rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.int64))
+    seeds[0] = torch.tensor([0x80000000, 0xFFFFFFFF])
+    words = tkernels.qsgd.seed_words(seeds)
+    if b > _build.SEEDS_BY_VALUE:
+        assert words is None
+        return
+    cap = _build.SEEDS_BY_VALUE
+    assert cap == 64 and ctypes.sizeof(words) == 8 * cap
+    raw = np.frombuffer(bytes(words), dtype=np.uint32)
+    want = prng.key_words_i32(seeds).numpy().view(np.uint32).reshape(-1)
+    assert np.array_equal(raw[:2 * b], want)
+    assert not raw[2 * b:].any()
 
 
 def test_fma_f32_rounds_once():

@@ -142,3 +142,74 @@ def test_misaligned_inputs_raise():
         tkernels.buffer_agg.buffer_aggregate(
             stack.reshape(2, 1, 64), torch.ones(2, 1, device=dev),
             torch.ones(2, device=dev), 4)
+    with pytest.raises(ValueError, match="aligned"):
+        tkernels.qsgd.qsgd_unpack_dequantize(
+            stack[:64].reshape(1, 64), torch.ones(1, device=dev), 4)
+    with pytest.raises(ValueError, match="aligned"):
+        tkernels.qsgd.qsgd_quantize_pack_batch_flat(
+            flat.reshape(1, -1), prng.split(prng.PRNGKey(0), 1), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+def test_unpack_dequantize_random_codes(bits):
+    """The broadcast decode on random code bytes (every code, -0.0
+    included) on odd row counts on both sides of the switch from one code
+    word per thread to 16-byte vectors, as the aggregate's test does."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    for rows in (1, 625, 1001, 40_001):
+        p = torch.randint(0, 256, (rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand(rows, generator=gen, device=dev) * 3.0
+        nm[rows // 2] = 0.0  # an all-zero bucket
+        before = tkernels.launches()["qsgd_unpack_dequantize"]
+        got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
+        want = ref.unpack_dequantize(p, nm, bits)
+        _assert_bits_equal(got, want)
+        assert bool((want.view(torch.int32) == -2**31).any())  # a -0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("b", (1, 3, 8, 65))
+def test_quantize_batch_every_shape(bits, b):
+    """The batched encode with seed words >= 2**31, by value (B <= 64) and
+    from a device buffer (B = 65), on flat messages whose lengths leave the
+    last row ragged and, for odd messages, the start unaligned (the kernel
+    pads and copies such rows itself); row counts that end inside a warp's
+    8-row tile; all-zero rows, an all-zero message and -0.0 elements; and
+    enough tiles (B = 3 at 40,001 rows: over six per warp of the persistent
+    grid) that every warp refills each of its three buffers. Each message's
+    codes are the same alone as inside the batch."""
+    dev = _card()
+    rng = np.random.default_rng(bits * 1000 + b)
+    seeds = torch.from_numpy(
+        rng.integers(2**31, 2**32, (b, 2), dtype=np.uint64).astype(np.int64))
+    sizes = [1, 127, 128 * 8 + 5, 79_842]
+    if b == 3:
+        sizes += [128 * 40_001 - 3, 128 * 40_001]
+    for n in sizes:
+        x = torch.from_numpy((rng.standard_normal((b, n)) * 0.1)
+                             .astype(np.float32))
+        x[:, 128:256] = 0.0  # an all-zero bucket
+        x[:, 5::97] = -0.0
+        if b > 1:
+            x[-1] = 0.0  # an all-zero message
+        x = x.to(dev)
+        before = tkernels.launches()["qsgd_quantize_pack_batch"]
+        got = tkernels.qsgd.qsgd_quantize_pack_batch_flat(x, seeds, bits)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_quantize_pack_batch"] == before + 1
+        x3d = ref.rows2d(x)
+        want = ref.quantize_pack_batch(x3d, seeds, bits)
+        _assert_bits_equal(got, want)
+        _assert_bits_equal(
+            tkernels.qsgd.qsgd_quantize_pack_batch(x3d, seeds, bits), want)
+        for i in {0, b - 1}:
+            alone = tkernels.qsgd.qsgd_quantize_pack_batch_flat(
+                x[i:i + 1].clone(), seeds[i:i + 1], bits)
+            _assert_bits_equal((alone[0][0], alone[1][0]),
+                               (got[0][i], got[1][i]))
