@@ -17,20 +17,33 @@ Phases, each printing one JSON line:
    device time per launch, the plain version's time and the bound with its
    formula; then the b=1 upload at d = 1e8 before (``prng.uniform`` + the
    given-uniforms kernel) and after (the fused entry), in one run;
-4. the b=1 upload under ``torch.profiler``: device launches of one
+4. the cohort path's kernel shapes the same way: K2 as the cohort upload
+   at B = 32 over 624 rows in qsgd4 and qsgd2 and at B = 8 over d = 1e8,
+   and K3 decoding a qsgd2 tier upload at 624 rows;
+5. the b=1 upload under ``torch.profiler``: device launches of one
    ``ops.qsgd_quantize`` (exactly one) against the old composition's, and
    device launches per client step; and one broadcast encode as the flush
    makes it (``ops.qsgd_quantize_batch``): exactly one device activity;
-5. the main path through its entry points: ``AsyncFLSimulator`` driving
+6. the main path through its entry points: ``AsyncFLSimulator`` driving
    ``QAFeL`` on the paper's CNN at full width (79,842 parameters), the
    federated example's configuration, concurrency 16, 100 uploads, with the
-   launch counters set to 0 just before and read just after;
-6. a short second run of the main path under ``torch.profiler``: the
-   device's idle share and its busiest kernels;
-7. the server path on the card against the CPU's plain versions on
-   identical uploads, and the quickstart on both devices, bit for bit;
-8. one line listing every kernel with its launches, times and bound;
-9. last, ``{"ok": true, "device": {...}}``.
+   launch counters set to 0 just before and read just after; then a short
+   second run under ``torch.profiler``: the device's idle share, launches
+   per upload and busiest kernels;
+7. the cohort path through its entry points: ``CohortAsyncFLSimulator``
+   driving ``QAFeL`` on the same CNN and task under ``tiered_bits`` (30%
+   of the clients upload qsgd2), concurrency 100, cohorts of 32, 200
+   uploads, the launch counters set to 0 just before and read just after;
+   the peak memory of one such client step of 32 members, per member and
+   parameter, against the member-chunk rule's constant; then the same run
+   again under ``torch.profiler``;
+8. the server path on the card against the CPU's plain versions on
+   identical uploads, the quickstart on both devices, and the cohort
+   engine on the quad task (cohorts of 4, ``tiered_bits``) on both
+   devices, bit for bit;
+9. one line listing every kernel with its launches on both paths, times
+   and bound;
+10. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Times come from CUDA events
@@ -69,6 +82,9 @@ INT32_OPCODES = FMA_PIPE_OPCODES | frozenset((
 CNN_N, CNN_ROWS, CNN_K, BITS = 79_842, 624, 10, 4
 BIG_ROWS = 781_250  # d = 1e8
 MAIN_UPLOADS, CONCURRENCY = 100, 16
+# the cohort path: tiered_bits, 200 uploads at concurrency 100 in cohorts
+# of 32; K2 is also held at B = 8 over d = 1e8 (3.2 GB of input)
+COHORT_UPLOADS, COHORT_CONCURRENCY, COHORT_SIZE, COHORT_BIG_B = 200, 100, 32, 8
 
 
 def emit(obj) -> None:
@@ -293,45 +309,132 @@ def kernel_cases(rows: int, k: int, dev, dither_int32: dict,
     }
 
 
+def measure_case(name: str, case: dict, reps: int, plain_reps: int) -> dict:
+    """One kernel case against its plain version on the same inputs, bit
+    for bit (raises on a difference), then both timed; with the bound."""
+    import torch
+
+    got = case["fn"](*case["args"])
+    want = case["plain"](*case["args"])
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    equal = all(bits_equal(g, w) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    if not equal:
+        raise AssertionError(f"{name}: kernel and plain version differ "
+                             f"(max abs err {err})")
+    del got, want
+    ops_rate, ops_type = case["rate"]
+    bytes_s, ops_s = case["bytes"] / HBM_BYTES_PER_S, case["ops"] / ops_rate
+    return dict(
+        source=case["source"], replaces=case["replaces"],
+        equal=equal, max_abs_err=err,
+        ms=device_ms(lambda: case["fn"](*case["args"]), reps),
+        plain_ms=device_ms(lambda: case["plain"](*case["args"]), plain_reps),
+        bound_ms=1e3 * max(bytes_s, ops_s),
+        bound_by="bytes" if bytes_s >= ops_s else "operations",
+        bytes=case["bytes"], bytes_formula=case["bytes_formula"],
+        bytes_ms=1e3 * bytes_s, ops=case["ops"], ops_type=ops_type,
+        ops_ms=1e3 * ops_s,
+        ops_formula=case.get("ops_formula", f"counted / {ops_type} peak"))
+
+
 def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int,
                   dither_int32: dict, hash_int32: dict,
                   int32_ops_per_s: float):
     """Each kernel against its plain version at one shape; returns the
     per-kernel measurements."""
-    import torch
-
     out = {}
     for name, case in kernel_cases(rows, k, dev, dither_int32, hash_int32,
                                    int32_ops_per_s).items():
-        got = case["fn"](*case["args"])
-        want = case["plain"](*case["args"])
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        equal = all(bits_equal(g, w) for g, w in zip(got, want))
-        err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(got, want))
-        if not equal:
-            raise AssertionError(f"{name} at rows={rows}: kernel and plain "
-                                 f"version differ (max abs err {err})")
-        ops_rate, ops_type = case["rate"]
-        bytes_s, ops_s = case["bytes"] / HBM_BYTES_PER_S, case["ops"] / ops_rate
-        bound_ms = 1e3 * max(bytes_s, ops_s)
-        out[name] = dict(
-            source=case["source"], replaces=case["replaces"],
-            equal=equal, max_abs_err=err,
-            ms=device_ms(lambda: case["fn"](*case["args"]), reps),
-            plain_ms=device_ms(lambda: case["plain"](*case["args"]),
-                               plain_reps),
-            bound_ms=bound_ms,
-            bound_by="bytes" if bytes_s >= ops_s else "operations",
-            bytes=case["bytes"], bytes_formula=case["bytes_formula"],
-            bytes_ms=1e3 * bytes_s, ops=case["ops"], ops_type=ops_type,
-            ops_ms=1e3 * ops_s,
-            ops_formula=case.get("ops_formula", f"counted / {ops_type} peak"))
+        out[name] = measure_case(f"{name} at rows={rows}", case, reps,
+                                 plain_reps)
         emit({"phase": "kernel", "name": name, "rows": rows, "k": k,
               **{key: v for key, v in out[name].items()
                  if key not in ("source", "replaces")}})
+    return out
+
+
+def cohort_kernel_cases(dev, hash_int32: dict, int32_ops_per_s: float):
+    """The cohort path's new kernel shapes: K2 as the cohort upload (the
+    flat (B, n) delta stack as ``encode_deltas`` hands it over, seed words
+    from the CPU) at B = 32 over the CNN's 624 rows in qsgd4 and qsgd2 and
+    at B = 8 over d = 1e8, and K3 decoding a qsgd2 tier upload at 624
+    rows. The plain version of the B = 8 case runs message by message (a
+    message's codes do not depend on its batch), which keeps its int64
+    temporaries to one message's."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import qsgd, ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    int32 = (int32_ops_per_s, "int32")
+
+    def plain_batch(f, s, b):
+        return ref.quantize_pack_batch(ref.rows2d(f), s, b)
+
+    def plain_by_message(f, s, b):
+        parts = [ref.quantize_pack_batch(ref.rows2d(f[i:i + 1]), s[i:i + 1],
+                                         b) for i in range(f.shape[0])]
+        return (torch.cat([p for p, _ in parts]),
+                torch.cat([nm for _, nm in parts]))
+
+    def k2(b, n, bits, plain):
+        x = torch.randn((b, n), generator=gen, device=dev) * 0.01
+        x[:, 128:256] = 0.0  # an all-zero bucket
+        seeds = prng.split_each(prng.split(prng.PRNGKey(b + bits), b))[:, 1]
+        rows = ref.rows_for(n)
+        hash_ops = hash_int32["whole" if n % 128 == 0 else "general"]
+        return dict(
+            source="src/repro_torch/kernels/csrc/quantize_pack_batch.cu",
+            replaces="src/repro/kernels/qsgd.py:160",
+            fn=qsgd.qsgd_quantize_pack_batch_flat, plain=plain,
+            args=(x, seeds, bits),
+            bytes=b * n * 4 + b * 8 + b * rows * (16 * bits + 4),
+            bytes_formula="B*n*4 x + B*8 seeds + B*rows*(128*bits/8 + 4)",
+            ops=b * n * hash_ops["bound"],
+            ops_formula=f"B*n*max(fma {hash_ops['fma']}, alu "
+                        f"{hash_ops['alu']}) int32 per element (SASS, qsgd4 "
+                        "kernel) / (SMs*64*max SM clock)",
+            rate=int32)
+
+    cases = {f"K2_B{COHORT_SIZE}_qsgd{bits}_cnn":
+             k2(COHORT_SIZE, CNN_N, bits, plain_batch) for bits in (4, 2)}
+    p2, n2 = qsgd.qsgd_quantize_pack_batch_flat(
+        cases[f"K2_B{COHORT_SIZE}_qsgd2_cnn"]["args"][0][:1],
+        torch.tensor([[3, 4]]), 2)
+    cases["K3_qsgd2_cnn"] = dict(
+        source="src/repro_torch/kernels/csrc/unpack_dequantize.cu",
+        replaces="src/repro/kernels/qsgd.py:356",
+        fn=qsgd.qsgd_unpack_dequantize, plain=ref.unpack_dequantize,
+        args=(p2[0], n2[0], 2),
+        bytes=CNN_ROWS * (32 + 4) + CNN_ROWS * 128 * 4,
+        bytes_formula="rows*(128*bits/8 + 4) + rows*128*4 out",
+        ops=CNN_ROWS * 128 * 4, rate=(F32_OPS_PER_S, "float32"))
+    cases[f"K2_B{COHORT_BIG_B}_qsgd4_d1e8"] = k2(
+        COHORT_BIG_B, BIG_ROWS * 128, 4, plain_by_message)
+    return cases
+
+
+def check_cohort_kernels(dev, hash_int32: dict, int32_ops_per_s: float):
+    """The cohort path's kernel shapes against their plain versions, bit
+    for bit, timed with their bounds."""
+    import torch
+
+    out = {}
+    for name, case in cohort_kernel_cases(dev, hash_int32,
+                                          int32_ops_per_s).items():
+        big = "d1e8" in name
+        out[name] = measure_case(name, case, 10 if big else 50,
+                                 1 if big else 10)
+        emit({"phase": "cohort_kernel", "name": name,
+              **{key: v for key, v in out[name].items()
+                 if key not in ("source", "replaces")}})
+        case.clear()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -552,10 +655,12 @@ def run_main_path(dev, client_step_launches: float):
     return record, launches
 
 
-def profile_window(dev, uploads: int = 20):
-    """A short second run of the main path under ``torch.profiler``: the
-    device's busy and idle share of the window, and the kernels that take
-    the most device time."""
+def profile_window(dev, uploads: int = 20, cohort_size=None):
+    """A short second run under ``torch.profiler``: the main path
+    (``AsyncFLSimulator``), or with ``cohort_size`` the cohort path
+    (``CohortAsyncFLSimulator`` under ``tiered_bits``); the device's busy
+    and idle share of the window, its launches per upload and the kernels
+    that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -563,15 +668,23 @@ def profile_window(dev, uploads: int = 20):
     from repro_torch.core import QAFeL
     from repro_torch.examples import federated_celeba as fc
     from repro_torch.models.cnn import init_cnn
-    from repro_torch.sim import AsyncFLSimulator, SimConfig
+    from repro_torch.sim import (AsyncFLSimulator, CohortAsyncFLSimulator,
+                                 SimConfig)
 
     task = fc.celeba_task(dev)
     algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(1, device=dev),
                  device=dev)
-    sim = AsyncFLSimulator(algo, SimConfig(concurrency=CONCURRENCY,
-                                           max_uploads=uploads,
-                                           eval_every_steps=3),
-                           task.client_batches, task.eval_fn)
+    if cohort_size is None:
+        sim = AsyncFLSimulator(algo, SimConfig(concurrency=CONCURRENCY,
+                                               max_uploads=uploads,
+                                               eval_every_steps=3),
+                               task.client_batches, task.eval_fn)
+    else:
+        sim = CohortAsyncFLSimulator(
+            algo, SimConfig(concurrency=COHORT_CONCURRENCY,
+                            max_uploads=uploads, eval_every_steps=3),
+            task.client_batches, task.eval_fn, scenario="tiered_bits",
+            cohort_size=cohort_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -584,15 +697,165 @@ def profile_window(dev, uploads: int = 20):
                and not e.is_user_annotation]
     busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    record = {"phase": "profile", "uploads": uploads, "wall_s": wall,
-              "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
-              "device_launches": sum(e.count for e in kernels),
+    launches = sum(e.count for e in kernels)
+    # clients trained: the cohort engine admits whole cohorts, beyond the
+    # uploads delivered
+    trained = (uploads if cohort_size is None
+               else sim.cohorts * cohort_size)
+    record = {"phase": "profile" if cohort_size is None else "cohort_profile",
+              "uploads": uploads, "cohort_size": cohort_size,
+              "clients_trained": trained,
+              "wall_s": wall, "device_busy_s": busy_s,
+              "device_idle_share": 1 - busy_s / wall,
+              "device_launches": launches,
+              "device_launches_per_upload": launches / uploads,
+              "device_launches_per_client_trained": launches / trained,
               "top_kernels": [{"name": e.key[:80],
                                "ms": 1e-3 * e.self_device_time_total,
                                "count": e.count} for e in top]}
     emit(record)
     if busy_s <= 0:
         raise AssertionError("the profiler saw no device time")
+    return record
+
+
+def run_cohort_path(dev, main_profile: dict, client_step_launches: float):
+    """The cohort engine on the full-width CNN through its entry points:
+    ``CohortAsyncFLSimulator`` driving ``QAFeL`` with the federated
+    example's task and configuration under ``tiered_bits`` (30% of the
+    clients upload qsgd2), concurrency 100, cohorts of 32, 200 uploads,
+    the launch counters set to 0 just before and read just after. Returns
+    its record and the launch counts of exactly this run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import CohortAsyncFLSimulator, SimConfig
+
+    task = fc.celeba_task(dev)
+    algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(0, device=dev),
+                 device=dev)
+    flush_s = []
+    inner_flush = algo._flush
+
+    def timed_flush(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_flush(*args, **kw)
+        torch.cuda.synchronize()
+        flush_s.append(time.perf_counter() - t0)
+        return out
+
+    algo._flush = timed_flush
+    # flushes whose window held packed uploads, each one K4 launch (a
+    # window of tier uploads only has nothing to aggregate)
+    packed_windows = []
+    inner_drain = algo.buffer.drain
+
+    def counted_drain():
+        batch = inner_drain()
+        packed_windows.append(batch.stack is not None)
+        return batch
+
+    algo.buffer.drain = counted_drain
+    sim = CohortAsyncFLSimulator(
+        algo, SimConfig(concurrency=COHORT_CONCURRENCY,
+                        max_uploads=COHORT_UPLOADS, eval_every_steps=3),
+        task.client_batches, task.eval_fn, scenario="tiered_bits",
+        cohort_size=COHORT_SIZE)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    m = res.metrics
+    flushes = res.server_steps
+    tier = algo.meter.uploads_by_kind.get("qsgd2", 0)
+    checks = {
+        "replicas_in_sync": bool(m["replicas_in_sync"]),
+        "uploads": res.uploads == COHORT_UPLOADS,
+        "n_params": algo.state.n == CNN_N,
+        "tiers_present": 0 < tier < res.uploads,
+        "accuracy_finite": math.isfinite(res.final_accuracy),
+        "state_finite": bool(torch.isfinite(algo.state.x_flat).all()),
+        # one K2 launch at B = 32 per tier group of every cohort, and one
+        # broadcast encode per flush
+        "K2_per_group_and_flush": launches["qsgd_quantize_pack_batch"]
+        == sim.groups + flushes and sim.groups >= sim.cohorts > 0,
+        "K1_off_path": launches["qsgd_quantize_pack_threefry"]
+        == launches["qsgd_quantize_pack"] == 0,
+        # the flush's decode, the replicas' decode, every tier upload's
+        "K3_per_flush_and_tier": launches["qsgd_unpack_dequantize"]
+        == 2 * flushes + tier,
+        "K4_per_packed_window": launches["buffer_aggregate"]
+        == sum(packed_windows) > 0 and len(packed_windows) == flushes,
+    }
+    record = {"phase": "cohort_path", "uploads": res.uploads,
+              "cohort_size": COHORT_SIZE, "scenario": "tiered_bits",
+              "concurrency": COHORT_CONCURRENCY,
+              "cohorts_admitted": sim.cohorts, "tier_groups": sim.groups,
+              "server_steps": flushes,
+              "packed_windows": sum(packed_windows),
+              "wall_s": wall, "uploads_per_s": res.uploads / wall,
+              "flush_ms_median": 1e3 * statistics.median(flush_s),
+              "dropped_uploads": m["dropped_uploads"],
+              "tier_decoded_uploads": tier,
+              "final_accuracy": res.final_accuracy,
+              "replicas_in_sync": bool(m["replicas_in_sync"]),
+              "tau_max": m["tau_max"],
+              "kB_per_upload": {k: v for k, v in m.items()
+                                if k.startswith("kB_per_upload")},
+              "launches": launches,
+              "main_path_device_launches_per_upload":
+                  main_profile["device_launches_per_upload"],
+              "main_path_client_step_device_launches": client_step_launches,
+              "checks": checks}
+    emit(record)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cohort path checks failed: {failed}")
+    cohort_step_memory(dev, algo, task)
+    return record, launches
+
+
+def cohort_step_memory(dev, algo, task) -> dict:
+    """Peak device memory of one client step of the cohort path (the CNN,
+    ``COHORT_SIZE`` members in one vmap, their batches included), per
+    member and parameter, held against the constant of the member-chunk
+    rule (``sim.cohort.auto_member_chunk``). Run after the cohort path's
+    counts are read; the step's launches are not counted."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.core.qafel import client_update_flat
+    from repro_torch.sim import cohort
+
+    b, st = COHORT_SIZE, algo.state
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = cohort._stack_trees(
+        [task.client_batches(i, None) for i in range(b)])
+    keys = prng.split_each(prng.split(prng.PRNGKey(7), b))
+    chunk = cohort.auto_member_chunk(b, st.n, dev)
+    client_update_flat(algo.loss_fn, algo.qcfg, algo.cq.spec, st.layout,
+                       st.hidden_flat, batches, keys[:, 0], keys[:, 1], b=b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    per = peak / (b * st.n)
+    record = {"phase": "cohort_step_memory", "members": b, "params": st.n,
+              "peak_bytes": peak, "bytes_per_member_param": per,
+              "rule_bytes_per_member_param": cohort._BYTES_PER_MEMBER_PARAM,
+              "auto_member_chunk": chunk}
+    emit(record)
+    if not per <= cohort._BYTES_PER_MEMBER_PARAM or chunk is not None:
+        raise AssertionError("the member-chunk rule's constant is below the "
+                             "measured working set, or it chunks the "
+                             "cohort path")
     return record
 
 
@@ -644,8 +907,54 @@ def check_against_cpu(dev):
     quick_equal = bits_equal(q_cpu.state.hidden_flat,
                              q_dev.state.hidden_flat.cpu())
     assert quick_equal, "quickstart x-hat differs between cpu and cuda"
+    cohort = cohort_quad_on_both(dev)
     emit({"phase": "card_vs_cpu", "server_flushes": servers[dev].state.t,
-          "server_bit_exact": True, "quickstart_bit_exact": quick_equal})
+          "server_bit_exact": True, "quickstart_bit_exact": quick_equal,
+          **cohort})
+
+
+def cohort_quad_on_both(dev) -> dict:
+    """The cohort engine on the quad task (d = 2048, cohort_size 4,
+    ``tiered_bits``, 40 uploads) on the card and on the CPU: x, x-hat,
+    momentum and every broadcast's codes and norms bit for bit."""
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import cohort_scenarios as cs
+    from repro_torch.sim import CohortAsyncFLSimulator, SimConfig
+
+    runs = {}
+    for d in ("cpu", dev):
+        task = cs.quad_task(d)
+        algo = QAFeL(cs.qafel_config(4), task.loss_fn, task.params0,
+                     device=d)
+        sent, inner = [], algo.receive
+
+        def receive(msg, key, n_receivers=1, inner=inner, sent=sent):
+            bmsg = inner(msg, key, n_receivers)
+            if bmsg is not None:
+                sent.append(bmsg.payload)
+            return bmsg
+
+        algo.receive = receive
+        res = CohortAsyncFLSimulator(
+            algo, SimConfig(concurrency=8, max_uploads=40,
+                            eval_every_steps=3),
+            task.client_batches, task.eval_fn, scenario="tiered_bits",
+            cohort_size=4).run()
+        runs[str(d)] = (algo, res, sent)
+    (ca, cr, cs_sent), (ga, gr, gs_sent) = runs["cpu"], runs[str(dev)]
+    for name in ("x_flat", "hidden_flat", "momentum_flat"):
+        assert bits_equal(getattr(ca.state, name),
+                          getattr(ga.state, name).cpu()), name
+    assert len(cs_sent) == len(gs_sent) == ca.state.t > 0
+    for c, g in zip(cs_sent, gs_sent):
+        assert bits_equal(c["packed"], g["packed"].cpu())
+        assert bits_equal(c["norms"], g["norms"].cpu())
+    assert cr.metrics["replicas_in_sync"] and gr.metrics["replicas_in_sync"]
+    assert ca.meter.summary() == ga.meter.summary()
+    tier = ca.meter.uploads_by_kind.get("qsgd2", 0)
+    assert tier > 0, "no tier upload in the quad run"
+    return {"cohort_quad_bit_exact": True, "cohort_quad_flushes": ca.state.t,
+            "cohort_quad_tier_uploads": tier}
 
 
 def main() -> int:
@@ -689,10 +998,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     upload_before_after(dev)
 
+    cohort_cases = check_cohort_kernels(dev, hash_int32, int32_ops_per_s)
+
     steps = upload_launches(dev)
     broadcast_encode_launches(dev)
     record, launches = run_main_path(dev, steps["client_step_device_launches"])
-    profile_window(dev)
+    main_profile = profile_window(dev)
+    _, cohort_launches = run_cohort_path(
+        dev, main_profile, steps["client_step_device_launches"])
+    profile_window(dev, uploads=COHORT_UPLOADS, cohort_size=COHORT_SIZE)
     check_against_cpu(dev)
 
     kernels_line = []
@@ -706,9 +1020,18 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": None,
             "equal": m["equal"], "bytes_formula": m["bytes_formula"],
             "ops_formula": m["ops_formula"],
+            "cohort_launches": cohort_launches[name],
             "d1e8": {"ms": b["ms"], "plain_ms": b["plain_ms"],
                      "bound_ms": b["bound_ms"], "equal": b["equal"],
                      "max_abs_err": b["max_abs_err"]}})
+        prefix = {"qsgd_quantize_pack_batch": "K2_",
+                  "qsgd_unpack_dequantize": "K3_"}.get(name)
+        if prefix:
+            kernels_line[-1]["cohort_cases"] = {
+                case: {key: c[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "equal",
+                    "max_abs_err", "bytes_formula")}
+                for case, c in cohort_cases.items() if case.startswith(prefix)}
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,13 @@ against the installed jax in ``tests/test_torch_prng.py``:
 * ``uniform`` puts the top 23 bits into the mantissa of 1.x and subtracts 1;
 * ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
 
-A key is a CPU int64 tensor of shape (2,) holding the two uint32 words.
+A key is an int64 tensor of shape (2,) holding the two uint32 words.
 torch has no uint32 shifts or adds on the CPU, so every word lives in an
-int64 and is masked back to 32 bits after each add or shift.
+int64 and is masked back to 32 bits after each add or shift. The key words
+stay tensors through the cipher (never Python ints), so every function
+here runs under ``torch.func.vmap`` over a stack of keys — the cohort
+engine draws each member's dropout masks that way — and a draw lands on
+the key's device unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     """The threefry-2x32 block cipher (20 rounds) of counter words
-    ``(x0, x1)`` under ``key``; int64 tensors of uint32 values in and out."""
-    k0, k1 = key_words(key)
+    ``(x0, x1)`` under ``key``; int64 tensors of uint32 values in and out.
+    ``key[..., 0]`` and ``key[..., 1]`` broadcast against the counters."""
+    key = torch.as_tensor(key)
+    k0, k1 = key[..., 0] & MASK32, key[..., 1] & MASK32
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -61,14 +67,25 @@ def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def _counter_words(key, n: int, device):
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    key = torch.as_tensor(key)
+    lo = torch.arange(n, dtype=torch.int64,
+                      device=key.device if device is None else device)
     return threefry2x32(key, torch.zeros_like(lo), lo)
 
 
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: a (num, 2) int64 stack of keys."""
-    w0, w1 = _counter_words(key, int(num), "cpu")
+    w0, w1 = _counter_words(key, int(num), None)
     return torch.stack([w0, w1], dim=1)
+
+
+def split_each(keys, num: int = 2) -> torch.Tensor:
+    """``jax.vmap(jax.random.split)``: split each key of a (B, 2) stack,
+    giving a (B, num, 2) stack."""
+    keys = torch.as_tensor(keys)
+    lo = torch.arange(int(num), dtype=torch.int64, device=keys.device)
+    w0, w1 = threefry2x32(keys[:, None, :], torch.zeros_like(lo), lo)
+    return torch.stack([w0, w1], dim=-1)
 
 
 def bits(key, shape, device=None) -> torch.Tensor:
@@ -77,16 +94,16 @@ def bits(key, shape, device=None) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
-    w0, w1 = _counter_words(key, n, device if device is not None else "cpu")
+    w0, w1 = _counter_words(key, n, device)
     return (w0 ^ w1).reshape(shape)
 
 
 def uniform(key, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
-    b = bits(key, shape, device)
-    # the mantissa word fits in an int32, so the view is the f32 bit pattern
-    one_x = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return one_x - 1.0
+    # jax sets the top 23 bits as the mantissa of 1.m and subtracts 1,
+    # which is exactly m * 2**-23: m converts to f32 exactly, the scale is
+    # a power of two (and no bit view, which vmap cannot batch)
+    return (bits(key, shape, device) >> 9).to(torch.float32) * 2.0 ** -23
 
 
 def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Server-side update buffer (the "Buff" in FedBuff/QAFeL, Algorithm 1).
 
-Counterpart of ``repro/core/buffer.py``, packed mode only. The K uploads of
-a window are stored as they arrived on the wire — uint8 qsgd codes + bucket
+Counterpart of ``repro/core/buffer.py``, packed mode. The K uploads of a
+window are stored as they arrived on the wire — uint8 qsgd codes + bucket
 norms, stacked at flush time — or, for identity uploads (f32 on the wire),
-folded into one flat weighted sum. ``drain()`` hands the window's raw
-ingredients to the server flush, which dequantizes inside its fused
-aggregate launch, and resets the buffer.
+folded into one flat weighted sum. Uploads the server decoded on arrival
+(a bit-width tier's, ``add_decoded_flat``) fold into a second flat sum.
+``drain()`` hands the window's raw ingredients to the server flush, which
+dequantizes inside its fused aggregate launch, and resets the buffer.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ class FlushBatch:
     extra: Any = None  # (n,) flat f32 pre-scaled identity sum, or None
 
 
+def _f32_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to f32, as a 0-dim tensor on ``like``'s device."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32,
+                      device=like.device)
+
+
 def _true_div(t: torch.Tensor, denom: float) -> torch.Tensor:
     """``t / denom`` as an IEEE f32 division on every device. (On the card
     torch multiplies by the reciprocal of a Python-number divisor, which
@@ -52,6 +59,29 @@ class UpdateBuffer:
     _bits: Optional[int] = None
     _n: Optional[int] = None
     _flat_acc: Any = None  # identity uploads: flat f32 weighted sum
+    _acc: Any = None  # uploads decoded on arrival: flat f32 weighted sum
+    _weightsum: float = 0.0
+    flushes: int = 0
+
+    def add_decoded_flat(self, flat: torch.Tensor, weight: float = 1.0, *,
+                         layout: Optional[TreeLayout] = None) -> None:
+        """Accumulate an already-decoded flat f32 delta, as
+        ``weight * flat + acc`` (each product and sum rounded once)."""
+        n = int(flat.numel())
+        if self._layout is None:
+            if layout is None:
+                raise ValueError("add_decoded_flat into an empty buffer "
+                                 "needs a layout")
+            self._layout, self._n = layout, n
+        elif layout is not None and layout != self._layout:
+            raise ValueError("delta layout mismatch: all buffered uploads "
+                             "must share the same tree structure")
+        elif n != self._n:
+            raise ValueError(f"flat delta size {n} != n={self._n}")
+        term = flat * _f32_scalar(weight, flat)
+        self._acc = term if self._acc is None else term + self._acc
+        self._weightsum += float(weight)
+        self.count += 1
 
     def add_encoded(self, enc: dict, weight: float = 1.0) -> None:
         """Store one packed upload; no dequantization. Validates everything
@@ -83,6 +113,7 @@ class UpdateBuffer:
             term = enc["payload"] * weight
             self._flat_acc = (term if self._flat_acc is None
                               else self._flat_acc + term)
+        self._weightsum += float(weight)
         self._weights.append(float(weight))
         self.count += 1
 
@@ -99,13 +130,17 @@ class UpdateBuffer:
     def _reset(self) -> None:
         self._packed, self._weights = [], []
         self._layout = self._bits = self._n = None
-        self._flat_acc = None
+        self._flat_acc = self._acc = None
+        self._weightsum = 0.0
         self.count = 0
+        self.flushes += 1
 
     def drain(self) -> FlushBatch:
         """Hand the window's raw ingredients to the flush, and reset. The
         weights are divided by K (Algorithm 1 line 11, the reference's
-        ``normalize="capacity"``) as ``f32(w) / f32(K)``."""
+        ``normalize="capacity"``) as ``f32(w) / f32(K)``; the identity sum
+        is divided by K, and the decoded sum is scaled by ``fl32(1/K)``
+        and added in front, ``scaled + extra``, as the reference does."""
         if not self.full:
             raise RuntimeError(f"flush before full: {self.count}/"
                                f"{self.capacity}")
@@ -119,6 +154,9 @@ class UpdateBuffer:
             weights = to_device(torch.from_numpy(w), stack.device)
         if self._flat_acc is not None:
             extra = _true_div(self._flat_acc, denom)
+        if self._acc is not None:
+            scaled = _f32_scalar(1.0 / denom, self._acc) * self._acc
+            extra = scaled if extra is None else scaled + extra
         batch = FlushBatch(n=self._n, layout=self._layout, bits=self._bits,
                            stack=stack, norms=norms, weights=weights,
                            extra=extra)

@@ -1,0 +1,178 @@
+"""Checkpoint / resume of the async QAFeL protocol.
+
+Counterpart of ``repro/core/checkpoint.py``, in the same format, so an
+archive written by either package loads in the other. It holds everything
+the server carries between uploads, so a run can stop after any upload —
+mid-window included — and continue bit-identically:
+
+* the flat ``ServerState``: x, x-hat and momentum as f32 vectors and the
+  step ``t``; the ``TreeLayout`` is stored as its fingerprint (per-leaf
+  shapes, dtypes and sizes) and verified on load;
+* the ``UpdateBuffer``'s window: the packed uploads (uint8 codes and
+  bucket norms, ``buf_packed_a`` / ``buf_packed_b``), the staleness
+  weights, and the flat identity and decoded-tier sums (``buf_flat_acc``,
+  ``buf_acc``);
+* the ``TrafficMeter`` and ``StalenessMonitor``.
+
+Format: one ``np.savez`` archive of plain arrays plus a JSON blob
+(``__meta__``); nothing is pickled. The simulator's key and numpy streams
+are not part of it: a resumed ``QAFeL`` fed the same messages continues
+bit-identically.
+
+The port runs on one device: it writes no ``sharding`` entry and loads a
+reference archive only if that archive came from one device. It has no
+lowrank uploads, so an archive with a basis seed, residuals or basis seeds
+in its window is refused too.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+CHECKPOINT_VERSION = 1
+
+
+def _normalize_path(path) -> str:
+    """``np.savez`` appends '.npz' to a path without it; save and load
+    apply the same rule."""
+    path = str(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _layout_fingerprint(layout) -> dict:
+    return {"shapes": [list(s) for s in layout.shapes],
+            "dtypes": list(layout.dtypes),
+            "sizes": [int(s) for s in layout.sizes]}
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def save_checkpoint(path, algo) -> None:
+    """Write ``algo``'s server-side state (see the module docstring)."""
+    st, buf = algo.state, algo.buffer
+    meta = {
+        "version": CHECKPOINT_VERSION,
+        "t": int(st.t),
+        "layout": _layout_fingerprint(st.layout),
+        "quantizers": {"client": algo.cq.spec.label(),
+                       "server": algo.sq.spec.label()},
+        "buffer": {
+            "capacity": int(buf.capacity),
+            "count": int(buf.count),
+            "flushes": int(buf.flushes),
+            "weightsum": float(buf._weightsum),
+            "weights": [float(w) for w in buf._weights],
+            "bits": None if buf._bits is None else int(buf._bits),
+            "n": None if buf._n is None else int(buf._n),
+            "n_packed": len(buf._packed),
+            "has_layout": buf._layout is not None,
+            "has_acc": buf._acc is not None,
+            "has_flat_acc": buf._flat_acc is not None,
+        },
+        "meter": dataclasses.asdict(algo.meter),
+        "staleness": {"max_allowed": int(algo.staleness.max_allowed),
+                      "history": list(algo.staleness.history),
+                      "dropped": list(algo.staleness.dropped)},
+    }
+    arrays = {"x_flat": _host(st.x_flat),
+              "hidden_flat": _host(st.hidden_flat),
+              "momentum_flat": _host(st.momentum_flat)}
+    if buf._packed:
+        arrays["buf_packed_a"] = np.stack([_host(a) for a, _ in buf._packed])
+        arrays["buf_packed_b"] = np.stack([_host(b) for _, b in buf._packed])
+    if buf._acc is not None:
+        arrays["buf_acc"] = _host(buf._acc)
+    if buf._flat_acc is not None:
+        arrays["buf_flat_acc"] = _host(buf._flat_acc)
+    np.savez(_normalize_path(path), __meta__=np.frombuffer(
+        json.dumps(meta).encode("utf-8"), dtype=np.uint8), **arrays)
+
+
+def _check_compatible(meta: dict, arrays: dict, algo) -> None:
+    """Raise unless the archive fits ``algo``, before any state changes."""
+    if meta["version"] != CHECKPOINT_VERSION:
+        raise ValueError(f"unsupported checkpoint version {meta['version']}")
+    layout = algo.state.layout
+    if meta["layout"] != _layout_fingerprint(layout):
+        raise ValueError(
+            "checkpoint layout does not match the model: the archive was "
+            "saved for a different parameter structure")
+    smeta = meta.get("sharding")
+    if smeta is not None:
+        if smeta["n"] != layout.total_size:
+            raise ValueError(
+                f"checkpoint flat layout n={smeta['n']} does not match the "
+                f"model's coordinate count {layout.total_size}")
+        if smeta["devices"] != 1:
+            raise ValueError(
+                f"checkpoint written by a run on {smeta['devices']} devices: "
+                "the port loads single-device archives only")
+    want_q = {"client": algo.cq.spec.label(), "server": algo.sq.spec.label()}
+    if meta["quantizers"] != want_q:
+        raise ValueError(f"checkpoint quantizers {meta['quantizers']} != "
+                         f"algo quantizers {want_q}")
+    bmeta = meta["buffer"]
+    if (meta.get("basis_seed", 0) or meta.get("residual_cids")
+            or bmeta.get("rank") is not None or "buf_seeds" in arrays):
+        raise ValueError("checkpoint holds lowrank upload state, which the "
+                         "port does not have")
+    if bmeta["capacity"] != algo.buffer.capacity:
+        raise ValueError(f"checkpoint buffer capacity {bmeta['capacity']} != "
+                         f"algo capacity {algo.buffer.capacity}")
+
+
+def load_checkpoint(path, algo):
+    """Restore a ``save_checkpoint`` archive of either package into
+    ``algo`` in place, on ``algo``'s device. ``algo`` must be built from
+    the same model and configuration: the layout fingerprint, quantizers
+    and buffer capacity are verified first, so a failed load leaves it
+    intact. Returns ``algo``."""
+    from repro_torch.core.qafel import ServerState  # avoids an import cycle
+
+    with np.load(_normalize_path(path)) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
+        arrays = {k: data[k] for k in data.files if k != "__meta__"}
+    _check_compatible(meta, arrays, algo)
+    dev = algo.device
+
+    def dev_tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    layout = algo.state.layout
+    algo.state = ServerState(
+        x_flat=dev_tensor(arrays["x_flat"]),
+        hidden_flat=dev_tensor(arrays["hidden_flat"]),
+        momentum_flat=dev_tensor(arrays["momentum_flat"]),
+        layout=layout, t=meta["t"])
+
+    bmeta = meta["buffer"]
+    buf = algo.buffer
+    buf._acc = dev_tensor(arrays["buf_acc"]) if bmeta["has_acc"] else None
+    buf._flat_acc = (dev_tensor(arrays["buf_flat_acc"])
+                     if bmeta["has_flat_acc"] else None)
+    if bmeta["n_packed"]:
+        codes = dev_tensor(arrays["buf_packed_a"])
+        norms = dev_tensor(arrays["buf_packed_b"])
+        buf._packed = [(codes[i], norms[i]) for i in range(bmeta["n_packed"])]
+    else:
+        buf._packed = []
+    buf._weights = list(bmeta["weights"])
+    buf._weightsum = bmeta["weightsum"]
+    buf._bits = bmeta["bits"]
+    buf._n = bmeta["n"]
+    buf._layout = layout if bmeta["has_layout"] else None
+    buf.count = bmeta["count"]
+    buf.flushes = bmeta["flushes"]
+
+    for field, value in meta["meter"].items():
+        setattr(algo.meter, field, value)
+    algo.staleness.max_allowed = meta["staleness"]["max_allowed"]
+    algo.staleness.history = list(meta["staleness"]["history"])
+    algo.staleness.dropped = list(meta["staleness"]["dropped"])
+    return algo

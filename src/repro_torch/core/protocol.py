@@ -39,21 +39,42 @@ def frame_packed_message(kind: str, quantizer: Quantizer, enc: dict,
                    meta=dict(meta))
 
 
+def payloads_from_fused(quantizer: Quantizer, out: dict, layout: TreeLayout,
+                        *, count: Optional[int] = None) -> List[dict]:
+    """Per-member wire payloads of one client step's output
+    (``kernels.ops.cohort_train_encode_step``): ``{"packed", "norms"}``
+    stacks for qsgd, a ``{"flat"}`` stack for identity.
+
+    ``count`` keeps the first N rows only: a tier group is padded to the
+    full cohort size, and the padding rows never reach the wire. Each
+    payload is a view of the step's output on its own device, so the
+    flush's stack reads it there, with no copy to the host and back. (The
+    reference also takes the members' encode keys, for the sparse kinds
+    the port does not have.)"""
+    n = layout.total_size
+    if quantizer.spec.kind == "qsgd":
+        packed, norms = out["packed"], out["norms"]
+        count = packed.shape[0] if count is None else count
+        return [packed_qsgd_payload(packed[i], norms[i], quantizer.spec.bits,
+                                    n, layout) for i in range(count)]
+    flat = out["flat"]
+    count = flat.shape[0] if count is None else count
+    return [packed_identity_payload(flat[i], n, layout)
+            for i in range(count)]
+
+
 def frame_cohort_messages(kind: str, quantizer: Quantizer, out: dict,
                           layout: TreeLayout, *,
-                          version: int = 0) -> List[Message]:
-    """Frame a client step's output — ``{"packed", "norms"}`` stacks for
-    qsgd, a ``{"flat"}`` stack for identity — as one Message per member,
-    all of model ``version``."""
-    n = layout.total_size
+                          version: int = 0,
+                          count: Optional[int] = None) -> List[Message]:
+    """Frame a client step's output as one Message per member (the first
+    ``count``), all of model ``version``. Bytes follow from the shapes,
+    wherever the payload lies."""
     wire = quantizer.wire_bytes_packed(layout)
-    if quantizer.spec.kind == "qsgd":
-        encs = [packed_qsgd_payload(p, nm, quantizer.spec.bits, n, layout)
-                for p, nm in zip(out["packed"], out["norms"])]
-    else:
-        encs = [packed_identity_payload(f, n, layout) for f in out["flat"]]
     return [Message(kind=kind, payload=enc, wire_bytes=wire,
-                    meta={"version": version}) for enc in encs]
+                    meta={"version": version})
+            for enc in payloads_from_fused(quantizer, out, layout,
+                                           count=count)]
 
 
 def payload_wire_bytes(enc) -> Optional[float]:

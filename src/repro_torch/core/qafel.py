@@ -4,9 +4,14 @@ Counterpart of ``repro/core/qafel.py`` on one device. The algorithm is
 generic over the task: a ``loss_fn(params, batch, key) -> scalar tensor``
 over a nested-dict parameter tree.
 
-The server state is flat: ``x``, ``x-hat`` and the momentum are f32 vectors
-in the coordinate space of one ``TreeLayout``, on the run's device. A flush
-is ``kernels.ops.server_flush_step``: the fused dequantize-accumulate of the
+The client side is one entry for one client and for a cohort:
+``client_update_flat`` binds ``client_update`` to the task and hands it to
+``kernels.ops.cohort_train_encode_step``, which trains b clients from the
+flat x-hat (under ``torch.func.vmap`` for b > 1) and encodes their (b, d)
+delta stack in one launch. The server state is flat: ``x``, ``x-hat`` and
+the momentum are f32 vectors in the coordinate space of one
+``TreeLayout``, on the run's device. A flush is
+``kernels.ops.server_flush_step``: the fused dequantize-accumulate of the
 K packed uploads, momentum and server update, the broadcast quantize-pack
 and the hidden-state apply of the decoded broadcast bits.
 
@@ -15,6 +20,7 @@ FedBuff is QAFeL with identity quantizers (``core.fedbuff``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -25,6 +31,7 @@ from repro_torch.common import prng
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.buffer import UpdateBuffer
+from repro_torch.core.hidden_state import HiddenState
 from repro_torch.core.protocol import (CLIENT_UPDATE, HIDDEN_BROADCAST,
                                        Message, TrafficMeter,
                                        frame_cohort_messages,
@@ -32,9 +39,9 @@ from repro_torch.core.protocol import (CLIENT_UPDATE, HIDDEN_BROADCAST,
 from repro_torch.core.quantizers import (Quantizer, TreeLayout, flatten_tree,
                                          make_quantizer,
                                          packed_identity_payload,
-                                         packed_qsgd_payload,
-                                         qsgd_encode_flat2d)
+                                         packed_qsgd_payload)
 from repro_torch.core.staleness import StalenessMonitor
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import fma_f32
 
 
@@ -100,33 +107,22 @@ def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
 
 
 def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
-                       hidden_flat, batches, k_train, k_enc) -> dict:
-    """One client, flat x-hat in, wire payload out: train
-    (``client_update``) and encode the (1, d) delta — the qsgd upload with
-    the threefry dither of ``k_enc``.
+                       hidden_flat, batches, k_train, k_enc, *, b: int = 1,
+                       member_chunk: Optional[int] = None) -> dict:
+    """Flat x-hat in, wire payloads out, for one client (b = 1) or a
+    cohort tier group of b members: ``client_update`` on this task, run by
+    ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
+    b > 1, then one encode launch over the (b, d) delta stack: K1 at
+    b = 1, K2 above).
 
     Returns ``{"packed", "norms"}`` stacks for qsgd, ``{"flat"}`` for
-    identity (whose flat delta IS the wire payload).
+    identity.
     """
-    flat2d = client_update(loss_fn, qcfg, layout, hidden_flat, batches,
-                           k_train)[None]
-    if spec.kind == "qsgd":
-        packed, norms = qsgd_encode_flat2d(flat2d, k_enc, spec.bits,
-                                           threefry=True)
-        return {"packed": packed, "norms": norms}
-    return {"flat": flat2d}
-
-
-def server_apply_flat(x, momentum, delta, *, lr, beta):
-    """The FedBuff server update (Algorithm 1 line 12 + server momentum):
-    m <- beta m + Delta-bar; x <- x + eta_g m. Each product and sum is its
-    own rounded operation, as the reference pins them. ``beta`` None
-    disables momentum. Returns ``(x_new, momentum_new)``."""
-    if beta is not None:
-        momentum = beta * momentum + delta
-    else:
-        momentum = delta
-    return lr * momentum + x, momentum
+    return kops.cohort_train_encode_step(
+        functools.partial(client_update, loss_fn, qcfg, layout), hidden_flat,
+        batches, k_train, k_enc, b=b,
+        bits=spec.bits if spec.kind == "qsgd" else None,
+        member_chunk=member_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +158,16 @@ class ServerState:
         """Tree view of the full-precision server model."""
         return self.layout.unflatten(self.x_flat)
 
+    @property
+    def hidden_tree(self):
+        """Tree view of the shared hidden state x-hat."""
+        return self.layout.unflatten(self.hidden_flat)
+
+    @property
+    def hidden(self) -> HiddenState:
+        """x-hat as a ``HiddenState``: ``state.hidden.value`` is its tree."""
+        return HiddenState(value=self.hidden_tree)
+
 
 class QAFeL:
     """Server and client logic of Algorithms 1-3, driven by an event loop
@@ -183,34 +189,59 @@ class QAFeL:
     # -- client side ------------------------------------------------------
     def run_client(self, batches, key, client=None) -> Tuple[Message, int]:
         """Algorithm 2 on the CURRENT hidden state; returns (message,
-        version). ``k_train, k_enc = split(key)`` as in the reference.
-        ``client`` is accepted for the reference's signature."""
+        version). ``k_train, k_enc = split(key)`` as in the reference. The
+        client step is ``client_update_flat`` at b = 1, the entry the
+        cohort engine takes at b = cohort_size, so both engines share one
+        client path. ``client`` is accepted for the reference's
+        signature."""
         del client
         k_train, k_enc = prng.split(key)
         st = self.state
         out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
-                                 st.layout, st.hidden_flat, batches,
-                                 k_train, k_enc)
+                                 st.layout, st.hidden_flat, batches, k_train,
+                                 k_enc)
         msg = frame_cohort_messages(CLIENT_UPDATE, self.cq, out, st.layout,
                                     version=st.t)[0]
         return msg, st.t
 
+    # -- checkpoint / resume ----------------------------------------------
+    def save_checkpoint(self, path) -> None:
+        """Write the server state, the buffer's window and the meters
+        (``core.checkpoint``)."""
+        from repro_torch.core.checkpoint import save_checkpoint
+        save_checkpoint(path, self)
+
+    def load_checkpoint(self, path) -> "QAFeL":
+        """Restore a ``save_checkpoint`` archive into this instance (the
+        layout is verified against this model). Returns self."""
+        from repro_torch.core.checkpoint import load_checkpoint
+        return load_checkpoint(path, self)
+
     # -- server side ------------------------------------------------------
     def receive(self, msg: Message, key,
                 n_receivers: int = 1) -> Optional[Message]:
-        """Algorithm 1 lines 5-16: buffer the packed upload (undecoded);
-        at K uploads flush and return the broadcast message.
-        ``n_receivers`` is the broadcast's fan-out for byte accounting."""
+        """Algorithm 1 lines 5-16: buffer the upload; at K uploads flush
+        and return the broadcast message. An upload of the client
+        quantizer is buffered packed (undecoded); one of another bit width
+        or kind — a bit-width tier's — is decoded on arrival (K3 at its own
+        bits for qsgd) into the buffer's flat sum. ``n_receivers`` is the
+        broadcast's fan-out for byte accounting."""
         version = msg.meta["version"]
         if version > self.state.t:
             raise ValueError(
                 f"message version {version} is ahead of the server clock "
                 f"t={self.state.t} (clock skew or replay)")
         payload = msg.payload
-        if (payload.get("kind") != self.cq.spec.kind
-                or payload.get("bits") not in (None, self.cq.spec.bits)):
-            raise ValueError("the port buffers uploads of the client "
-                             f"quantizer only ({self.cq.spec.label()})")
+        if (payload.get("format") != "packed"
+                or payload.get("kind") not in ("qsgd", "identity")):
+            raise ValueError("the port decodes packed qsgd and identity "
+                             f"uploads only, not {payload.get('kind')!r}")
+        if payload["kind"] == "qsgd" and (
+                payload["packed"].shape[-1] != 16 * payload["bits"]
+                or payload["norms"].shape[-1] != payload["packed"].shape[0]):
+            raise ValueError(f"corrupt qsgd{payload['bits']} upload: codes "
+                             f"{tuple(payload['packed'].shape)}, norms "
+                             f"{tuple(payload['norms'].shape)}")
         tau = self.state.t - version
         if self.staleness.would_drop(tau):
             self.meter.record_dropped(msg)
@@ -219,7 +250,12 @@ class QAFeL:
         self.meter.record(msg)
         self.staleness.observe(tau)
         w = (1.0 / math.sqrt(1.0 + tau)) if self.qcfg.staleness_scaling else 1.0
-        self.buffer.add_encoded(payload, weight=w)
+        if (payload["kind"] == self.cq.spec.kind
+                and payload.get("bits") in (None, self.cq.spec.bits)):
+            self.buffer.add_encoded(payload, weight=w)
+        else:
+            self.buffer.add_decoded_flat(self.cq.decode_flat(payload),
+                                         weight=w, layout=payload["layout"])
         if not self.buffer.full:
             return None
         return self._flush(key, n_receivers)
@@ -229,8 +265,6 @@ class QAFeL:
         q^t = Q_s(x^{t+1} - x-hat^t), and the server applies the decoded
         wire bits themselves — the increment every client decodes — which
         keeps all x-hat replicas bit-identical."""
-        from repro_torch.kernels import ops as kops
-
         st = self.state
         if self.buffer.layout != st.layout:  # before drain() resets it
             raise ValueError("buffered uploads do not match the server's "

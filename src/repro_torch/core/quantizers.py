@@ -21,7 +21,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.common import prng
 from repro_torch.common.tree import tree_flatten, tree_unflatten
+from repro_torch.kernels.ref import bucket_norms, levels, rows2d
 
 _KINDS = ("qsgd", "identity")
 
@@ -108,6 +110,27 @@ def packed_identity_payload(flat, n: int, layout: TreeLayout) -> dict:
             "n": n, "layout": layout}
 
 
+def _qsgd_qdq_flat(x: torch.Tensor, key, bits: int) -> torch.Tensor:
+    """The reference's in-math qsgd quantize-dequantize of a flat vector
+    (``repro.core.quantizers._qsgd_qdq_flat``) with its rounding on
+    XLA:CPU: the bucket norms of the wire kernels (``ref.bucket_norms``),
+    ``level = |x| * (s / safe)`` and ``recon = (sign * xi) * (safe / s)``
+    with both quotients true divisions, the dither ``uniform(key,
+    (rows, 128))``."""
+    n = x.numel()
+    xp = rows2d(x.to(torch.float32))
+    norm = bucket_norms(xp)[:, None]
+    safe = torch.clamp(norm, min=1e-30)
+    s = torch.full_like(safe, float(levels(bits)))
+    level = xp.abs() * (s / safe)
+    low = torch.floor(level)
+    u = prng.uniform(key, tuple(xp.shape), device=xp.device)
+    xi = torch.clamp(low + (u < level - low).to(torch.float32), max=s)
+    recon = torch.sign(xp) * xi * (safe / s)
+    recon = torch.where(norm > 0, recon, torch.zeros_like(xp))
+    return recon.reshape(-1)[:n].to(x.dtype)
+
+
 def qsgd_encode_flat2d(flat2d: torch.Tensor, keys, bits: int, *,
                        threefry: bool = False):
     """Quantize-pack a (B, n) stack in wire layout.
@@ -154,6 +177,25 @@ class Quantizer:
             return enc["payload"]
         return kops.qsgd_dequantize(enc["packed"], enc["norms"], enc["bits"],
                                     enc["n"])
+
+    def qdq_leaf(self, x: torch.Tensor, key) -> torch.Tensor:
+        """Quantize-dequantize one array (any shape)."""
+        if self.spec.kind == "identity":
+            return x
+        return _qsgd_qdq_flat(x.reshape(-1), key, self.spec.bits).reshape(
+            x.shape)
+
+    def qdq(self, tree, key):
+        """Quantize-dequantize a tree leaf by leaf, leaf i with key i of
+        ``split(key, leaves)`` in JAX leaf order, as the reference's
+        ``qdq`` draws them (its in-math path, not the wire's one message
+        per tree)."""
+        if self.spec.kind == "identity":
+            return tree
+        leaves, treedef = tree_flatten(tree)
+        keys = prng.split(key, len(leaves))
+        return tree_unflatten(treedef, [self.qdq_leaf(x, k)
+                                        for x, k in zip(leaves, keys)])
 
     def wire_bytes_packed(self, layout: TreeLayout) -> float:
         """Exact bytes on the wire: the whole tree is one d-element

@@ -2,13 +2,16 @@
 the 4-layer CNN on (synthetic) CelebA with bidirectional 4-bit
 quantization, then full-precision FedBuff on the same timeline.
 
-The port of ``examples/federated_celeba.py`` (sequential engine): constant
-client arrivals, half-normal training durations, buffer K = 10, staleness
-down-weighting, P = 2 local steps of batch 8 at client lr 0.05, server
-momentum 0.3, real packed wire messages with exact byte metering.
+The port of ``examples/federated_celeba.py``: constant client arrivals,
+half-normal training durations, buffer K = 10, staleness down-weighting,
+P = 2 local steps of batch 8 at client lr 0.05, server momentum 0.3, real
+packed wire messages with exact byte metering. ``--engine cohort`` trains
+the clients in cohorts of ``--cohort-size`` (``sim.cohort``) under a named
+``--scenario`` (``sim.scenarios``).
 
     PYTHONPATH=src python -m repro_torch.examples.federated_celeba \
-        [--uploads 400] [--concurrency 16] [--device cpu]
+        [--uploads 400] [--concurrency 16] [--device cpu] \
+        [--engine cohort --scenario tiered_bits --cohort-size 8]
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from repro_torch.common.device import resolve_device, to_device
 from repro_torch.core import QAFeL, QAFeLConfig
 from repro_torch.data import FederatedPartition, SyntheticCelebA
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
-from repro_torch.sim import AsyncFLSimulator, SimConfig, SimResult
+from repro_torch.sim import (AsyncFLSimulator, CohortAsyncFLSimulator,
+                             SimConfig, SimResult)
 
 RUNS = (("QAFeL 4-bit/4-bit", "qsgd4", "qsgd4"),
         ("FedBuff (full precision)", "identity", "identity"))
@@ -71,8 +75,13 @@ def celeba_task(device, *, n_samples: int = 3000,
 
 
 def run_one(task: CelebATask, params0, qcfg: QAFeLConfig, scfg: SimConfig,
-            device) -> SimResult:
+            device, *, engine: str = "sequential",
+            scenario: str = "identity", cohort_size: int = 8) -> SimResult:
     algo = QAFeL(qcfg, task.loss_fn, params0, device=device)
+    if engine == "cohort":
+        return CohortAsyncFLSimulator(algo, scfg, task.client_batches,
+                                      task.eval_fn, scenario=scenario,
+                                      cohort_size=cohort_size).run()
     return AsyncFLSimulator(algo, scfg, task.client_batches,
                             task.eval_fn).run()
 
@@ -83,7 +92,15 @@ def main(argv=None):
     ap.add_argument("--concurrency", type=int, default=16)
     ap.add_argument("--target", type=float, default=0.90)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--engine", choices=["sequential", "cohort"],
+                    default="sequential")
+    ap.add_argument("--scenario", default="identity",
+                    help="scenario name (cohort engine only); see "
+                         "repro_torch.sim.scenarios.SCENARIOS")
+    ap.add_argument("--cohort-size", type=int, default=8)
     args = ap.parse_args(argv)
+    if args.scenario != "identity" and args.engine != "cohort":
+        ap.error("--scenario requires --engine cohort")
     dev = resolve_device(args.device)
     params0 = init_cnn(0, device=dev)
     n_params = sum(v.numel() for sub in params0.values() for v in sub.values())
@@ -95,7 +112,9 @@ def main(argv=None):
         scfg = SimConfig(concurrency=args.concurrency,
                          max_uploads=args.uploads, eval_every_steps=3,
                          target_accuracy=args.target)
-        res = run_one(task, params0, qafel_config(cq, sq), scfg, dev)
+        res = run_one(task, params0, qafel_config(cq, sq), scfg, dev,
+                      engine=args.engine, scenario=args.scenario,
+                      cohort_size=args.cohort_size)
         m = res.metrics
         print(f"\n== {name} ==")
         print(f"  reached {args.target:.0%}: {res.reached_target}  "

@@ -7,6 +7,10 @@ elements encode to zero codes) and sliced off after decoding. The
 reference's second, kernel-tile layout (rows padded to 256) has no
 counterpart: the CUDA kernels take wire rows as they come.
 
+``cohort_train_encode_step`` is the client side of one cohort tier group
+(or of one client, b = 1): a per-member update from the flat x-hat,
+vmapped over the members, and one encode launch over the (b, d) delta
+stack.
 ``server_flush_step`` is the whole QAFeL buffer flush (Algorithm 1 lines
 11-16) as a short chain of launches: the fused dequantize-accumulate, the
 FedBuff momentum and server update, the broadcast quantize-pack and the
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.device import to_device
+from repro_torch.common.tree import tree_map
 from repro_torch.kernels import buffer_agg as _agg
 from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels.ref import rows2d, rows_for  # noqa: F401 (re-export)
@@ -53,6 +59,66 @@ def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
     return out2d.reshape(-1)[:n]
 
 
+def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
+                             k_enc, *, b: int, bits=None,
+                             member_chunk=None) -> dict:
+    """The client pipeline of one cohort tier group (or of one client,
+    b = 1): local SGD from the shared flat x-hat, then one encode launch
+    over the members' (b, d) delta stack.
+
+    ``client_update(hidden_flat, batches, key) -> (d,)`` is one member's
+    flat delta (``core.qafel.client_update`` bound to its task). For b > 1,
+    ``batches``, ``k_train`` and ``k_enc`` carry a leading member dim; the
+    members train under one ``torch.func.vmap`` with x-hat shared, as the
+    reference vmaps them (``jax.vmap(fn, in_axes=(None, 0, 0))``), and the
+    stack is encoded by one K2 launch whose dither is the counter hash
+    keyed by the first two words of each member's ``k_enc``. At b = 1 the
+    inputs are unstacked and the upload is the threefry K1 launch of the
+    sequential engine. ``member_chunk`` trains the members ``mc`` at a
+    time (a Python loop of vmaps) and still encodes the stack in one
+    launch. The encode's dither depends only on each member's seed and the
+    element index, so chunking leaves the bits of a task whose per-member
+    update is elementwise (the quad) as they are; the CNN's vmapped
+    convolutions see another batch size, and its deltas move (up to
+    1.2e-7 on the CPU, PERF.md). ``bits`` None is the identity quantizer.
+
+    Returns ``{"packed": (b, rows, 16*bits), "norms": (b, rows)}`` for
+    qsgd, ``{"flat": (b, d)}`` for identity, whose flat delta is the wire
+    payload."""
+    if b == 1:
+        flat2d = client_update(hidden_flat, batches, k_train)[None]
+        if bits is None:
+            return {"flat": flat2d}
+        packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
+        return {"packed": packed[None], "norms": norms[None]}
+    keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
+    step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
+    if member_chunk is None or member_chunk >= b:
+        flat2d = step(hidden_flat, batches, keys)
+    else:
+        mc = int(member_chunk)
+        flat2d = torch.cat([
+            step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
+                 keys[i:i + mc]) for i in range(0, b, mc)])
+    if bits is None:
+        return {"flat": flat2d}
+    seeds = torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
+    packed, norms = qsgd_quantize_batch(flat2d, seeds, bits)
+    return {"packed": packed, "norms": norms}
+
+
+def server_apply_flat(x, momentum, delta, *, lr, beta):
+    """The FedBuff server update (Algorithm 1 line 12 + server momentum):
+    m <- beta m + Delta-bar; x <- x + eta_g m. Each product and sum is its
+    own rounded operation, as the reference pins them. ``beta`` None
+    disables momentum. Returns ``(x_new, momentum_new)``."""
+    if beta is not None:
+        momentum = beta * momentum + delta
+    else:
+        momentum = delta
+    return lr * momentum + x, momentum
+
+
 def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
                       weights, extra, key2d, *, bits, sbits, n: int,
                       lr: float, beta):
@@ -60,7 +126,7 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
 
     1. fused dequantize-accumulate of the K packed uploads (plus the
        pre-scaled flat ``extra`` of identity arrivals),
-    2. FedBuff server momentum and update (``core.qafel.server_apply_flat``),
+    2. FedBuff server momentum and update (``server_apply_flat``),
     3. broadcast diff ``x^{t+1} - x-hat^t`` quantize-packed with the
        counter-hash dither keyed by ``key2d`` (``sbits``-bit qsgd), or the
        raw diff itself when ``sbits`` is None (identity server quantizer),
@@ -71,8 +137,6 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
     Returns ``(x_new, hidden_new, momentum_new, payload)`` with payload
     ``(packed, norms)`` for a qsgd broadcast or ``(diff,)`` for identity.
     """
-    from repro_torch.core.qafel import server_apply_flat  # kernels stay core-free
-
     if stack is not None:
         delta = buffer_aggregate(stack, norms, weights, bits, n)
         if extra is not None:

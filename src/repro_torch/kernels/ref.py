@@ -189,22 +189,31 @@ def unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int):
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor):
     """Single-rounded f32 ``a*b + c`` of f32 operands (``b`` a tensor or an
     f32-representable Python number) whose product is exact in float64
-    (two f32 significands give at most 48 bits). The sum is taken in float64,
-    rounded to odd with its exact TwoSum error, then rounded to f32: round
-    to odd at 53 bits followed by round to nearest at 24 bits is the
-    correctly rounded result, so no double-rounding case remains."""
+    (two f32 significands give at most 48 bits).
+
+    The sum is taken in float64, ``s = p + c``, with its exact TwoSum error
+    ``err``. Rounding ``s`` to f32 is already the correctly rounded result
+    unless ``s`` lies exactly on the midpoint of two f32 neighbours (a
+    midpoint has 25 significant bits, so it is a double, and no double lies
+    closer to the exact sum than ``s``): then the exact sum lies on the
+    side of ``err``, and that neighbour is the answer (``err == 0`` is a
+    true tie, which the f32 conversion breaks to even). Written without
+    bit views of the tensors, so it runs under ``torch.func.vmap``."""
     p = a.to(torch.float64) * (b.to(torch.float64)
                                if isinstance(b, torch.Tensor) else float(b))
     c64 = c.to(torch.float64)
     s = p + c64
     bb = s - c64
     err = (c64 - (s - bb)) + (p - bb)
-    sbits = s.view(torch.int64)
-    even = (sbits & 1) == 0
-    away = (err > 0) == (s > 0)
-    step = torch.where(away, torch.ones_like(sbits), -torch.ones_like(sbits))
-    sbits = torch.where((err != 0) & even, sbits + step, sbits)
-    return sbits.view(torch.float64).to(torch.float32)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > r64, inf, -inf))
+    tie = ((s != r64) & ((r64 + other.to(torch.float64)) * 0.5 == s)
+           & (err != 0))
+    side = torch.where(err > 0, torch.maximum(r, other),
+                       torch.minimum(r, other))
+    return torch.where(tie, side, r)
 
 
 def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,

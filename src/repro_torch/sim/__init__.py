@@ -1,4 +1,10 @@
-"""Event-driven asynchronous FL simulation."""
+"""Event-driven asynchronous FL simulation: the sequential and the cohort
+engine, and the client-heterogeneity scenarios."""
+from repro_torch.sim.cohort import CohortAsyncFLSimulator
 from repro_torch.sim.events import AsyncFLSimulator, SimConfig, SimResult
+from repro_torch.sim.scenarios import (SCENARIOS, ScenarioConfig,
+                                       ScenarioSampler, get_scenario)
 
-__all__ = ["AsyncFLSimulator", "SimConfig", "SimResult"]
+__all__ = ["AsyncFLSimulator", "CohortAsyncFLSimulator", "SCENARIOS",
+           "ScenarioConfig", "ScenarioSampler", "SimConfig", "SimResult",
+           "get_scenario"]

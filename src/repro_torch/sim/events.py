@@ -107,15 +107,18 @@ class BaseAsyncSimulator:
         return False
 
     def _finalize(self, *, reached: bool, uploads: int, now: float,
-                  accuracy_trace: List[AccuracyPoint]) -> SimResult:
+                  accuracy_trace: List[AccuracyPoint],
+                  **extra_metrics) -> SimResult:
         """Always evaluate the final server model, so a run ending between
-        flushes does not report a stale accuracy."""
+        flushes does not report a stale accuracy. ``extra_metrics`` (the
+        cohort engine's ``dropped_uploads``) join the metrics dict."""
         final_acc = float(self.eval_fn(self.algo.state.x))
         if not accuracy_trace or accuracy_trace[-1][1] != uploads:
             accuracy_trace.append(
                 AccuracyPoint(now, uploads, self.algo.state.t, final_acc))
         metrics = self.algo.metrics(drift=True)
         metrics["replicas_in_sync"] = self.verify_replicas()
+        metrics.update(extra_metrics)
         return SimResult(reached_target=reached, uploads=uploads,
                          server_steps=self.algo.state.t, sim_time=now,
                          metrics=metrics, accuracy_trace=accuracy_trace,

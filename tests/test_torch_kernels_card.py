@@ -213,3 +213,42 @@ def test_quantize_batch_every_shape(bits, b):
                 x[i:i + 1].clone(), seeds[i:i + 1], bits)
             _assert_bits_equal((alone[0][0], alone[1][0]),
                                (got[0][i], got[1][i]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (2, 4))
+def test_cohort_step_card_equals_cpu(bits):
+    """``ops.cohort_train_encode_step`` on the quad task (d = 2048) at
+    b = 4: the vmapped local SGD on the card, then one K2 launch, gives
+    the CPU path's codes and norms bit for bit."""
+    import functools
+
+    from repro_torch.core import QAFeLConfig
+    from repro_torch.core.qafel import client_update
+    from repro_torch.core.quantizers import flatten_tree
+    from repro_torch.examples import cohort_scenarios
+    from repro_torch.kernels import ops
+
+    dev = _card()
+    b = 4
+    wstar = cohort_scenarios.quad_optimum()
+    targets = torch.from_numpy(
+        cohort_scenarios.quad_targets(wstar, range(b)))
+    keys = prng.split_each(prng.split(prng.PRNGKey(bits), b))
+    cfg = QAFeLConfig(client_lr=0.05, local_steps=2)
+    out = {}
+    for d in ("cpu", dev):
+        flat, layout = flatten_tree({"w": torch.from_numpy(wstar * 0.3)}, d)
+        before = tkernels.launches()["qsgd_quantize_pack_batch"]
+        member = functools.partial(client_update, cohort_scenarios.quad_loss,
+                                   cfg, layout)
+        out[str(d)] = ops.cohort_train_encode_step(
+            member, flat, {"target": targets.to(d)}, keys[:, 0], keys[:, 1],
+            b=b, bits=bits)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert tkernels.launches()["qsgd_quantize_pack_batch"] == \
+                before + 1
+    card = out[str(dev)]
+    _assert_bits_equal((card["packed"].cpu(), card["norms"].cpu()),
+                       (out["cpu"]["packed"], out["cpu"]["norms"]))

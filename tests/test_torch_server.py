@@ -141,7 +141,13 @@ def test_receive_rejects_future_version_and_foreign_kind():
     with pytest.raises(ValueError):
         talgo.receive(tmsg, torch.tensor([0, 1]))
     tmsg.meta["version"] = 0
-    tmsg.payload = dict(tmsg.payload, bits=8)
+    good = tmsg.payload
+    # codes of 4 bits that claim 8: corrupt, refused before anything counts
+    tmsg.payload = dict(good, bits=8)
+    with pytest.raises(ValueError):
+        talgo.receive(tmsg, torch.tensor([0, 1]))
+    # a kind the port has no decoder for
+    tmsg.payload = dict(good, kind="top_k")
     with pytest.raises(ValueError):
         talgo.receive(tmsg, torch.tensor([0, 1]))
     assert talgo.buffer.count == 0 and talgo.meter.uploads == 0
