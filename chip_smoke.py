@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build of the seven CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
    per element of the in-kernel threefry dither and of the batched
    encode's counter hash, by pipe, and the decode kernels' int32
@@ -41,9 +41,20 @@ Phases, each printing one JSON line:
    identical uploads, the quickstart on both devices, and the cohort
    engine on the quad task (cohorts of 4, ``tiered_bits``) on both
    devices, bit for bit;
-9. one line listing every kernel with its launches on both paths, times
-   and bound;
-10. last, ``{"ok": true, "device": {...}}``.
+9. telemetry: the two metric-tap kernels (``flush_taps.cu``,
+   ``upload_taps.cu``) against their plain versions, bit for bit, timed
+   with their byte bounds, at the CNN's flush (and its identity case),
+   b = 1 qsgd4, B = 32 in qsgd4, qsgd2 and identity, and d = 1e8 (the
+   flush, B = 8); the cohort path with a ``RunTracer(taps=True)`` and with
+   no tracer in this process (state bit-identical, trace valid under
+   ``build/telemetry/``, one more launch per flush and per tier group by
+   the counters and the profiler, uploads/s and flush median taps off and
+   on in turns); the main path with taps on for 20 uploads (one more
+   launch per client step and per flush); the quad's traced cohort run on
+   the card and the CPU, event streams bit for bit;
+10. one line listing every kernel with its launches on both paths, times
+    and bound (the tap kernels' launches from the taps-on runs);
+11. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Times come from CUDA events
@@ -877,7 +888,7 @@ def check_against_cpu(dev):
     def unused(params, batch, key):
         raise AssertionError("no training here")
 
-    params0 = init_cnn(5)
+    params0 = init_cnn(5, device="cpu")
     servers = {d: QAFeL(fc.qafel_config(), unused, params0, device=d)
                for d in ("cpu", dev)}
     gen = torch.Generator().manual_seed(9)
@@ -957,6 +968,439 @@ def cohort_quad_on_both(dev) -> dict:
             "cohort_quad_tier_uploads": tier}
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the metric-tap kernels and the traced runs
+# ---------------------------------------------------------------------------
+
+
+def tap_kernel_cases(dev):
+    """The two tap kernels at the telemetry phase's shapes: the flush at
+    the CNN's n (K = 10 weights, and an identity broadcast, q = diff) and
+    at d = 1e8; the upload at b = 1 qsgd4, B = 32 in qsgd4, qsgd2 and
+    identity over the CNN's n, and B = 8 qsgd4 at d = 1e8. Their bytes are
+    each input read once and the output written once; their f32 operations
+    (flush: 2 differences, 5 squares and 5 adds per element; upload: 1
+    square and add, and with codes 2 products, a difference, a square and
+    an add) bound nothing."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import ref, taps
+    from repro_torch.kernels.ops import qsgd_quantize_batch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f32 = (F32_OPS_PER_S, "float32")
+    cases = {}
+
+    def flush(n, identity):
+        v = [torch.randn(n, generator=gen, device=dev) * s
+             for s in (1.0, 1e-3, 1e-3, 1e-2, 1e-2)]
+        v[1] = v[0] + v[1]
+        if identity:
+            v[4] = v[3]
+        w = torch.rand(CNN_K, generator=gen, device=dev) / CNN_K
+        return dict(
+            source="src/repro_torch/kernels/csrc/flush_taps.cu",
+            replaces=None, fn=taps.flush_taps, plain=ref.flush_taps,
+            args=(*v, w), bytes=5 * n * 4 + CNN_K * 4 + 7 * 4,
+            bytes_formula="5*n*4 (x_old, x_new, delta, diff, q) + K*4 "
+                          "weights + 7*4 out",
+            ops=n * 12, rate=f32)
+
+    def plain_by_message(f, p, nm, bits):
+        return torch.cat([ref.upload_taps(
+            f[i:i + 1], None if p is None else p[i:i + 1],
+            None if nm is None else nm[i:i + 1], bits)
+            for i in range(f.shape[0])])
+
+    def upload(b, n, bits, plain=ref.upload_taps):
+        x = torch.randn((b, n), generator=gen, device=dev) * 0.01
+        x[:, 128:256] = 0.0  # an all-zero bucket
+        rows = ref.rows_for(n)
+        packed = norms = None
+        code_bytes = 0
+        if bits is not None:
+            seeds = prng.split_each(prng.split(prng.PRNGKey(b + bits), b))
+            packed, norms = qsgd_quantize_batch(x, seeds[:, 1], bits)
+            code_bytes = b * rows * (16 * bits + 4)
+        return dict(
+            source="src/repro_torch/kernels/csrc/upload_taps.cu",
+            replaces=None, fn=taps.upload_taps, plain=plain,
+            args=(x, packed, norms, bits),
+            bytes=b * n * 4 + code_bytes + b * 2 * 4,
+            bytes_formula="B*n*4 deltas + B*rows*(128*bits/8 + 4) codes and "
+                          "norms + B*2*4 out",
+            ops=b * n * (2 if bits is None else 7), rate=f32)
+
+    cases["flush_taps_cnn"] = flush(CNN_N, False)
+    cases["flush_taps_identity_cnn"] = flush(CNN_N, True)
+    cases["upload_taps_b1_qsgd4_cnn"] = upload(1, CNN_N, 4)
+    for bits in (4, 2, None):
+        name = "identity" if bits is None else f"qsgd{bits}"
+        cases[f"upload_taps_B{COHORT_SIZE}_{name}_cnn"] = upload(
+            COHORT_SIZE, CNN_N, bits)
+    cases["flush_taps_d1e8"] = flush(BIG_ROWS * 128, False)
+    cases[f"upload_taps_B{COHORT_BIG_B}_qsgd4_d1e8"] = upload(
+        COHORT_BIG_B, BIG_ROWS * 128, 4, plain_by_message)
+    return cases
+
+
+def check_tap_kernels(dev) -> dict:
+    """Each tap kernel case against its plain version on the card, bit for
+    bit, timed, with its byte bound and share."""
+    import torch
+
+    out = {}
+    for name, case in tap_kernel_cases(dev).items():
+        big = "d1e8" in name
+        out[name] = measure_case(name, case, 10 if big else 50,
+                                 1 if big else 10)
+        out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
+        emit({"phase": "tap_kernel", "name": name,
+              **{key: v for key, v in out[name].items()
+                 if key not in ("source", "replaces")}})
+        case.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_counts(prof) -> dict:
+    """Launches per device kernel name in a ``torch.profiler`` window, and
+    the copies and sets apart (``Memcpy``/``Memset`` activities)."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return counts
+
+
+def profiled_counts(dev, engine: str, uploads: int) -> dict:
+    """The run with no tracer (None) and with taps on (True), each profiled
+    twice in the order off, on, on, off, with cuDNN's deterministic
+    algorithms so that the two states can be compared bit for bit."""
+    runs = {None: [], True: []}
+    for t in (None, True, True, None):
+        runs[t].append(traced_cnn_run(dev, t, engine=engine, uploads=uploads,
+                                      profiled=True, deterministic=True))
+    return runs
+
+
+def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
+    """The profiled launches of the taps-on runs against the runs with no
+    tracer: the tap kernels launched once per flush and once per client
+    step with taps on and never without; every other kernel
+    name as often with taps as without. The profiler drops a few activity
+    records under load (seen: 1 to 230 of ~30,000 per run) and never adds
+    one, so each name counts the larger of a configuration's two runs,
+    and a name passes within the record loss measured in this run (the
+    largest difference between two runs of one configuration); copies
+    (the taps' device-to-host reads) are counted apart."""
+    def split(counts):
+        kern = {k: c for k, c in counts.items()
+                if not k.startswith(("Memcpy", "Memset"))}
+        return kern, sum(c for k, c in counts.items() if k not in kern)
+
+    def tap(kern, name):
+        return sum(c for k, c in kern.items() if name in k)
+
+    per = {t: [split(r["counts"]) for r in rs] for t, rs in runs.items()}
+    merged = {t: {k: max(kern.get(k, 0) for kern, _ in ps)
+                  for k in set().union(*(kern for kern, _ in ps))}
+              for t, ps in per.items()}
+    k_off, k_on = merged[None], merged[True]
+    totals = {t: [sum(kern.values()) for kern, _ in ps]
+              for t, ps in per.items()}
+    loss = max(abs(a - b) for a, b in totals.values())
+    differing = sorted(
+        (k[:60], k_off.get(k, 0), k_on.get(k, 0))
+        for k in set(k_on) | set(k_off)
+        if "taps_kernel" not in k and k_on.get(k, 0) != k_off.get(k, 0))
+    taps_exact = all(
+        (tap(merged[t], "flush_taps_kernel"),
+         tap(merged[t], "upload_taps_kernel"))
+        == ((flushes, steps) if t else (0, 0)) for t in merged)
+    return {"kernels_off_per_run": totals[None],
+            "kernels_on_per_run": totals[True],
+            "record_loss_bound": loss,
+            "flush_taps_kernels": tap(k_on, "flush_taps_kernel"),
+            "upload_taps_kernels": tap(k_on, "upload_taps_kernel"),
+            "copies_off_per_run": [c for _, c in per[None]],
+            "copies_on_per_run": [c for _, c in per[True]],
+            "differing_kernels": differing,
+            "ok": taps_exact and all(abs(on - off) <= loss
+                                     for _, off, on in differing)}
+
+
+def traced_cnn_run(dev, taps, *, engine: str, uploads: int,
+                   profiled: bool = False, deterministic: bool = False):
+    """One run of the CNN path through its entry points: ``engine``
+    "cohort" is the cohort path (``tiered_bits``, cohorts of 32,
+    concurrency 100), "sequential" the main path (concurrency 16);
+    ``taps`` None attaches no tracer, else a ``RunTracer(taps=taps)``.
+    Flushes are timed (synchronized), client steps counted, the launch
+    counters set to 0 just before and read just after, and the run
+    optionally profiled or made with cuDNN's deterministic algorithms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.obs import RunTracer
+    from repro_torch.sim import (AsyncFLSimulator, CohortAsyncFLSimulator,
+                                 SimConfig)
+
+    task = fc.celeba_task(dev)
+    tracer = None if taps is None else RunTracer(taps=taps)
+    algo = QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(0, device=dev),
+                 device=dev, telemetry=tracer)
+    flush_s, steps = [], [0]
+    inner_flush = algo._flush
+
+    def timed_flush(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_flush(*args, **kw)
+        torch.cuda.synchronize()
+        flush_s.append(time.perf_counter() - t0)
+        return out
+
+    algo._flush = timed_flush
+    if engine == "cohort":
+        sim = CohortAsyncFLSimulator(
+            algo, SimConfig(concurrency=COHORT_CONCURRENCY,
+                            max_uploads=uploads, eval_every_steps=3),
+            task.client_batches, task.eval_fn, scenario="tiered_bits",
+            cohort_size=COHORT_SIZE)
+    else:
+        inner_client = algo.run_client
+
+        def counted_client(*args, **kw):
+            steps[0] += 1
+            return inner_client(*args, **kw)
+
+        algo.run_client = counted_client
+        sim = AsyncFLSimulator(algo, SimConfig(concurrency=CONCURRENCY,
+                                               max_uploads=uploads,
+                                               eval_every_steps=3),
+                               task.client_batches, task.eval_fn)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        prof = None
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = sim.run()
+                torch.cuda.synchronize()
+        else:
+            res = sim.run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return {"algo": algo, "sim": sim, "res": res, "tracer": tracer,
+            "wall": wall, "flush_s": flush_s,
+            "client_steps": sim.groups if engine == "cohort" else steps[0],
+            "launches": kernels.launches(),
+            "counts": None if prof is None else kernel_counts(prof)}
+
+
+def check_trace(run: dict, path: Path) -> dict:
+    """Write the run's trace as JSONL, validate it against the schema and
+    check that its event counts add up."""
+    from repro_torch.obs import validate_jsonl, write_jsonl
+
+    tracer, res = run["tracer"], run["res"]
+    written = write_jsonl(tracer, path)
+    errors = validate_jsonl(path)
+    c = tracer.counters()
+    flushes = res.server_steps
+    checks = {
+        "schema_valid": errors == [],
+        "no_ring_overflow": c["events_evicted"] == 0,
+        "upload_events": c["events_upload"] == res.uploads,
+        "flush_events": c["events_flush"] == flushes > 0,
+        "broadcast_events": c["events_broadcast"] == flushes,
+        "drop_events": c["events_drop"]
+        == res.metrics.get("dropped_uploads", 0),
+        "taps_on_every_upload": all(
+            "taps" in e.data for e in tracer.events("upload")),
+        "taps_on_every_flush": all(
+            "taps" in e.data for e in tracer.events("flush")),
+        "taps_finite": all(math.isfinite(v) for e in tracer.events()
+                           for v in e.data.get("taps", {}).values()),
+    }
+    return {"trace": str(path.relative_to(ROOT)), "events": written,
+            "schema_errors": errors[:5], "counters": {
+                k: v for k, v in c.items() if v and k.startswith("events_")},
+            "trace_checks": checks}
+
+
+def same_state(a, b) -> bool:
+    return all(bits_equal(getattr(a.state, name).cpu(),
+                          getattr(b.state, name).cpu())
+               for name in ("x_flat", "hidden_flat", "momentum_flat"))
+
+
+def telemetry_cohort(dev, out_dir: Path) -> dict:
+    """The cohort path (the CNN, ``tiered_bits``, cohorts of 32, 200
+    uploads) with a ``RunTracer(taps=True)`` and with no tracer, in this
+    one process: the state bit-identical (cuDNN's deterministic
+    algorithms for this pair, so that only the taps could move a bit), the
+    trace valid and its counts adding up, taps on one more launch per
+    flush and per tier group (counters and profiler), the other launches
+    as pinned; then uploads/s and the flush median with taps off, on, on,
+    off, twice."""
+    import statistics as st
+
+    from repro_torch.obs import summary_table
+
+    pair = {t: traced_cnn_run(dev, t, engine="cohort",
+                              uploads=COHORT_UPLOADS, deterministic=True)
+            for t in (None, True)}
+    off, on = pair[None], pair[True]
+    flushes, groups = on["res"].server_steps, on["client_steps"]
+    trace = check_trace(on, out_dir / "telemetry_cohort.jsonl")
+    lo, ln = off["launches"], on["launches"]
+    diff = tap_launch_diff(profiled_counts(dev, "cohort", COHORT_UPLOADS),
+                           flushes, groups)
+    timed = {"off": [], "on": []}
+    for t in (None, True, True, None) * 2:
+        r = traced_cnn_run(dev, t, engine="cohort", uploads=COHORT_UPLOADS)
+        timed["off" if t is None else "on"].append(
+            (r["res"].uploads / r["wall"],
+             1e3 * st.median(r["flush_s"])))
+    checks = {
+        "state_bit_identical": same_state(off["algo"], on["algo"]),
+        "replicas_in_sync": bool(off["res"].metrics["replicas_in_sync"]
+                                 and on["res"].metrics["replicas_in_sync"]),
+        "same_trajectory": (off["res"].accuracy_trace
+                            == on["res"].accuracy_trace
+                            and off["res"].server_steps == flushes > 0),
+        "flush_taps_per_flush": ln["flush_taps"] == flushes,
+        "upload_taps_per_group": ln["upload_taps"] == groups
+        == off["client_steps"] > 0,
+        "taps_off_no_tap_launch": lo["flush_taps"] == lo["upload_taps"] == 0,
+        "other_launches_unchanged": all(
+            lo[k] == ln[k] for k in lo if k not in ("flush_taps",
+                                                    "upload_taps")),
+        "pinned_K2_K3_K4": (lo["qsgd_quantize_pack_batch"],
+                            lo["qsgd_unpack_dequantize"],
+                            lo["buffer_aggregate"]) == (40, 95, 20),
+        "profiler_one_launch_each": diff["ok"],
+        **trace.pop("trace_checks"),
+    }
+    record = {"phase": "telemetry_cohort", "uploads": on["res"].uploads,
+              "server_steps": flushes, "tier_groups": groups,
+              "launches_off": lo, "launches_on": ln, "profiled": diff,
+              "uploads_per_s_off": [u for u, _ in timed["off"]],
+              "uploads_per_s_on": [u for u, _ in timed["on"]],
+              "flush_ms_median_off": [f for _, f in timed["off"]],
+              "flush_ms_median_on": [f for _, f in timed["on"]],
+              **trace, "checks": checks}
+    emit(record)
+    print(summary_table(on["tracer"], title="telemetry (cohort path)"),
+          flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"telemetry cohort checks failed: {failed}")
+    return record
+
+
+def telemetry_main_path(dev, out_dir: Path, uploads: int = 20) -> dict:
+    """The sequential main path (the CNN, concurrency 16) for ``uploads``
+    uploads with taps on, profiled beside the same run with no tracer:
+    the state bit-identical, the trace valid, one more launch per client
+    step and per flush."""
+    runs = profiled_counts(dev, "sequential", uploads)
+    off, on = runs[None][0], runs[True][0]
+    flushes, steps = on["res"].server_steps, on["client_steps"]
+    trace = check_trace(on, out_dir / "telemetry_main.jsonl")
+    diff = tap_launch_diff(runs, flushes, steps)
+    lo, ln = off["launches"], on["launches"]
+    checks = {
+        "state_bit_identical": same_state(off["algo"], on["algo"]),
+        "same_trajectory": off["res"].accuracy_trace
+        == on["res"].accuracy_trace,
+        "flush_taps_per_flush": ln["flush_taps"] == flushes > 0,
+        "upload_taps_per_client_step": ln["upload_taps"] == steps
+        == ln["qsgd_quantize_pack_threefry"] >= on["res"].uploads,
+        "other_launches_unchanged": all(
+            lo[k] == ln[k] for k in lo if k not in ("flush_taps",
+                                                    "upload_taps")),
+        "profiler_one_launch_each": diff["ok"],
+        **trace.pop("trace_checks"),
+    }
+    record = {"phase": "telemetry_main_path", "uploads": on["res"].uploads,
+              "server_steps": flushes, "client_steps": steps,
+              "launches_on": ln, "profiled": diff, **trace,
+              "checks": checks}
+    emit(record)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"telemetry main path checks failed: {failed}")
+    return record
+
+
+def telemetry_quad_on_both(dev) -> dict:
+    """The quad's cohort engine (cohorts of 4, ``tiered_bits``, 40
+    uploads) with taps on, on the card and on the CPU: the comparable event
+    streams (no wall clock, no compile events) equal, tap values included,
+    bit for bit (their JSON text, which tells -0.0 from 0.0)."""
+    import json as _json
+
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import cohort_scenarios as cs
+    from repro_torch.obs import RunTracer
+    from repro_torch.sim import CohortAsyncFLSimulator, SimConfig
+
+    streams, states = {}, {}
+    for d in ("cpu", dev):
+        task = cs.quad_task(d)
+        tracer = RunTracer(taps=True)
+        algo = QAFeL(cs.qafel_config(4), task.loss_fn, task.params0,
+                     device=d, telemetry=tracer)
+        CohortAsyncFLSimulator(
+            algo, SimConfig(concurrency=8, max_uploads=40,
+                            eval_every_steps=3),
+            task.client_batches, task.eval_fn, scenario="tiered_bits",
+            cohort_size=4).run()
+        streams[str(d)] = [e.comparable() for e in tracer.events()
+                           if e.kind != "compile"]
+        states[str(d)] = algo
+    cpu, card = streams["cpu"], streams[str(dev)]
+    equal = _json.dumps(cpu) == _json.dumps(card)
+    record = {"phase": "telemetry_quad_card_vs_cpu", "events": len(card),
+              "tap_events": sum("taps" in e for e in card),
+              "streams_bit_equal": equal,
+              "state_bit_equal": same_state(states["cpu"],
+                                            states[str(dev)])}
+    emit(record)
+    if not (equal and record["state_bit_equal"] and record["tap_events"]):
+        raise AssertionError("the quad's traced cohort run differs between "
+                             "the card and the CPU")
+    return record
+
+
+def run_telemetry(dev):
+    """The telemetry phase; returns the tap kernels' measurements and
+    their launches on the traced main path and cohort path."""
+    out_dir = ROOT / "build" / "telemetry"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cases = check_tap_kernels(dev)
+    cohort = telemetry_cohort(dev, out_dir)
+    main = telemetry_main_path(dev, out_dir)
+    telemetry_quad_on_both(dev)
+    return cases, main["launches_on"], cohort["launches_on"]
+
+
 def main() -> int:
     import torch
 
@@ -1008,6 +1452,7 @@ def main() -> int:
         dev, main_profile, steps["client_step_device_launches"])
     profile_window(dev, uploads=COHORT_UPLOADS, cohort_size=COHORT_SIZE)
     check_against_cpu(dev)
+    taps, taps_main, taps_cohort = run_telemetry(dev)
 
     kernels_line = []
     for name, m in cnn.items():
@@ -1032,6 +1477,23 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "equal",
                     "max_abs_err", "bytes_formula")}
                 for case, c in cohort_cases.items() if case.startswith(prefix)}
+    for name, shape in (("flush_taps", "flush_taps_cnn"),
+                        ("upload_taps", "upload_taps_b1_qsgd4_cnn")):
+        m = taps[shape]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": m["source"],
+            "replaces": None, "launches": taps_main[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "equal": m["equal"], "bytes_formula": m["bytes_formula"],
+            "launches_note": "taps-on main path (telemetry phase); every "
+                             "other path runs with taps off",
+            "cohort_launches": taps_cohort[name],
+            "cases": {case: {key: c[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "equal", "max_abs_err", "bytes")}
+                for case, c in taps.items() if case.startswith(name)}})
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu",

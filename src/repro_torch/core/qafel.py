@@ -16,6 +16,11 @@ K packed uploads, momentum and server update, the broadcast quantize-pack
 and the hidden-state apply of the decoded broadcast bits.
 
 FedBuff is QAFeL with identity quantizers (``core.fedbuff``).
+
+``QAFeL(..., telemetry=tracer)`` attaches an ``obs.RunTracer``: one typed
+event per upload, drop, flush and broadcast and, when the tracer has
+``taps=True``, the client step's and the flush's metric taps on them (one
+more launch each). Without a tracer every launch and bit is as before.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from repro_torch.core.quantizers import (Quantizer, TreeLayout, flatten_tree,
 from repro_torch.core.staleness import StalenessMonitor
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import fma_f32
+from repro_torch.obs.taps import named_cohort_taps, named_flush_taps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +114,8 @@ def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
 
 def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        hidden_flat, batches, k_train, k_enc, *, b: int = 1,
-                       member_chunk: Optional[int] = None) -> dict:
+                       member_chunk: Optional[int] = None,
+                       taps: bool = False) -> dict:
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
@@ -116,13 +123,13 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
     b = 1, K2 above).
 
     Returns ``{"packed", "norms"}`` stacks for qsgd, ``{"flat"}`` for
-    identity.
+    identity, and with ``taps`` the (b, 2) ``"taps"`` rows.
     """
     return kops.cohort_train_encode_step(
         functools.partial(client_update, loss_fn, qcfg, layout), hidden_flat,
         batches, k_train, k_enc, b=b,
         bits=spec.bits if spec.kind == "qsgd" else None,
-        member_chunk=member_chunk)
+        member_chunk=member_chunk, taps=taps)
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +178,14 @@ class ServerState:
 
 class QAFeL:
     """Server and client logic of Algorithms 1-3, driven by an event loop
-    (``sim.events``). ``device=None`` means CUDA; the tests pass "cpu"."""
+    (``sim.events``). ``device=None`` means CUDA; the tests pass "cpu".
+    ``telemetry`` is an ``obs.RunTracer`` or None (module docstring)."""
 
     def __init__(self, qcfg: QAFeLConfig, loss_fn: Callable, params0,
-                 device=None):
+                 device=None, telemetry=None):
         self.qcfg = qcfg
+        self.telemetry = telemetry
+        self._taps = bool(telemetry is not None and telemetry.taps)
         self.loss_fn = loss_fn
         self.cq = qcfg.cq()
         self.sq = qcfg.sq()
@@ -193,15 +203,18 @@ class QAFeL:
         client step is ``client_update_flat`` at b = 1, the entry the
         cohort engine takes at b = cohort_size, so both engines share one
         client path. ``client`` is accepted for the reference's
-        signature."""
+        signature. With taps on, the upload's taps ride in
+        ``msg.meta["taps"]``."""
         del client
         k_train, k_enc = prng.split(key)
         st = self.state
         out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
                                  st.layout, st.hidden_flat, batches, k_train,
-                                 k_enc)
+                                 k_enc, taps=self._taps)
         msg = frame_cohort_messages(CLIENT_UPDATE, self.cq, out, st.layout,
                                     version=st.t)[0]
+        if self._taps:
+            msg.meta["taps"] = named_cohort_taps(out["taps"][0])
         return msg, st.t
 
     # -- checkpoint / resume ----------------------------------------------
@@ -246,10 +259,19 @@ class QAFeL:
         if self.staleness.would_drop(tau):
             self.meter.record_dropped(msg)
             self.staleness.record_dropped(tau)
+            if self.telemetry is not None:
+                self.telemetry.emit("drop", step=self.state.t,
+                                    client=msg.meta.get("client", -1),
+                                    tau=tau, reason="stale")
             return None
         self.meter.record(msg)
         self.staleness.observe(tau)
         w = (1.0 / math.sqrt(1.0 + tau)) if self.qcfg.staleness_scaling else 1.0
+        if self.telemetry is not None:
+            extra = {"taps": msg.meta["taps"]} if "taps" in msg.meta else {}
+            self.telemetry.emit("upload", step=self.state.t,
+                                client=msg.meta.get("client", -1), tau=tau,
+                                weight=w, **extra)
         if (payload["kind"] == self.cq.spec.kind
                 and payload.get("bits") in (None, self.cq.spec.bits)):
             self.buffer.add_encoded(payload, weight=w)
@@ -273,12 +295,13 @@ class QAFeL:
         qsgd_broadcast = self.sq.spec.kind == "qsgd"
         sbits = self.sq.spec.bits if qsgd_broadcast else None
         beta = self.qcfg.server_momentum if self.qcfg.server_momentum else None
-        x_new, h_new, m_new, payload = kops.server_flush_step(
+        out = kops.server_flush_step(
             st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
             batch.norms, batch.weights, batch.extra,
             key.reshape(1, -1) if qsgd_broadcast else None,
             bits=batch.bits, sbits=sbits, n=batch.n,
-            lr=self.qcfg.server_lr, beta=beta)
+            lr=self.qcfg.server_lr, beta=beta, taps=self._taps)
+        x_new, h_new, m_new, payload = out[:4]
         if qsgd_broadcast:
             enc = packed_qsgd_payload(payload[0], payload[1], sbits, batch.n,
                                       st.layout)
@@ -286,6 +309,15 @@ class QAFeL:
             enc = packed_identity_payload(payload[0], batch.n, st.layout)
         bmsg = frame_packed_message(HIDDEN_BROADCAST, self.sq, enc, t=st.t)
         self.meter.record(bmsg, n_receivers=n_receivers)
+        if self.telemetry is not None:
+            extra = {"taps": named_flush_taps(out[4])} if self._taps else {}
+            self.telemetry.emit(
+                "flush", step=st.t, window=self.qcfg.buffer_size,
+                packed_k=0 if batch.stack is None else int(batch.stack.shape[0]),
+                has_residual=batch.extra is not None, **extra)
+            self.telemetry.emit("broadcast", step=st.t + 1,
+                                n_receivers=n_receivers,
+                                wire_kB=bmsg.wire_bytes / 1e3)
         self.state = ServerState(x_flat=x_new, hidden_flat=h_new,
                                  momentum_flat=m_new, layout=st.layout,
                                  t=st.t + 1)
@@ -302,7 +334,9 @@ class QAFeL:
 
     def metrics(self, drift: bool = False) -> Dict[str, Any]:
         """The metrics surface (``obs.metrics.collect``): traffic,
-        staleness, server steps and, on request, the hidden drift."""
+        staleness, server steps, on request the hidden drift, and the
+        tracer's tap series when telemetry is attached."""
         from repro_torch.obs.metrics import collect
         return collect(self.meter, self.staleness, self.state.t,
+                       tracer=self.telemetry,
                        drift=self.hidden_drift() if drift else None)

@@ -9,13 +9,16 @@ stragglers and per-client quantizer bit-width tiers.
     PYTHONPATH=src python -m repro_torch.examples.cohort_scenarios --list
     PYTHONPATH=src python -m repro_torch.examples.cohort_scenarios \\
         --scenario tiered_bits --concurrency 8 --cohort-size 4 \\
-        --uploads 120 [--model quad] [--device cpu]
+        --uploads 120 [--model quad] [--device cpu] [--trace PATH]
 
 ``--model quad`` swaps the CNN for a d = 2048 convex quadratic whose
 "accuracy" is the fraction of the distance to the optimum recovered; its
 optimum comes from a numpy seed (the reference draws it with
-``jax.random``). ``--min-acc`` asserts convergence. Without ``--device``
-the run asks for CUDA and raises where there is none.
+``jax.random``). ``--min-acc`` asserts convergence. ``--trace PATH`` turns
+the telemetry taps on, writes the run's events to PATH as JSONL, validates
+them against the schema (``repro_torch.obs.schema``) and prints the
+summary table. Without ``--device`` the run asks for CUDA and raises where
+there is none.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from repro_torch.common.device import resolve_device, to_device
 from repro_torch.core import QAFeL, QAFeLConfig
 from repro_torch.data import FederatedPartition, SyntheticCelebA
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
+from repro_torch.obs import (RunTracer, summary_table, validate_jsonl,
+                             write_jsonl)
 from repro_torch.sim import SCENARIOS, CohortAsyncFLSimulator, SimConfig
 
 QUAD_D = 2048
@@ -62,7 +67,6 @@ def quad_loss(params, batch, key):
 def quad_task(device, d: int = QUAD_D) -> Task:
     """The convex task on ``device``, with a batched batches provider."""
     wstar = quad_optimum(d)
-    wstar_t = torch.from_numpy(wstar).to(device)
 
     def client_batches(cids, keys):
         del keys
@@ -71,8 +75,9 @@ def quad_task(device, d: int = QUAD_D) -> Task:
     client_batches.batched = True
 
     def eval_fn(p):
-        err = torch.linalg.norm(p["w"] - wstar_t) / torch.linalg.norm(wstar_t)
-        return float(1.0 - err)
+        # in numpy on the host: the same accuracy on every device
+        w = p["w"].detach().cpu().numpy()
+        return float(1.0 - np.linalg.norm(w - wstar) / np.linalg.norm(wstar))
 
     return Task(quad_loss, {"w": torch.zeros(d, device=device)},
                 client_batches, eval_fn)
@@ -112,10 +117,11 @@ def qafel_config(buffer: int = 4) -> QAFeLConfig:
 
 def run(task: Task, device, *, scenario: str = "identity",
         concurrency: int = 8, cohort_size: int = 4, uploads: int = 120,
-        buffer: int = 4, seed: int = 0):
-    """One cohort-engine run; returns (algo, result)."""
+        buffer: int = 4, seed: int = 0, telemetry=None):
+    """One cohort-engine run; returns (algo, result). ``telemetry`` is an
+    ``obs.RunTracer`` or None."""
     algo = QAFeL(qafel_config(buffer), task.loss_fn, task.params0,
-                 device=device)
+                 device=device, telemetry=telemetry)
     sim = CohortAsyncFLSimulator(
         algo, SimConfig(concurrency=concurrency, max_uploads=uploads,
                         eval_every_steps=3, seed=seed),
@@ -139,6 +145,9 @@ def main(argv=None):
                     help="assert final accuracy >= this")
     ap.add_argument("--model", choices=("cnn", "quad"), default="cnn")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="turn the telemetry taps on and write the run's "
+                         "events to PATH as JSONL (schema-validated)")
     args = ap.parse_args(argv)
     if args.list:
         for name, cfg in SCENARIOS.items():
@@ -147,10 +156,11 @@ def main(argv=None):
     dev = resolve_device(args.device)
     task = (quad_task(dev) if args.model == "quad"
             else cnn_task(dev, args.samples, args.seed))
+    tracer = RunTracer(taps=True) if args.trace is not None else None
     _algo, res = run(task, dev, scenario=args.scenario,
                      concurrency=args.concurrency,
                      cohort_size=args.cohort_size, uploads=args.uploads,
-                     buffer=args.buffer, seed=args.seed)
+                     buffer=args.buffer, seed=args.seed, telemetry=tracer)
     m = res.metrics
     print(f"engine=cohort  model={args.model}  scenario={args.scenario}  "
           f"cohort_size={args.cohort_size}  concurrency={args.concurrency}  "
@@ -166,6 +176,14 @@ def main(argv=None):
     if args.min_acc is not None and res.final_accuracy < args.min_acc:
         raise SystemExit(f"accuracy {res.final_accuracy:.3f} < required "
                          f"{args.min_acc}")
+    if tracer is not None:
+        write_jsonl(tracer, args.trace)
+        errors = validate_jsonl(args.trace)
+        if errors:
+            raise SystemExit(f"trace schema errors: {errors[:5]}")
+        print(summary_table(tracer, title=f"telemetry ({args.trace})"))
+        print(f"  trace: {len(tracer.events())} events -> {args.trace} "
+              f"(schema OK)")
 
 
 if __name__ == "__main__":

@@ -1,20 +1,20 @@
 """The port's kernels: hand-written CUDA C++ for Hopper (``csrc/``), their
-plain PyTorch versions (``ref``), the wrappers (``qsgd``, ``buffer_agg``)
-and the wire-layout entry points (``ops``)."""
+plain PyTorch versions (``ref``), the wrappers (``qsgd``, ``buffer_agg``,
+``taps``) and the wire-layout entry points (``ops``)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import buffer_agg, qsgd
+from repro_torch.kernels import buffer_agg, qsgd, taps
 
 
 def launches() -> Dict[str, int]:
     """Kernel launches per kernel since the last ``reset_launches``."""
-    return {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES}
+    return {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES, **taps.LAUNCHES}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for counts in (qsgd.LAUNCHES, buffer_agg.LAUNCHES):
+    for counts in (qsgd.LAUNCHES, buffer_agg.LAUNCHES, taps.LAUNCHES):
         for name in counts:
             counts[name] = 0

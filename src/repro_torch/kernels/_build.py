@@ -53,9 +53,16 @@ SIGNATURES = {
                              _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize", (_P, _P, _P, _LL, _I, _P)),
     "buffer_aggregate": ("buffer_aggregate", (_P, _P, _P, _P, _I, _LL, _I, _P)),
+    "flush_taps": ("flush_taps", (_P, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P,
+                                  _P)),
+    "upload_taps": ("upload_taps", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P,
+                                    _P)),
 }
 
 _loaded: Dict[str, object] = {}  # library name -> loaded entry point
+# loads of each library in this process: the port's only compile events
+# (``obs.events.CompileWatch`` reads them)
+LOADS: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 
 def find_nvcc() -> str:
@@ -126,6 +133,7 @@ def entry(name: str):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _loaded[name] = fn
+        LOADS[name] += 1
     return fn
 
 

@@ -15,6 +15,10 @@ stack.
 11-16) as a short chain of launches: the fused dequantize-accumulate, the
 FedBuff momentum and server update, the broadcast quantize-pack and the
 hidden-state apply of the decoded broadcast bits.
+
+With ``taps=True`` both add their metric taps (``kernels.taps``): one more
+launch each, reading what the step already computed; the other outputs
+are the same tensors as with taps off.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.common.device import to_device
 from repro_torch.common.tree import tree_map
 from repro_torch.kernels import buffer_agg as _agg
 from repro_torch.kernels import qsgd as _qsgd
+from repro_torch.kernels import taps as _taps
 from repro_torch.kernels.ref import rows2d, rows_for  # noqa: F401 (re-export)
 
 
@@ -61,7 +66,7 @@ def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
 
 def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              k_enc, *, b: int, bits=None,
-                             member_chunk=None) -> dict:
+                             member_chunk=None, taps: bool = False) -> dict:
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -84,13 +89,16 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
 
     Returns ``{"packed": (b, rows, 16*bits), "norms": (b, rows)}`` for
     qsgd, ``{"flat": (b, d)}`` for identity, whose flat delta is the wire
-    payload."""
+    payload. ``taps=True`` adds ``"taps"``, the (b, 2) upload taps of the
+    stack (``kernels.taps.upload_taps``: one more launch)."""
     if b == 1:
         flat2d = client_update(hidden_flat, batches, k_train)[None]
         if bits is None:
-            return {"flat": flat2d}
-        packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
-        return {"packed": packed[None], "norms": norms[None]}
+            out = {"flat": flat2d}
+        else:
+            packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
+            out = {"packed": packed[None], "norms": norms[None]}
+        return _with_upload_taps(out, flat2d, bits, taps)
     keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
     step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
     if member_chunk is None or member_chunk >= b:
@@ -101,10 +109,21 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
             step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
                  keys[i:i + mc]) for i in range(0, b, mc)])
     if bits is None:
-        return {"flat": flat2d}
+        return _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
     seeds = torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
     packed, norms = qsgd_quantize_batch(flat2d, seeds, bits)
-    return {"packed": packed, "norms": norms}
+    return _with_upload_taps({"packed": packed, "norms": norms}, flat2d, bits,
+                             taps)
+
+
+def _with_upload_taps(out: dict, flat2d, bits, taps: bool) -> dict:
+    """``out`` with its ``"taps"`` rows when ``taps`` is on: the delta
+    stack against the decode of its own wire codes (identity: the delta
+    is the wire, error 0)."""
+    if taps:
+        out["taps"] = _taps.upload_taps(flat2d.contiguous(), out.get("packed"),
+                                        out.get("norms"), bits)
+    return out
 
 
 def server_apply_flat(x, momentum, delta, *, lr, beta):
@@ -121,7 +140,7 @@ def server_apply_flat(x, momentum, delta, *, lr, beta):
 
 def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
                       weights, extra, key2d, *, bits, sbits, n: int,
-                      lr: float, beta):
+                      lr: float, beta, taps: bool = False):
     """The QAFeL buffer flush on the flat server state.
 
     1. fused dequantize-accumulate of the K packed uploads (plus the
@@ -136,6 +155,8 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
     ``stack`` may be None (no packed uploads), ``beta`` None (no momentum).
     Returns ``(x_new, hidden_new, momentum_new, payload)`` with payload
     ``(packed, norms)`` for a qsgd broadcast or ``(diff,)`` for identity.
+    ``taps=True`` appends the (7,) flush tap vector
+    (``kernels.taps.flush_taps``: one more launch) as a fifth element.
     """
     if stack is not None:
         delta = buffer_aggregate(stack, norms, weights, bits, n)
@@ -147,8 +168,12 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
                                      lr=lr, beta=beta)
     diff = x_new - hidden_flat
     if sbits is None:  # identity server quantizer: the diff IS the payload
-        return x_new, hidden_flat + diff, m_new, (diff,)
-    bp3, bn3 = qsgd_quantize_batch(diff[None], key2d, sbits)
-    bpacked, bnorms = bp3[0], bn3[0]
-    q = qsgd_dequantize(bpacked, bnorms, sbits, n)
-    return x_new, hidden_flat + q, m_new, (bpacked, bnorms)
+        q, payload = diff, (diff,)
+    else:
+        bp3, bn3 = qsgd_quantize_batch(diff[None], key2d, sbits)
+        payload = (bp3[0], bn3[0])
+        q = qsgd_dequantize(payload[0], payload[1], sbits, n)
+    out = (x_new, hidden_flat + q, m_new, payload)
+    if not taps:
+        return out
+    return out + (_taps.flush_taps(x_flat, x_new, delta, diff, q, weights),)

@@ -19,7 +19,10 @@ would differ in about a third of the rows or elements:
   division by s as a product with the f32 reciprocal;
 * buffer aggregate: ``scale_k = (w_k*n_k) * fl32(1/s)`` and
   ``acc = fma(sign*mag, scale_k, acc)`` over ascending k from zero;
-* square root: correctly rounded, which torch's CPU ``sqrt`` is not.
+* square root: correctly rounded, which torch's CPU ``sqrt`` is not;
+* metric taps (``flush_taps``, ``upload_taps``): sums of squares in the
+  fixed two-level order of ``tap_sum`` (``csrc/tap_reduce.cuh``), which
+  depends on the vector's length alone.
 
 Counter-hash words are uint32 values held in int64 tensors (torch has no
 uint32 shifts or adds on the CPU), masked after every add and multiply.
@@ -233,3 +236,91 @@ def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,
     for k, scale in enumerate(scales):
         acc = fma_f32(signed_magnitudes(stack[k], bits), scale, acc)
     return acc
+
+
+# The metric taps' reduction law (csrc/tap_reduce.cuh): lanes of a block,
+# values a lane adds in order per chunk, and the chunk length.
+TAP_THREADS = 256
+TAP_PER_THREAD = 16
+TAP_CHUNK = TAP_THREADS * TAP_PER_THREAD
+
+
+def _halving_tree(t: torch.Tensor) -> torch.Tensor:
+    """(..., w) with w a power of two -> (...,): at width w, lane j < w/2
+    adds lane j + w/2, down to one lane."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
+
+
+def _lanes_then_tree(t: torch.Tensor) -> torch.Tensor:
+    """(..., m) -> (...,): value j goes to lane j % TAP_THREADS (zero-padded
+    to whole lanes), each lane adds its values in order, and the lanes
+    close with the halving tree."""
+    m = t.shape[-1]
+    per_lane = -(-m // TAP_THREADS)
+    t = torch.nn.functional.pad(t, (0, per_lane * TAP_THREADS - m))
+    t = t.reshape(*t.shape[:-1], per_lane, TAP_THREADS)
+    acc = t[..., 0, :]
+    for i in range(1, per_lane):
+        acc = acc + t[..., i, :]
+    return _halving_tree(acc)
+
+
+def tap_sum(sq: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of non-negative f32 values (squares) in the
+    tap kernels' order: chunks of ``TAP_CHUNK``, each reduced by
+    ``_lanes_then_tree``, then the chunk sums by ``_lanes_then_tree``
+    again. Missing values are +0, which leaves such a sum as it was, so
+    the result for a row depends on its length alone."""
+    n = sq.shape[-1]
+    chunks = -(-n // TAP_CHUNK)
+    sq = torch.nn.functional.pad(sq, (0, chunks * TAP_CHUNK - n))
+    partials = _lanes_then_tree(sq.reshape(*sq.shape[:-1], chunks,
+                                           TAP_CHUNK))
+    return _lanes_then_tree(partials)
+
+
+def _relative(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / max(den, 1e-30) as an IEEE f32 division."""
+    return num / torch.clamp(den, min=1e-30)
+
+
+def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
+               diff: torch.Tensor, q: torch.Tensor, weights=None):
+    """The flush's tap vector, f32 (7,): the norms of delta, x_new - x_old,
+    diff and q, the relative broadcast error ||diff - q|| / ||diff||, and
+    the weights' in-order sum and their minimum (zeros without weights)."""
+    upd = x_new - x_old
+    err = diff - q
+    roots = sqrt_f32(torch.stack([tap_sum(v * v)
+                                  for v in (delta, upd, diff, err, q)]))
+    if weights is None or weights.numel() == 0:
+        wsum = wmin = torch.zeros((), dtype=torch.float32,
+                                  device=x_old.device)
+    else:
+        wsum = weights[0]
+        for k in range(1, weights.shape[0]):
+            wsum = wsum + weights[k]
+        wmin = torch.min(weights)
+    return torch.stack([roots[0], roots[1], roots[2],
+                        _relative(roots[3], roots[2]), roots[4], wsum, wmin])
+
+
+def upload_taps(flat2d: torch.Tensor, packed=None, norms=None, bits=None):
+    """Per-message upload taps of a (b, d) delta stack, f32 (b, 2):
+    ``[||delta_i||, ||delta_i - qdq(delta_i)|| / max(||delta_i||, 1e-30)]``
+    with qdq the decode of the message's packed codes (``unpack_dequantize``
+    law); the error is 0 without codes (identity uploads)."""
+    b, d = flat2d.shape
+    dn = sqrt_f32(tap_sum(flat2d * flat2d))
+    if packed is None:
+        s_err = torch.zeros_like(dn)
+    else:
+        rows = packed.shape[1]
+        q = unpack_dequantize(packed.reshape(b * rows, -1),
+                              norms.reshape(-1), bits)
+        err = flat2d - q.reshape(b, rows * LANES)[:, :d]
+        s_err = tap_sum(err * err)
+    return torch.stack([dn, _relative(sqrt_f32(s_err), dn)], dim=1)

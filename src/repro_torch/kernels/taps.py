@@ -1,0 +1,118 @@
+"""Wrappers of the metric-tap kernels (CUDA C++ in ``csrc/flush_taps.cu``
+and ``csrc/upload_taps.cu``, on ``csrc/tap_reduce.cuh``).
+
+Counterpart of the tap math of ``repro/obs/taps.py`` (``flush_tap_vector``,
+``cohort_tap_rows``, ``decode_qsgd_stack``), which the reference computes in
+XLA inside its fused dispatches. No Pallas kernel computes it; the port
+takes it in two kernels of its own so that every sum of squares runs in one
+fixed order that depends on the vector's length alone (``ref.tap_sum``):
+the card equals the CPU bit for bit, and a member's upload tap does not
+depend on the cohort it was batched with. Taps on cost one launch per
+flush (``flush_taps``) and one per client-step encode (``upload_taps``).
+
+As the other wrappers: a CPU tensor runs the plain version
+(``ref.flush_taps``, ``ref.upload_taps``), a CUDA tensor launches the
+kernel and adds one to ``LAUNCHES[name]``; there is no fallback.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.qsgd import check_bits, check_tensor, on_card
+from repro_torch.kernels.ref import LANES
+
+# launches per kernel since the last reset (``kernels.reset_launches``)
+LAUNCHES = {"flush_taps": 0, "upload_taps": 0}
+
+FLUSH_SUMS, UPLOAD_SUMS = 5, 2  # partial sums a block writes
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
+    """At least ``rows`` per-row completion counters on ``device``: int32
+    zeros, made at first use (one fill launch) and grown by doubling. Each
+    launch's last blocks set them back to 0, so launches on one stream
+    share them."""
+    c = _counters.get(device)
+    if c is None or c.numel() < rows:
+        size = max(rows, 1024 if c is None else 2 * c.numel())
+        c = torch.zeros(size, dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
+
+
+def _chunks(n: int) -> int:
+    return -(-n // _ref.TAP_CHUNK)
+
+
+def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
+               diff: torch.Tensor, q: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The flush tap vector, f32 (7,) in ``obs.taps.FLUSH_TAP_NAMES``
+    order, from the flush's true-n f32 vectors (``q`` is ``diff`` itself
+    for an identity server quantizer) and its (K,) normalized weights or
+    None."""
+    n, dev = x_old.shape[0], x_old.device
+    for name, t in (("x_old", x_old), ("x_new", x_new), ("delta", delta),
+                    ("diff", diff), ("q", q)):
+        check_tensor(name, t, torch.float32, (n,), dev)
+    if weights is not None:
+        check_tensor("weights", weights, torch.float32, (None,), dev)
+    if n == 0:
+        raise ValueError("flush_taps needs a non-empty vector")
+    if not on_card(x_old):
+        return _ref.flush_taps(x_old, x_new, delta, diff, q, weights)
+    k = 0 if weights is None else weights.shape[0]
+    partials = torch.empty(_chunks(n) * FLUSH_SUMS, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty(7, dtype=torch.float32, device=dev)
+    fn = _build.entry("flush_taps")
+    _build.check("flush_taps", fn(
+        x_old.data_ptr(), x_new.data_ptr(), delta.data_ptr(),
+        diff.data_ptr(), q.data_ptr(), weights.data_ptr() if k else None, k,
+        n, partials.data_ptr(), _row_counters(dev, 1).data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    LAUNCHES["flush_taps"] += 1
+    return out
+
+
+def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
+                norms: Optional[torch.Tensor] = None,
+                bits: Optional[int] = None) -> torch.Tensor:
+    """Per-message upload taps of an f32 (b, d) delta stack, f32 (b, 2) in
+    ``obs.taps.COHORT_TAP_NAMES`` order. ``packed`` uint8 (b, rows, 16*bits)
+    and ``norms`` f32 (b, rows) are the stack's wire codes; without them
+    (identity uploads, ``bits`` None) the error column is 0."""
+    check_tensor("flat2d", flat2d, torch.float32, (None, None), flat2d.device)
+    b, d = flat2d.shape
+    dev = flat2d.device
+    if b == 0 or d == 0:
+        raise ValueError(f"upload_taps needs a non-empty stack, got "
+                         f"{tuple(flat2d.shape)}")
+    if (packed is None) != (bits is None) or (packed is None) != (
+            norms is None):
+        raise ValueError("upload_taps takes packed, norms and bits together")
+    if packed is not None:
+        check_bits(bits)
+        rows = _ref.rows_for(d)
+        check_tensor("packed", packed, torch.uint8,
+                     (b, rows, LANES * bits // 8), dev)
+        check_tensor("norms", norms, torch.float32, (b, rows), dev)
+    if not on_card(flat2d):
+        return _ref.upload_taps(flat2d, packed, norms, bits)
+    partials = torch.empty(b * _chunks(d) * UPLOAD_SUMS, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    fn = _build.entry("upload_taps")
+    _build.check("upload_taps", fn(
+        flat2d.data_ptr(), None if packed is None else packed.data_ptr(),
+        None if norms is None else norms.data_ptr(), b, d,
+        0 if bits is None else bits, partials.data_ptr(),
+        _row_counters(dev, b).data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream))
+    LAUNCHES["upload_taps"] += 1
+    return out

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common import prng
+from repro_torch.common.device import resolve_device
 from repro_torch.models.layers import dense_init, group_norm
 
 CH = 32
@@ -29,7 +30,10 @@ DROPOUT = 0.1
 
 
 def init_cnn(seed: int = 0, device=None):
-    """A random parameter tree of the CNN, made from ``seed``."""
+    """A random parameter tree of the CNN, made from ``seed`` on the CPU's
+    generator and placed on ``device`` (``None``: the card, as for every
+    entry point; ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {}
     ch_in = IN_CH
@@ -46,10 +50,8 @@ def init_cnn(seed: int = 0, device=None):
         "w": dense_init(gen, (2 * 2 * CH, N_CLASSES), 2 * 2 * CH),
         "b": torch.zeros(N_CLASSES),
     }
-    if device is not None:
-        params = {k: {kk: v.to(device) for kk, v in sub.items()}
-                  for k, sub in params.items()}
-    return params
+    return {k: {kk: v.to(device) for kk, v in sub.items()}
+            for k, sub in params.items()}
 
 
 def cnn_forward(params, images: torch.Tensor, *, train: bool = False,

@@ -23,7 +23,9 @@ Timing, dropouts, stragglers and per-client quantizer tiers come from a
 cohort size (padding repeats the group's first member; its rows are
 computed and dropped), so K2 always runs at B = ``cohort_size``. A tier
 client's upload through a narrower quantizer is decoded on arrival; the
-default tier stays packed.
+default tier stays packed. With telemetry taps on (``QAFeL(...,
+telemetry=)``) each member's upload taps ride its message, and a member
+lost to dropout is a ``drop`` event.
 """
 from __future__ import annotations
 
@@ -36,11 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.common import prng
+from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.core.protocol import (CLIENT_UPDATE, Message,
                                        frame_cohort_messages)
 from repro_torch.core.qafel import QAFeL, client_update_flat
 from repro_torch.core.quantizers import make_quantizer
+from repro_torch.obs.taps import named_cohort_taps
 from repro_torch.sim.events import BaseAsyncSimulator, SimConfig, SimResult
 from repro_torch.sim.scenarios import (ScenarioConfig, ScenarioSampler,
                                        get_scenario)
@@ -72,7 +76,8 @@ def auto_member_chunk(b: int, d: int, device=None, *,
     ``None`` (the whole cohort in one vmap) or a chunk size. One rule on
     every device: the whole cohort unless its working set, b members of
     ``_BYTES_PER_MEMBER_PARAM * d`` bytes, exceeds half of ``free_bytes``
-    (by default what ``device`` has free), else as many members as fit.
+    (by default what ``device`` has free; ``None`` is the card, as for
+    every entry point), else as many members as fit.
     The reference's rule, a cache optimum measured on XLA:CPU, is not
     carried over. The encode's bits do not depend on the chunking; the
     CNN's deltas may move (up to 1.2e-7 on the CPU;
@@ -80,8 +85,7 @@ def auto_member_chunk(b: int, d: int, device=None, *,
     if b <= 1:
         return None
     if free_bytes is None:
-        free_bytes = _free_bytes(torch.device("cpu" if device is None
-                                              else device))
+        free_bytes = _free_bytes(resolve_device(device))
     per_member = max(d, 1) * _BYTES_PER_MEMBER_PARAM
     budget = free_bytes // 2
     if b * per_member <= budget:
@@ -162,12 +166,17 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                     gt, ge = train_keys[idx], enc_keys[idx]
             out = client_update_flat(
                 self.algo.loss_fn, self.algo.qcfg, q.spec, st.layout,
-                st.hidden_flat, grp_batches, gt, ge, b=b, member_chunk=chunk)
+                st.hidden_flat, grp_batches, gt, ge, b=b, member_chunk=chunk,
+                taps=self.algo._taps)
             self.groups += 1
             mlist = frame_cohort_messages(CLIENT_UPDATE, q, out, st.layout,
                                           version=st.t, count=members.size)
+            # row j of the step's outputs is member members[j]
+            tap_rows = out["taps"].cpu() if self.algo._taps else None
             for j, i in enumerate(members.tolist()):
                 msgs[i] = mlist[j]
+                if tap_rows is not None:
+                    msgs[i].meta["taps"] = named_cohort_taps(tap_rows[j])
         return msgs
 
     def _admit_cohort(self, next_arrival: float, next_client: int):
@@ -241,6 +250,13 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                 for i in range(self.cohort_size):
                     if drops[i]:
                         self.dropped += 1
+                        if self.tracer is not None:
+                            # at the tracer's current clock, not the
+                            # member's future arrival, so t_sim stays
+                            # non-decreasing
+                            self.tracer.emit("drop", step=algo.state.t,
+                                             client=next_client + i, tau=0,
+                                             reason="dropout")
                         continue
                     msgs[i].meta["client"] = next_client + i
                     heapq.heappush(heap, (float(arrivals[i] + durations[i]),
@@ -257,6 +273,8 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                 heapq.heappop(arrival_heap)
                 started += 1
             delivered += 1
+            if self.tracer is not None:
+                self.tracer.set_sim_time(now)
             bmsg = algo.receive(msg, self._next_receive_key(),
                                 n_receivers=max(1, started - delivered))
             uploads += 1

@@ -18,6 +18,11 @@ each broadcast is decoded once and added to every replica.
 Randomness: durations come from ``numpy.random.default_rng(seed)`` and the
 key stream from the port's threefry ``PRNGKey(seed)``, both as in the
 reference, so the event timeline is the reference's exactly.
+
+With an ``obs.RunTracer`` attached to the algorithm (``QAFeL(...,
+telemetry=)``), the simulator stamps its clock before every delivery,
+emits an eval event per evaluation and polls the kernel-library loads once
+at the end (compile events).
 """
 from __future__ import annotations
 
@@ -77,6 +82,8 @@ class BaseAsyncSimulator:
         self.eval_fn = eval_fn
         self.rng = np.random.default_rng(sim_cfg.seed)
         self.key = prng.PRNGKey(sim_cfg.seed)
+        # the algorithm's RunTracer, if one is attached
+        self.tracer = getattr(algo, "telemetry", None)
         self.replicas = [algo.state.hidden_flat.clone()
                          for _ in range(sim_cfg.track_hidden_replicas)]
         self._last_eval_step = -1
@@ -100,6 +107,9 @@ class BaseAsyncSimulator:
         if step - self._last_eval_step >= self.cfg.eval_every_steps:
             acc = float(self.eval_fn(self.algo.state.x))
             accuracy_trace.append(AccuracyPoint(now, uploads, step, acc))
+            if self.tracer is not None:
+                self.tracer.emit("eval", step=step, accuracy=acc,
+                                 uploads=uploads)
             self._last_eval_step = step
             if (self.cfg.target_accuracy is not None
                     and acc >= self.cfg.target_accuracy):
@@ -116,6 +126,12 @@ class BaseAsyncSimulator:
         if not accuracy_trace or accuracy_trace[-1][1] != uploads:
             accuracy_trace.append(
                 AccuracyPoint(now, uploads, self.algo.state.t, final_acc))
+            if self.tracer is not None:
+                self.tracer.set_sim_time(now)
+                self.tracer.emit("eval", step=self.algo.state.t,
+                                 accuracy=final_acc, uploads=uploads)
+        if self.tracer is not None:
+            self.tracer.poll_compiles(step=self.algo.state.t)
         metrics = self.algo.metrics(drift=True)
         metrics["replicas_in_sync"] = self.verify_replicas()
         metrics.update(extra_metrics)
@@ -167,6 +183,8 @@ class AsyncFLSimulator(BaseAsyncSimulator):
             # to every client still training at that instant
             now, s, cid = heapq.heappop(heap)
             msg = pending.pop(s)
+            if self.tracer is not None:
+                self.tracer.set_sim_time(now)
             bmsg = algo.receive(msg, self._next_key(),
                                 n_receivers=max(1, len(heap)))
             uploads += 1

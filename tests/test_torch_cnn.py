@@ -61,7 +61,7 @@ def test_params_from_jax_round_trip(setup):
 
 
 def test_init_cnn_shapes_match_reference(setup):
-    mine = init_cnn(3)
+    mine = init_cnn(3, device="cpu")
     ref = jax.tree.map(np.asarray, setup["params"])
     assert [tuple(x.shape) for x in tree_leaves(mine)] == [
         x.shape for x in jax.tree.leaves(ref)]

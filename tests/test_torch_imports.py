@@ -62,11 +62,14 @@ def test_everything_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.common.device import resolve_device
     from repro_torch.convert import params_from_jax
     from repro_torch.core import QAFeL, QAFeLConfig
-    from repro_torch.examples import federated_celeba, quickstart
+    from repro_torch.examples import (cohort_scenarios, federated_celeba,
+                                      quickstart)
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim.cohort import auto_member_chunk
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -79,4 +82,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
         federated_celeba.main(["--uploads", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": [0.0, 1.0]})
+    trace = tmp_path / "trace.jsonl"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cohort_scenarios.main(["--model", "quad", "--uploads", "1",
+                               "--trace", str(trace)])
+    assert not trace.exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cnn(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        auto_member_chunk(32, 1000)
+    assert auto_member_chunk(32, 1000, free_bytes=1 << 40) is None
     assert resolve_device("cpu") == torch.device("cpu")
+    assert init_cnn(0, device="cpu")["head"]["w"].device.type == "cpu"

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 codes, norms and f32 values bit for bit (signed zeros included), and one
-launch counted per call. Needs a CUDA device and nvcc; without a device
+launch counted per call. The metric-tap kernels also against the plain
+versions on the CPU, which is what the CPU tests hold to the reference. Needs a CUDA device and nvcc; without a device
 every case skips with the reason. Imports no JAX, so it runs where the
 port runs:
 
@@ -252,3 +253,85 @@ def test_cohort_step_card_equals_cpu(bits):
     card = out[str(dev)]
     _assert_bits_equal((card["packed"].cpu(), card["norms"].cpu()),
                        (out["cpu"]["packed"], out["cpu"]["norms"]))
+
+
+def _taps_equal_on_card_and_cpu(kernel, wrapper, plain, args):
+    """One launch of the tap kernel ``kernel`` on the card's copies of
+    ``args`` (CPU tensors or None), bit-equal to the plain version on the
+    card and on the CPU; returns the result."""
+    dev = _card()
+    card_args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+    before = tkernels.launches()[kernel]
+    got = wrapper(*card_args)
+    torch.cuda.synchronize()
+    assert tkernels.launches()[kernel] == before + 1
+    _assert_bits_equal(got, plain(*card_args))
+    _assert_bits_equal(got.cpu(), plain(*args))
+    return got
+
+
+def _flush_vectors(n, seed, identity=False, zero_diff=False):
+    rng = np.random.default_rng(seed)
+    v = [torch.from_numpy((rng.standard_normal(n) * s).astype(np.float32))
+         for s in (1.0, 1.0, 0.02, 0.05, 0.05)]
+    v[1] = v[0] + v[1] * 0.01
+    if zero_diff:
+        v[3] = torch.zeros(n)
+        v[4] = torch.zeros(n)
+    if identity:
+        v[4] = v[3].clone()
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 307, 79_842, 3 * 4096 + 77, 257 * 4096 + 5))
+@pytest.mark.parametrize("k", (0, 1, 10))
+def test_flush_taps_match_plain_on_card(n, k):
+    """The flush taps at the CNN's n, lengths around and past the chunk
+    and past 256 chunks (the second level's lanes wrap), with 0, 1 and 10
+    weights; an identity broadcast (q = diff) gives a relative error of
+    exactly 0, and a zero diff gives 0, not NaN."""
+    rng = np.random.default_rng(k)
+    w = (None if k == 0 else
+         torch.from_numpy(rng.uniform(0.01, 0.3, k).astype(np.float32)))
+    for identity, zero in ((False, False), (True, False), (False, True)):
+        got = _taps_equal_on_card_and_cpu(
+            "flush_taps", tkernels.taps.flush_taps, ref.flush_taps,
+            (*_flush_vectors(n, n + k, identity, zero), w))
+        if identity or zero:
+            assert got[3].item() == 0.0
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (*BITS, None))
+@pytest.mark.parametrize("b,d", ((1, 79_842), (32, 79_842), (3, 4097),
+                                 (65, 300), (2, 257 * 4096 + 5)))
+def test_upload_taps_match_plain_on_card(b, d, bits):
+    """The upload taps over a stack with ragged last rows, an all-zero
+    bucket and an all-zero message (both taps 0, not NaN), in every bit
+    width and for identity uploads; and each row alone gives its row of
+    the stack, bit for bit."""
+    rng = np.random.default_rng(b * d)
+    flat = torch.from_numpy((rng.standard_normal((b, d)) * 0.01)
+                            .astype(np.float32))
+    flat[0, :200] = 0.0
+    flat[-1] = 0.0
+    packed = norms = None
+    if bits is not None:
+        packed, norms = ref.quantize_pack_batch(
+            ref.rows2d(flat), prng.split(prng.PRNGKey(b), b), bits)
+    got = _taps_equal_on_card_and_cpu(
+        "upload_taps", tkernels.taps.upload_taps, ref.upload_taps,
+        (flat, packed, norms, bits))
+    assert got[-1].tolist() == [0.0, 0.0]
+    if bits is None:
+        assert (got[:, 1] == 0.0).all()
+    dev = _card()
+    for i in (0, b // 2):
+        one = tkernels.taps.upload_taps(
+            flat[i:i + 1].to(dev),
+            None if packed is None else packed[i:i + 1].to(dev),
+            None if norms is None else norms[i:i + 1].to(dev), bits)
+        _assert_bits_equal(one, got[i:i + 1])
