@@ -49,12 +49,31 @@ Phases, each printing one JSON line:
    no tracer in this process (state bit-identical, trace valid under
    ``build/telemetry/``, one more launch per flush and per tier group by
    the counters and the profiler, uploads/s and flush median taps off and
-   on in turns); the main path with taps on for 20 uploads (one more
+   on in turns); the main path with taps on for 12 uploads (one more
    launch per client step and per flush); the quad's traced cohort run on
    the card and the CPU, event streams bit for bit;
-10. one line listing every kernel with its launches on both paths, times
-    and bound (the tap kernels' launches from the taps-on runs);
-11. last, ``{"ok": true, "device": {...}}``.
+10. the quantizer family: K1, K2 and K3 at the lowrank uplink's shapes
+    (the CNN's 2,496 rank coordinates, b = 1 and B = 32) against their
+    plain versions; the quad task on the card and the CPU bit for bit,
+    taps on (the cohort engine under lowrank4g32 clients and a qsgd4
+    server in cohorts of 1 and 4, the sequential engine with qsgd4 clients
+    under a top_k0.1 server and rand_k0.1 clients under a qsgd4 server:
+    state, every upload and broadcast, every residual, the event streams);
+    three runs on the full-width CNN with the federated example's
+    configuration, the launch counters set to 0 just before and read just
+    after (sequential, qsgd4 under top_k0.1, 100 uploads; sequential,
+    lowrank4g32 under qsgd4, 40 uploads; cohorts of 32, lowrank4g32, 200
+    uploads): uploads/s, flush median, launches per kernel, device
+    launches of one client step and one flush, replicas in sync, bytes
+    per upload and per broadcast against the exact 1,328 / 63,880 /
+    42,417 B, and the lowrank cohort step's peak memory per member and
+    parameter against the member-chunk rule; then one lowrank b = 1 upload
+    at d = 1e8 (projection, K1, K3, expand, residual) timed by CUDA
+    events, with its device launches;
+11. one line listing every kernel with its launches on both paths and on
+    the family's runs, times and bound (the tap kernels' launches from
+    the taps-on runs);
+12. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Times come from CUDA events
@@ -98,7 +117,14 @@ MAIN_UPLOADS, CONCURRENCY = 100, 16
 COHORT_UPLOADS, COHORT_CONCURRENCY, COHORT_SIZE, COHORT_BIG_B = 200, 100, 32, 8
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one record as a JSON line; a phase record gets the seconds
+    since the script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -487,17 +513,23 @@ def upload_before_after(dev, reps: int = 5):
 
 def device_launches(fn) -> list:
     """(name, count) of every device activity (kernels, copies, sets) that
-    ``torch.profiler`` records while ``fn`` runs."""
+    ``torch.profiler`` records while ``fn`` runs. The profiler loses the
+    activities of the first millisecond or so after it starts (seen on
+    the H100 machine: none of a 1 ms flush's), so a device sleep of about
+    10 ms runs first and is left out of the counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and "spin_kernel" not in e.key]
 
 
 def upload_launches(dev, steps: int = 5):
@@ -1257,7 +1289,7 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     trace valid and its counts adding up, taps on one more launch per
     flush and per tier group (counters and profiler), the other launches
     as pinned; then uploads/s and the flush median with taps off, on, on,
-    off, twice."""
+    off."""
     import statistics as st
 
     from repro_torch.obs import summary_table
@@ -1272,7 +1304,7 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     diff = tap_launch_diff(profiled_counts(dev, "cohort", COHORT_UPLOADS),
                            flushes, groups)
     timed = {"off": [], "on": []}
-    for t in (None, True, True, None) * 2:
+    for t in (None, True, True, None):
         r = traced_cnn_run(dev, t, engine="cohort", uploads=COHORT_UPLOADS)
         timed["off" if t is None else "on"].append(
             (r["res"].uploads / r["wall"],
@@ -1314,7 +1346,7 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     return record
 
 
-def telemetry_main_path(dev, out_dir: Path, uploads: int = 20) -> dict:
+def telemetry_main_path(dev, out_dir: Path, uploads: int = 12) -> dict:
     """The sequential main path (the CNN, concurrency 16) for ``uploads``
     uploads with taps on, profiled beside the same run with no tracer:
     the state bit-identical, the trace valid, one more launch per client
@@ -1401,6 +1433,509 @@ def run_telemetry(dev):
     return cases, main["launches_on"], cohort["launches_on"]
 
 
+# ---------------------------------------------------------------------------
+# the quantizer family: sparse messages both ways, the lowrank uplink
+# ---------------------------------------------------------------------------
+
+# exact wire bytes at the CNN's n = 79,842, from the reference's
+# ``wire_bits``: lowrank4g32 is 4 bits on each of its 2,496 rank
+# coordinates and one f32 norm per 128 of them; top_k0.1 / rand_k0.1 are
+# 7,985 (index, value) pairs of 64 bits; qsgd4 4 bits per coordinate and
+# one norm per 128
+LOWRANK_UPLOAD_B, TOP_K_MESSAGE_B, QSGD4_MESSAGE_B = 1_328, 63_880, 42_417
+LOWRANK_RANK, FAMILY_QUAD_UPLOADS = 2_496, 40
+# (name, engine, client quantizer, server quantizer, uploads, cohort size)
+FAMILY_CNN_RUNS = (
+    ("seq_qsgd4_topk10", "sequential", "qsgd4", "top_k0.1", 100, None),
+    ("seq_lowrank4g32_qsgd4", "sequential", "lowrank4g32", "qsgd4", 40, None),
+    ("cohort_lowrank4g32_qsgd4", "cohort", "lowrank4g32", "qsgd4", 200,
+     COHORT_SIZE))
+PAYLOAD_FIELDS = ("packed", "norms", "idx", "vals", "payload", "seed")
+
+
+def family_kernel_cases(dev) -> dict:
+    """K1, K2 and K3 at the lowrank uplink's shapes on the CNN: K1 over the
+    2,496 rank coordinates of one upload (20 rows, the last ragged), K2
+    over 32 of them (the cohort upload), K3 over the 32 x 20 rows of their
+    decode; each bit for bit against its plain version, timed, with its
+    byte bound."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import qsgd, ref
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    y = torch.randn((COHORT_SIZE, LOWRANK_RANK), generator=gen,
+                    device=dev) * 0.01
+    rows = ref.rows_for(LOWRANK_RANK)
+    code_b = 128 * BITS // 8
+    key = prng.split(prng.PRNGKey(3))[1]
+    seeds = prng.split(prng.PRNGKey(4), COHORT_SIZE)
+    packed, norms = qsgd.qsgd_quantize_pack_batch_flat(y, seeds, BITS)
+    packed2d = packed.reshape(COHORT_SIZE * rows, -1)
+    norms1d = norms.reshape(-1)
+    f32 = (F32_OPS_PER_S, "float32")
+    cases = {
+        "K1_lowrank_rank_b1": dict(
+            source="src/repro_torch/kernels/csrc/quantize_pack_threefry.cu",
+            replaces="src/repro/kernels/qsgd.py:70",
+            fn=qsgd.qsgd_quantize_pack_threefry,
+            plain=ref.quantize_pack_threefry, args=(y[0].contiguous(), key,
+                                                     BITS),
+            bytes=LOWRANK_RANK * 4 + rows * (code_b + 4),
+            bytes_formula="r*4 y + rows*(128*bits/8 + 4)",
+            ops=LOWRANK_RANK * 8, rate=f32),
+        "K2_lowrank_rank_B32": dict(
+            source="src/repro_torch/kernels/csrc/quantize_pack_batch.cu",
+            replaces="src/repro/kernels/qsgd.py:160",
+            fn=qsgd.qsgd_quantize_pack_batch_flat,
+            plain=lambda f, s, b: ref.quantize_pack_batch(ref.rows2d(f), s,
+                                                          b),
+            args=(y, seeds, BITS),
+            bytes=COHORT_SIZE * (LOWRANK_RANK * 4 + 8 + rows * (code_b + 4)),
+            bytes_formula="B*(r*4 y + 8 seeds + rows*(128*bits/8 + 4))",
+            ops=COHORT_SIZE * LOWRANK_RANK * 8, rate=f32),
+        "K3_lowrank_rank_B32": dict(
+            source="src/repro_torch/kernels/csrc/unpack_dequantize.cu",
+            replaces="src/repro/kernels/qsgd.py:356",
+            fn=qsgd.qsgd_unpack_dequantize, plain=ref.unpack_dequantize,
+            args=(packed2d, norms1d, BITS),
+            bytes=COHORT_SIZE * rows * (code_b + 4 + 128 * 4),
+            bytes_formula="B*rows*(128*bits/8 + 4) + B*rows*128*4 out",
+            ops=COHORT_SIZE * rows * 128 * 4, rate=f32),
+    }
+    out = {}
+    for name, case in cases.items():
+        out[name] = measure_case(name, case, 50, 10)
+        emit({"phase": "family_kernel", "name": name,
+              **{k: v for k, v in out[name].items()
+                 if k not in ("source", "replaces")}})
+    return out
+
+
+def _recording(algo) -> dict:
+    """Wrap ``algo.receive`` to keep every upload's and every broadcast's
+    payload; returns the lists."""
+    rec = {"uploads": [], "broadcasts": []}
+    inner = algo.receive
+
+    def receive(msg, key, n_receivers=1):
+        rec["uploads"].append(msg.payload)
+        bmsg = inner(msg, key, n_receivers)
+        if bmsg is not None:
+            rec["broadcasts"].append(bmsg.payload)
+        return bmsg
+
+    algo.receive = receive
+    return rec
+
+
+def _same_payload(cpu: dict, card: dict) -> bool:
+    import torch
+
+    if cpu["kind"] != card["kind"]:
+        return False
+    for f in PAYLOAD_FIELDS:
+        if f in cpu:
+            a, b = cpu[f], card[f]
+            if not bits_equal(torch.as_tensor(a), torch.as_tensor(b).cpu()):
+                return False
+    return True
+
+
+def quad_family_on_both(dev) -> dict:
+    """The quad task (d = 2048, K = 4, 40 uploads) on the card and on the
+    CPU, bit for bit: the cohort engine under lowrank4g32 clients and a
+    qsgd4 server at cohort sizes 1 and 4, and the sequential engine with
+    qsgd4 clients under a top_k0.1 server and rand_k0.1 clients under a
+    qsgd4 server: x, x-hat, momentum, every upload's and broadcast's
+    payload, every residual, the traffic summary, and with taps on the
+    comparable event streams, taps included (their JSON text)."""
+    import dataclasses
+    import json as _json
+
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import cohort_scenarios as cs
+    from repro_torch.obs import RunTracer
+    from repro_torch.sim import (AsyncFLSimulator, CohortAsyncFLSimulator,
+                                 SimConfig)
+
+    cases = (("cohort", "lowrank4g32", "qsgd4", 1),
+             ("cohort", "lowrank4g32", "qsgd4", 4),
+             ("sequential", "qsgd4", "top_k0.1", 1),
+             ("sequential", "rand_k0.1", "qsgd4", 1))
+    out = {}
+    for engine, cq, sq, size in cases:
+        runs = {}
+        for d in ("cpu", dev):
+            task = cs.quad_task(d)
+            stacked = task.client_batches
+
+            def one(cid, key, stacked=stacked):
+                return {k: v[0] for k, v in stacked([cid], [key]).items()}
+
+            qcfg = dataclasses.replace(cs.qafel_config(4),
+                                       client_quantizer=cq,
+                                       server_quantizer=sq)
+            tracer = RunTracer(taps=True)
+            algo = QAFeL(qcfg, task.loss_fn, task.params0, device=d,
+                         telemetry=tracer)
+            rec = _recording(algo)
+            scfg = SimConfig(concurrency=8, max_uploads=FAMILY_QUAD_UPLOADS,
+                             eval_every_steps=3)
+            if engine == "sequential":
+                res = AsyncFLSimulator(algo, scfg, one, task.eval_fn).run()
+            else:
+                res = CohortAsyncFLSimulator(
+                    algo, scfg, stacked if size > 1 else one, task.eval_fn,
+                    cohort_size=size).run()
+            rec["events"] = [e.comparable() for e in tracer.events()
+                             if e.kind != "compile"]
+            runs[str(d)] = (algo, res, rec)
+        (ca, cr, crec), (ga, gr, grec) = runs["cpu"], runs[str(dev)]
+        name = f"{engine}{size}_{cq}_{sq}"
+        checks = {
+            "state": all(bits_equal(getattr(ca.state, f),
+                                    getattr(ga.state, f).cpu())
+                         for f in ("x_flat", "hidden_flat", "momentum_flat")),
+            "uploads": len(crec["uploads"]) == len(grec["uploads"])
+            == FAMILY_QUAD_UPLOADS and all(
+                _same_payload(c, g)
+                for c, g in zip(crec["uploads"], grec["uploads"])),
+            "broadcasts": len(crec["broadcasts"]) == len(grec["broadcasts"])
+            == ca.state.t > 0 and all(
+                _same_payload(c, g)
+                for c, g in zip(crec["broadcasts"], grec["broadcasts"])),
+            "residuals": set(ca._residuals) == set(ga._residuals) and all(
+                bits_equal(ca._residuals[c], ga._residuals[c].cpu())
+                for c in ca._residuals),
+            "traffic": ca.meter.summary() == ga.meter.summary(),
+            "events_with_taps": any("taps" in e for e in crec["events"])
+            and _json.dumps(crec["events"]) == _json.dumps(grec["events"]),
+            "replicas_in_sync": bool(cr.metrics["replicas_in_sync"]
+                                     and gr.metrics["replicas_in_sync"]),
+        }
+        out[name] = {"flushes": ca.state.t, "residual_clients":
+                     len(ca._residuals), "checks": checks}
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            emit({"phase": "family_quad_card_vs_cpu", "runs": out})
+            raise AssertionError(f"{name}: card and CPU differ in {failed}")
+    emit({"phase": "family_quad_card_vs_cpu", "runs": out})
+    return out
+
+
+def _profiled_launches(fn) -> int:
+    """Device activities ``torch.profiler`` records while ``fn`` runs."""
+    return sum(c for _, c in device_launches(fn))
+
+
+def _profiled_kinds(fn) -> dict:
+    """The same, by activity name (shortened)."""
+    out = {}
+    for name, count in device_launches(fn):
+        out[name[:60]] = out.get(name[:60], 0) + count
+    return out
+
+
+def _launches_per_call(fn, reps: int = 3) -> tuple:
+    """Device activities of one call of ``fn`` by the profiler, as the
+    difference of a session of ``reps`` calls and one of a single call,
+    divided by ``reps - 1``: the profiler loses some activities at the
+    start of a session (seen on the H100 machine: the first kernels of a
+    flush, K4 among them, while the counters say it ran), the same in both
+    sessions. Returns (per call, the single call's session by name)."""
+    one = _profiled_kinds(fn)
+    many = _profiled_launches(lambda: [fn() for _ in range(reps)])
+    return (many - sum(one.values())) / (reps - 1), one
+
+
+def family_step_launches(dev, algo, task, cohort_size) -> dict:
+    """Device launches of one client step (of ``cohort_size`` members for
+    the cohort engine) and of one flush of ``algo``'s configuration, by
+    ``_launches_per_call``; a flush is the receives of a window of K
+    uploads made just before (the first K - 1 launch nothing). Runs after
+    the launch counts of the run are read."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.core.qafel import client_update_flat
+    from repro_torch.sim import cohort
+
+    reps = 3
+    keys = prng.split(prng.PRNGKey(21), 2 * (reps + 1) * CNN_K + 2)
+    batches = [task.client_batches(i, None) for i in range(CNN_K)]
+    if cohort_size is None:
+        def call():
+            return algo.run_client(batches[1], keys[1], client=1)
+    else:
+        st, b = algo.state, cohort_size
+        stacked = cohort._stack_trees(
+            [task.client_batches(i, None) for i in range(b)])
+        k = prng.split_each(prng.split(prng.PRNGKey(22), b))
+        kw = {}
+        if algo.cq.spec.kind == "lowrank":
+            kw = {"residual": algo.client_residuals(list(range(b))),
+                  "basis_seed": algo.round_basis_seed()}
+
+        def call():
+            return client_update_flat(
+                algo.loss_fn, algo.qcfg, algo.cq.spec, st.layout,
+                st.hidden_flat, stacked, k[:, 0], k[:, 1], b=b, **kw)
+
+    call()  # warm up
+    step, _ = _launches_per_call(call, reps)
+    torch.cuda.synchronize()
+    while algo.buffer.count:  # start from an empty window
+        msg, _ = algo.run_client(batches[0], keys[0], client=0)
+        algo.receive(msg, keys[0])
+    windows = [[algo.run_client(batches[i], keys[2 + w * CNN_K + i],
+                                client=i)[0] for i in range(CNN_K)]
+               for w in range(reps + 1)]
+
+    def flush():
+        for msg in windows.pop():
+            out = algo.receive(msg, keys[-1])
+        if out is None:
+            raise AssertionError("the window did not flush")
+
+    per_flush, one = _launches_per_call(flush, reps)
+    return {"client_step_device_launches": step,
+            "flush_device_launches": per_flush,
+            "flush_device_activities_one_session": one}
+
+
+def family_cnn_run(dev, name, engine, cq, sq, uploads, cohort_size) -> dict:
+    """One run of the family on the paper's CNN at full width through its
+    entry points (the federated example's task and configuration: 300
+    clients, K = 10, P = 2, batch 8), the launch counters set to 0 just
+    before and read just after: uploads/s, flush median, launches per
+    kernel, replicas in sync, metered bytes against the exact values; then
+    the device launches of one client step and one flush; for the cohort
+    engine under lowrank, one client step's peak memory per member and
+    parameter against the member-chunk rule's constant."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import QAFeL
+    from repro_torch.core.protocol import payload_wire_bytes
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import (AsyncFLSimulator, CohortAsyncFLSimulator,
+                                 SimConfig)
+
+    task = fc.celeba_task(dev)
+    algo = QAFeL(fc.qafel_config(cq, sq), task.loss_fn,
+                 init_cnn(0, device=dev), device=dev)
+    flush_s = []
+    inner_flush = algo._flush
+
+    def timed_flush(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_flush(*args, **kw)
+        torch.cuda.synchronize()
+        flush_s.append(time.perf_counter() - t0)
+        return out
+
+    algo._flush = timed_flush
+    rec = _recording(algo)
+    if engine == "sequential":
+        sim = AsyncFLSimulator(algo, SimConfig(
+            concurrency=CONCURRENCY, max_uploads=uploads, eval_every_steps=3),
+            task.client_batches, task.eval_fn)
+    else:
+        sim = CohortAsyncFLSimulator(
+            algo, SimConfig(concurrency=COHORT_CONCURRENCY,
+                            max_uploads=uploads, eval_every_steps=3),
+            task.client_batches, task.eval_fn, cohort_size=cohort_size)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    m = res.metrics
+    flushes = res.server_steps
+    up_bytes = {payload_wire_bytes(p) for p in rec["uploads"]}
+    bc_bytes = {payload_wire_bytes(p) for p in rec["broadcasts"]}
+    lowrank = cq.startswith("lowrank")
+    want_up = LOWRANK_UPLOAD_B if lowrank else QSGD4_MESSAGE_B
+    want_bc = TOP_K_MESSAGE_B if sq.startswith("top_k") else QSGD4_MESSAGE_B
+    # client steps run: one per tier group of each cohort, or one K1 launch
+    # per sequential client (more clients start than deliver)
+    steps = (sim.groups if engine == "cohort"
+             else launches["qsgd_quantize_pack_threefry"])
+    checks = {
+        "replicas_in_sync": bool(m["replicas_in_sync"]),
+        "uploads": res.uploads == uploads,
+        "n_params": algo.state.n == CNN_N,
+        "state_finite": bool(torch.isfinite(algo.state.x_flat).all()),
+        "accuracy_finite": math.isfinite(res.final_accuracy),
+        "upload_bytes_exact": up_bytes == {want_up}
+        and algo.meter.upload_bytes == res.uploads * want_up
+        and algo.cq.wire_bytes_packed(algo.state.layout) == want_up,
+        "broadcast_bytes_exact": bc_bytes == {want_bc}
+        and algo.meter.broadcast_wire_bytes == flushes * want_bc
+        and algo.sq.wire_bytes_packed(algo.state.layout) == want_bc,
+        "flushes": flushes == uploads // CNN_K,
+        "K4_off_lowrank": launches["buffer_aggregate"]
+        == (0 if lowrank else flushes),
+    }
+    if sq.startswith("top_k"):
+        # a sparse broadcast: no encode kernel, a scatter for its decode
+        checks["K2_K3_off_top_k"] = (launches["qsgd_quantize_pack_batch"]
+                                     == launches["qsgd_unpack_dequantize"]
+                                     == 0)
+        checks["K1_per_client_step"] = (
+            launches["qsgd_quantize_pack_threefry"] >= res.uploads)
+    elif engine == "sequential":
+        # each client step: K1 over the rank coordinates, K3 its decode;
+        # each flush: K3 of the window, K2 and K3 of the broadcast, K3 of
+        # the replicas' decode
+        k1 = launches["qsgd_quantize_pack_threefry"]
+        checks["K1_per_client_step"] = k1 >= res.uploads
+        checks["K3_per_step_and_flush"] = (
+            launches["qsgd_unpack_dequantize"] == k1 + 3 * flushes)
+        checks["K2_per_flush"] = launches["qsgd_quantize_pack_batch"] \
+            == flushes
+    else:
+        # each cohort: K2 and K3 over its 32 members; each flush as above
+        checks["K1_off_cohort"] = launches["qsgd_quantize_pack_threefry"] == 0
+        checks["K2_per_group_and_flush"] = (
+            launches["qsgd_quantize_pack_batch"] == sim.groups + flushes)
+        checks["K3_per_group_and_flush"] = (
+            launches["qsgd_unpack_dequantize"] == sim.groups + 3 * flushes)
+    record = {"phase": "family_cnn", "run": name, "engine": engine,
+              "client_quantizer": cq, "server_quantizer": sq,
+              "cohort_size": cohort_size, "uploads": res.uploads,
+              "server_steps": flushes, "wall_s": wall,
+              "uploads_per_s": res.uploads / wall,
+              "flush_ms_median": 1e3 * statistics.median(flush_s),
+              "bytes_per_upload": sorted(up_bytes),
+              "bytes_per_broadcast": sorted(bc_bytes),
+              "upload_MB": m["upload_MB"],
+              "broadcast_wire_MB": algo.meter.broadcast_wire_bytes / 1e6,
+              "final_accuracy": res.final_accuracy,
+              "replicas_in_sync": bool(m["replicas_in_sync"]),
+              "tau_max": m["tau_max"], "launches": launches,
+              "client_steps": steps, "residual_clients":
+                  len(algo._residuals), "checks": checks}
+    record.update(family_step_launches(dev, algo, task, cohort_size))
+    if engine == "cohort":
+        record["step_memory"] = lowrank_step_memory(dev, algo, task)
+    emit(record)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name}: checks failed: {failed}")
+    return record
+
+
+def lowrank_step_memory(dev, algo, task) -> dict:
+    """Peak device memory of one lowrank client step of ``COHORT_SIZE``
+    members (their batches and residuals included), per member and
+    parameter, held against ``sim.cohort._BYTES_PER_MEMBER_PARAM``."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.core.qafel import client_update_flat
+    from repro_torch.sim import cohort
+
+    b, st = COHORT_SIZE, algo.state
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = cohort._stack_trees(
+        [task.client_batches(i, None) for i in range(b)])
+    residual = algo.client_residuals(list(range(1000, 1000 + b)))
+    keys = prng.split_each(prng.split(prng.PRNGKey(8), b))
+    client_update_flat(algo.loss_fn, algo.qcfg, algo.cq.spec, st.layout,
+                       st.hidden_flat, batches, keys[:, 0], keys[:, 1], b=b,
+                       residual=residual, basis_seed=algo.round_basis_seed())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    per = peak / (b * st.n)
+    if not per <= cohort._BYTES_PER_MEMBER_PARAM:
+        raise AssertionError(f"a lowrank client step takes {per} B per "
+                             "member and parameter, above the member-chunk "
+                             "rule's constant")
+    return {"members": b, "peak_bytes": peak, "bytes_per_member_param": per,
+            "rule_bytes_per_member_param": cohort._BYTES_PER_MEMBER_PARAM}
+
+
+def lowrank_upload_d1e8(dev, reps: int = 5) -> dict:
+    """One lowrank4g32 b = 1 upload at d = 1e8 as the client step makes it
+    after training (``ops._lowrank_encode``: the error-compensated sum,
+    projection, K1 over the 3,125,000 rank coordinates, K3, expand and the
+    new residual): median device time by CUDA events, device launches by
+    the profiler, the wire bytes, and the byte bound of the whole (delta
+    and residual read once, the new residual and the codes written once).
+    The baseline of a fused sketch kernel."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.core import make_quantizer
+    from repro_torch.kernels import ops, qsgd
+
+    n = 10**8
+    gen = torch.Generator(device=dev).manual_seed(17)
+    delta = torch.randn((1, n), generator=gen, device=dev) * 1e-3
+    residual = torch.randn((1, n), generator=gen, device=dev) * 1e-4
+    seeds = qsgd.basis_seeds(0, 1)
+    key = prng.split(prng.PRNGKey(18))[1]
+    spec = make_quantizer("lowrank4g32").spec
+
+    def upload():
+        return ops._lowrank_encode(delta, key, BITS, spec.group, seeds,
+                                   residual, False)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = upload()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    rank = spec.rank(n)
+    rows = -(-rank // 128)
+    if (out["packed"].shape != (1, rows, 16 * BITS)
+            or not bool(torch.isfinite(out["residual"]).all())):
+        raise AssertionError("the d = 1e8 lowrank upload is malformed")
+    del out
+    launches = _profiled_launches(upload)
+    ms = device_ms(upload, reps)
+    bytes_ = 3 * n * 4 + rows * (16 * BITS + 4)
+    record = {"phase": "lowrank_upload_d1e8", "n": n, "rank": rank,
+              "ms": ms, "device_launches": launches,
+              "wire_bytes": spec.wire_bits(n) / 8,
+              "bound_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
+              "bytes_formula": "n*4 delta + n*4 residual + n*4 new residual "
+                               "+ rows*(128*bits/8 + 4) codes",
+              "peak_bytes_above_inputs": peak}
+    emit(record)
+    if record["wire_bytes"] != 1_660_160:
+        raise AssertionError("lowrank4g32 wire bytes at d = 1e8")
+    return record
+
+
+def run_quantizer_family(dev):
+    """The quantizer-family phase; returns the kernel cases and, per
+    kernel, its launches summed over the three CNN runs."""
+    import torch
+
+    cases = family_kernel_cases(dev)
+    quad_family_on_both(dev)
+    launches = {}
+    for run in FAMILY_CNN_RUNS:
+        record = family_cnn_run(dev, *run)
+        for k, v in record["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    big = lowrank_upload_d1e8(dev)
+    torch.cuda.empty_cache()
+    return cases, launches, big
+
+
 def main() -> int:
     import torch
 
@@ -1453,6 +1988,7 @@ def main() -> int:
     profile_window(dev, uploads=COHORT_UPLOADS, cohort_size=COHORT_SIZE)
     check_against_cpu(dev)
     taps, taps_main, taps_cohort = run_telemetry(dev)
+    family_cases, family_launches, _ = run_quantizer_family(dev)
 
     kernels_line = []
     for name, m in cnn.items():
@@ -1469,14 +2005,17 @@ def main() -> int:
             "d1e8": {"ms": b["ms"], "plain_ms": b["plain_ms"],
                      "bound_ms": b["bound_ms"], "equal": b["equal"],
                      "max_abs_err": b["max_abs_err"]}})
-        prefix = {"qsgd_quantize_pack_batch": "K2_",
+        kernels_line[-1]["family_launches"] = family_launches[name]
+        prefix = {"qsgd_quantize_pack_threefry": "K1_",
+                  "qsgd_quantize_pack_batch": "K2_",
                   "qsgd_unpack_dequantize": "K3_"}.get(name)
         if prefix:
             kernels_line[-1]["cohort_cases"] = {
                 case: {key: c[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "equal",
                     "max_abs_err", "bytes_formula")}
-                for case, c in cohort_cases.items() if case.startswith(prefix)}
+                for case, c in {**cohort_cases, **family_cases}.items()
+                if case.startswith(prefix)}
     for name, shape in (("flush_taps", "flush_taps_cnn"),
                         ("upload_taps", "upload_taps_b1_qsgd4_cnn")):
         m = taps[shape]
@@ -1490,6 +2029,7 @@ def main() -> int:
             "launches_note": "taps-on main path (telemetry phase); every "
                              "other path runs with taps off",
             "cohort_launches": taps_cohort[name],
+            "family_launches": family_launches[name],
             "cases": {case: {key: c[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}

@@ -10,7 +10,11 @@ against the installed jax in ``tests/test_torch_prng.py``:
 * with ``(w0_i, w1_i) = threefry2x32(key, (hi=0, lo=i))``, ``split(key, n)[i]``
   is ``(w0_i, w1_i)`` and a 32-bit draw of n elements is ``w0_i ^ w1_i``;
 * ``uniform`` puts the top 23 bits into the mantissa of 1.x and subtracts 1;
-* ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
+* ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``;
+* ``permutation(key, n)`` is jax's ``_shuffle`` of ``arange(n)``:
+  ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each ``key, sub = split(key)``
+  and a stable sort of the values by the 32-bit draw ``bits(sub, (n,))``;
+  ``choice(key, n, k)`` without replacement is its first k values.
 
 A key is an int64 tensor of shape (2,) holding the two uint32 words.
 torch has no uint32 shifts or adds on the CPU, so every word lives in an
@@ -21,6 +25,8 @@ engine draws each member's dropout masks that way — and a draw lands on
 the key's device unless ``device`` says otherwise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -109,6 +115,35 @@ def uniform(key, shape, device=None) -> torch.Tensor:
 def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (p as f32)."""
     return uniform(key, shape, device) < p
+
+
+def _shuffle_rounds(n: int) -> int:
+    """Sort rounds of jax's shuffle of n values (2 at n = 2048, 1 at
+    n = 1000): enough that all n 32-bit sort keys differ in some round
+    with high probability."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+
+
+def permutation(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)``
+    (int64) by stable sorts on fresh 32-bit draws (module docstring)."""
+    key = torch.as_tensor(key)
+    dev = key.device if device is None else torch.device(device)
+    x = torch.arange(int(n), dtype=torch.int64, device=dev)
+    for _ in range(_shuffle_rounds(int(n))):
+        key, sub = split(key)
+        order = torch.sort(bits(sub, (int(n),), device=dev),
+                           stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key, n: int, k: int, device=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False)``: k distinct
+    indices of ``range(n)`` (int64), the first k of ``permutation``."""
+    if not 0 <= int(k) <= int(n):
+        raise ValueError(f"cannot choose {k} of {n} without replacement")
+    return permutation(key, n, device)[:int(k)]
 
 
 def key_words_i32(keys: torch.Tensor) -> torch.Tensor:

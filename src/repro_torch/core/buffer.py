@@ -2,11 +2,14 @@
 
 Counterpart of ``repro/core/buffer.py``, packed mode. The K uploads of a
 window are stored as they arrived on the wire — uint8 qsgd codes + bucket
-norms, stacked at flush time — or, for identity uploads (f32 on the wire),
-folded into one flat weighted sum. Uploads the server decoded on arrival
-(a bit-width tier's, ``add_decoded_flat``) fold into a second flat sum.
-``drain()`` hands the window's raw ingredients to the server flush, which
-dequantizes inside its fused aggregate launch, and resets the buffer.
+norms, stacked at flush time; lowrank's codes over the rank coordinates
+with each upload's basis seed pair; top_k / rand_k index / value pairs —
+or, for identity uploads (f32 on the wire), folded into one flat weighted
+sum. Uploads the server decoded on arrival (a bit-width tier's,
+``add_decoded_flat``) fold into a second flat sum. ``drain()`` hands the
+window's raw ingredients to the server flush, which dequantizes inside its
+fused aggregate launch (qsgd) or expands each upload (lowrank), and resets
+the buffer; the sparse pairs are scatter-added into the flat ``extra``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,29 @@ class FlushBatch:
     norms: Any = None  # (K, rows) f32 bucket norms, or None
     weights: Any = None  # (K,) f32, normalized, or None
     extra: Any = None  # (n,) flat f32 pre-scaled identity sum, or None
+    # lowrank windows: the stack holds rank-length subspace pairs, and each
+    # upload has its own basis seed pair (a window spans model versions)
+    kind: Optional[str] = None  # upload kind of the stacked pairs
+    seeds: Any = None  # (K, 2) int64 uint32 words per upload, or None
+    rank: Optional[int] = None  # subspace dimension of the stacked pairs
+    group: Optional[int] = None  # sketch group (rank = padded n / group)
+
+    def reduce(self) -> torch.Tensor:
+        """The window's flat Delta-bar outside the fused flush (the
+        non-fused flush chain): K4 for a qsgd stack, the expanded lowrank
+        window, plus ``extra`` in front."""
+        from repro_torch.kernels import ops as kops
+
+        if self.stack is None:
+            return self.extra
+        if self.kind == "lowrank":
+            flat = kops.lowrank_window_delta(
+                self.stack, self.norms, self.weights, self.seeds,
+                bits=self.bits, group=self.group, n=self.n)
+        else:
+            flat = kops.buffer_aggregate(self.stack, self.norms,
+                                         self.weights, self.bits, self.n)
+        return flat if self.extra is None else self.extra + flat
 
 
 def _f32_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -62,6 +88,10 @@ class UpdateBuffer:
     _acc: Any = None  # uploads decoded on arrival: flat f32 weighted sum
     _weightsum: float = 0.0
     flushes: int = 0
+    # lowrank: each upload's (2,) basis seed pair and the window's shape
+    _seeds: List[Any] = dataclasses.field(default_factory=list)
+    _rank: Optional[int] = None
+    _group: Optional[int] = None
 
     def add_decoded_flat(self, flat: torch.Tensor, weight: float = 1.0, *,
                          layout: Optional[TreeLayout] = None) -> None:
@@ -99,20 +129,43 @@ class UpdateBuffer:
             if self._bits is not None and enc.get("bits") != self._bits:
                 raise ValueError(f"message bits mismatch: {enc.get('bits')} "
                                  f"!= {self._bits}")
+        from repro_torch.kernels import ops as kops
         if kind == "qsgd":
-            from repro_torch.kernels import ops as kops
             if enc["norms"].shape[0] != kops.rows_for(enc["n"]):
                 raise ValueError("corrupt qsgd message: norms/rows mismatch")
+        if kind == "lowrank":
+            spec = self.quantizer.spec
+            if enc.get("group") != spec.group:
+                raise ValueError(f"lowrank sketch group mismatch: "
+                                 f"{enc.get('group')} != {spec.group}")
+            if enc.get("rank") != spec.rank(enc["n"]):
+                raise ValueError(f"corrupt lowrank message: rank "
+                                 f"{enc.get('rank')} != {spec.rank(enc['n'])}")
+            if enc["norms"].shape[0] != kops.rows_for(enc["rank"]):
+                raise ValueError("corrupt lowrank message: norms/rows "
+                                 "mismatch over the rank-length payload")
+            seed = torch.as_tensor(enc["seed"]).reshape(-1)
+            if seed.shape[0] != 2:
+                raise ValueError("corrupt lowrank message: basis seed must "
+                                 "be a (2,) pair")
+            if self._rank is not None and enc["rank"] != self._rank:
+                raise ValueError(f"lowrank rank mismatch: {enc['rank']} != "
+                                 f"{self._rank}")
         if self._layout is None:
             self._layout, self._n = enc["layout"], enc["n"]
         if self._bits is None:
             self._bits = enc.get("bits")
-        if kind == "qsgd":
+        if kind in ("qsgd", "lowrank"):
             self._packed.append((enc["packed"], enc["norms"]))
-        else:  # identity: f32 on the wire, folded into one weighted sum
+            if kind == "lowrank":
+                self._seeds.append(seed.to(torch.int64).cpu())
+                self._rank, self._group = enc["rank"], enc["group"]
+        elif kind == "identity":  # f32 on the wire: one weighted sum
             term = enc["payload"] * weight
             self._flat_acc = (term if self._flat_acc is None
                               else self._flat_acc + term)
+        else:  # top_k / rand_k: the pairs as they arrived
+            self._packed.append((enc["idx"], enc["vals"]))
         self._weightsum += float(weight)
         self._weights.append(float(weight))
         self.count += 1
@@ -131,6 +184,7 @@ class UpdateBuffer:
         self._packed, self._weights = [], []
         self._layout = self._bits = self._n = None
         self._flat_acc = self._acc = None
+        self._seeds, self._rank, self._group = [], None, None
         self._weightsum = 0.0
         self.count = 0
         self.flushes += 1
@@ -138,27 +192,46 @@ class UpdateBuffer:
     def drain(self) -> FlushBatch:
         """Hand the window's raw ingredients to the flush, and reset. The
         weights are divided by K (Algorithm 1 line 11, the reference's
-        ``normalize="capacity"``) as ``f32(w) / f32(K)``; the identity sum
-        is divided by K, and the decoded sum is scaled by ``fl32(1/K)``
-        and added in front, ``scaled + extra``, as the reference does."""
+        ``normalize="capacity"``) as ``f32(w) / f32(K)``. Sparse pairs are
+        scatter-added from zeros in arrival order, each as ``vals *
+        fl32(w / K)`` (indices are unique within a message, so one
+        ``index_add_`` per message is the reference's ``.at[idx].add``);
+        the identity sum divided by K is added behind them; the decoded
+        sum is scaled by ``fl32(1/K)`` and added in front, ``scaled +
+        extra``, as the reference does."""
         if not self.full:
             raise RuntimeError(f"flush before full: {self.count}/"
                                f"{self.capacity}")
         denom = float(self.capacity)
+        kind = self.quantizer.spec.kind
         stack = norms = weights = extra = None
-        if self._packed:
+        seeds = rank = group = win_kind = None
+        if self._packed and kind in ("qsgd", "lowrank"):
             stack = torch.stack([p for p, _ in self._packed])
             norms = torch.stack([nm for _, nm in self._packed])
             w = (np.asarray(self._weights, np.float32)
                  / np.float32(denom)).astype(np.float32)
             weights = to_device(torch.from_numpy(w), stack.device)
+            win_kind = kind
+            if kind == "lowrank":
+                seeds = torch.stack(self._seeds)
+                rank, group = self._rank, self._group
+        elif self._packed:
+            vals0 = self._packed[0][1]
+            extra = torch.zeros(self._n, dtype=torch.float32,
+                                device=vals0.device)
+            for (idx, vals), w in zip(self._packed, self._weights):
+                extra.index_add_(0, idx.to(torch.int64),
+                                 vals * _f32_scalar(w / denom, vals))
         if self._flat_acc is not None:
-            extra = _true_div(self._flat_acc, denom)
+            flat = _true_div(self._flat_acc, denom)
+            extra = flat if extra is None else extra + flat
         if self._acc is not None:
             scaled = _f32_scalar(1.0 / denom, self._acc) * self._acc
             extra = scaled if extra is None else scaled + extra
         batch = FlushBatch(n=self._n, layout=self._layout, bits=self._bits,
                            stack=stack, norms=norms, weights=weights,
-                           extra=extra)
+                           extra=extra, kind=win_kind, seeds=seeds,
+                           rank=rank, group=group)
         self._reset()
         return batch

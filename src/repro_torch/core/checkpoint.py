@@ -9,9 +9,12 @@ mid-window included — and continue bit-identically:
   step ``t``; the ``TreeLayout`` is stored as its fingerprint (per-leaf
   shapes, dtypes and sizes) and verified on load;
 * the ``UpdateBuffer``'s window: the packed uploads (uint8 codes and
-  bucket norms, ``buf_packed_a`` / ``buf_packed_b``), the staleness
-  weights, and the flat identity and decoded-tier sums (``buf_flat_acc``,
-  ``buf_acc``);
+  bucket norms, or sparse indices and values, ``buf_packed_a`` /
+  ``buf_packed_b``; a lowrank window's rank, group and per-upload basis
+  seeds, ``buf_seeds``), the staleness weights, and the flat identity and
+  decoded-tier sums (``buf_flat_acc``, ``buf_acc``);
+* the run's lowrank ``basis_seed`` and the clients' error-feedback
+  residuals (``residual_cids``, ``residual_stack``);
 * the ``TrafficMeter`` and ``StalenessMonitor``.
 
 Format: one ``np.savez`` archive of plain arrays plus a JSON blob
@@ -20,9 +23,9 @@ are not part of it: a resumed ``QAFeL`` fed the same messages continues
 bit-identically.
 
 The port runs on one device: it writes no ``sharding`` entry and loads a
-reference archive only if that archive came from one device. It has no
-lowrank uploads, so an archive with a basis seed, residuals or basis seeds
-in its window is refused too.
+reference archive only if that archive came from one device. An archive
+of another ``basis_seed`` is refused: the resumed run would derive other
+sketch bases.
 """
 from __future__ import annotations
 
@@ -62,6 +65,10 @@ def save_checkpoint(path, algo) -> None:
         "layout": _layout_fingerprint(st.layout),
         "quantizers": {"client": algo.cq.spec.label(),
                        "server": algo.sq.spec.label()},
+        "basis_seed": int(algo.basis_seed),
+        # ids may include null, the sequential engine's shared slot
+        "residual_cids": [None if c is None else int(c)
+                          for c in algo._residuals],
         "buffer": {
             "capacity": int(buf.capacity),
             "count": int(buf.count),
@@ -71,6 +78,8 @@ def save_checkpoint(path, algo) -> None:
             "bits": None if buf._bits is None else int(buf._bits),
             "n": None if buf._n is None else int(buf._n),
             "n_packed": len(buf._packed),
+            "rank": None if buf._rank is None else int(buf._rank),
+            "group": None if buf._group is None else int(buf._group),
             "has_layout": buf._layout is not None,
             "has_acc": buf._acc is not None,
             "has_flat_acc": buf._flat_acc is not None,
@@ -86,15 +95,21 @@ def save_checkpoint(path, algo) -> None:
     if buf._packed:
         arrays["buf_packed_a"] = np.stack([_host(a) for a, _ in buf._packed])
         arrays["buf_packed_b"] = np.stack([_host(b) for _, b in buf._packed])
+    if buf._seeds:
+        arrays["buf_seeds"] = np.stack(
+            [_host(s) for s in buf._seeds]).astype(np.uint32)
     if buf._acc is not None:
         arrays["buf_acc"] = _host(buf._acc)
     if buf._flat_acc is not None:
         arrays["buf_flat_acc"] = _host(buf._flat_acc)
+    if algo._residuals:
+        arrays["residual_stack"] = np.stack(
+            [_host(r) for r in algo._residuals.values()])
     np.savez(_normalize_path(path), __meta__=np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8), **arrays)
 
 
-def _check_compatible(meta: dict, arrays: dict, algo) -> None:
+def _check_compatible(meta: dict, algo) -> None:
     """Raise unless the archive fits ``algo``, before any state changes."""
     if meta["version"] != CHECKPOINT_VERSION:
         raise ValueError(f"unsupported checkpoint version {meta['version']}")
@@ -117,11 +132,12 @@ def _check_compatible(meta: dict, arrays: dict, algo) -> None:
     if meta["quantizers"] != want_q:
         raise ValueError(f"checkpoint quantizers {meta['quantizers']} != "
                          f"algo quantizers {want_q}")
+    if meta.get("basis_seed", 0) != algo.basis_seed:
+        raise ValueError(
+            f"checkpoint basis_seed {meta.get('basis_seed', 0)} != algo "
+            f"basis_seed {algo.basis_seed}: a resumed lowrank run would "
+            "derive different sketch bases")
     bmeta = meta["buffer"]
-    if (meta.get("basis_seed", 0) or meta.get("residual_cids")
-            or bmeta.get("rank") is not None or "buf_seeds" in arrays):
-        raise ValueError("checkpoint holds lowrank upload state, which the "
-                         "port does not have")
     if bmeta["capacity"] != algo.buffer.capacity:
         raise ValueError(f"checkpoint buffer capacity {bmeta['capacity']} != "
                          f"algo capacity {algo.buffer.capacity}")
@@ -130,15 +146,15 @@ def _check_compatible(meta: dict, arrays: dict, algo) -> None:
 def load_checkpoint(path, algo):
     """Restore a ``save_checkpoint`` archive of either package into
     ``algo`` in place, on ``algo``'s device. ``algo`` must be built from
-    the same model and configuration: the layout fingerprint, quantizers
-    and buffer capacity are verified first, so a failed load leaves it
-    intact. Returns ``algo``."""
+    the same model and configuration: the layout fingerprint, quantizers,
+    basis seed and buffer capacity are verified first, so a failed load
+    leaves it intact. Returns ``algo``."""
     from repro_torch.core.qafel import ServerState  # avoids an import cycle
 
     with np.load(_normalize_path(path)) as data:
         meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
         arrays = {k: data[k] for k in data.files if k != "__meta__"}
-    _check_compatible(meta, arrays, algo)
+    _check_compatible(meta, algo)
     dev = algo.device
 
     def dev_tensor(a) -> torch.Tensor:
@@ -169,6 +185,14 @@ def load_checkpoint(path, algo):
     buf._layout = layout if bmeta["has_layout"] else None
     buf.count = bmeta["count"]
     buf.flushes = bmeta["flushes"]
+    buf._rank, buf._group = bmeta.get("rank"), bmeta.get("group")
+    buf._seeds = ([torch.from_numpy(s.astype(np.int64))
+                   for s in arrays["buf_seeds"]]
+                  if "buf_seeds" in arrays else [])
+    algo._residuals = {
+        (None if c is None else int(c)):
+            dev_tensor(arrays["residual_stack"][i])
+        for i, c in enumerate(meta.get("residual_cids", []))}
 
     for field, value in meta["meter"].items():
         setattr(algo.meter, field, value)

@@ -2,9 +2,12 @@
 
 Counterpart of ``repro/core/protocol.py``. Every upload and broadcast is a
 ``Message`` carrying a real packed payload (uint8 qsgd codes + bucket norms,
-or the f32 vector for identity). Bytes follow the paper's Appendix E model
-on the whole flattened model: ``bits`` per coordinate plus one f32 norm per
-128-coordinate bucket for qsgd, 32 bits per coordinate for identity.
+lowrank's codes over its rank coordinates, top_k / rand_k index / value
+pairs, or the f32 vector for identity). Bytes follow the paper's Appendix E
+model on the whole flattened model: ``bits`` per coordinate plus one f32
+norm per 128-coordinate bucket for qsgd (over the rank coordinates for
+lowrank), 64 bits per kept coordinate for the sparse kinds, 32 bits per
+coordinate for identity.
 Broadcasts fan out: one server message reaches every client still training,
 so ``TrafficMeter.record`` takes the receiver count.
 """
@@ -16,7 +19,8 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.core.quantizers import (Quantizer, TreeLayout,
                                          packed_identity_payload,
-                                         packed_qsgd_payload)
+                                         packed_lowrank_payload,
+                                         packed_qsgd_payload, seed_pair)
 
 CLIENT_UPDATE = "client_update"
 HIDDEN_BROADCAST = "hidden_broadcast"
@@ -40,63 +44,100 @@ def frame_packed_message(kind: str, quantizer: Quantizer, enc: dict,
 
 
 def payloads_from_fused(quantizer: Quantizer, out: dict, layout: TreeLayout,
-                        *, count: Optional[int] = None) -> List[dict]:
+                        enc_keys=None, *, count: Optional[int] = None,
+                        basis_seed=None) -> List[dict]:
     """Per-member wire payloads of one client step's output
     (``kernels.ops.cohort_train_encode_step``): ``{"packed", "norms"}``
-    stacks for qsgd, a ``{"flat"}`` stack for identity.
+    stacks for qsgd and lowrank (lowrank over the rank coordinates, with
+    the round's ``basis_seed``), a ``{"flat"}`` stack for identity and the
+    sparse kinds, which are encoded here, row i with ``enc_keys[i]``
+    (``Quantizer.encode_flat``).
 
     ``count`` keeps the first N rows only: a tier group is padded to the
     full cohort size, and the padding rows never reach the wire. Each
     payload is a view of the step's output on its own device, so the
-    flush's stack reads it there, with no copy to the host and back. (The
-    reference also takes the members' encode keys, for the sparse kinds
-    the port does not have.)"""
+    flush's stack reads it there, with no copy to the host and back."""
     n = layout.total_size
-    if quantizer.spec.kind == "qsgd":
+    spec = quantizer.spec
+    if spec.kind in ("qsgd", "lowrank"):
         packed, norms = out["packed"], out["norms"]
         count = packed.shape[0] if count is None else count
-        return [packed_qsgd_payload(packed[i], norms[i], quantizer.spec.bits,
-                                    n, layout) for i in range(count)]
+        if spec.kind == "qsgd":
+            return [packed_qsgd_payload(packed[i], norms[i], spec.bits, n,
+                                        layout) for i in range(count)]
+        if basis_seed is None:
+            raise ValueError("lowrank payloads need the round's basis_seed")
+        seed = seed_pair(basis_seed)
+        return [packed_lowrank_payload(packed[i], norms[i], spec.bits, n,
+                                       layout, spec.rank(n), spec.group,
+                                       seed) for i in range(count)]
     flat = out["flat"]
     count = flat.shape[0] if count is None else count
-    return [packed_identity_payload(flat[i], n, layout)
+    if spec.kind == "identity":
+        return [packed_identity_payload(flat[i], n, layout)
+                for i in range(count)]
+    return [quantizer.encode_flat(flat[i], layout, enc_keys[i])
             for i in range(count)]
 
 
 def frame_cohort_messages(kind: str, quantizer: Quantizer, out: dict,
-                          layout: TreeLayout, *,
-                          version: int = 0,
-                          count: Optional[int] = None) -> List[Message]:
+                          layout: TreeLayout, enc_keys=None, *,
+                          version: int = 0, count: Optional[int] = None,
+                          basis_seed=None) -> List[Message]:
     """Frame a client step's output as one Message per member (the first
     ``count``), all of model ``version``. Bytes follow from the shapes,
-    wherever the payload lies."""
+    wherever the payload lies. ``enc_keys`` (sparse kinds) and
+    ``basis_seed`` (lowrank) go to ``payloads_from_fused``."""
     wire = quantizer.wire_bytes_packed(layout)
     return [Message(kind=kind, payload=enc, wire_bytes=wire,
                     meta={"version": version})
-            for enc in payloads_from_fused(quantizer, out, layout,
-                                           count=count)]
+            for enc in payloads_from_fused(quantizer, out, layout, enc_keys,
+                                           count=count,
+                                           basis_seed=basis_seed)]
+
+
+def encode_message_flat(kind: str, quantizer: Quantizer, flat, layout, key,
+                        **meta) -> Message:
+    """Encode a flat f32 vector (``Quantizer.encode_flat``) and frame it:
+    the non-fused flush's broadcast."""
+    return Message(kind=kind, payload=quantizer.encode_flat(flat, layout, key),
+                   wire_bytes=quantizer.wire_bytes_packed(layout),
+                   meta=dict(meta))
 
 
 def payload_wire_bytes(enc) -> Optional[float]:
-    """Exact framed bytes of one packed payload, from the payload itself."""
+    """Exact framed bytes of one packed payload, from the payload itself:
+    a lowrank upload is a rank-length qsgd message, a sparse one 64 bits
+    per kept coordinate, a tier upload priced at its own bits."""
     if not isinstance(enc, dict) or enc.get("format") != "packed":
         return None
-    if enc.get("kind") == "qsgd":
+    kind = enc.get("kind")
+    if kind == "lowrank":
+        r = int(enc["rank"])
+        return (enc["bits"] * r + 32 * math.ceil(r / 128)) / 8.0
+    if kind == "qsgd":
         n = int(enc["n"])
         return (enc["bits"] * n + 32 * math.ceil(n / 128)) / 8.0
-    if enc.get("kind") == "identity":
+    if kind == "identity":
         return 32 * int(enc["n"]) / 8.0
+    if "idx" in enc:
+        return 64 * int(enc["idx"].shape[-1]) / 8.0
     return None
 
 
 def payload_kind_label(enc) -> str:
-    """Per-kind bucket label for traffic accounting ("qsgd4", "identity")."""
+    """Per-kind bucket label for traffic accounting ("qsgd4",
+    "lowrank4g32", "top_k", "identity")."""
     if not isinstance(enc, dict):
         return "tree"
     kind = enc.get("kind")
+    if kind == "lowrank":
+        return f"lowrank{enc['bits']}g{enc['group']}"
     if kind == "qsgd":
         return f"qsgd{enc['bits']}"
-    return "other" if kind is None else str(kind)
+    if kind is not None:
+        return str(kind)
+    return "sparse" if "idx" in enc else "other"
 
 
 def decode_message_flat(quantizer: Quantizer, msg: Message):

@@ -13,7 +13,17 @@ the momentum are f32 vectors in the coordinate space of one
 ``TreeLayout``, on the run's device. A flush is
 ``kernels.ops.server_flush_step``: the fused dequantize-accumulate of the
 K packed uploads, momentum and server update, the broadcast quantize-pack
-and the hidden-state apply of the decoded broadcast bits.
+and the hidden-state apply of the decoded broadcast bits. A top_k, rand_k
+or lowrank server quantizer takes a short non-fused chain instead (the
+window's reduce, the update, ``Quantizer.encode_flat`` of the diff and the
+apply of its decode).
+
+Lowrank uploads project each client's delta onto a basis that rotates
+every server step (``round_basis_seed``: the run's ``basis_seed`` and the
+model version; both sides derive it, no bytes ship), and each client
+carries what its quantized subspace message failed to carry as an
+error-feedback residual. The server holds the residuals here, as the
+reference's simulator does, keyed by client id.
 
 FedBuff is QAFeL with identity quantizers (``core.fedbuff``).
 
@@ -39,6 +49,7 @@ from repro_torch.core.buffer import UpdateBuffer
 from repro_torch.core.hidden_state import HiddenState
 from repro_torch.core.protocol import (CLIENT_UPDATE, HIDDEN_BROADCAST,
                                        Message, TrafficMeter,
+                                       encode_message_flat,
                                        frame_cohort_messages,
                                        frame_packed_message)
 from repro_torch.core.quantizers import (Quantizer, TreeLayout, flatten_tree,
@@ -115,26 +126,57 @@ def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
 def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        hidden_flat, batches, k_train, k_enc, *, b: int = 1,
                        member_chunk: Optional[int] = None,
-                       taps: bool = False) -> dict:
+                       taps: bool = False, residual=None,
+                       basis_seed=None) -> dict:
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
     b > 1, then one encode launch over the (b, d) delta stack: K1 at
-    b = 1, K2 above).
+    b = 1, K2 above). A lowrank ``spec`` takes the members' (b, d)
+    ``residual`` stack and the round's ``basis_seed`` pair.
 
-    Returns ``{"packed", "norms"}`` stacks for qsgd, ``{"flat"}`` for
-    identity, and with ``taps`` the (b, 2) ``"taps"`` rows.
+    Returns ``{"packed", "norms"}`` stacks for qsgd (lowrank: over the
+    rank coordinates, and the new ``"residual"`` stack), ``{"flat"}`` for
+    identity and the sparse kinds, and with ``taps`` the ``"taps"`` rows.
     """
+    lowrank = spec.kind == "lowrank"
+    if lowrank and basis_seed is None:
+        raise ValueError("a lowrank client step needs the round's basis "
+                         "seed pair")
     return kops.cohort_train_encode_step(
         functools.partial(client_update, loss_fn, qcfg, layout), hidden_flat,
         batches, k_train, k_enc, b=b,
-        bits=spec.bits if spec.kind == "qsgd" else None,
-        member_chunk=member_chunk, taps=taps)
+        bits=spec.bits if spec.kind in ("qsgd", "lowrank") else None,
+        member_chunk=member_chunk, taps=taps,
+        group=spec.group if lowrank else None, basis_seed=basis_seed,
+        residual=residual)
 
 
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
+
+
+def _check_upload(payload) -> None:
+    """Raise unless ``payload`` is a well-formed packed upload, before the
+    server counts it."""
+    kind = payload.get("kind") if isinstance(payload, dict) else None
+    if kind is None or payload.get("format") != "packed":
+        raise ValueError("the port decodes packed uploads only")
+    if kind in ("qsgd", "lowrank"):
+        if (payload["packed"].shape[-1] != 16 * payload["bits"]
+                or payload["norms"].shape[-1] != payload["packed"].shape[0]):
+            raise ValueError(f"corrupt {kind}{payload['bits']} upload: codes "
+                             f"{tuple(payload['packed'].shape)}, norms "
+                             f"{tuple(payload['norms'].shape)}")
+    elif kind in ("top_k", "rand_k"):
+        idx, vals = payload.get("idx"), payload.get("vals")
+        if (idx is None or vals is None or idx.dim() != 1
+                or vals.shape != idx.shape or idx.numel() > payload["n"]):
+            raise ValueError(f"corrupt {kind} upload: it needs 1-D idx and "
+                             f"vals of one length, at most n={payload['n']}")
+    elif kind != "identity":
+        raise ValueError(f"unknown upload kind {kind!r}")
 
 
 @dataclasses.dataclass
@@ -179,11 +221,15 @@ class ServerState:
 class QAFeL:
     """Server and client logic of Algorithms 1-3, driven by an event loop
     (``sim.events``). ``device=None`` means CUDA; the tests pass "cpu".
-    ``telemetry`` is an ``obs.RunTracer`` or None (module docstring)."""
+    ``telemetry`` is an ``obs.RunTracer`` or None (module docstring).
+    ``basis_seed`` keys the lowrank sketch bases of the run."""
 
     def __init__(self, qcfg: QAFeLConfig, loss_fn: Callable, params0,
-                 device=None, telemetry=None):
+                 device=None, telemetry=None, basis_seed: int = 0):
         self.qcfg = qcfg
+        self.basis_seed = int(basis_seed)
+        # lowrank error-feedback residuals, one (d,) row per client id
+        self._residuals: Dict[Any, torch.Tensor] = {}
         self.telemetry = telemetry
         self._taps = bool(telemetry is not None and telemetry.taps)
         self.loss_fn = loss_fn
@@ -197,22 +243,56 @@ class QAFeL:
         self.staleness = StalenessMonitor(max_allowed=qcfg.max_staleness)
 
     # -- client side ------------------------------------------------------
+    def round_basis_seed(self) -> torch.Tensor:
+        """The (2,) sketch basis seed pair of the current round, keyed by
+        the run's ``basis_seed`` and the server step: the basis rotates
+        every step, so error feedback reaches the whole space."""
+        from repro_torch.kernels import qsgd as _kq
+        return _kq.basis_seeds(self.basis_seed, self.state.t)
+
+    def client_residuals(self, clients) -> torch.Tensor:
+        """The (b, d) error-feedback residual stack of ``clients`` (one id
+        per member; an id not seen yet starts at zero), on the state's
+        device."""
+        zero = None
+        rows = []
+        for cid in clients:
+            r = self._residuals.get(cid)
+            if r is None:
+                if zero is None:
+                    zero = torch.zeros_like(self.state.x_flat)
+                r = zero
+            rows.append(r)
+        return torch.stack(rows)
+
+    def store_residuals(self, clients, residual2d) -> None:
+        """Keep row i of a client step's new residual stack for
+        ``clients[i]`` (padding rows already dropped)."""
+        for i, cid in enumerate(clients):
+            self._residuals[cid] = residual2d[i]
+
     def run_client(self, batches, key, client=None) -> Tuple[Message, int]:
         """Algorithm 2 on the CURRENT hidden state; returns (message,
         version). ``k_train, k_enc = split(key)`` as in the reference. The
         client step is ``client_update_flat`` at b = 1, the entry the
         cohort engine takes at b = cohort_size, so both engines share one
-        client path. ``client`` is accepted for the reference's
-        signature. With taps on, the upload's taps ride in
+        client path. ``client`` keys a lowrank upload's residual (None is
+        one shared slot). With taps on, the upload's taps ride in
         ``msg.meta["taps"]``."""
-        del client
         k_train, k_enc = prng.split(key)
         st = self.state
+        kw = {}
+        if self.cq.spec.kind == "lowrank":
+            kw = {"residual": self.client_residuals([client]),
+                  "basis_seed": self.round_basis_seed()}
         out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
                                  st.layout, st.hidden_flat, batches, k_train,
-                                 k_enc, taps=self._taps)
+                                 k_enc, taps=self._taps, **kw)
+        if kw:
+            self.store_residuals([client], out["residual"])
         msg = frame_cohort_messages(CLIENT_UPDATE, self.cq, out, st.layout,
-                                    version=st.t)[0]
+                                    [k_enc], version=st.t,
+                                    basis_seed=kw.get("basis_seed"))[0]
         if self._taps:
             msg.meta["taps"] = named_cohort_taps(out["taps"][0])
         return msg, st.t
@@ -235,26 +315,17 @@ class QAFeL:
                 n_receivers: int = 1) -> Optional[Message]:
         """Algorithm 1 lines 5-16: buffer the upload; at K uploads flush
         and return the broadcast message. An upload of the client
-        quantizer is buffered packed (undecoded); one of another bit width
-        or kind — a bit-width tier's — is decoded on arrival (K3 at its own
-        bits for qsgd) into the buffer's flat sum. ``n_receivers`` is the
-        broadcast's fan-out for byte accounting."""
+        quantizer is buffered packed (undecoded); one of another bit width,
+        kind or sketch group — a tier's — is decoded on arrival (K3 at its
+        own bits for qsgd and lowrank) into the buffer's flat sum.
+        ``n_receivers`` is the broadcast's fan-out for byte accounting."""
         version = msg.meta["version"]
         if version > self.state.t:
             raise ValueError(
                 f"message version {version} is ahead of the server clock "
                 f"t={self.state.t} (clock skew or replay)")
+        _check_upload(msg.payload)
         payload = msg.payload
-        if (payload.get("format") != "packed"
-                or payload.get("kind") not in ("qsgd", "identity")):
-            raise ValueError("the port decodes packed qsgd and identity "
-                             f"uploads only, not {payload.get('kind')!r}")
-        if payload["kind"] == "qsgd" and (
-                payload["packed"].shape[-1] != 16 * payload["bits"]
-                or payload["norms"].shape[-1] != payload["packed"].shape[0]):
-            raise ValueError(f"corrupt qsgd{payload['bits']} upload: codes "
-                             f"{tuple(payload['packed'].shape)}, norms "
-                             f"{tuple(payload['norms'].shape)}")
         tau = self.state.t - version
         if self.staleness.would_drop(tau):
             self.meter.record_dropped(msg)
@@ -272,8 +343,12 @@ class QAFeL:
             self.telemetry.emit("upload", step=self.state.t,
                                 client=msg.meta.get("client", -1), tau=tau,
                                 weight=w, **extra)
-        if (payload["kind"] == self.cq.spec.kind
-                and payload.get("bits") in (None, self.cq.spec.bits)):
+        native = (payload["kind"] == self.cq.spec.kind
+                  and payload.get("bits") in (None, self.cq.spec.bits))
+        if native and payload["kind"] == "lowrank":
+            # another sketch group is another subspace: decode it
+            native = payload.get("group") == self.cq.spec.group
+        if native:
             self.buffer.add_encoded(payload, weight=w)
         else:
             self.buffer.add_decoded_flat(self.cq.decode_flat(payload),
@@ -286,31 +361,52 @@ class QAFeL:
         """Algorithm 1 lines 11-16. The broadcast carries
         q^t = Q_s(x^{t+1} - x-hat^t), and the server applies the decoded
         wire bits themselves — the increment every client decodes — which
-        keeps all x-hat replicas bit-identical."""
+        keeps all x-hat replicas bit-identical. A qsgd or identity server
+        quantizer takes ``server_flush_step``; top_k, rand_k and lowrank
+        take the non-fused chain (``FlushBatch.reduce``, the server update,
+        ``encode_flat`` of the diff with ``key``, the apply of its decode),
+        whose flush event has no taps, as in the reference."""
         st = self.state
         if self.buffer.layout != st.layout:  # before drain() resets it
             raise ValueError("buffered uploads do not match the server's "
                              "parameter layout")
         batch = self.buffer.drain()
-        qsgd_broadcast = self.sq.spec.kind == "qsgd"
-        sbits = self.sq.spec.bits if qsgd_broadcast else None
+        kind = self.sq.spec.kind
         beta = self.qcfg.server_momentum if self.qcfg.server_momentum else None
-        out = kops.server_flush_step(
-            st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
-            batch.norms, batch.weights, batch.extra,
-            key.reshape(1, -1) if qsgd_broadcast else None,
-            bits=batch.bits, sbits=sbits, n=batch.n,
-            lr=self.qcfg.server_lr, beta=beta, taps=self._taps)
-        x_new, h_new, m_new, payload = out[:4]
-        if qsgd_broadcast:
-            enc = packed_qsgd_payload(payload[0], payload[1], sbits, batch.n,
-                                      st.layout)
+        tap_vec = None
+        if kind in ("qsgd", "identity"):
+            sbits = self.sq.spec.bits if kind == "qsgd" else None
+            lowrank_win = batch.kind == "lowrank"
+            out = kops.server_flush_step(
+                st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
+                batch.norms, batch.weights, batch.extra,
+                key.reshape(1, -1) if kind == "qsgd" else None,
+                bits=batch.bits, sbits=sbits, n=batch.n,
+                lr=self.qcfg.server_lr, beta=beta, taps=self._taps,
+                group=batch.group if lowrank_win else None,
+                lseeds=batch.seeds if lowrank_win else None)
+            x_new, h_new, m_new, payload = out[:4]
+            if self._taps:
+                tap_vec = out[4]
+            if kind == "qsgd":
+                enc = packed_qsgd_payload(payload[0], payload[1], sbits,
+                                          batch.n, st.layout)
+            else:
+                enc = packed_identity_payload(payload[0], batch.n, st.layout)
+            bmsg = frame_packed_message(HIDDEN_BROADCAST, self.sq, enc,
+                                        t=st.t)
         else:
-            enc = packed_identity_payload(payload[0], batch.n, st.layout)
-        bmsg = frame_packed_message(HIDDEN_BROADCAST, self.sq, enc, t=st.t)
+            x_new, m_new = kops.server_apply_flat(
+                st.x_flat, st.momentum_flat, batch.reduce(),
+                lr=self.qcfg.server_lr, beta=beta)
+            diff = x_new - st.hidden_flat
+            bmsg = encode_message_flat(HIDDEN_BROADCAST, self.sq, diff,
+                                       st.layout, key, t=st.t)
+            h_new = st.hidden_flat + self.sq.decode_flat(bmsg.payload)
         self.meter.record(bmsg, n_receivers=n_receivers)
         if self.telemetry is not None:
-            extra = {"taps": named_flush_taps(out[4])} if self._taps else {}
+            extra = ({"taps": named_flush_taps(tap_vec)}
+                     if tap_vec is not None else {})
             self.telemetry.emit(
                 "flush", step=st.t, window=self.qcfg.buffer_size,
                 packed_k=0 if batch.stack is None else int(batch.stack.shape[0]),

@@ -10,11 +10,13 @@ counterpart: the CUDA kernels take wire rows as they come.
 ``cohort_train_encode_step`` is the client side of one cohort tier group
 (or of one client, b = 1): a per-member update from the flat x-hat,
 vmapped over the members, and one encode launch over the (b, d) delta
-stack.
+stack — for a lowrank quantizer over the sketch of the error-compensated
+stack, with the decode and expand that give each member's new residual.
 ``server_flush_step`` is the whole QAFeL buffer flush (Algorithm 1 lines
-11-16) as a short chain of launches: the fused dequantize-accumulate, the
-FedBuff momentum and server update, the broadcast quantize-pack and the
-hidden-state apply of the decoded broadcast bits.
+11-16) as a short chain of launches: the fused dequantize-accumulate (or,
+for a lowrank window, ``lowrank_window_delta``), the FedBuff momentum and
+server update, the broadcast quantize-pack and the hidden-state apply of
+the decoded broadcast bits.
 
 With ``taps=True`` both add their metric taps (``kernels.taps``): one more
 launch each, reading what the step already computed; the other outputs
@@ -29,6 +31,7 @@ from repro_torch.common.tree import tree_map
 from repro_torch.kernels import buffer_agg as _agg
 from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import taps as _taps
+from repro_torch.kernels.ref import fma_f32
 from repro_torch.kernels.ref import rows2d, rows_for  # noqa: F401 (re-export)
 
 
@@ -64,9 +67,54 @@ def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
     return out2d.reshape(-1)[:n]
 
 
+def qsgd_dequantize_stack(packed: torch.Tensor, norms: torch.Tensor,
+                          bits: int, n: int) -> torch.Tensor:
+    """Dequantize a (B, rows, 16*bits) stack of wire messages of n
+    elements in one K3 launch -> f32 (B, n)."""
+    b, rows = packed.shape[0], packed.shape[1]
+    out = _qsgd.qsgd_unpack_dequantize(packed.reshape(b * rows, -1),
+                                       norms.reshape(b * rows), bits)
+    return out.reshape(b, rows * _qsgd.LANES)[:, :n]
+
+
+def lowrank_window_delta(stack, norms, weights, seeds, *, bits: int,
+                         group: int, n: int) -> torch.Tensor:
+    """The weighted expansion of one lowrank flush window -> f32 (n,):
+    ``sum_k w_k * S_k^T y_k`` over the padded length, sliced to n.
+
+    ``stack`` / ``norms`` are the K rank-length wire pairs, ``seeds`` the
+    (K, 2) per-upload basis seed pairs (a window spans model versions),
+    ``weights`` the normalized staleness weights. One K3 launch decodes
+    the K subspace vectors; each is expanded under its own seeds and the
+    sum runs ``acc = acc + p_k`` over ascending k, product and sum
+    rounded apart (the reference pins each product behind a hard
+    boundary; this is not K4's FMA chain). It starts at ``p_0`` itself,
+    not at ``+0 + p_0`` (XLA folds the add of zero), so a -0 product keeps
+    its sign. The product is the reference's
+    ``w_k * ((repeat(y_k) * sign_k) * fl32(1/sqrt(group)))`` as XLA:CPU
+    reassociates it in the jitted flush: ``(w_k * fl32(1/sqrt(group))) *
+    (repeat(y_k) * sign_k)``.
+
+    The reference's non-fused chain (``FlushBatch.reduce`` under a sparse
+    or lowrank server quantizer) runs this eagerly, where the decode
+    divides by s; K3 multiplies by fl32(1/s) as the jitted flush does, so
+    that chain may differ from the reference in the last bit."""
+    d_pad = rows_for(n) * _qsgd.LANES
+    k = stack.shape[0]
+    y = qsgd_dequantize_stack(stack, norms, bits, d_pad // group)
+    ws = weights * _qsgd.sketch_scale(group)
+    prods = ws[:, None] * _qsgd.sketch_expand(y, seeds, group, scaled=False)
+    acc = prods[0]
+    for i in range(1, k):
+        acc = acc + prods[i]
+    return acc[:n]
+
+
 def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              k_enc, *, b: int, bits=None,
-                             member_chunk=None, taps: bool = False) -> dict:
+                             member_chunk=None, taps: bool = False,
+                             group=None, basis_seed=None,
+                             residual=None) -> dict:
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -85,35 +133,82 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
     element index, so chunking leaves the bits of a task whose per-member
     update is elementwise (the quad) as they are; the CNN's vmapped
     convolutions see another batch size, and its deltas move (up to
-    1.2e-7 on the CPU, PERF.md). ``bits`` None is the identity quantizer.
+    1.2e-7 on the CPU, PERF.md). ``bits`` None is the identity quantizer
+    and the sparse kinds, which are encoded after the step.
+
+    A ``group`` makes it the lowrank upload: with the (b, d)
+    error-feedback ``residual`` stack (None: zeros) and the round's (2,)
+    ``basis_seed``, ``c = delta + residual`` is projected (the fused order
+    of ``kernels.qsgd.sketch_project``), the (b, rank) subspace stack is
+    encoded as above (K1 at b = 1, K2 above), decoded again (K3) and
+    expanded, and ``residual = c - expand(decode)`` is each member's new
+    residual, the expand's scale product fused into the subtraction
+    (``fma(-(repeat(y) * sign), fl32(1/sqrt(group)), c)``, as XLA:CPU
+    contracts the reference's jitted step).
 
     Returns ``{"packed": (b, rows, 16*bits), "norms": (b, rows)}`` for
-    qsgd, ``{"flat": (b, d)}`` for identity, whose flat delta is the wire
-    payload. ``taps=True`` adds ``"taps"``, the (b, 2) upload taps of the
-    stack (``kernels.taps.upload_taps``: one more launch)."""
+    qsgd (lowrank: over the rank coordinates, plus ``"residual"`` (b, d)),
+    ``{"flat": (b, d)}`` for identity and the sparse kinds. ``taps=True``
+    adds ``"taps"``, the (b, 2) upload taps of the stack
+    (``kernels.taps.upload_taps``: one more launch; lowrank: the (b, 3)
+    rows of ``lowrank_upload_taps``, two more)."""
     if b == 1:
         flat2d = client_update(hidden_flat, batches, k_train)[None]
-        if bits is None:
-            out = {"flat": flat2d}
-        else:
-            packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
-            out = {"packed": packed[None], "norms": norms[None]}
-        return _with_upload_taps(out, flat2d, bits, taps)
-    keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
-    step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
-    if member_chunk is None or member_chunk >= b:
-        flat2d = step(hidden_flat, batches, keys)
     else:
-        mc = int(member_chunk)
-        flat2d = torch.cat([
-            step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
-                 keys[i:i + mc]) for i in range(0, b, mc)])
+        keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
+        step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
+        if member_chunk is None or member_chunk >= b:
+            flat2d = step(hidden_flat, batches, keys)
+        else:
+            mc = int(member_chunk)
+            flat2d = torch.cat([
+                step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
+                     keys[i:i + mc]) for i in range(0, b, mc)])
+    if group is not None:
+        return _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
+                               residual, taps)
     if bits is None:
         return _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
-    seeds = torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
-    packed, norms = qsgd_quantize_batch(flat2d, seeds, bits)
+    packed, norms = _encode_stack(flat2d, k_enc, bits)
     return _with_upload_taps({"packed": packed, "norms": norms}, flat2d, bits,
                              taps)
+
+
+def _encode_stack(flat2d: torch.Tensor, k_enc, bits: int):
+    """The upload encode of a (b, n) stack: at b = 1 the threefry K1 of
+    the sequential engine, above it one K2 launch whose dither is the
+    counter hash keyed by the first two words of each member's key."""
+    b = flat2d.shape[0]
+    if b == 1:
+        packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
+        return packed[None], norms[None]
+    seeds = torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
+    return qsgd_quantize_batch(flat2d, seeds, bits)
+
+
+def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
+                    residual, taps: bool) -> dict:
+    """The lowrank half of ``cohort_train_encode_step``."""
+    from repro_torch.core.quantizers import (lowrank_expand_flat2d,
+                                             lowrank_project_flat2d)
+
+    if basis_seed is None:
+        raise ValueError("a lowrank client step needs the round's basis "
+                         "seed pair")
+    d = flat2d.shape[1]
+    c2d = flat2d if residual is None else flat2d + residual
+    y2d = lowrank_project_flat2d(c2d, basis_seed, group)
+    packed, norms = _encode_stack(y2d, k_enc, bits)
+    qy2d = qsgd_dequantize_stack(packed, norms, bits, y2d.shape[1])
+    # the expand's last product fused into the subtraction, as XLA:CPU
+    # contracts it in the reference's jitted step: fma(-x, scale, c)
+    x2d = lowrank_expand_flat2d(qy2d, basis_seed, group, d, scaled=False)
+    out = {"packed": packed, "norms": norms,
+           "residual": fma_f32(-x2d, _qsgd.sketch_scale(group), c2d)}
+    if taps:
+        out["taps"] = _taps.lowrank_upload_taps(
+            c2d, out["residual"], y2d.contiguous(), packed, norms, bits)
+    return out
 
 
 def _with_upload_taps(out: dict, flat2d, bits, taps: bool) -> dict:
@@ -140,7 +235,8 @@ def server_apply_flat(x, momentum, delta, *, lr, beta):
 
 def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
                       weights, extra, key2d, *, bits, sbits, n: int,
-                      lr: float, beta, taps: bool = False):
+                      lr: float, beta, taps: bool = False, group=None,
+                      lseeds=None):
     """The QAFeL buffer flush on the flat server state.
 
     1. fused dequantize-accumulate of the K packed uploads (plus the
@@ -153,11 +249,20 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
        increment every client replica applies.
 
     ``stack`` may be None (no packed uploads), ``beta`` None (no momentum).
+    A lowrank window passes its sketch ``group`` and the (K, 2) per-upload
+    basis seeds ``lseeds``: its rank-length stack is expanded by
+    ``lowrank_window_delta`` and added behind ``extra`` (``extra + ld``)
+    in place of step 1's aggregate; the chain after it is the same.
     Returns ``(x_new, hidden_new, momentum_new, payload)`` with payload
     ``(packed, norms)`` for a qsgd broadcast or ``(diff,)`` for identity.
     ``taps=True`` appends the (7,) flush tap vector
     (``kernels.taps.flush_taps``: one more launch) as a fifth element.
     """
+    if group is not None:
+        ld = lowrank_window_delta(stack, norms, weights, lseeds, bits=bits,
+                                  group=group, n=n)
+        extra = ld if extra is None else extra + ld
+        stack = None
     if stack is not None:
         delta = buffer_aggregate(stack, norms, weights, bits, n)
         if extra is not None:

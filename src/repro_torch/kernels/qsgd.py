@@ -26,9 +26,14 @@ The b=1 upload has two entries: ``qsgd_quantize_pack`` takes the uniforms
 from the caller (the TPU kernel's own signature) and
 ``qsgd_quantize_pack_threefry`` draws the threefry uniforms inside the
 kernel, so the upload is one launch and the uniforms never reach memory.
+
+The low-rank uplink's sketch basis (``basis_seeds``, ``sketch_signs``,
+``sketch_project``, ``sketch_expand``) is here too, in plain PyTorch, as
+the reference has it in XLA beside its kernels.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.common import prng
@@ -230,3 +235,112 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
             torch.cuda.current_stream(packed.device).cuda_stream))
         LAUNCHES["qsgd_unpack_dequantize"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Low-rank sketch basis (counter-hash Rademacher signs)
+# ---------------------------------------------------------------------------
+#
+# Plain PyTorch, as the reference computes these in XLA outside any Pallas
+# kernel: uint32 words held in int64 tensors and masked after every add and
+# multiply (``ref._mul32``, ``ref._fmix32``). The projection's group sums
+# follow XLA:CPU's order (jax 0.9), probed per group size; ``fused=True`` is
+# the order inside the reference's jitted client step, ``fused=False`` the
+# order of an eager call (the reference's standalone ``encode_flat`` and
+# ``qdq_flat``):
+#
+# * fused, group <= 8, and eager, group <= 32: left to right from +0;
+# * fused, group 16 or 32: eight accumulators, accumulator j adding the
+#   elements j, j + 8, j + 16, ... in order from +0, then a halving tree
+#   (``a[:4] + a[4:]``, ``[:2] + [2:]``, ``[0] + [1]``);
+# * group 64 or 128, both: in-order sums of 32 elements from +0, added
+#   left to right.
+#
+# Then one separately rounded product with ``fl32(1/sqrt(group))``. The
+# sign flips are exact, so where XLA fuses them into the sums changes no
+# bit. ``sketch_expand`` is elementwise, ``(repeat(y) * sign) * scale``.
+
+_SIGN_SALT = 0xB5297A4D  # the signs' salt: never correlated with the dither
+_BASIS_SALT = 0x7F4A7C15
+
+
+def basis_seeds(basis_seed: int, version: int) -> torch.Tensor:
+    """The sketch basis seed pair of one round, keyed by the run's basis
+    seed and the model version (both as uint32): ``s0 = fmix32(version *
+    0x9E3779B9 + basis_seed)``, ``s1 = fmix32(s0 ^ 0x7F4A7C15)``, as an
+    int64 (2,) tensor of uint32 words on the CPU."""
+    v = torch.tensor(int(version) & _ref.MASK32, dtype=torch.int64)
+    s0 = _ref._fmix32((_ref._mul32(v, _ref._GOLDEN)
+                       + (int(basis_seed) & _ref.MASK32)) & _ref.MASK32)
+    s1 = _ref._fmix32(s0 ^ _BASIS_SALT)
+    return torch.stack([s0, s1])
+
+
+def sketch_signs(seeds, idx: torch.Tensor) -> torch.Tensor:
+    """Rademacher +-1 f32 signs of the global element indices ``idx``
+    (int64) under ``seeds`` ((2,) or (K, 2) int64 uint32 words; a stack
+    gives a (K, len(idx)) result): ``x = fmix32(idx * 0x9E3779B9 + (s0 ^
+    0xB5297A4D))``, ``x = fmix32(x ^ s1)``, sign ``1 - 2 * (x & 1)``."""
+    seeds = to_device(torch.as_tensor(seeds, dtype=torch.int64), idx.device)
+    s0 = (seeds[..., 0:1] & _ref.MASK32) ^ _SIGN_SALT
+    s1 = seeds[..., 1:2] & _ref.MASK32
+    x = _ref._fmix32((_ref._mul32(idx, _ref._GOLDEN) + s0) & _ref.MASK32)
+    x = _ref._fmix32(x ^ s1)
+    return 1.0 - 2.0 * (x & 1).to(torch.float32)
+
+
+def sketch_scale(group: int) -> float:
+    """fl32(1/sqrt(group)), the sketch's orthonormal scale."""
+    return float(np.float32(1.0 / float(group) ** 0.5))
+
+
+def _in_order(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right from +0."""
+    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    for j in range(p.shape[-1]):
+        acc = acc + p[..., j]
+    return acc
+
+
+def _group_sums(p: torch.Tensor, fused: bool) -> torch.Tensor:
+    """(..., group) -> (...,) in XLA:CPU's order (section comment)."""
+    g = p.shape[-1]
+    if g > 32:
+        return _in_order(torch.stack(
+            [_in_order(p[..., w:w + 32]) for w in range(0, g, 32)], -1))
+    if not fused or g <= 8:
+        return _in_order(p)
+    acc = torch.zeros((*p.shape[:-1], 8), dtype=p.dtype, device=p.device)
+    for j in range(0, g, 8):
+        acc = acc + p[..., j:j + 8]
+    return _ref._halving_tree(acc)
+
+
+def sketch_project(c2d: torch.Tensor, seeds, group: int, *,
+                   fused: bool = True) -> torch.Tensor:
+    """Project an f32 (B, d_pad) stack onto the sketch subspace, d_pad a
+    multiple of ``group``: ``y[b, r] = fl32(1/sqrt(group)) * sum_j
+    sign_j * c[b, j]`` over the r-th group of elements, in the order
+    ``fused`` names (section comment). Rows of the implied S are
+    orthonormal, so ``sketch_expand`` is S^T."""
+    b, dpad = c2d.shape
+    if dpad % group:
+        raise ValueError(f"sketch_project: {dpad} elements are not whole "
+                         f"groups of {group}")
+    idx = torch.arange(dpad, dtype=torch.int64, device=c2d.device)
+    p = (c2d * sketch_signs(seeds, idx)).reshape(b, dpad // group, group)
+    return _group_sums(p, fused) * sketch_scale(group)
+
+
+def sketch_expand(y2d: torch.Tensor, seeds, group: int, offset: int = 0,
+                  *, scaled: bool = True) -> torch.Tensor:
+    """S^T of an f32 (B, r) subspace stack: (B, r * group) flat elements
+    starting at global element ``offset``. ``seeds`` is one (2,) pair or a
+    (B, 2) stack, one pair per row. ``scaled=False`` stops before the
+    product with ``sketch_scale(group)``."""
+    b, r = y2d.shape
+    idx = offset + torch.arange(r * group, dtype=torch.int64,
+                                device=y2d.device)
+    x = torch.repeat_interleave(y2d, group, dim=-1) * sketch_signs(seeds,
+                                                                   idx)
+    return x * sketch_scale(group) if scaled else x

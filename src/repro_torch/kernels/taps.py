@@ -116,3 +116,21 @@ def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
         torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["upload_taps"] += 1
     return out
+
+
+def lowrank_upload_taps(c2d: torch.Tensor, e2d: torch.Tensor,
+                        y2d: torch.Tensor, packed: torch.Tensor,
+                        norms: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-member lowrank upload taps, f32 (b, 3) in
+    ``obs.taps.COHORT_TAP_NAMES_LOWRANK`` order: ``||c||``, ``||e|| /
+    max(||c||, 1e-30)`` and the subspace error ``||y - qdq(y)|| /
+    max(||y||, 1e-30)``, from the error-compensated stack ``c2d``, the new
+    residual ``e2d`` (both (b, d)), the (b, rank) subspace stack ``y2d``
+    and its wire codes. Two ``upload_taps`` launches: one over ``(y,
+    codes)``, one over the rows of ``c`` and ``e`` together, so every sum
+    runs in ``ref.tap_sum``'s order."""
+    b = c2d.shape[0]
+    sub = upload_taps(y2d, packed, norms, bits)
+    ce = upload_taps(torch.cat([c2d, e2d]))[:, 0]
+    cn = ce[:b]
+    return torch.stack([cn, _ref._relative(ce[b:], cn), sub[:, 1]], dim=1)

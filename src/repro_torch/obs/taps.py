@@ -6,7 +6,8 @@ Counterpart of ``repro/obs/taps.py``. The tap math itself lives in
 kernels (one launch per flush, one per client-step encode) whose sums of
 squares run in one fixed order that depends on a vector's length alone,
 so a tap is the same on the card and on the CPU, in the sequential and in
-the cohort engine, and whatever cohort a member was batched with. The
+the cohort engine, and whatever cohort a member was batched with. A
+lowrank client step's three taps take the upload kernel twice. The
 reference's ``decode_qsgd_stack`` has no counterpart: the upload kernel
 decodes the wire codes itself, so the decoded stack never reaches memory.
 """
@@ -18,10 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.taps import flush_taps as flush_tap_vector
+from repro_torch.kernels.taps import \
+    lowrank_upload_taps as cohort_tap_rows_lowrank
 from repro_torch.kernels.taps import upload_taps as cohort_tap_rows
 
 __all__ = ["COHORT_TAP_NAMES", "COHORT_TAP_NAMES_LOWRANK", "FLUSH_TAP_NAMES",
-           "POPULATION_STATE_NAMES", "cohort_tap_rows", "flush_tap_vector",
+           "POPULATION_STATE_NAMES", "cohort_tap_rows",
+           "cohort_tap_rows_lowrank", "flush_tap_vector",
            "named_cohort_taps", "named_flush_taps",
            "named_population_counts"]
 
@@ -43,7 +47,7 @@ COHORT_TAP_NAMES = (
 )
 
 # Low-rank uploads report one more column, the quantization error inside
-# the sketch subspace (their taps come with the low-rank uplink).
+# the sketch subspace (``cohort_tap_rows_lowrank``).
 COHORT_TAP_NAMES_LOWRANK = (
     "delta_norm",         # ||c_i|| = ||delta_i + residual_i||
     "upload_qerr_rel",    # ||c_i - S^T qdq(S c_i)|| / ||c_i|| (full space)

@@ -23,7 +23,9 @@ Timing, dropouts, stragglers and per-client quantizer tiers come from a
 cohort size (padding repeats the group's first member; its rows are
 computed and dropped), so K2 always runs at B = ``cohort_size``. A tier
 client's upload through a narrower quantizer is decoded on arrival; the
-default tier stays packed. With telemetry taps on (``QAFeL(...,
+default tier stays packed. A lowrank group carries each member's
+error-feedback residual through its client step (padding rows carry the
+first member's, and are dropped with the rest of the padding). With telemetry taps on (``QAFeL(...,
 telemetry=)``) each member's upload taps ride its message, and a member
 lost to dropout is a ``drop`` event.
 """
@@ -132,12 +134,14 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
 
     # -- cohort admission -------------------------------------------------
     def _train_encode_cohort(self, batches: Any, train_keys, enc_keys,
-                             tiers: np.ndarray, *,
-                             stacked: bool = False) -> List[Message]:
+                             tiers: np.ndarray, *, stacked: bool = False,
+                             client0: Optional[int] = None) -> List[Message]:
         """Train and encode one admitted cohort, one
         ``client_update_flat`` per tier group. Each group is padded to the
         full cohort size with repeats of its first member, whose rows are
-        dropped when the messages are framed."""
+        dropped when the messages are framed. ``client0`` is the first
+        member's client id (member i is ``client0 + i``), which keys the
+        lowrank residuals."""
         b = int(tiers.size) if stacked else len(batches)
         st = self.algo.state
         msgs: List[Any] = [None] * b
@@ -164,13 +168,25 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                 else:
                     idx = torch.as_tensor(pad_idx)
                     gt, ge = train_keys[idx], enc_keys[idx]
+            kw, cids = {}, None
+            if q.spec.kind == "lowrank":
+                cids = ([client0] if b == 1 else
+                        [None if client0 is None else client0 + int(i)
+                         for i in pad_idx])
+                kw = {"residual": self.algo.client_residuals(cids),
+                      "basis_seed": self.algo.round_basis_seed()}
             out = client_update_flat(
                 self.algo.loss_fn, self.algo.qcfg, q.spec, st.layout,
                 st.hidden_flat, grp_batches, gt, ge, b=b, member_chunk=chunk,
-                taps=self.algo._taps)
+                taps=self.algo._taps, **kw)
             self.groups += 1
-            mlist = frame_cohort_messages(CLIENT_UPDATE, q, out, st.layout,
-                                          version=st.t, count=members.size)
+            if cids is not None:
+                self.algo.store_residuals(cids[:members.size],
+                                          out["residual"][:members.size])
+            mlist = frame_cohort_messages(
+                CLIENT_UPDATE, q, out, st.layout,
+                [ge] if b == 1 else ge, version=st.t, count=members.size,
+                basis_seed=kw.get("basis_seed"))
             # row j of the step's outputs is member members[j]
             tap_rows = out["taps"].cpu() if self.algo._taps else None
             for j, i in enumerate(members.tolist()):
@@ -216,7 +232,7 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
             batches = [self.client_batches_fn(next_client + i, batch_keys[i])
                        for i in range(b)]
         msgs = self._train_encode_cohort(batches, train_keys, enc_keys, tiers,
-                                         stacked=stacked)
+                                         stacked=stacked, client0=next_client)
         durations = self.sampler.durations(b)
         drops = self.sampler.dropouts(b)
         return msgs, arrivals, durations, drops, new_next_arrival

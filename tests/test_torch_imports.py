@@ -1,7 +1,8 @@
 """The port stands alone: no module of src/repro_torch, and neither
 chip_smoke.py nor chip_compare.py, imports jax or the JAX package; everything imports with jax
-blocked; and an entry point left to its default device (CUDA) raises when
-there is no CUDA instead of falling back to the CPU."""
+blocked; the quantizer family's entry points are there under the
+reference's names; and an entry point left to its default device (CUDA)
+raises when there is no CUDA instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -62,6 +63,34 @@ def test_everything_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+# the quantizer family's entry points, under the reference's names where the
+# reference has them (``cohort_tap_rows_lowrank``, ``basis_seeds``, ...)
+FAMILY_NAMES = [
+    ("repro_torch.common.prng", "permutation"),
+    ("repro_torch.common.prng", "choice"),
+    ("repro_torch.kernels.qsgd", "basis_seeds"),
+    ("repro_torch.kernels.qsgd", "sketch_signs"),
+    ("repro_torch.kernels.qsgd", "sketch_project"),
+    ("repro_torch.kernels.qsgd", "sketch_expand"),
+    ("repro_torch.kernels.ops", "lowrank_window_delta"),
+    ("repro_torch.kernels.ops", "qsgd_dequantize_stack"),
+    ("repro_torch.kernels.taps", "lowrank_upload_taps"),
+    ("repro_torch.obs.taps", "cohort_tap_rows_lowrank"),
+    ("repro_torch.core.quantizers", "packed_lowrank_payload"),
+    ("repro_torch.core.quantizers", "lowrank_project_flat2d"),
+    ("repro_torch.core.quantizers", "lowrank_expand_flat2d"),
+    ("repro_torch.core.quantizers", "sparse_payload"),
+    ("repro_torch.core.protocol", "encode_message_flat"),
+]
+
+
+@pytest.mark.parametrize("module,name", FAMILY_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_quantizer_family_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.common.device import resolve_device
     from repro_torch.convert import params_from_jax
@@ -76,6 +105,10 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         QAFeL(QAFeLConfig(), quickstart.loss_fn, {"w": torch.zeros(8)})
+    for cq, sq in (("lowrank4g32", "top_k0.1"), ("rand_k0.1", "lowrank")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            QAFeL(QAFeLConfig(client_quantizer=cq, server_quantizer=sq),
+                  quickstart.loss_fn, {"w": torch.zeros(8)})
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.run(uploads=1, verbose=False)
     with pytest.raises(RuntimeError, match="CUDA"):
