@@ -18,8 +18,9 @@ Phases, each printing one JSON line:
    formula; then the b=1 upload at d = 1e8 before (``prng.uniform`` + the
    given-uniforms kernel) and after (the fused entry), in one run;
 4. the cohort path's kernel shapes the same way: K2 as the cohort upload
-   at B = 32 over 624 rows in qsgd4 and qsgd2 and at B = 8 over d = 1e8,
-   and K3 decoding a qsgd2 tier upload at 624 rows;
+   at B = 32 over 624 rows in qsgd4 and qsgd2, at B = 512 (the population
+   path) and at B = 8 over d = 1e8, K3 decoding a qsgd2 tier upload at
+   624 rows and K3's eager variant over a lowrank window;
 5. the b=1 upload under ``torch.profiler``: device launches of one
    ``ops.qsgd_quantize`` (exactly one) against the old composition's, and
    device launches per client step; and one broadcast encode as the flush
@@ -70,13 +71,34 @@ Phases, each printing one JSON line:
     parameter against the member-chunk rule; then one lowrank b = 1 upload
     at d = 1e8 (projection, K1, K3, expand, residual) timed by CUDA
     events, with its device launches;
-11. one line listing every kernel with its launches on both paths and on
-    the family's runs, times and bound (the tap kernels' launches from
-    the taps-on runs);
-12. last, ``{"ok": true, "device": {...}}``.
+11. the population engine: the quad task (cohorts of 4, 40 uploads,
+    in-step draws under ``lognormal_dropout`` and ``trace_replay``) on the
+    card and the CPU, every macro step's packed output and the final
+    population state bit for bit (``population_quad_card_vs_cpu``); the
+    cohort path's configuration under the cohort engine and under
+    ``PopulationAsyncFLSimulator(draws="host")`` with cuDNN's
+    deterministic algorithms, state bit for bit and the trajectory equal
+    (``population_host_vs_cohort``); the CNN at full width under in-step
+    ``lognormal_dropout`` draws, concurrency 1,000, cohorts and pops of
+    512, 2,400 uploads, the launch counters set to 0 just before and read
+    just after: uploads/s, macro steps of each kind with their median ms
+    (CUDA events) and device launches, a profiled run's idle share, one
+    512-member client step's peak memory per member and parameter
+    (``population_cnn``); ``PopulationEngine`` at 100,000 clients to
+    horizon 1.0 and 1,000,000 clients to 0.05 (``population_engine``:
+    events/s, ms and launches per macro step, state bytes); and the CNN's
+    gradients against the reference's eager ones from the committed
+    fixture, twice with cuDNN's default algorithms
+    (``cnn_grad_vs_fixture``);
+12. one line listing every kernel with its launches on both paths, on
+    the family's runs and on the population run, times and bound (the tap
+    kernels' launches from the taps-on runs);
+13. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
-exits non-zero before printing any result. Times come from CUDA events
+exits non-zero before printing any result. Every record is also written
+to ``build/chip_smoke.jsonl``, since a remote run may return only the end
+of the output. Times come from CUDA events
 (kernels) or the host clock around synchronized work (the main path syncs
 around every client step, flush and eval to time them). The bounds use
 the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (float32, no tensor
@@ -115,17 +137,31 @@ MAIN_UPLOADS, CONCURRENCY = 100, 16
 # the cohort path: tiered_bits, 200 uploads at concurrency 100 in cohorts
 # of 32; K2 is also held at B = 8 over d = 1e8 (3.2 GB of input)
 COHORT_UPLOADS, COHORT_CONCURRENCY, COHORT_SIZE, COHORT_BIG_B = 200, 100, 32, 8
+# population_cnn: the reference's population operating point on the CNN
+POP_UPLOADS, POP_CONCURRENCY, POP_COHORT = 2400, 1000, 512
+POP_PROFILE_UPLOADS = 1024
+# PopulationEngine rows: (clients, horizon)
+POP_ENGINE_ROWS = ((100_000, 1.0), (1_000_000, 0.05))
+FIXTURE = ROOT / "tests" / "fixtures_torch" / "cnn_grad_ref.npz"
+# the card's CNN gradients against the CPU reference's eager ones
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
 
 
 _T0 = time.perf_counter()
+_LOG = []  # the open record log, once ``main`` has opened it
 
 
 def emit(obj) -> None:
-    """Print one record as a JSON line; a phase record gets the seconds
-    since the script started (``elapsed_s``)."""
+    """Print one record as a JSON line, and append it to the record log; a
+    phase record gets the seconds since the script started
+    (``elapsed_s``)."""
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for log in _LOG:
+        log.write(line + "\n")
+        log.flush()
 
 
 def device_ms(fn, reps: int) -> float:
@@ -397,9 +433,10 @@ def check_kernels(rows: int, k: int, dev, reps: int, plain_reps: int,
 def cohort_kernel_cases(dev, hash_int32: dict, int32_ops_per_s: float):
     """The cohort path's new kernel shapes: K2 as the cohort upload (the
     flat (B, n) delta stack as ``encode_deltas`` hands it over, seed words
-    from the CPU) at B = 32 over the CNN's 624 rows in qsgd4 and qsgd2 and
-    at B = 8 over d = 1e8, and K3 decoding a qsgd2 tier upload at 624
-    rows. The plain version of the B = 8 case runs message by message (a
+    from the CPU) at B = 32 over the CNN's 624 rows in qsgd4 and qsgd2, at
+    B = 512 (the population path's cohorts) and at B = 8 over d = 1e8; K3
+    decoding a qsgd2 tier upload at 624 rows, and K3's eager variant over
+    a lowrank window of the non-fused flush chain (200 rows). The plain version of the B = 8 case runs message by message (a
     message's codes do not depend on its batch), which keeps its int64
     temporaries to one message's."""
     import torch
@@ -451,6 +488,24 @@ def cohort_kernel_cases(dev, hash_int32: dict, int32_ops_per_s: float):
         bytes=CNN_ROWS * (32 + 4) + CNN_ROWS * 128 * 4,
         bytes_formula="rows*(128*bits/8 + 4) + rows*128*4 out",
         ops=CNN_ROWS * 128 * 4, rate=(F32_OPS_PER_S, "float32"))
+    # the population path's cohort upload
+    cases[f"K2_B{POP_COHORT}_qsgd4_cnn"] = k2(POP_COHORT, CNN_N, 4,
+                                              plain_batch)
+    # the non-fused flush chain's eager decode of a K = 10 lowrank window
+    # over the CNN's 2,496 rank coordinates (20 rows each)
+    rows_w = CNN_K * 20
+    xw = torch.randn((1, rows_w * 128), generator=gen, device=dev)
+    pw, nw = qsgd.qsgd_quantize_pack_batch_flat(xw, torch.tensor([[5, 6]]),
+                                                4)
+    cases["K3_eager_qsgd4_lowrank_window_cnn"] = dict(
+        source="src/repro_torch/kernels/csrc/unpack_dequantize.cu",
+        replaces="src/repro/kernels/qsgd.py:356",
+        fn=lambda p, nm, b: qsgd.qsgd_unpack_dequantize(p, nm, b, eager=True),
+        plain=lambda p, nm, b: ref.unpack_dequantize(p, nm, b, eager=True),
+        args=(pw[0], nw[0], 4),
+        bytes=rows_w * (64 + 4) + rows_w * 128 * 4,
+        bytes_formula="rows*(128*bits/8 + 4) + rows*128*4 out",
+        ops=rows_w * 128 * 4, rate=(F32_OPS_PER_S, "float32"))
     cases[f"K2_B{COHORT_BIG_B}_qsgd4_d1e8"] = k2(
         COHORT_BIG_B, BIG_ROWS * 128, 4, plain_by_message)
     return cases
@@ -698,16 +753,49 @@ def run_main_path(dev, client_step_launches: float):
     return record, launches
 
 
-def profile_window(dev, uploads: int = 20, cohort_size=None):
-    """A short second run under ``torch.profiler``: the main path
-    (``AsyncFLSimulator``), or with ``cohort_size`` the cohort path
-    (``CohortAsyncFLSimulator`` under ``tiered_bits``); the device's busy
-    and idle share of the window, its launches per upload and the kernels
-    that take the most device time."""
+def profiled_run(sim, uploads: int, phase: str, cohort_size=None) -> dict:
+    """One simulator run under ``torch.profiler``: the device's busy and
+    idle share of the run, its launches per upload (and per client
+    trained: whole cohorts of ``cohort_size``) and the kernels that take
+    the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    launches = sum(e.count for e in kernels)
+    trained = (uploads if cohort_size is None
+               else sim.cohorts * cohort_size)
+    record = {"phase": phase, "uploads": uploads, "cohort_size": cohort_size,
+              "clients_trained": trained, "wall_s": wall,
+              "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
+              "device_launches": launches,
+              "device_launches_per_upload": launches / uploads,
+              "device_launches_per_client_trained": launches / trained,
+              "top_kernels": [{"name": e.key[:80],
+                               "ms": 1e-3 * e.self_device_time_total,
+                               "count": e.count} for e in top]}
+    emit(record)
+    if busy_s <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return record
+
+
+def profile_window(dev, uploads: int = 20, cohort_size=None):
+    """A short second run under ``torch.profiler`` (``profiled_run``): the
+    main path (``AsyncFLSimulator``), or with ``cohort_size`` the cohort
+    path (``CohortAsyncFLSimulator`` under ``tiered_bits``)."""
     from repro_torch.core import QAFeL
     from repro_torch.examples import federated_celeba as fc
     from repro_torch.models.cnn import init_cnn
@@ -722,44 +810,16 @@ def profile_window(dev, uploads: int = 20, cohort_size=None):
                                                max_uploads=uploads,
                                                eval_every_steps=3),
                                task.client_batches, task.eval_fn)
-    else:
-        sim = CohortAsyncFLSimulator(
-            algo, SimConfig(concurrency=COHORT_CONCURRENCY,
-                            max_uploads=uploads, eval_every_steps=3),
-            task.client_batches, task.eval_fn, scenario="tiered_bits",
-            cohort_size=cohort_size)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    launches = sum(e.count for e in kernels)
+        return profiled_run(sim, uploads, "profile")
+    sim = CohortAsyncFLSimulator(
+        algo, SimConfig(concurrency=COHORT_CONCURRENCY, max_uploads=uploads,
+                        eval_every_steps=3),
+        task.client_batches, task.eval_fn, scenario="tiered_bits",
+        cohort_size=cohort_size)
     # clients trained: the cohort engine admits whole cohorts, beyond the
     # uploads delivered
-    trained = (uploads if cohort_size is None
-               else sim.cohorts * cohort_size)
-    record = {"phase": "profile" if cohort_size is None else "cohort_profile",
-              "uploads": uploads, "cohort_size": cohort_size,
-              "clients_trained": trained,
-              "wall_s": wall, "device_busy_s": busy_s,
-              "device_idle_share": 1 - busy_s / wall,
-              "device_launches": launches,
-              "device_launches_per_upload": launches / uploads,
-              "device_launches_per_client_trained": launches / trained,
-              "top_kernels": [{"name": e.key[:80],
-                               "ms": 1e-3 * e.self_device_time_total,
-                               "count": e.count} for e in top]}
-    emit(record)
-    if busy_s <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return record
+    return profiled_run(sim, uploads, "cohort_profile",
+                        cohort_size=cohort_size)
 
 
 def run_cohort_path(dev, main_profile: dict, client_step_launches: float):
@@ -865,19 +925,19 @@ def run_cohort_path(dev, main_profile: dict, client_step_launches: float):
     return record, launches
 
 
-def cohort_step_memory(dev, algo, task) -> dict:
-    """Peak device memory of one client step of the cohort path (the CNN,
-    ``COHORT_SIZE`` members in one vmap, their batches included), per
-    member and parameter, held against the constant of the member-chunk
-    rule (``sim.cohort.auto_member_chunk``). Run after the cohort path's
-    counts are read; the step's launches are not counted."""
+def cohort_step_memory(dev, algo, task, b: int = COHORT_SIZE) -> dict:
+    """Peak device memory of one client step of ``b`` members (the CNN, in
+    one vmap, their batches included), per member and parameter, held
+    against the constant of the member-chunk rule
+    (``sim.cohort.auto_member_chunk``). Run after a path's counts are
+    read; the step's launches are not counted."""
     import torch
 
     from repro_torch.common import prng
     from repro_torch.core.qafel import client_update_flat
     from repro_torch.sim import cohort
 
-    b, st = COHORT_SIZE, algo.state
+    st = algo.state
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1936,6 +1996,467 @@ def run_quantizer_family(dev):
     return cases, launches, big
 
 
+# ---------------------------------------------------------------------------
+# the population engine
+# ---------------------------------------------------------------------------
+
+
+
+class _StepTimer:
+    """Wraps ``kernels.ops.population_advance`` while in use: CUDA events
+    around each call's launches, by kind (``admit``/``deliver``), read
+    once at the end (``timed``); ``record`` keeps each call's host view
+    and the state it advanced."""
+
+    def __init__(self, *, timed: bool = True, record: bool = False):
+        self.events = {"admit": [], "deliver": []}
+        self.outs, self.pop = [], None
+        self.timed, self.record = timed, record
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.population import PopStepOut
+
+        self._inner = inner = ops.population_advance
+
+        def wrapped(pop, *args, admitting, **kw):
+            if self.timed:
+                ends = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                ends[0].record()
+            packed = inner(pop, *args, admitting=admitting, **kw)
+            if self.timed:
+                ends[1].record()
+                self.events["admit" if admitting else "deliver"].append(ends)
+            if self.record:
+                self.outs.append(PopStepOut(packed, kw["admit"],
+                                            kw["deliver"]))
+                self.pop = pop
+            return packed
+
+        ops.population_advance = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.population_advance = self._inner
+
+    def medians(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: (statistics.median(s.elapsed_time(e) for s, e in v)
+                    if v else None) for k, v in self.events.items()}
+
+
+def step_launches(eng) -> dict:
+    """Device activities of one macro step of each kind of a
+    ``PopulationEngine`` (the step's launches and its one device-to-host
+    copy), by ``_launches_per_call``: each call restores the state saved
+    before the step (one copy per state tensor) and takes the step; the
+    restore's own activities, counted the same way, are subtracted."""
+    out = {}
+    for kind in ("admit", "deliver"):
+        while eng._admitting != (kind == "admit"):
+            eng.step()
+        snap = {k: v.clone() for k, v in eng.pop.items()}
+        host = (eng._admitting, eng.version, eng.macro_steps,
+                dict(eng.steps_by_kind), eng._na, eng._nf, eng._o,
+                list(eng.monitor.history))
+
+        def restore():
+            for k, v in snap.items():
+                eng.pop[k].copy_(v)
+            (eng._admitting, eng.version, eng.macro_steps, by_kind, eng._na,
+             eng._nf, eng._o, hist) = host
+            eng.steps_by_kind = dict(by_kind)
+            eng.monitor.history = list(hist)
+
+        def one():
+            restore()
+            eng.step()
+
+        both, _ = _launches_per_call(one)
+        alone, _ = _launches_per_call(restore)
+        out[kind] = both - alone
+        restore()
+    return out
+
+
+def population_host_vs_cohort(dev) -> dict:
+    """The equivalence pin on the card: the cohort path's configuration
+    (the CNN at full width, ``tiered_bits``, concurrency 100, cohorts of
+    32, 200 uploads) under the cohort engine and under the population
+    engine with host draws, cuDNN's deterministic algorithms in both:
+    uploads, traffic, staleness, the accuracy trace and the event
+    sequence equal, x, x-hat and momentum bit for bit, times within rtol
+    1e-5 (the population clock is f32)."""
+    import torch
+
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.obs import RunTracer
+    from repro_torch.sim import (CohortAsyncFLSimulator,
+                                 PopulationAsyncFLSimulator, SimConfig)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        # a short run first, so neither timed run pays the deterministic
+        # algorithms' first use
+        task = fc.celeba_task(dev)
+        CohortAsyncFLSimulator(
+            QAFeL(fc.qafel_config(), task.loss_fn, init_cnn(0, device=dev),
+                  device=dev),
+            SimConfig(concurrency=COHORT_CONCURRENCY, max_uploads=COHORT_SIZE),
+            task.client_batches, task.eval_fn, scenario="tiered_bits",
+            cohort_size=COHORT_SIZE).run()
+        for engine in ("cohort", "population"):
+            task = fc.celeba_task(dev)
+            tracer = RunTracer(taps=False)
+            algo = QAFeL(fc.qafel_config(), task.loss_fn,
+                         init_cnn(0, device=dev), device=dev,
+                         telemetry=tracer)
+            cfg = SimConfig(concurrency=COHORT_CONCURRENCY,
+                            max_uploads=COHORT_UPLOADS, eval_every_steps=3)
+            kw = dict(scenario="tiered_bits", cohort_size=COHORT_SIZE)
+            if engine == "cohort":
+                sim = CohortAsyncFLSimulator(algo, cfg, task.client_batches,
+                                             task.eval_fn, **kw)
+            else:
+                sim = PopulationAsyncFLSimulator(
+                    algo, cfg, task.client_batches, task.eval_fn,
+                    draws="host", **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sim.run()
+            torch.cuda.synchronize()
+            runs[engine] = (algo, res, tracer, sim,
+                            time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (ca, cr, ct, _, cwall), (pa, pr, pt, psim, pwall) = (
+        runs["cohort"], runs["population"])
+
+    def events(tracer):
+        seq, times = [], []
+        for e in tracer.events():
+            if e.kind == "compile":
+                continue
+            d = e.comparable()
+            d.pop("population", None)
+            times.append(d.pop("t_sim"))
+            seq.append(d)
+        return seq, times
+
+    (cseq, ctimes), (pseq, ptimes) = events(ct), events(pt)
+    strip = {k: v for k, v in pr.metrics.items()
+             if k != "population_states" and not k.startswith("population/")}
+    checks = {
+        "uploads": pr.uploads == cr.uploads == COHORT_UPLOADS,
+        "traffic": pa.meter.summary() == ca.meter.summary(),
+        "metrics": strip == dict(cr.metrics),
+        "accuracy_trace": [tuple(p)[1:] for p in pr.accuracy_trace]
+        == [tuple(p)[1:] for p in cr.accuracy_trace],
+        "event_sequence": pseq == cseq,
+        "times_rtol_1e-5": len(ptimes) == len(ctimes) and all(
+            abs(a - b) <= 1e-5 * abs(b) + 1e-6
+            for a, b in zip(ptimes, ctimes)),
+        "replicas_in_sync": bool(pr.metrics["replicas_in_sync"]),
+        **{f"{name}_bit_exact": bits_equal(getattr(ca.state, name),
+                                           getattr(pa.state, name))
+           for name in ("x_flat", "hidden_flat", "momentum_flat")}}
+    record = {"phase": "population_host_vs_cohort", "uploads": pr.uploads,
+              "cohort_uploads_per_s": cr.uploads / cwall,
+              "population_uploads_per_s": pr.uploads / pwall,
+              "macro_steps": dict(psim.macro_steps),
+              "events": len(pseq), "flushes": pa.state.t,
+              "tau_max": pr.metrics["tau_max"], "checks": checks}
+    emit(record)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"population host vs cohort: {failed}")
+    return record
+
+
+def population_cnn(dev, hash_int32: dict) -> tuple:
+    """The population engine on the CNN at full width through its entry
+    points: in-step draws under ``lognormal_dropout``, concurrency 1,000,
+    cohort_size = deliver_batch = 512, 2,400 uploads, the launch counters
+    set to 0 just before and read just after. Then the launches of one
+    macro step of each kind, a profiled run (the device's idle share) and
+    the peak memory of one 512-member client step. Returns the record and
+    the launch counts of the run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import (PopulationAsyncFLSimulator,
+                                 PopulationEngine, SimConfig)
+
+    def build(uploads, seed):
+        task = fc.celeba_task(dev)
+        algo = QAFeL(fc.qafel_config(), task.loss_fn,
+                     init_cnn(seed, device=dev), device=dev)
+        sim = PopulationAsyncFLSimulator(
+            algo, SimConfig(concurrency=POP_CONCURRENCY, max_uploads=uploads,
+                            eval_every_steps=3),
+            task.client_batches, task.eval_fn, scenario="lognormal_dropout",
+            cohort_size=POP_COHORT, deliver_batch=POP_COHORT)
+        return task, algo, sim
+
+    task, algo, sim = build(POP_UPLOADS, 0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with _StepTimer() as timer:
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    ms = timer.medians()
+    m, flushes = res.metrics, res.server_steps
+    checks = {
+        "replicas_in_sync": bool(m["replicas_in_sync"]),
+        "uploads": res.uploads == POP_UPLOADS,
+        "dropouts": m["dropped_uploads"] > 0,
+        "state_finite": bool(torch.isfinite(algo.state.x_flat).all()),
+        "accuracy_finite": math.isfinite(res.final_accuracy),
+        # one K2 at B = 512 per admitted cohort, one broadcast encode per
+        # flush; the flush's and the replicas' decodes; one K4 per flush
+        "K2_per_cohort_and_flush": launches["qsgd_quantize_pack_batch"]
+        == sim.groups + flushes and sim.groups
+        == sim.macro_steps["admit"] > 0,
+        "K1_off_path": launches["qsgd_quantize_pack_threefry"]
+        == launches["qsgd_quantize_pack"] == 0,
+        "K3_per_flush": launches["qsgd_unpack_dequantize"] == 2 * flushes,
+        "K4_per_flush": launches["buffer_aggregate"] == flushes > 0,
+    }
+    eng = PopulationEngine("lognormal_dropout", POP_CONCURRENCY, horizon=5.0,
+                           admit_batch=POP_COHORT, deliver_batch=POP_COHORT,
+                           device=dev)
+    assert eng.capacity == sim.capacity
+    per_step = step_launches(eng)
+    record = {"phase": "population_cnn", "uploads": res.uploads,
+              "scenario": "lognormal_dropout",
+              "concurrency": POP_CONCURRENCY, "cohort_size": POP_COHORT,
+              "deliver_batch": POP_COHORT, "capacity": sim.capacity,
+              "wall_s": wall, "uploads_per_s": res.uploads / wall,
+              "macro_steps": dict(sim.macro_steps),
+              "macro_step_ms_median": ms,
+              "macro_step_device_launches": per_step,
+              "server_steps": flushes,
+              "dropped_uploads": m["dropped_uploads"],
+              "population_states": m["population_states"],
+              "final_accuracy": res.final_accuracy,
+              "replicas_in_sync": bool(m["replicas_in_sync"]),
+              "tau_max": m["tau_max"], "launches": launches,
+              "checks": checks}
+    emit(record)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"population_cnn checks failed: {failed}")
+    del sim, algo
+    torch.cuda.empty_cache()
+    # the device's idle share over a shorter profiled run
+    _, _, psim = build(POP_PROFILE_UPLOADS, 1)
+    record["profile"] = profiled_run(psim, POP_PROFILE_UPLOADS,
+                                     "population_profile")
+    del psim
+    torch.cuda.empty_cache()
+    _, malgo, _ = build(1, 0)
+    record["memory"] = cohort_step_memory(dev, malgo, task, b=POP_COHORT)
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def population_engine_rows(dev) -> list:
+    """``PopulationEngine("lognormal_dropout")`` at 100,000 clients to
+    horizon 1.0 and at 1,000,000 clients to horizon 0.05: admitted,
+    delivered, dropped, macro steps of each kind, events per second, the
+    median ms (CUDA events) and device launches per macro step of each
+    kind, and the bytes of population state on the card; the lifecycle
+    conserved."""
+    import torch
+
+    from repro_torch.kernels.population import state_bytes
+    from repro_torch.sim import PopulationEngine
+
+    rows = []
+    for clients, horizon in POP_ENGINE_ROWS:
+        eng = PopulationEngine("lognormal_dropout", clients, horizon=horizon,
+                               seed=0, device=dev)
+        torch.cuda.synchronize()
+        with _StepTimer() as timer:
+            t0 = time.perf_counter()
+            m = eng.advance_to(horizon)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ms = timer.medians()
+        states = m["population_states"]
+        checks = {
+            "conserved": sum(states.values()) == eng.capacity,
+            "lifecycle": m["admitted"] == states["working"]
+            + states["offline"] + m["delivered"] + m["discarded"],
+            "dropouts": m["dropped"] == states["offline"] + m["discarded"]
+            and m["dropped"] > 0,
+            "staleness": m["staleness"]["n"] == m["delivered"] > 0,
+        }
+        per_step = step_launches(PopulationEngine(
+            "lognormal_dropout", clients, horizon=horizon, seed=1,
+            device=dev))
+        record = {"phase": "population_engine", "clients": clients,
+                  "horizon": horizon, "capacity": eng.capacity,
+                  "admit_batch": eng.admit_batch,
+                  "deliver_batch": eng.deliver_batch,
+                  "admitted": m["admitted"], "delivered": m["delivered"],
+                  "dropped": m["dropped"], "discarded": m["discarded"],
+                  "macro_steps": m["macro_steps"],
+                  "steps_by_kind": dict(eng.steps_by_kind), "wall_s": wall,
+                  "events_per_s": (m["admitted"] + m["delivered"]) / wall,
+                  "macro_step_ms_median": ms,
+                  "macro_step_device_launches": per_step,
+                  "state_bytes": state_bytes(eng.pop),
+                  "tau_max": m["staleness"]["tau_max"], "checks": checks}
+        emit(record)
+        rows.append(record)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"population engine at {clients}: {failed}")
+        del eng
+        torch.cuda.empty_cache()
+    return rows
+
+
+def population_quad_on_both(dev) -> dict:
+    """The quad task (d = 2048, K = 4), concurrency 8, cohorts of 4, 40
+    uploads, in-step draws under ``lognormal_dropout`` and
+    ``trace_replay``, on the card and on the CPU: every macro step's
+    packed output field, the final population state, x, x-hat and
+    momentum bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import cohort_scenarios as cs
+    from repro_torch.sim import PopulationAsyncFLSimulator, SimConfig
+
+    out = {}
+    for scenario in ("lognormal_dropout", "trace_replay"):
+        runs = {}
+        for d in ("cpu", dev):
+            task = cs.quad_task(d)
+            algo = QAFeL(cs.qafel_config(4), task.loss_fn, task.params0,
+                         device=d)
+            with _StepTimer(timed=False, record=True) as rec:
+                res = PopulationAsyncFLSimulator(
+                    algo, SimConfig(concurrency=8, max_uploads=40,
+                                    eval_every_steps=3),
+                    task.client_batches, task.eval_fn, scenario=scenario,
+                    cohort_size=4).run()
+            runs[str(d)] = (algo, res, rec.outs, rec.pop)
+        (ca, cr, couts, cpop), (ga, gr, gouts, gpop) = (runs["cpu"],
+                                                         runs[str(dev)])
+        assert len(couts) == len(gouts) > 0, scenario
+        for i, (c, g) in enumerate(zip(couts, gouts)):
+            for key in c.keys():
+                a, b = np.asarray(c[key]), np.asarray(g[key])
+                if a.dtype == np.float32:
+                    a, b = a.view(np.int32), b.view(np.int32)
+                assert np.array_equal(a, b), (scenario, i, key)
+        for key, v in cpop.items():
+            assert bits_equal(v, gpop[key].cpu()), (scenario, key)
+        for name in ("x_flat", "hidden_flat", "momentum_flat"):
+            assert bits_equal(getattr(ca.state, name),
+                              getattr(ga.state, name).cpu()), name
+        assert ca.meter.summary() == ga.meter.summary()
+        assert cr.sim_time == gr.sim_time
+        out[scenario] = {"macro_steps": len(couts),
+                         "dropped_uploads": cr.metrics["dropped_uploads"]}
+    record = {"phase": "population_quad_card_vs_cpu", "bit_exact": True,
+              "runs": out}
+    emit(record)
+    return record
+
+
+def cnn_grad_vs_fixture(dev) -> dict:
+    """The CNN's gradients on the card against the JAX reference's eager
+    ones (``tests/fixtures_torch/cnn_grad_ref.npz``, made on the CPU), for
+    one batch with ``train=False`` and one with the fixture's dropout key,
+    each computed twice with cuDNN's default algorithms: the largest
+    difference per leaf, within rtol ``GRAD_RTOL`` and atol ``GRAD_ATOL``,
+    and whether the two runs are bit-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.quantizers import TreeLayout
+    from repro_torch.data import SyntheticCelebA
+    from repro_torch.models.cnn import cnn_loss, init_cnn
+
+    with np.load(FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    layout = TreeLayout.of(init_cnn(0, device="cpu"))
+    params = layout.unflatten(torch.from_numpy(ref["params"]).to(dev))
+    data = SyntheticCelebA(n_samples=int(ref["n_samples"])).batch(
+        ref["indices"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    key = torch.from_numpy(ref["dropout_key"].astype(np.int64))
+    assert not torch.backends.cudnn.deterministic
+    record = {"phase": "cnn_grad_vs_fixture", "rtol": GRAD_RTOL,
+              "atol": GRAD_ATOL, "modes": {}}
+    ok = True
+    for mode in ("eval", "train"):
+        train = mode == "train"
+        runs = []
+        for _ in range(2):
+            grads = torch.func.grad(
+                lambda p: cnn_loss(p, batch, train=train,
+                                   key=key if train else None)[0])(params)
+            runs.append([g.detach().reshape(-1) for g in tree_leaves(grads)])
+        torch.cuda.synchronize()
+        want = torch.from_numpy(ref[f"grad_{mode}"])
+        leaves, off, within = [], 0, True
+        for g in runs[0]:
+            w = want[off:off + g.numel()]
+            off += g.numel()
+            diff = (g.cpu().double() - w.double()).abs()
+            tol = GRAD_ATOL + GRAD_RTOL * w.double().abs()
+            within &= bool((diff <= tol).all())
+            leaves.append(float(diff.max()))
+        same = all(bits_equal(a, b) for a, b in zip(*runs))
+        record["modes"][mode] = {"max_abs_diff_per_leaf": leaves,
+                                 "within_tolerance": within,
+                                 "two_runs_bit_equal": same}
+        ok &= within
+    emit(record)
+    if not ok:
+        raise AssertionError("the card's CNN gradients are outside the "
+                             "stated tolerance of the reference's")
+    return record
+
+
+def run_population(dev, hash_int32: dict) -> tuple:
+    """The population-engine phase; returns the population_cnn record and
+    its launch counts."""
+    import torch
+
+    population_quad_on_both(dev)
+    population_host_vs_cohort(dev)
+    torch.cuda.empty_cache()
+    record, launches = population_cnn(dev, hash_int32)
+    population_engine_rows(dev)
+    cnn_grad_vs_fixture(dev)
+    torch.cuda.empty_cache()
+    return record, launches
+
+
 def main() -> int:
     import torch
 
@@ -1945,6 +2466,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.common.device import resolve_device
     from repro_torch.kernels import _build
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    _LOG.append(open(ROOT / "build" / "chip_smoke.jsonl", "w"))
 
     def query(fields: str) -> str:
         return subprocess.run(
@@ -1989,6 +2513,7 @@ def main() -> int:
     check_against_cpu(dev)
     taps, taps_main, taps_cohort = run_telemetry(dev)
     family_cases, family_launches, _ = run_quantizer_family(dev)
+    _, population_launches = run_population(dev, hash_int32)
 
     kernels_line = []
     for name, m in cnn.items():
@@ -2006,6 +2531,7 @@ def main() -> int:
                      "bound_ms": b["bound_ms"], "equal": b["equal"],
                      "max_abs_err": b["max_abs_err"]}})
         kernels_line[-1]["family_launches"] = family_launches[name]
+        kernels_line[-1]["population_launches"] = population_launches[name]
         prefix = {"qsgd_quantize_pack_threefry": "K1_",
                   "qsgd_quantize_pack_batch": "K2_",
                   "qsgd_unpack_dequantize": "K3_"}.get(name)
@@ -2030,6 +2556,7 @@ def main() -> int:
                              "other path runs with taps off",
             "cohort_launches": taps_cohort[name],
             "family_launches": family_launches[name],
+            "population_launches": population_launches[name],
             "cases": {case: {key: c[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}

@@ -46,7 +46,8 @@ class FlushBatch:
     def reduce(self) -> torch.Tensor:
         """The window's flat Delta-bar outside the fused flush (the
         non-fused flush chain): K4 for a qsgd stack, the expanded lowrank
-        window, plus ``extra`` in front."""
+        window in the reference's op-by-op order, plus ``extra`` in
+        front."""
         from repro_torch.kernels import ops as kops
 
         if self.stack is None:
@@ -54,7 +55,7 @@ class FlushBatch:
         if self.kind == "lowrank":
             flat = kops.lowrank_window_delta(
                 self.stack, self.norms, self.weights, self.seeds,
-                bits=self.bits, group=self.group, n=self.n)
+                bits=self.bits, group=self.group, n=self.n, eager=True)
         else:
             flat = kops.buffer_aggregate(self.stack, self.norms,
                                          self.weights, self.bits, self.n)

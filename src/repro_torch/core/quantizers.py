@@ -242,14 +242,18 @@ def _bucket_sq_sums(xp: torch.Tensor) -> torch.Tensor:
     """Per-row sums of squares of an f32 (rows, b) array in XLA:CPU's
     order for ``jnp.linalg.norm(axis=1)`` (jax 0.9), probed per b: for
     b <= 32 in order from +0, each square fused into its add (an FMA)
-    except for 5 <= b <= 8; for larger b, in-order sums of 32 squares
-    (product and add rounded apart), added left to right — at b = 128 the
-    wire kernels' four partials. Exact for b <= 32 and for multiples of 32
-    (and 63, 127); other widths above 32 take another order on XLA:CPU."""
+    except for 5 <= b <= 8; for larger b, in-order sums of squares
+    (product and add rounded apart) over windows, added left to right:
+    two windows of ceil(b/2) up to b = 64, windows of 32 above (at
+    b = 128 the wire kernels' four partials). Exact for b <= 64, for
+    multiples of 32 and for 127; other widths above 64 take an order not
+    found (neither windows of 32 nor k = ceil(b/32) windows of ceil(b/k)
+    at 65, 100, 129, 200)."""
     b = xp.shape[1]
     if b > 32:
-        parts = [_bucket_sq_sums_plain(xp[:, w:w + 32])
-                 for w in range(0, b, 32)]
+        w = -(-b // 2) if b <= 64 else 32
+        parts = [_bucket_sq_sums_plain(xp[:, s:s + w])
+                 for s in range(0, b, w)]
         acc = parts[0]
         for part in parts[1:]:
             acc = acc + part

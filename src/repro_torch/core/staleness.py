@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass
 class StalenessMonitor:
@@ -34,6 +36,17 @@ class StalenessMonitor:
                 f"staleness {tau} exceeds tau_max={self.max_allowed} "
                 "(Assumption 3.4 violated)")
         self.history.append(int(tau))
+
+    def observe_batch(self, taus) -> None:
+        """``observe`` of each value of ``taus`` in order, in one call (the
+        population engine's delivery batches): on a violation the values
+        before it are recorded and the same error is raised."""
+        vals = [int(t) for t in np.asarray(taus).reshape(-1)]
+        for i, v in enumerate(vals):
+            if v < 0 or (self.max_allowed and v > self.max_allowed):
+                self.history.extend(vals[:i])
+                self.observe(v)  # raises observe's error
+        self.history.extend(vals)
 
     def would_drop(self, tau: int) -> bool:
         """True when the drop policy rejects an upload of staleness tau."""

@@ -1,15 +1,20 @@
-"""Run the cohort engine under a named client-heterogeneity scenario.
+"""Run the cohort or population engine under a named scenario.
 
-The port of ``examples/cohort_scenarios.py`` for the cohort engine. The
-engine (``sim.cohort``) trains each admitted cohort's clients under one
-vmap and encodes all their uploads in one batched kernel launch; the
-scenario (``sim.scenarios``) sets latencies, arrivals, dropouts,
-stragglers and per-client quantizer bit-width tiers.
+The port of ``examples/cohort_scenarios.py``. The cohort engine
+(``sim.cohort``) trains each admitted cohort's clients under one vmap and
+encodes all their uploads in one batched kernel launch; the scenario
+(``sim.scenarios``) sets latencies, arrivals, dropouts, stragglers and
+per-client quantizer bit-width tiers. ``--engine population`` runs the
+timeline in the device-resident population engine (``sim.population``):
+admission, draws, the deadline wheel and staleness in one step per macro
+step, so large ``--concurrency`` values stay cheap; its eval events carry
+the per-state population counts.
 
     PYTHONPATH=src python -m repro_torch.examples.cohort_scenarios --list
     PYTHONPATH=src python -m repro_torch.examples.cohort_scenarios \\
         --scenario tiered_bits --concurrency 8 --cohort-size 4 \\
-        --uploads 120 [--model quad] [--device cpu] [--trace PATH]
+        --uploads 120 [--model quad] [--device cpu] [--trace PATH] \\
+        [--engine population]
 
 ``--model quad`` swaps the CNN for a d = 2048 convex quadratic whose
 "accuracy" is the fraction of the distance to the optimum recovered; its
@@ -34,7 +39,8 @@ from repro_torch.data import FederatedPartition, SyntheticCelebA
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
 from repro_torch.obs import (RunTracer, summary_table, validate_jsonl,
                              write_jsonl)
-from repro_torch.sim import SCENARIOS, CohortAsyncFLSimulator, SimConfig
+from repro_torch.sim import (SCENARIOS, CohortAsyncFLSimulator,
+                             PopulationAsyncFLSimulator, SimConfig)
 
 QUAD_D = 2048
 
@@ -117,12 +123,15 @@ def qafel_config(buffer: int = 4) -> QAFeLConfig:
 
 def run(task: Task, device, *, scenario: str = "identity",
         concurrency: int = 8, cohort_size: int = 4, uploads: int = 120,
-        buffer: int = 4, seed: int = 0, telemetry=None):
-    """One cohort-engine run; returns (algo, result). ``telemetry`` is an
-    ``obs.RunTracer`` or None."""
+        buffer: int = 4, seed: int = 0, telemetry=None,
+        engine: str = "cohort"):
+    """One run of the cohort or population engine; returns (algo,
+    result). ``telemetry`` is an ``obs.RunTracer`` or None."""
     algo = QAFeL(qafel_config(buffer), task.loss_fn, task.params0,
                  device=device, telemetry=telemetry)
-    sim = CohortAsyncFLSimulator(
+    engine_cls = (PopulationAsyncFLSimulator if engine == "population"
+                  else CohortAsyncFLSimulator)
+    sim = engine_cls(
         algo, SimConfig(concurrency=concurrency, max_uploads=uploads,
                         eval_every_steps=3, seed=seed),
         task.client_batches, task.eval_fn, scenario=scenario,
@@ -144,6 +153,10 @@ def main(argv=None):
     ap.add_argument("--min-acc", type=float, default=None,
                     help="assert final accuracy >= this")
     ap.add_argument("--model", choices=("cnn", "quad"), default="cnn")
+    ap.add_argument("--engine", choices=("cohort", "population"),
+                    default="cohort",
+                    help="the event-loop cohort engine or the "
+                         "device-resident population engine")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="turn the telemetry taps on and write the run's "
@@ -160,9 +173,10 @@ def main(argv=None):
     _algo, res = run(task, dev, scenario=args.scenario,
                      concurrency=args.concurrency,
                      cohort_size=args.cohort_size, uploads=args.uploads,
-                     buffer=args.buffer, seed=args.seed, telemetry=tracer)
+                     buffer=args.buffer, seed=args.seed, telemetry=tracer,
+                    engine=args.engine)
     m = res.metrics
-    print(f"engine=cohort  model={args.model}  scenario={args.scenario}  "
+    print(f"engine={args.engine}  model={args.model}  scenario={args.scenario}  "
           f"cohort_size={args.cohort_size}  concurrency={args.concurrency}  "
           f"device={dev}")
     print(f"  uploads: {res.uploads}  dropped: {m['dropped_uploads']}  "
@@ -171,6 +185,10 @@ def main(argv=None):
           f"{m['upload_MB']:.2f}  broadcast MB: {m['broadcast_MB']:.2f}")
     print(f"  final accuracy: {res.final_accuracy:.3f}  replicas in sync: "
           f"{m['replicas_in_sync']}")
+    if "population_states" in m:
+        states = "  ".join(f"{k}={v}" for k, v in
+                           m["population_states"].items())
+        print(f"  population: {states}")
     if not m["replicas_in_sync"]:
         raise SystemExit("a replica diverged from the server's hidden state")
     if args.min_acc is not None and res.final_accuracy < args.min_acc:

@@ -1,6 +1,8 @@
 """The port's kernels: hand-written CUDA C++ for Hopper (``csrc/``), their
 plain PyTorch versions (``ref``), the wrappers (``qsgd``, ``buffer_agg``,
-``taps``) and the wire-layout entry points (``ops``)."""
+``taps``) and the wire-layout entry points (``ops``); and the population
+engine's macro step (``population``, with ``xla_math``), plain torch as
+the reference's is XLA code."""
 from __future__ import annotations
 
 from typing import Dict

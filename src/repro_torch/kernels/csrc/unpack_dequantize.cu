@@ -5,7 +5,9 @@
 //
 // In:  packed uint8 (rows, 128*bits/8), norms f32 (rows,).
 // Out: f32 (rows, 128) = (sign*mag) * (norm * fl32(1/s)) — the reference's
-//      division by s as XLA compiles it under jit, reproduced on purpose.
+//      division by s as XLA compiles it under jit, reproduced on purpose;
+//      with eager != 0, (sign*mag) * (norm / s) with a true division, the
+//      reference's decode run op by op (its non-fused flush chain).
 //
 // Bound: bytes. It reads bits/8 B per element plus 4 B per row and writes
 // 4 B per element (d = 1e8, qsgd4: 0.45 GB, 0.135 ms at 3.35 TB/s); at the
@@ -26,7 +28,7 @@ using codevec::kThreads;
 using codevec::kWarps;
 using codevec::Vec;
 
-template <int BITS, int WORDS>
+template <int BITS, int WORDS, bool EAGER>
 __global__ void __launch_bounds__(kThreads)
     unpack_dequantize_kernel(const uint32_t* __restrict__ packed,
                              const float* __restrict__ norms,
@@ -42,8 +44,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long t = min(t0 + lane, threads - 1);
   uint32_t q[WORDS];
   codevec::load_words<WORDS>(packed + t * WORDS, q);
-  const float scale = __fmul_rn(__ldg(norms + t / V::kPerRow),
-                                __frcp_rn(qsgd::levels(BITS)));
+  const float norm = __ldg(norms + t / V::kPerRow);
+  const float scale =
+      EAGER ? __fdiv_rn(norm, (float)qsgd::levels(BITS))
+            : __fmul_rn(norm, __frcp_rn(qsgd::levels(BITS)));
   float val[V::kCodes];
 #pragma unroll
   for (int c = 0; c < V::kCodes; ++c) {
@@ -52,22 +56,32 @@ __global__ void __launch_bounds__(kThreads)
   codevec::store_warp<BITS, WORDS>(val, tiles[warp], out, t0, threads, lane);
 }
 
-template <int BITS, int WORDS>
+template <int BITS, int WORDS, bool EAGER>
 void launch(const uint32_t* packed, const float* norms, float4* out,
             long long rows, cudaStream_t stream) {
   const long long threads = rows * Vec<BITS, WORDS>::kPerRow;
   const long long blocks = (threads + kThreads - 1) / kThreads;
-  unpack_dequantize_kernel<BITS, WORDS>
+  unpack_dequantize_kernel<BITS, WORDS, EAGER>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(packed, norms, out, rows);
+}
+
+template <int BITS, bool EAGER>
+void launch_eager(const uint32_t* packed, const float* norms, float4* out,
+                  long long rows, int sms, cudaStream_t stream) {
+  if (codevec::use_wide<BITS>(rows, sms)) {
+    launch<BITS, 4, EAGER>(packed, norms, out, rows, stream);
+  } else {
+    launch<BITS, 1, EAGER>(packed, norms, out, rows, stream);
+  }
 }
 
 template <int BITS>
 void launch_bits(const uint32_t* packed, const float* norms, float4* out,
-                 long long rows, int sms, cudaStream_t stream) {
-  if (codevec::use_wide<BITS>(rows, sms)) {
-    launch<BITS, 4>(packed, norms, out, rows, stream);
+                 long long rows, int sms, int eager, cudaStream_t stream) {
+  if (eager) {
+    launch_eager<BITS, true>(packed, norms, out, rows, sms, stream);
   } else {
-    launch<BITS, 1>(packed, norms, out, rows, stream);
+    launch_eager<BITS, false>(packed, norms, out, rows, sms, stream);
   }
 }
 
@@ -75,7 +89,7 @@ void launch_bits(const uint32_t* packed, const float* norms, float4* out,
 
 extern "C" int qsgd_unpack_dequantize(const void* packed, const void* norms,
                                       void* out, long long rows, int bits,
-                                      void* stream) {
+                                      int eager, void* stream) {
   int sms = 0;
   const cudaError_t err = qsgd::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
@@ -84,9 +98,9 @@ extern "C" int qsgd_unpack_dequantize(const void* packed, const void* norms,
   const auto o = (float4*)out;
   const auto s = (cudaStream_t)stream;
   switch (bits) {
-    case 2: launch_bits<2>(p, n, o, rows, sms, s); break;
-    case 4: launch_bits<4>(p, n, o, rows, sms, s); break;
-    case 8: launch_bits<8>(p, n, o, rows, sms, s); break;
+    case 2: launch_bits<2>(p, n, o, rows, sms, eager, s); break;
+    case 4: launch_bits<4>(p, n, o, rows, sms, eager, s); break;
+    case 8: launch_bits<8>(p, n, o, rows, sms, eager, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

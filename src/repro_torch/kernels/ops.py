@@ -68,17 +68,21 @@ def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
 
 
 def qsgd_dequantize_stack(packed: torch.Tensor, norms: torch.Tensor,
-                          bits: int, n: int) -> torch.Tensor:
+                          bits: int, n: int, *,
+                          eager: bool = False) -> torch.Tensor:
     """Dequantize a (B, rows, 16*bits) stack of wire messages of n
-    elements in one K3 launch -> f32 (B, n)."""
+    elements in one K3 launch -> f32 (B, n); ``eager`` as in
+    ``qsgd.qsgd_unpack_dequantize``."""
     b, rows = packed.shape[0], packed.shape[1]
     out = _qsgd.qsgd_unpack_dequantize(packed.reshape(b * rows, -1),
-                                       norms.reshape(b * rows), bits)
+                                       norms.reshape(b * rows), bits,
+                                       eager=eager)
     return out.reshape(b, rows * _qsgd.LANES)[:, :n]
 
 
 def lowrank_window_delta(stack, norms, weights, seeds, *, bits: int,
-                         group: int, n: int) -> torch.Tensor:
+                         group: int, n: int,
+                         eager: bool = False) -> torch.Tensor:
     """The weighted expansion of one lowrank flush window -> f32 (n,):
     ``sum_k w_k * S_k^T y_k`` over the padded length, sliced to n.
 
@@ -95,13 +99,21 @@ def lowrank_window_delta(stack, norms, weights, seeds, *, bits: int,
     reassociates it in the jitted flush: ``(w_k * fl32(1/sqrt(group))) *
     (repeat(y_k) * sign_k)``.
 
-    The reference's non-fused chain (``FlushBatch.reduce`` under a sparse
-    or lowrank server quantizer) runs this eagerly, where the decode
-    divides by s; K3 multiplies by fl32(1/s) as the jitted flush does, so
-    that chain may differ from the reference in the last bit."""
+    ``eager=True`` is the reference's non-fused chain (``FlushBatch
+    .reduce`` under a sparse or lowrank server quantizer), which runs this
+    op by op: K3's eager variant decodes with a true division by s, each
+    product rounds as written, ``w_k * ((repeat(y_k) * sign_k) *
+    fl32(1/sqrt(group)))``, and the sum starts from +0."""
     d_pad = rows_for(n) * _qsgd.LANES
     k = stack.shape[0]
-    y = qsgd_dequantize_stack(stack, norms, bits, d_pad // group)
+    y = qsgd_dequantize_stack(stack, norms, bits, d_pad // group,
+                              eager=eager)
+    if eager:
+        acc = torch.zeros(d_pad, dtype=torch.float32, device=y.device)
+        for i in range(k):
+            acc = acc + weights[i] * _qsgd.sketch_expand(
+                y[i:i + 1], seeds[i], group)[0]
+        return acc[:n]
     ws = weights * _qsgd.sketch_scale(group)
     prods = ws[:, None] * _qsgd.sketch_expand(y, seeds, group, scaled=False)
     acc = prods[0]
@@ -282,3 +294,48 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
     if not taps:
         return out
     return out + (_taps.flush_taps(x_flat, x_new, delta, diff, q, weights),)
+
+
+# ---------------------------------------------------------------------------
+# The population lifecycle step
+# ---------------------------------------------------------------------------
+
+
+def population_advance(pop, seeds, version, draws=None, *, admitting: bool,
+                       scenario, capacity: int, buckets: int,
+                       bucket_width: int, admit: int, deliver: int,
+                       queue_cap: int):
+    """Advance the device-resident population by one macro step.
+
+    Either admits a cohort of ``admit`` clients (drawing their
+    interarrivals, latencies, dropouts and tiers on the device from the
+    counter-hash law, or taking the host-fed ``draws`` dict ``{"inter",
+    "dur", "drop", "tier"}`` of ``(admit,)`` arrays) or pops up to
+    ``deliver`` completed deadlines in completion order; ``admitting`` is
+    the branch, the last step's ``will_admit`` (True on a fresh
+    population). The state tensors of ``pop`` (``population
+    .init_population``) are updated in place, the port's counterpart of
+    the reference's donation. ``version`` is the server's model version
+    (staleness = version - the slot's start version).
+
+    Returns the packed step output (``population.PackedStepOut``: an f32
+    and an i32 flat tensor, views of one buffer); the host reads it with
+    one device-to-host copy through ``population.PopStepOut``. The
+    ``buckets`` of the wheel are ``pop["deadline"]``'s rows, taken for the
+    reference's signature."""
+    from repro_torch.kernels import population as _pop
+    if pop["deadline"].shape != (buckets, bucket_width):
+        raise ValueError(f"wheel {tuple(pop['deadline'].shape)} is not "
+                         f"{buckets}x{bucket_width}")
+    if deliver > capacity:
+        raise ValueError(f"deliver batch {deliver} > capacity {capacity}")
+    if draws is not None:
+        dev = pop["deadline"].device
+        dtypes = {"inter": torch.float32, "dur": torch.float32,
+                  "drop": torch.bool, "tier": torch.int32}
+        draws = {k: to_device(torch.as_tensor(draws[k]).to(dt), dev)
+                 for k, dt in dtypes.items()}
+    out = _pop.advance(pop, seeds, version, draws, admitting=admitting,
+                       scn=scenario, bucket_width=bucket_width, admit=admit,
+                       deliver=deliver, queue_cap=queue_cap)
+    return _pop.pack_step_out(out, admit, deliver)

@@ -216,23 +216,25 @@ def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
 
 
 def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
-                           bits: int) -> torch.Tensor:
+                           bits: int, *, eager: bool = False) -> torch.Tensor:
     """Inverse of ``qsgd_quantize_pack``: packed uint8 (rows, 16*bits) +
-    norms f32 (rows,) -> f32 (rows, 128)."""
+    norms f32 (rows,) -> f32 (rows, 128). ``eager=True`` scales by
+    ``norm / s`` (a true division, the reference's op-by-op decode) in
+    place of ``norm * fl32(1/s)`` (its jitted decode)."""
     check_bits(bits)
     rows = packed.shape[0]
     check_tensor("packed", packed, torch.uint8, (None, LANES * bits // 8),
                  packed.device)
     check_tensor("norms", norms, torch.float32, (rows,), packed.device)
     if not on_card(packed):
-        return _ref.unpack_dequantize(packed, norms, bits)
+        return _ref.unpack_dequantize(packed, norms, bits, eager=eager)
     check_aligned("packed", packed)
     out = torch.empty((rows, LANES), dtype=torch.float32, device=packed.device)
     if rows:
         fn = _build.entry("unpack_dequantize")
         _build.check("qsgd_unpack_dequantize", fn(
             packed.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, bits,
-            torch.cuda.current_stream(packed.device).cuda_stream))
+            int(eager), torch.cuda.current_stream(packed.device).cuda_stream))
         LAUNCHES["qsgd_unpack_dequantize"] += 1
     return out
 

@@ -142,21 +142,28 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def counter_uniform(seed0, seed1, idx: torch.Tensor) -> torch.Tensor:
+    """The counter hash's f32 uniforms in [0, 1): two fmix32 rounds of
+    ``idx * golden + seed0`` keyed by ``seed1``, top 24 bits scaled.
+    ``idx`` is an int64 tensor of uint32 counters; the seeds are uint32
+    words as Python ints or int64 tensors that broadcast against it."""
+    x = _fmix32((_mul32(idx, _GOLDEN) + seed0) & MASK32)
+    x = _fmix32(x ^ seed1)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def hash_uniform(seeds: torch.Tensor, rows: int):
     """The counter-hash dither of the batched kernel: for message b and
-    element index ``row*128 + lane``, two fmix32 rounds keyed by
-    ``seeds[b]``, top 24 bits scaled into [0, 1).
-    ``seeds`` is (B, 2) int64 holding uint32 words; returns f32
-    (B, rows, 128) on the seeds' device."""
+    element index ``row*128 + lane``, ``counter_uniform`` keyed by
+    ``seeds[b]``. ``seeds`` is (B, 2) int64 holding uint32 words; returns
+    f32 (B, rows, 128) on the seeds' device."""
     dev = seeds.device
     row = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
     lane = torch.arange(LANES, dtype=torch.int64, device=dev)[None, :]
-    idx = row * LANES + lane
+    idx = (row * LANES + lane)[None]
     s0 = (seeds[:, 0] & MASK32).reshape(-1, 1, 1)
     s1 = (seeds[:, 1] & MASK32).reshape(-1, 1, 1)
-    x = _fmix32((_mul32(idx, _GOLDEN)[None] + s0) & MASK32)
-    x = _fmix32(x ^ s1)
-    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return counter_uniform(s0, s1, idx)
 
 
 def quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor, bits: int):
@@ -182,10 +189,15 @@ def signed_magnitudes(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return sign * mag
 
 
-def unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int):
+def unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,
+                      *, eager: bool = False):
     """Packed uint8 (rows, 128*bits//8) + norms f32 (rows,) -> f32
-    (rows, 128) = (sign*mag) * (norm * fl32(1/s))."""
-    scale = norms * reciprocal_levels(bits)
+    (rows, 128) = (sign*mag) * (norm * fl32(1/s)), or with ``eager``
+    (sign*mag) * (norm / s), a true division."""
+    if eager:
+        scale = norms / torch.full_like(norms, float(levels(bits)))
+    else:
+        scale = norms * reciprocal_levels(bits)
     return signed_magnitudes(packed, bits) * scale[:, None]
 
 

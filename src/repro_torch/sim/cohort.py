@@ -195,23 +195,13 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                     msgs[i].meta["taps"] = named_cohort_taps(tap_rows[j])
         return msgs
 
-    def _admit_cohort(self, next_arrival: float, next_client: int):
-        """Train and encode one cohort starting at ``next_arrival``.
-
-        Returns (messages, arrival_times, durations, drop_mask,
-        new_next_arrival). The streams are consumed in the reference's
-        order: interarrivals and tiers, then the keys (at b = 1 the
-        sequential engine's batches key and client key; above it one
-        ``split(key, 2b+1)`` and a split of each of the last b), the
-        batches, training, and then the durations and dropouts."""
+    def _train_cohort(self, first: int, tiers: np.ndarray) -> List[Message]:
+        """Draw the keys of the cohort of clients ``first, first + 1, ...``
+        (one per tier in ``tiers``), fetch their batches and train and
+        encode them. The keys follow the reference: at b = 1 the sequential
+        engine's batches key and client key; above it one ``split(key,
+        2b+1)`` and a split of each of the last b."""
         b = self.cohort_size
-        self.cohorts += 1
-        inter = self.sampler.interarrivals(b)
-        arrivals = next_arrival + np.concatenate(
-            [[0.0], np.cumsum(inter[:-1])])
-        new_next_arrival = float(arrivals[-1] + inter[-1])
-        tiers = self.sampler.tier_indices(b)
-
         if b == 1:
             batch_keys = [self._next_key()]
             k_train, k_enc = prng.split(self._next_key())
@@ -226,13 +216,30 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
         # cohort's client ids and keys and returns the stacked tree
         stacked = b > 1 and getattr(self.client_batches_fn, "batched", False)
         if stacked:
-            batches = self.client_batches_fn(
-                np.arange(next_client, next_client + b), batch_keys)
+            batches = self.client_batches_fn(np.arange(first, first + b),
+                                             batch_keys)
         else:
-            batches = [self.client_batches_fn(next_client + i, batch_keys[i])
+            batches = [self.client_batches_fn(first + i, batch_keys[i])
                        for i in range(b)]
-        msgs = self._train_encode_cohort(batches, train_keys, enc_keys, tiers,
-                                         stacked=stacked, client0=next_client)
+        return self._train_encode_cohort(batches, train_keys, enc_keys, tiers,
+                                         stacked=stacked, client0=first)
+
+    def _admit_cohort(self, next_arrival: float, next_client: int):
+        """Train and encode one cohort starting at ``next_arrival``.
+
+        Returns (messages, arrival_times, durations, drop_mask,
+        new_next_arrival). The streams are consumed in the reference's
+        order: interarrivals and tiers, then the keys, the batches and
+        training (``_train_cohort``), and then the durations and
+        dropouts."""
+        b = self.cohort_size
+        self.cohorts += 1
+        inter = self.sampler.interarrivals(b)
+        arrivals = next_arrival + np.concatenate(
+            [[0.0], np.cumsum(inter[:-1])])
+        new_next_arrival = float(arrivals[-1] + inter[-1])
+        tiers = self.sampler.tier_indices(b)
+        msgs = self._train_cohort(next_client, tiers)
         durations = self.sampler.durations(b)
         drops = self.sampler.dropouts(b)
         return msgs, arrivals, durations, drops, new_next_arrival

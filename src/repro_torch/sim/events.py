@@ -92,6 +92,11 @@ class BaseAsyncSimulator:
         self.key, sub = prng.split(self.key)
         return sub
 
+    def _eval_extra(self) -> Dict[str, Any]:
+        """Fields merged into every eval event this engine emits: the
+        population engine's per-state client counts; nothing here."""
+        return {}
+
     def verify_replicas(self) -> bool:
         h = self.algo.state.hidden_flat
         return all(torch.equal(rep, h) for rep in self.replicas)
@@ -109,7 +114,7 @@ class BaseAsyncSimulator:
             accuracy_trace.append(AccuracyPoint(now, uploads, step, acc))
             if self.tracer is not None:
                 self.tracer.emit("eval", step=step, accuracy=acc,
-                                 uploads=uploads)
+                                 uploads=uploads, **self._eval_extra())
             self._last_eval_step = step
             if (self.cfg.target_accuracy is not None
                     and acc >= self.cfg.target_accuracy):
@@ -129,7 +134,8 @@ class BaseAsyncSimulator:
             if self.tracer is not None:
                 self.tracer.set_sim_time(now)
                 self.tracer.emit("eval", step=self.algo.state.t,
-                                 accuracy=final_acc, uploads=uploads)
+                                 accuracy=final_acc, uploads=uploads,
+                                 **self._eval_extra())
         if self.tracer is not None:
             self.tracer.poll_compiles(step=self.algo.state.t)
         metrics = self.algo.metrics(drift=True)

@@ -84,6 +84,31 @@ FAMILY_NAMES = [
 ]
 
 
+# the population engine's, under the reference's names
+POPULATION_NAMES = [
+    ("repro_torch.kernels.population", "scenario_draws"),
+    ("repro_torch.kernels.population", "run_seeds"),
+    ("repro_torch.kernels.population", "init_population"),
+    ("repro_torch.kernels.population", "wheel_shape"),
+    ("repro_torch.kernels.population", "pack_step_out"),
+    ("repro_torch.kernels.population", "PopStepOut"),
+    ("repro_torch.kernels.population", "CompiledScenario"),
+    ("repro_torch.kernels.ops", "population_advance"),
+    ("repro_torch.core.staleness", "StalenessMonitor"),
+    ("repro_torch.sim.population", "compile_scenario"),
+    ("repro_torch.sim", "PopulationAsyncFLSimulator"),
+    ("repro_torch.sim", "PopulationEngine"),
+    ("repro_torch.obs.taps", "named_population_counts"),
+]
+
+
+@pytest.mark.parametrize("module,name", POPULATION_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_population_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
 @pytest.mark.parametrize("module,name", FAMILY_NAMES,
                          ids=lambda v: v.split(".")[-1])
 def test_quantizer_family_entry_points(module, name):
@@ -97,7 +122,9 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.core import QAFeL, QAFeLConfig
     from repro_torch.examples import (cohort_scenarios, federated_celeba,
                                       quickstart)
+    from repro_torch.kernels.population import init_population
     from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import PopulationEngine
     from repro_torch.sim.cohort import auto_member_chunk
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -122,6 +149,13 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     assert not trace.exists()
     with pytest.raises(RuntimeError, match="CUDA"):
         init_cnn(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PopulationEngine("identity", concurrency=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_population(16, 2, 8, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cohort_scenarios.main(["--model", "quad", "--uploads", "1",
+                               "--engine", "population"])
     with pytest.raises(RuntimeError, match="CUDA"):
         auto_member_chunk(32, 1000)
     assert auto_member_chunk(32, 1000, free_bytes=1 << 40) is None

@@ -161,6 +161,26 @@ def test_dequantize_matches_jax(bits, n):
 
 
 @pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_dequantize_eager_matches_jax_eager(bits, n):
+    """K3's eager variant against the reference's decode block run op by
+    op (its non-fused flush chain): a true division by s."""
+    rng = np.random.default_rng(n * 10 + bits + 5)
+    jk, _ = _key(n + 1)
+    jp, jn = jops.qsgd_quantize(jnp.asarray(_msg(rng, n)), jk, bits)
+    with jax.disable_jit():
+        want = jqsgd._unpack_dequantize_block(jp, jn[:, None], bits)
+    got = tkernels.qsgd.qsgd_unpack_dequantize(
+        torch.from_numpy(np.array(jp)), torch.from_numpy(np.array(jn)), bits,
+        eager=True)
+    assert _bits_equal(want, got)
+    fused = tkernels.qsgd.qsgd_unpack_dequantize(
+        torch.from_numpy(np.array(jp)), torch.from_numpy(np.array(jn)), bits)
+    if bits > 2 and n >= 2048:  # s = 1 at 2 bits: both scales are the norm
+        assert not _bits_equal(fused, got)  # the two laws do differ here
+
+
+@pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("k", (1, 4, 10))
 def test_buffer_aggregate_matches_jax(bits, k):
     n = 2000

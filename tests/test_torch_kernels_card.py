@@ -175,6 +175,22 @@ def test_unpack_dequantize_random_codes(bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", BITS)
+def test_unpack_dequantize_eager_random_codes(bits):
+    """K3's eager variant (``norm / s``) against its plain version, on the
+    shapes of the fused decode's test."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits + 10)
+    for rows in (1, 625, 1001, 40_001):
+        p = torch.randint(0, 256, (rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand(rows, generator=gen, device=dev) * 3.0
+        got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, eager=True)
+        want = ref.unpack_dequantize(p, nm, bits, eager=True)
+        _assert_bits_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("b", (1, 3, 8, 65))
 def test_quantize_batch_every_shape(bits, b):
     """The batched encode with seed words >= 2**31, by value (B <= 64) and

@@ -163,7 +163,7 @@ def test_wire_encode_refuses_bits_that_do_not_divide_a_byte():
     assert q.qdq_flat(flat, prng.PRNGKey(0)).shape == (300,)
 
 
-@pytest.mark.parametrize("bucket", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("bucket", [16, 32, 40, 48, 64, 128, 256])
 @pytest.mark.parametrize("bits", [2, 3, 4, 5, 8])
 def test_qsgd_qdq_honours_bucket_size(bucket, bits):
     x = np.random.default_rng(bucket + bits).standard_normal(
