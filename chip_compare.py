@@ -21,7 +21,11 @@ and prints one JSON line:
   (``torch.profiler``);
 * the CNN main path of ``chip_smoke.py`` (``AsyncFLSimulator`` driving
   ``QAFeL``, 100 uploads, concurrency 16): wall time, uploads/s and the
-  client-step and flush medians (host clock around synchronized calls).
+  client-step and flush medians (host clock around synchronized calls);
+* ``PopulationEngine("lognormal_dropout")`` at 100,000 clients to horizon
+  1.0 and 1,000,000 to 0.05, as ``chip_smoke.py`` runs it: events
+  (admissions plus deliveries) per second of ``advance_to`` (host clock,
+  ending in a device sync).
 
 The last lines are the card's name and power limit and one JSON object
 with each metric's median per checkout. Uses only entry points that both
@@ -131,6 +135,17 @@ def measure(tree: Path) -> dict:
                client_ms_median=1e3 * statistics.median(spans["client"]),
                flush_ms_median=1e3 * statistics.median(spans["flush"]),
                replicas_in_sync=bool(res.metrics["replicas_in_sync"]))
+
+    from repro_torch.sim import PopulationEngine
+    for clients, horizon in ((100_000, 1.0), (1_000_000, 0.05)):
+        eng = PopulationEngine("lognormal_dropout", clients, horizon=horizon,
+                               seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.advance_to(horizon)
+        torch.cuda.synchronize()
+        out[f"population_{clients}_events_per_s"] = (
+            m["admitted"] + m["delivered"]) / (time.perf_counter() - t0)
     return out
 
 

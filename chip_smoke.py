@@ -90,10 +90,29 @@ Phases, each printing one JSON line:
     gradients against the reference's eager ones from the committed
     fixture, twice with cuDNN's default algorithms
     (``cnn_grad_vs_fixture``);
-12. one line listing every kernel with its launches on both paths, on
-    the family's runs and on the population run, times and bound (the tap
-    kernels' launches from the taps-on runs);
-13. last, ``{"ok": true, "device": {...}}``.
+12. the LLM round (ROADMAP queue A item 14a): ``distributed.steps
+    .make_qafel_round`` on gemma2-2b at full width in bf16, cut from 26 to
+    8 layers (d = 1,212,754,176), the federated example's settings (qsgd4
+    both ways, K = 4, P = 2, local batch 2, sequence 64): one warm-up and
+    3 measured rounds with the launch counters set to 0 just before and
+    read just after (``llm_round_step`` lines: loss, |x - x_hat|_1, ms by
+    CUDA events; ``llm_round``: peak ``max_memory_allocated`` against the
+    ~50 GB reckoning, K1 and K3 launches per round = K + 1 by the counters
+    and by ``torch.profiler`` over a fourth round with their device time,
+    that round's device time by phase (the round's ``record_function``
+    ranges: client (local SGD and K1), accumulate (K3 into the weighted
+    sum), server and broadcast; each kernel counted in the range its
+    launch was made in), bytes per upload); then K1 and K3 (plain, with
+    the fused x-hat + q, and with the fused weighted add) at that d
+    against their plain versions taken in row chunks, bit for bit, timed
+    with their bounds (``llm_kernel``); then the reduced round on the card
+    and the CPU, 2 rounds, and its server half (``steps.accumulate`` and
+    ``steps.server_half``) on identical client messages bit for bit
+    (``llm_reduced_card_vs_cpu``);
+13. one line listing every kernel with its launches on both paths, on
+    the family's runs, on the population run and on the LLM round, times
+    and bound (the tap kernels' launches from the taps-on runs);
+14. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Every record is also written
@@ -2457,6 +2476,382 @@ def run_population(dev, hash_int32: dict) -> tuple:
     return record, launches
 
 
+# the LLM round (queue A item 14a): gemma2-2b at full width and bf16, cut
+# from 26 to 8 layers (4 of its 13 (local, global) super-blocks), the
+# federated example's QAFeL settings (qsgd4 both ways, K = 4, P = 2, local
+# batch 2, sequence 64); one warm-up round, 3 measured, 1 profiled
+LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 8, 64, 3
+LLM_PEAK_RECKONING_GB = 50.0  # the round's peak by count of its buffers
+LLM_PLAIN_CHUNK_ROWS = 1 << 18  # rows per chunk of the plain versions
+# the reduced round card vs CPU: model math within this of the CPU's
+LLM_REDUCED_LOSS_RTOL = 1e-4
+
+
+LLM_PHASES = ("client", "accumulate", "server", "broadcast")
+
+
+def phase_device_ms(prof, path: Path) -> dict:
+    """Device time by phase of a profiled round, from its trace: each
+    kernel, copy and fill counts in the ``record_function`` range of
+    ``LLM_PHASES`` during which its launch call was made (on any thread:
+    the autograd engine launches the backward from its own), else in
+    ``"other"`` (the round's flatten and unflatten, the batch's copies,
+    the drift)."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") in LLM_PHASES)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {name: 0.0 for name in LLM_PHASES + ("other",)}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or "spin_kernel" in e.get("name", ""):
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        name = next((n for t0, t1, n in ranges
+                     if ts is not None and t0 <= ts <= t1), "other")
+        out[name] += e["dur"] / 1e3
+    return out
+
+
+def llm_round(dev) -> tuple:
+    """The QAFeL round on gemma2-2b at full width (8 layers, bf16) through
+    ``distributed.steps.make_qafel_round``, as ``examples.federated_llm``
+    drives it: one warm-up round, then ``LLM_ROUNDS`` rounds with the
+    launch counters set to 0 just before and read just after (loss,
+    |x - x_hat|_1, ms by CUDA events split by phase, peak memory, bytes
+    per upload), then one round under ``torch.profiler`` (launches and
+    device time per kernel name). Returns (record, launches, d)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed.steps import (init_round_state,
+                                               make_qafel_round)
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import buffer_agg, qsgd, reset_launches
+    from repro_torch.kernels import taps as ktaps
+
+    cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_LAYERS)
+    qcfg = fl.qafel_config(4)
+    k = qcfg.buffer_size
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    holder = [init_round_state(cfg, 0, dev)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d = sum(t.numel() for t in tree_leaves(holder[0].x))
+    round_fn = make_qafel_round(cfg, qcfg)
+    weights = torch.ones(k)
+    rng = np.random.default_rng(0)
+
+    def one(step: int) -> dict:
+        batch = fl.round_batch(cfg, qcfg, rng, LLM_SEQ, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        new, met = round_fn(holder[0], batch, weights, prng.PRNGKey(step))
+        end.record()
+        holder[0] = new
+        del batch
+        drift = fl.model_drift(new.x, new.hidden)
+        torch.cuda.synchronize()
+        row = {"round": step, "loss": float(met["loss"]),
+               "drift_l1": float(drift), "ms": start.elapsed_time(end),
+               "upload_bytes": met["upload_bytes"],
+               "broadcast_bytes": met["broadcast_bytes"]}
+        emit({"phase": "llm_round_step", **row})
+        return row
+
+    warm = one(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = [one(step) for step in range(1, 1 + LLM_ROUNDS)]
+    launches = {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES, **ktaps.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+        profiled = one(1 + LLM_ROUNDS)
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation \
+                and "spin_kernel" not in e.key:
+            c, t = by_name.get(e.key, (0, 0.0))
+            by_name[e.key] = (c + e.count,
+                              t + e.self_device_time_total / 1e3)
+
+    def kernel(part: str) -> dict:
+        hits = [(c, t) for name, (c, t) in by_name.items() if part in name]
+        n = sum(c for c, _ in hits)
+        ms = sum(t for _, t in hits)
+        return {"launches": n, "device_ms": ms,
+                "ms_per_launch": ms / n if n else None}
+
+    k1 = kernel("quantize_pack_threefry")
+    k3 = kernel("unpack_dequantize_kernel")
+    busy = sum(t for _, t in by_name.values())
+    phases = phase_device_ms(prof, ROOT / "build" / "llm_round_trace.json")
+    ms = [r["ms"] for r in rows]
+    per_round = lambda name: launches[name] / LLM_ROUNDS
+    record = {
+        "phase": "llm_round", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "cut": "26 -> 8 layers (4 of 13 super-blocks); every width as "
+               "published", "d": d, "param_count": cfg.param_count(),
+        "dtype": cfg.param_dtype, "seq": LLM_SEQ, "local_batch":
+        fl.LOCAL_BATCH, "K": k, "P": qcfg.local_steps,
+        "init_s": init_s, "warmup_round": warm, "rounds": rows,
+        "ms_median": statistics.median(ms), "ms_rounds": ms,
+        "profiled_round": {"ms": profiled["ms"], "K1": k1, "K3": k3,
+                           "phases_device_ms": phases,
+                           "client_training_device_ms": phases["client"]
+                           - k * (k1["ms_per_launch"] or 0.0),
+                           "device_busy_ms": busy,
+                           "device_launches": sum(
+                               c for c, _ in by_name.values())},
+        "peak_bytes": peak, "peak_gb": peak / 1e9,
+        "peak_reckoning_gb": LLM_PEAK_RECKONING_GB,
+        "launches_per_round": {
+            "qsgd_quantize_pack_threefry": per_round(
+                "qsgd_quantize_pack_threefry"),
+            "qsgd_unpack_dequantize": per_round("qsgd_unpack_dequantize")},
+        "upload_bytes": rows[0]["upload_bytes"],
+        "upload_bytes_formula": "(4*d + 32*ceil(d/128)) / 8"}
+    checks = {
+        "losses_finite": all(math.isfinite(r["loss"]) for r in rows + [warm]),
+        "drift_positive": all(r["drift_l1"] > 0 for r in rows),
+        "k1_per_round": per_round("qsgd_quantize_pack_threefry") == k + 1,
+        "k3_per_round": per_round("qsgd_unpack_dequantize") == k + 1,
+        "k1_profiled": k1["launches"] == k + 1,
+        "k3_profiled": k3["launches"] == k + 1,
+        "other_kernels_idle": all(
+            v == 0 for n, v in launches.items()
+            if n not in ("qsgd_quantize_pack_threefry",
+                         "qsgd_unpack_dequantize")),
+        "peak_under_80gb": peak < 80e9,
+        "phases_read": all(phases[name] > 0 for name in LLM_PHASES),
+        "upload_bytes_exact": rows[0]["upload_bytes"] == (
+            4 * d + 32 * -(-d // 128)) / 8}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"llm_round: {checks}")
+    holder.clear()
+    del round_fn
+    torch.cuda.empty_cache()
+    return record, launches, d
+
+
+def _plain_threefry_rows(x, key, bits: int, r0: int, r1: int):
+    """``ref.quantize_pack_threefry`` of the whole message, rows r0..r1
+    only: the rows' values and their elements' threefry counters (the
+    dither of element i is ``threefry(key, (0, i))``)."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import ref
+
+    d = x.numel()
+    seg = x[r0 * 128:min(d, r1 * 128)]
+    x2d = torch.nn.functional.pad(seg, (0, (r1 - r0) * 128 - seg.numel()))
+    lo = torch.arange(r0 * 128, r1 * 128, dtype=torch.int64, device=x.device)
+    w0, w1 = prng.threefry2x32(key, torch.zeros_like(lo), lo)
+    u = ((w0 ^ w1) >> 9).to(torch.float32) * 2.0 ** -23
+    return ref.quantize_pack(x2d.reshape(-1, 128), u.reshape(-1, 128), bits)
+
+
+def llm_kernels(dev, d: int, dither_int32: dict,
+                int32_ops_per_s: float) -> dict:
+    """K1 (the threefry upload and broadcast encode) and K3 (the decode,
+    the broadcast decode fused into x-hat + q, and the upload decode fused
+    into the weighted add buf + w_k * dec) at the LLM round's d, against
+    their plain versions taken in row chunks, bit for bit; kernel times
+    (CUDA events), plain times, bounds."""
+    import torch
+
+    from repro_torch.kernels import qsgd, ref
+
+    rows = ref.rows_for(d)
+    chunk = LLM_PLAIN_CHUNK_ROWS
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(d, generator=gen, device=dev) * 1e-3
+    x[:1000] = 0.0  # an all-zero bucket
+    acc = torch.randn(d, generator=gen, device=dev) * 1e-2
+    key = torch.tensor([0x9E3779B9, 0xFFFFFFF0])
+    code_b = 16 * BITS
+    out = {}
+
+    def timed(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    def finish(name, equal, err, ms, plain_ms, nbytes, ops, rate, formula):
+        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / rate
+        rec = dict(equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=1e3 * max(bytes_s, ops_s),
+                   bound_by="bytes" if bytes_s >= ops_s else "operations",
+                   bytes=nbytes, bytes_formula=formula, d=d, rows=rows)
+        rec["bound_share"] = rec["bound_ms"] / ms
+        emit({"phase": "llm_kernel", "name": name, **rec})
+        if not equal:
+            raise AssertionError(f"{name} at d={d}: kernel and plain differ "
+                                 f"(max abs err {err})")
+        out[name] = rec
+
+    packed, norms = qsgd.qsgd_quantize_pack_threefry(x, key, BITS)
+    torch.cuda.synchronize()
+    equal, err = True, 0.0
+    for r0 in range(0, rows, chunk):
+        r1 = min(rows, r0 + chunk)
+        p, n = _plain_threefry_rows(x, key, BITS, r0, r1)
+        equal &= bits_equal(p, packed[r0:r1]) and bits_equal(n, norms[r0:r1])
+        err = max(err, float((n - norms[r0:r1]).abs().max()))
+    finish("K1_threefry_llm", equal, err,
+           device_ms(lambda: qsgd.qsgd_quantize_pack_threefry(x, key, BITS),
+                     5),
+           timed(lambda: [_plain_threefry_rows(x, key, BITS, r, min(
+               rows, r + chunk)) for r in range(0, rows, chunk)]),
+           d * 4 + rows * (code_b + 4),
+           d * dither_int32["bound"], int32_ops_per_s,
+           "d*4 x + rows*(128*bits/8 + 4)")
+    del x
+    weight = torch.tensor([0.7], device=dev)
+    for name, a, w in (("K3_llm", None, None), ("K3_apply_llm", acc, None),
+                       ("K3_accum_llm", acc, weight)):
+        got = qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=a,
+                                          weight=w)
+        torch.cuda.synchronize()
+        equal, err = True, 0.0
+
+        def plain_rows(r0, r1):
+            sub = None if a is None else a[r0 * 128:min(d, r1 * 128)]
+            return ref.unpack_dequantize(packed[r0:r1], norms[r0:r1], BITS,
+                                         acc=sub, weight=w)
+        for r0 in range(0, rows, chunk):
+            r1 = min(rows, r0 + chunk)
+            want = plain_rows(r0, r1)
+            equal &= bits_equal(want, got[r0:r1])
+            err = max(err, float((want - got[r0:r1]).abs().max()))
+        del got
+        finish(name, equal, err,
+               device_ms(lambda: qsgd.qsgd_unpack_dequantize(
+                   packed, norms, BITS, acc=a, weight=w), 5),
+               timed(lambda: [plain_rows(r, min(rows, r + chunk))
+                              for r in range(0, rows, chunk)]),
+               rows * (code_b + 4) + rows * 128 * 4
+               + (0 if a is None else d * 4),
+               rows * 128 * (4 if a is None else 5 if w is None else 6),
+               F32_OPS_PER_S,
+               "rows*(128*bits/8 + 4) + rows*128*4 out"
+               + ("" if a is None else " + d*4 acc"))
+    del packed, norms, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def llm_reduced_card_vs_cpu(dev) -> dict:
+    """The reduced gemma2-2b round (f32) on the card and the CPU from the
+    same state, batches and keys: 2 rounds, losses within
+    ``LLM_REDUCED_LOSS_RTOL`` (the model math's orders differ) and the
+    share of x-hat bit-equal; and the server half bit for bit: the same K
+    packed client messages and weights through the round's weighted
+    accumulation (``steps.accumulate``: K3 with the fused weighted add) and
+    ``steps.server_half`` on both devices, equal x, x-hat, m and
+    broadcast."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core.quantizers import flatten_tree
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import ops
+
+    cfg = configs.get_reduced(LLM_ARCH)
+    qcfg = fl.qafel_config(4)
+    base = steps.init_round_state(cfg, 0, "cpu")
+    runs = {}
+    for where in ("cpu", dev):
+        st = steps.RoundState(*(tree_map(lambda t: t.to(where), tr)
+                                for tr in (base.x, base.hidden,
+                                           base.momentum)), t=0)
+        round_fn = steps.make_qafel_round(cfg, qcfg)
+        rng = np.random.default_rng(0)
+        losses = []
+        for step in range(2):
+            batch = fl.round_batch(cfg, qcfg, rng, LLM_SEQ, where)
+            st, met = round_fn(st, batch, torch.ones(4), prng.PRNGKey(step))
+            losses.append(float(met["loss"]))
+        runs[str(where)] = (st, losses)
+    (cpu_st, cpu_l), (card_st, card_l) = runs["cpu"], runs[str(dev)]
+    flat = lambda tree: flatten_tree(tree)[0].cpu()
+    hid_equal = float((flat(cpu_st.hidden).view(torch.int32)
+                       == flat(card_st.hidden).view(torch.int32)).double()
+                      .mean())
+    loss_ok = all(abs(a - b) <= LLM_REDUCED_LOSS_RTOL * abs(a)
+                  for a, b in zip(cpu_l, card_l))
+
+    # the server half on identical inputs
+    x, layout = flatten_tree(base.x)
+    d = layout.total_size
+    g = torch.Generator().manual_seed(5)
+    hidden = x + 2e-3 * torch.randn(d, generator=g)
+    m = 1e-3 * torch.randn(d, generator=g)
+    deltas = 3e-3 * torch.randn((4, d), generator=g)
+    packed, norms = ops.qsgd_quantize_batch(
+        deltas, torch.randint(0, 2 ** 32, (4, 2), generator=g), BITS)
+    w = torch.tensor([0.9, 1.0, 0.7, 0.5])
+    halves = {}
+    for where in ("cpu", dev):
+        buf = torch.zeros(d, device=where)
+        for kk in range(4):
+            buf = steps.accumulate(buf, packed[kk].to(where),
+                                   norms[kk].to(where),
+                                   w[kk:kk + 1].to(where), bits=BITS, d=d)
+        xn, hn, mn, (bp, bn) = steps.server_half(
+            x.to(where), hidden.to(where), m.to(where), buf,
+            prng.PRNGKey(9), qcfg=qcfg, sbits=BITS, d=d)
+        halves[str(where)] = [t.cpu() for t in (xn, hn, mn, bp, bn)]
+    half_equal = all(bits_equal(a, b) for a, b in
+                     zip(halves["cpu"], halves[str(dev)]))
+    record = {"phase": "llm_reduced_card_vs_cpu", "arch": cfg.arch_id,
+              "d": d, "cpu_losses": cpu_l, "card_losses": card_l,
+              "losses_within_rtol": loss_ok,
+              "loss_rtol": LLM_REDUCED_LOSS_RTOL,
+              "hidden_bit_equal_share": hid_equal,
+              "server_half_bit_equal": half_equal}
+    emit(record)
+    if not (loss_ok and half_equal):
+        raise AssertionError(f"llm_reduced_card_vs_cpu: {record}")
+    return record
+
+
+def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
+    """The LLM round phase; returns (round record, its launches, the
+    K1/K3 cases at its d)."""
+    record, launches, d = llm_round(dev)
+    cases = llm_kernels(dev, d, dither_int32, int32_ops_per_s)
+    llm_reduced_card_vs_cpu(dev)
+    return record, launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -2514,6 +2909,7 @@ def main() -> int:
     taps, taps_main, taps_cohort = run_telemetry(dev)
     family_cases, family_launches, _ = run_quantizer_family(dev)
     _, population_launches = run_population(dev, hash_int32)
+    _, llm_launches, llm_cases = run_llm(dev, dither_int32, int32_ops_per_s)
 
     kernels_line = []
     for name, m in cnn.items():
@@ -2532,6 +2928,16 @@ def main() -> int:
                      "max_abs_err": b["max_abs_err"]}})
         kernels_line[-1]["family_launches"] = family_launches[name]
         kernels_line[-1]["population_launches"] = population_launches[name]
+        kernels_line[-1]["llm_round_launches"] = llm_launches[name]
+        llm = {"qsgd_quantize_pack_threefry": ("K1_threefry_llm",),
+               "qsgd_unpack_dequantize": ("K3_llm", "K3_apply_llm",
+                                          "K3_accum_llm")}
+        if name in llm:
+            kernels_line[-1]["llm_cases"] = {
+                case: {key: llm_cases[case][key] for key in (
+                    "d", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_share", "equal", "max_abs_err", "bytes_formula")}
+                for case in llm[name]}
         prefix = {"qsgd_quantize_pack_threefry": "K1_",
                   "qsgd_quantize_pack_batch": "K2_",
                   "qsgd_unpack_dequantize": "K3_"}.get(name)
@@ -2557,6 +2963,7 @@ def main() -> int:
             "cohort_launches": taps_cohort[name],
             "family_launches": family_launches[name],
             "population_launches": population_launches[name],
+            "llm_round_launches": llm_launches[name],
             "cases": {case: {key: c[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}

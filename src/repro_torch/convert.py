@@ -1,11 +1,13 @@
-"""Parameters from the JAX package into the port.
+"""Parameters and round state from the JAX package into the port.
 
-The JAX package keeps parameters as nested dicts of arrays with HWIO conv
-kernels; the port keeps the same leaf shapes (``models.cnn``), so the
-conversion is a copy of every leaf onto the port's device. With it both
-packages compute the same function from the same weights, which is what the
-cross-package tests need. Only numpy arrays cross: the port never imports
-JAX.
+The JAX package keeps parameters as nested dicts of arrays (HWIO conv
+kernels for the CNN, ``(in, out)`` matrices stacked over super-blocks for
+the decoders); the port keeps the same leaves, so the conversion is a copy
+of every leaf onto the port's device in its own dtype. With it both
+packages compute the same function from the same weights, which is what
+the cross-package tests need. Only numpy arrays cross: the port imports
+neither JAX nor ``ml_dtypes``; a bf16 array (ml_dtypes' ``bfloat16``)
+crosses as its ``uint16`` bits reinterpreted as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -16,12 +18,36 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 
 
+def _tensor(a, device=None) -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` takes) as a tensor of
+    the same dtype on ``device`` (None: the card); float64 (a Python
+    list, say) becomes float32, the dtype JAX holds it in."""
+    dev = resolve_device(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(
+            a, dtype=np.float32 if a.dtype == np.float64 else a.dtype))
+    return t.to(dev)
+
+
 def params_from_jax(tree_of_numpy, device=None):
     """A nested dict of arrays (e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the same tree of f32 tensors on ``device`` (None: the CUDA device,
-    as every entry point of the port). Feed the result to
-    ``models.cnn.CNN`` for the ``nn.Module`` view."""
-    dev = resolve_device(device)
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev),
-        tree_of_numpy)
+    -> the same tree of tensors, each leaf in its own dtype (f32 stays
+    f32, bf16 stays bf16), on ``device`` (None: the CUDA device, as every
+    entry point of the port). Feed the CNN's to ``models.cnn.CNN`` for the
+    ``nn.Module`` view."""
+    return tree_map(lambda a: _tensor(a, device), tree_of_numpy)
+
+
+def round_state_from_jax(state, device=None):
+    """The reference's ``distributed.steps.RoundState`` (its trees as
+    numpy, e.g. ``jax.device_get(state)``) -> the port's
+    ``distributed.steps.RoundState`` on ``device``."""
+    from repro_torch.distributed.steps import RoundState
+
+    return RoundState(x=params_from_jax(state.x, device),
+                      hidden=params_from_jax(state.hidden, device),
+                      momentum=params_from_jax(state.momentum, device),
+                      t=int(np.asarray(state.t)))

@@ -88,46 +88,91 @@ class QAFeLConfig:
 # ---------------------------------------------------------------------------
 
 
+def round_to_leaf_dtypes_(layout: TreeLayout, flat: torch.Tensor):
+    """Round each leaf's segment of an f32 flat vector to the leaf's dtype
+    and back, in place: a bf16 leaf keeps bf16 values, as the reference's
+    tree does between its ops. A no-op for an all-f32 layout. Returns
+    ``flat``."""
+    off = 0
+    for dt, size in zip(layout.dtypes, layout.sizes):
+        if dt != "float32":
+            seg = flat[off:off + size]
+            seg.copy_(seg.to(getattr(torch, dt)))
+        off += size
+    return flat
+
+
+def _sgd_step(layout: TreeLayout, y: torch.Tensor, grads, lr: float):
+    """One step ``y - lr*g`` on the flat ``y`` in each leaf's dtype, as
+    the reference's jitted scan body compiles it on XLA:CPU (read from its
+    optimised HLO): an f32 leaf is one fused multiply-add, ``fma(-lr, g,
+    y)`` (with a separately rounded product the two packages drift apart
+    by an ulp per step even where their gradients agree bit for bit); a
+    bf16 leaf keeps both of the reference's bf16 roundings, the Python
+    float ``lr`` being weakly typed: ``p = bf16(g * bf16(lr))``, then
+    ``bf16(y - p)``, each op in f32 and rounded to bf16."""
+    neg_lr = -float(np.float32(lr))  # the f32 learning rate, as XLA has it
+    if all(dt == "float32" for dt in layout.dtypes):
+        g_flat = torch.cat([gi.reshape(-1) for gi in grads])
+        return fma_f32(g_flat, neg_lr, y)
+    lr_b = float(torch.tensor(-neg_lr).to(torch.bfloat16))
+    out, off = torch.empty_like(y), 0
+    for gi, dt, size in zip(grads, layout.dtypes, layout.sizes):
+        yi, gi, oi = y[off:off + size], gi.reshape(-1), out[off:off + size]
+        if dt == "float32":
+            oi.copy_(fma_f32(gi.to(torch.float32), neg_lr, yi))
+        elif dt == "bfloat16":
+            prod = (gi.to(torch.float32) * lr_b).to(torch.bfloat16)
+            oi.copy_((yi - prod.to(torch.float32)).to(torch.bfloat16))
+        else:
+            raise ValueError(f"local SGD on a {dt} leaf")
+        off += size
+    return out
+
+
 def local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
-              batches, keys):
+              batches, keys, *, with_loss: bool = False):
     """Algorithm 2 lines 2-4: P plain SGD steps from the flat ``y0_flat``
     (``layout``'s coordinates), step p on ``batches[..][p]`` with
-    ``keys[p]``; the loss sees the parameter tree. Returns the final flat
-    parameters.
-
-    The step ``y - lr*g`` is rounded once, as one fused multiply-add: the
-    reference's jitted scan body compiles to ``fma(-lr, g, y)`` on XLA:CPU,
-    and with a separately rounded product the two packages drift apart by
-    an ulp per step even where their gradients agree bit for bit. It runs
-    on the flat vector: one elementwise chain for the whole model."""
-    grad_fn = torch.func.grad(loss_fn)
-    neg_lr = -float(np.float32(lr))  # the f32 learning rate, as XLA has it
-    y = y0_flat
+    ``keys[p]``; the loss sees the parameter tree, in each leaf's dtype.
+    Each step rounds as ``_sgd_step`` says. Returns the final flat
+    parameters, and with ``with_loss`` also the (P,) losses of the steps
+    (the distributed round's metric)."""
+    step_fn = (torch.func.grad_and_value(loss_fn) if with_loss
+               else torch.func.grad(loss_fn))
+    y, losses = y0_flat, []
     for p in range(len(keys)):
         batch = {k: v[p] for k, v in batches.items()}
-        g = grad_fn(layout.unflatten(y), batch, keys[p])
-        g_flat = torch.cat([gi.reshape(-1) for gi in tree_leaves(g)])
-        y = fma_f32(g_flat, neg_lr, y)
-    return y
+        out = step_fn(layout.unflatten(y), batch, keys[p])
+        g = out[0] if with_loss else out
+        if with_loss:
+            losses.append(out[1].detach().to(torch.float32))
+        y = _sgd_step(layout, y, tree_leaves(g), lr)
+        del g, out
+    return (y, torch.stack(losses)) if with_loss else y
 
 
 def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
-                  x_hat_flat, batches, key):
+                  x_hat_flat, batches, key, *, with_loss: bool = False):
     """Algorithm 2: y_0 <- x-hat; P local SGD steps; delta = y_P - y_0
     (the text's sign convention, as in the reference), all flat in
-    ``layout``'s coordinates. ``batches`` leaves have leading dim P.
-    Returns the unquantized flat delta."""
+    ``layout``'s coordinates; a bf16 leaf's delta is rounded to bf16, as
+    the reference subtracts its trees. ``batches`` leaves have leading
+    dim P. Returns the unquantized flat delta, and with ``with_loss``
+    also the (P,) losses."""
     keys = prng.split(key, qcfg.local_steps)
-    y_final = local_sgd(loss_fn, qcfg.client_lr, layout, x_hat_flat,
-                        batches, keys)
-    return y_final - x_hat_flat
+    out = local_sgd(loss_fn, qcfg.client_lr, layout, x_hat_flat, batches,
+                    keys, with_loss=with_loss)
+    y_final, losses = out if with_loss else (out, None)
+    delta = round_to_leaf_dtypes_(layout, y_final - x_hat_flat)
+    return (delta, losses) if with_loss else delta
 
 
 def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        hidden_flat, batches, k_train, k_enc, *, b: int = 1,
                        member_chunk: Optional[int] = None,
                        taps: bool = False, residual=None,
-                       basis_seed=None) -> dict:
+                       basis_seed=None, with_loss: bool = False):
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
@@ -137,15 +182,18 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
 
     Returns ``{"packed", "norms"}`` stacks for qsgd (lowrank: over the
     rank coordinates, and the new ``"residual"`` stack), ``{"flat"}`` for
-    identity and the sparse kinds, and with ``taps`` the ``"taps"`` rows.
+    identity and the sparse kinds, and with ``taps`` the ``"taps"`` rows;
+    ``with_loss`` returns ``(out, losses)``, the members' (b, P) (at b = 1
+    (P,)) step losses, the distributed round's metric.
     """
     lowrank = spec.kind == "lowrank"
     if lowrank and basis_seed is None:
         raise ValueError("a lowrank client step needs the round's basis "
                          "seed pair")
     return kops.cohort_train_encode_step(
-        functools.partial(client_update, loss_fn, qcfg, layout), hidden_flat,
-        batches, k_train, k_enc, b=b,
+        functools.partial(client_update, loss_fn, qcfg, layout,
+                          with_loss=with_loss), hidden_flat,
+        batches, k_train, k_enc, b=b, with_loss=with_loss,
         bits=spec.bits if spec.kind in ("qsgd", "lowrank") else None,
         member_chunk=member_chunk, taps=taps,
         group=spec.group if lowrank else None, basis_seed=basis_seed,

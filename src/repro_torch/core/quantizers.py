@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.common import prng
 from repro_torch.common.tree import tree_flatten, tree_unflatten
-from repro_torch.kernels.ref import LANES, fma_f32, rows2d, sqrt_f32
+from repro_torch.kernels.ref import (LANES, fma_f32, rows2d, sqrt_f32,
+                                     xla_sum)
 
 _KINDS = ("qsgd", "top_k", "rand_k", "identity", "lowrank")
 
@@ -163,12 +164,19 @@ class TreeLayout:
 
 
 def flatten_tree(tree, device=None):
-    """Concatenate the leaves (JAX order) into one flat f32 vector;
-    returns (flat, layout)."""
+    """Concatenate the leaves (JAX order) into one flat f32 vector on
+    ``device`` (None: the leaves'), each leaf converted as it is copied in
+    (no f32 copy of the whole tree besides the result); returns (flat,
+    layout)."""
     layout = TreeLayout.of(tree)
     leaves = tree_flatten(tree)[0]
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
-    return (flat if device is None else flat.to(device)), layout
+    flat = torch.empty(layout.total_size, dtype=torch.float32,
+                       device=leaves[0].device if device is None else device)
+    off = 0
+    for x, size in zip(leaves, layout.sizes):
+        flat[off:off + size].copy_(x.reshape(-1))
+        off += size
+    return flat, layout
 
 
 def packed_qsgd_payload(packed, norms, bits: int, n: int,
@@ -240,36 +248,18 @@ def _f32_tensor(value: float, like: torch.Tensor) -> torch.Tensor:
 
 def _bucket_sq_sums(xp: torch.Tensor) -> torch.Tensor:
     """Per-row sums of squares of an f32 (rows, b) array in XLA:CPU's
-    order for ``jnp.linalg.norm(axis=1)`` (jax 0.9), probed per b: for
-    b <= 32 in order from +0, each square fused into its add (an FMA)
-    except for 5 <= b <= 8; for larger b, in-order sums of squares
-    (product and add rounded apart) over windows, added left to right:
-    two windows of ceil(b/2) up to b = 64, windows of 32 above (at
-    b = 128 the wire kernels' four partials). Exact for b <= 64, for
-    multiples of 32 and for 127; other widths above 64 take an order not
-    found (neither windows of 32 nor k = ceil(b/32) windows of ceil(b/k)
-    at 65, 100, 129, 200)."""
+    order for ``jnp.linalg.norm(axis=1)`` (jax 0.9): for b <= 32 in order
+    from +0, each square fused into its add (an FMA) except for
+    5 <= b <= 8, where product and add round apart; above 32 the squares
+    round apart and are summed by ``ref.xla_sum`` (windows of 32 with the
+    padding split evenly, recursively; at b = 128 the wire kernels' four
+    partials)."""
     b = xp.shape[1]
-    if b > 32:
-        w = -(-b // 2) if b <= 64 else 32
-        parts = [_bucket_sq_sums_plain(xp[:, s:s + w])
-                 for s in range(0, b, w)]
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
-    if 5 <= b <= 8:
-        return _bucket_sq_sums_plain(xp)
+    if b > 32 or 5 <= b <= 8:
+        return xla_sum(xp * xp)
     acc = torch.zeros(xp.shape[0], dtype=torch.float32, device=xp.device)
     for j in range(b):
         acc = fma_f32(xp[:, j], xp[:, j], acc)
-    return acc
-
-
-def _bucket_sq_sums_plain(xp: torch.Tensor) -> torch.Tensor:
-    acc = torch.zeros(xp.shape[0], dtype=torch.float32, device=xp.device)
-    for j in range(xp.shape[1]):
-        acc = acc + xp[:, j] * xp[:, j]
     return acc
 
 

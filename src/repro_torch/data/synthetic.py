@@ -1,10 +1,13 @@
-"""Synthetic CelebA-like data.
+"""Synthetic data: CelebA-like images and language-model token streams.
 
-A copy of ``SyntheticCelebA`` from ``repro/data/synthetic.py`` (numpy only,
-same seed, same images): 32 x 32 x 3 images with a binary attribute
-("smiling") realized as a localized curvature pattern in the mouth region,
-standardized like the paper's preprocessing. Learnable by the paper's
-4-layer CNN; absolute accuracy is not comparable to real CelebA.
+Copies of ``SyntheticCelebA``, ``synthetic_lm_batch`` and
+``synthetic_batch_for_config`` from ``repro/data/synthetic.py`` (numpy
+only, the same draws from the same generator, so both packages see the
+same data). The images: 32 x 32 x 3 with a binary attribute ("smiling")
+realized as a localized curvature pattern in the mouth region,
+standardized like the paper's preprocessing; learnable by the paper's
+4-layer CNN, absolute accuracy not comparable to real CelebA. The tokens:
+a Zipf-ish Markov stream for the decoders.
 """
 from __future__ import annotations
 
@@ -49,3 +52,33 @@ class SyntheticCelebA:
 
     def batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         return {"images": self.images[idx], "labels": self.labels[idx]}
+
+
+def synthetic_lm_batch(rng: np.random.Generator, batch: int, seq: int,
+                       vocab: int, codebooks: int = 0) -> Dict[str, np.ndarray]:
+    """Zipf-ish Markov token stream: next ~ (prev + step) mod vocab with noise."""
+    shape = (batch, seq + 1, codebooks) if codebooks else (batch, seq + 1)
+    steps = rng.integers(1, 7, size=shape[:1])
+    toks = np.zeros(shape, np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=shape[:1] + shape[2:])
+    noise = rng.random(shape) < 0.1
+    for t in range(1, seq + 1):
+        nxt = (toks[:, t - 1] + steps.reshape((-1,) + (1,) * (toks.ndim - 2))) % vocab
+        rand = rng.integers(0, vocab, size=nxt.shape)
+        toks[:, t] = np.where(noise[:, t], rand, nxt)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def synthetic_batch_for_config(cfg, rng: np.random.Generator, batch: int,
+                               seq: int) -> Dict[str, np.ndarray]:
+    """A training batch matching the arch's input contract (frontends
+    stubbed); ``cfg`` is a ``models.config.ModelConfig``."""
+    if cfg.modality == "audio":
+        return synthetic_lm_batch(rng, batch, seq, cfg.vocab, cfg.audio_codebooks)
+    if cfg.modality == "vlm":
+        s_text = seq - cfg.n_prefix_embeddings
+        b = synthetic_lm_batch(rng, batch, s_text, cfg.vocab)
+        b["patch_embeddings"] = rng.normal(
+            0.0, 1.0, size=(batch, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)
+        return b
+    return synthetic_lm_batch(rng, batch, seq, cfg.vocab)

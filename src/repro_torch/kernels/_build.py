@@ -52,7 +52,7 @@ SIGNATURES = {
                             (_P, _LL, _LL, _LL, _I, SeedWords, _P, _P, _P,
                              _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize",
-                          (_P, _P, _P, _LL, _I, _I, _P)),
+                          (_P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P)),
     "buffer_aggregate": ("buffer_aggregate", (_P, _P, _P, _P, _I, _LL, _I, _P)),
     "flush_taps": ("flush_taps", (_P, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P,
                                   _P)),

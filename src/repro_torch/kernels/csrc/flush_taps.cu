@@ -3,8 +3,8 @@
 // No TPU kernel: the JAX reference computes these taps in XLA inside its
 // one jitted flush (repro/obs/taps.py::flush_tap_vector, squares pinned
 // behind a hard boundary, then jnp.sum and sqrt). The port takes them in a
-// kernel of its own so that their reduction order is fixed (tap_reduce.cuh)
-// and the card equals the CPU bit for bit, and so that taps on cost one
+// kernel of its own that sums in XLA:CPU's order (tap_reduce.cuh), so the
+// card equals the CPU and the reference bit for bit, and taps on cost one
 // launch per flush.
 //
 // In:  the flush's true-n f32 vectors x_old, x_new, delta (the aggregated
@@ -21,11 +21,11 @@
 // Bound: bytes. It reads 5*n*4 B (the CNN's n = 79,842: 1.6 MB, 0.48 us at
 // 3.35 TB/s, so the launch floor sets its time; d = 1e8: 2.0 GB, 0.597 ms).
 //
-// Design: a simple first kernel. One block of 256 threads per 4,096-element
-// chunk; a thread issues all its loads first (16 elements of each vector,
-// coalesced 4-byte loads: 80 in flight) and then keeps the five sums; the
-// chunk's partials go to a scratch buffer and the last block reduces them
-// (tap_reduce.cuh).
+// Design: tap_reduce.cuh's law (XLA:CPU's reduce-windows of 32): a warp
+// reads its level-1 window of 1,024 values of each vector coalesced, stages
+// the five squares through shared memory so that a lane sums one window of
+// 32 in order, and adds the 32 window sums in order; a block of 4 warps
+// writes 4 level-1 sums, and the last block runs the levels above them.
 #include "tap_reduce.cuh"
 
 namespace {
@@ -33,47 +33,42 @@ namespace {
 using taps::kThreads;
 constexpr int kSums = 5;
 
+// The five squares of value e: delta^2, (x_new - x_old)^2, diff^2,
+// (diff - q)^2, q^2; 0 outside [0, n).
+struct FlushSquares {
+  const float* x_old;
+  const float* x_new;
+  const float* delta;
+  const float* diff;
+  const float* q;
+  long long n;
+  __device__ __forceinline__ void operator()(long long e,
+                                             float v[kSums]) const {
+    const bool in = e >= 0 && e < n;
+    const float dl = in ? __ldg(delta + e) : 0.0f;
+    const float xo = in ? __ldg(x_old + e) : 0.0f;
+    const float xn = in ? __ldg(x_new + e) : 0.0f;
+    const float df = in ? __ldg(diff + e) : 0.0f;
+    const float qv = in ? __ldg(q + e) : 0.0f;
+    const float upd = __fsub_rn(xn, xo);
+    const float err = __fsub_rn(df, qv);
+    v[0] = __fmul_rn(dl, dl);
+    v[1] = __fmul_rn(upd, upd);
+    v[2] = __fmul_rn(df, df);
+    v[3] = __fmul_rn(err, err);
+    v[4] = __fmul_rn(qv, qv);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
-    flush_taps_kernel(const float* x_old, const float* x_new,
-                      const float* delta, const float* diff, const float* q,
-                      const float* weights, int k, long long n,
-                      long long chunks, float* partials, unsigned* counter,
+    flush_taps_kernel(FlushSquares squares, const float* weights, int k,
+                      taps::Law law, float* partials, unsigned* counter,
                       float* __restrict__ out) {
-  __shared__ float scratch[kSums][kThreads];
-  const long long c = blockIdx.x;
-  const long long e0 = c * taps::kChunk + threadIdx.x;
-  // all loads first (80 in flight per thread), then the in-order sums;
-  // a value past n is 0, whose square adds +0 and changes no sum
-  float dl[taps::kPerThread], xo[taps::kPerThread], xn[taps::kPerThread],
-      df[taps::kPerThread], qv[taps::kPerThread];
-#pragma unroll
-  for (int i = 0; i < taps::kPerThread; ++i) {
-    const long long e = e0 + (long long)i * kThreads;
-    const bool in = e < n;
-    dl[i] = in ? __ldg(delta + e) : 0.0f;
-    xo[i] = in ? __ldg(x_old + e) : 0.0f;
-    xn[i] = in ? __ldg(x_new + e) : 0.0f;
-    df[i] = in ? __ldg(diff + e) : 0.0f;
-    qv[i] = in ? __ldg(q + e) : 0.0f;
-  }
-  float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < taps::kPerThread; ++i) {
-    const float upd = __fsub_rn(xn[i], xo[i]);
-    const float err = __fsub_rn(df[i], qv[i]);
-    acc[0] = __fadd_rn(acc[0], __fmul_rn(dl[i], dl[i]));
-    acc[1] = __fadd_rn(acc[1], __fmul_rn(upd, upd));
-    acc[2] = __fadd_rn(acc[2], __fmul_rn(df[i], df[i]));
-    acc[3] = __fadd_rn(acc[3], __fmul_rn(err, err));
-    acc[4] = __fadd_rn(acc[4], __fmul_rn(qv[i], qv[i]));
-  }
-  taps::block_tree<kSums>(acc, scratch);
-  if (!taps::partials_done<kSums>(acc, partials + c * kSums, counter,
-                                  chunks)) {
-    return;
-  }
+  taps::level1_sums<kSums>(squares, law, blockIdx.x * (long long)taps::kWarps,
+                           partials);
+  if (!taps::block_done(counter, law.blocks)) return;
   float tot[kSums];
-  taps::row_totals<kSums>(partials, chunks, counter, scratch, tot);
+  taps::row_totals<kSums>(partials, law.l1, counter, tot);
   if (threadIdx.x != 0) return;
   float r[kSums];
 #pragma unroll
@@ -97,9 +92,9 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// `weights` may be null when k == 0. `partials` holds chunks*5 floats,
-// chunks = ceil(n / 4096); `counter` is one unsigned that is 0 between
-// launches.
+// `weights` may be null when k == 0. `partials` holds
+// taps::scratch_slots(ceil(n / 1024)) * 5 floats; `counter` is one unsigned
+// that is 0 between launches.
 extern "C" int flush_taps(const void* x_old, const void* x_new,
                           const void* delta, const void* diff, const void* q,
                           const void* weights, int k, long long n,
@@ -108,11 +103,14 @@ extern "C" int flush_taps(const void* x_old, const void* x_new,
   if (n <= 0 || k < 0 || (k > 0 && weights == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long chunks = (n + taps::kChunk - 1) / taps::kChunk;
-  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flush_taps_kernel<<<(unsigned)chunks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x_old, (const float*)x_new, (const float*)delta,
-      (const float*)diff, (const float*)q, (const float*)weights, k, n,
-      chunks, (float*)partials, (unsigned*)counter, (float*)out);
+  const taps::Law law = taps::law_of(n);
+  if (law.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const FlushSquares squares{(const float*)x_old, (const float*)x_new,
+                             (const float*)delta, (const float*)diff,
+                             (const float*)q, n};
+  flush_taps_kernel<<<(unsigned)law.blocks, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      squares, (const float*)weights, k, law, (float*)partials,
+      (unsigned*)counter, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,33 @@
-// Fixed-order sums of squares shared by the metric-tap kernels
+// Sums of squares in XLA:CPU's order, shared by the metric-tap kernels
 // (flush_taps.cu, upload_taps.cu; sm_90a, built with -fmad=false).
 //
-// The law, which repro_torch/kernels/ref.py ``tap_sum`` spells out with
-// elementwise adds for the CPU:
-//   * a row of n values is cut into chunks of kChunk = kThreads * kPerThread
-//     elements; element i*kThreads + t of a chunk goes to lane t, and lane t
-//     adds its kPerThread values in order of i, from +0;
-//   * the chunk's kThreads lane sums are combined by a halving tree: at
-//     width w, lane t < w/2 adds lane t + w/2, from w = kThreads down to 2;
-//   * the row's chunk sums are combined the same way: chunk j goes to lane
-//     j % kThreads, each lane adds its chunk sums in order from +0, and the
-//     lanes close with the same halving tree.
-// A value past the end of the row counts as +0, which leaves a sum of
-// squares as it was, so the order depends on n alone: not on the number of
-// rows in a launch, the grid, the SM count or the card.
+// The law is the reference's own: XLA:CPU compiles an f32 jnp.sum of n
+// values to reduce-windows of 32 (repro_torch/kernels/ref.py ``xla_sum``
+// spells it with elementwise adds for the CPU):
+//   * level 0 cuts the n values into ceil(n/32) windows of 32, with
+//     floor(pad/2) zeros in front and the rest of the padding behind; each
+//     window is summed in order from +0;
+//   * each further level takes windows of 32 of the previous level's sums,
+//     with that level's own padding split the same way;
+//   * when 32 or fewer sums are left they are summed in order.
+// The values are squares, never negative, so zeros at the top level
+// change no sum: the top level is summed as one window with its values
+// first (front_pad 0 there).
 //
-// One launch does both levels. Each block reduces one chunk of one row and
-// thread 0 writes its partial sums; the last block of the row to finish
-// (a per-row counter, counted with atomicAdd after a __threadfence) reads
-// the row's partials back through L2, reduces them and resets the counter
-// to 0 for the next launch. Launches that share counters must run on one
-// stream.
+// Levels 0 and 1 run in the blocks: a warp owns one level-1 window (1,024
+// values) and stages it through shared memory in two halves of 16 level-0
+// windows: in step k the warp reads window k's 32 values, coalesced (lane
+// l value l), squares them and writes them to row k of a padded tile; then
+// lane k sums row k in order from +0 (the tile's stride of 33 floats puts
+// the 16 rows' reads on distinct banks). The warp then adds its 32 level-0
+// sums in order of window into one level-1 sum; a block of 4 warps writes
+// 4 level-1 sums. The last block of a row to finish (a per-row counter,
+// counted with atomicAdd after a __threadfence) reads the row's level-1
+// sums back through L2, runs the levels from 2 up in place in the same
+// scratch buffer, and resets the counter to 0 for the next launch. One
+// launch per call; launches that share counters must run on one stream.
+// The order depends on n alone: not on the number of rows in a launch, the
+// grid, the SM count or the card.
 //
 // Every product, difference and sum is an explicit _rn intrinsic.
 #pragma once
@@ -30,84 +37,152 @@
 
 namespace taps {
 
-constexpr int kThreads = 256;   // lanes of the law, threads per block
-constexpr int kPerThread = 16;  // values a lane adds in order per chunk
-constexpr long long kChunk = (long long)kThreads * kPerThread;
+constexpr int kWindow = 32;                  // XLA:CPU's reduce window
+constexpr int kThreads = 128;                // threads per block
+constexpr int kWarps = kThreads / 32;        // level-1 windows per block
+constexpr long long kL1Span = kWindow * kWindow;  // values per level-1 sum
+constexpr int kHalf = kWindow / 2;           // level-0 windows per staging
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// The halving tree over one value per thread, for each of S sums at once.
-// Thread 0 ends with the totals in v[]; the other threads' v[] are left
-// undefined. `scratch` is S x kThreads floats of shared memory; the call
-// ends with a block barrier, so the next call may reuse it.
-template <int S>
-__device__ __forceinline__ void block_tree(float v[S],
-                                           float (*scratch)[kThreads]) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < S; ++s) scratch[s][t] = v[s];
-  __syncthreads();
-#pragma unroll
-  for (int h = kThreads / 2; h >= 32; h /= 2) {
-    if (t < h) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        scratch[s][t] = __fadd_rn(scratch[s][t], scratch[s][t + h]);
-      }
-    }
-    __syncthreads();
-  }
-  if (t < 32) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      float x = scratch[s][t];
-#pragma unroll
-      for (int h = 16; h >= 1; h /= 2) {
-        x = __fadd_rn(x, __shfl_down_sync(kFullMask, x, h));
-      }
-      v[s] = x;
-    }
-  }
-  __syncthreads();
+__host__ __device__ inline long long cdiv(long long a, long long b) {
+  return (a + b - 1) / b;
 }
 
-// Thread 0 writes the block's S partials (from block_tree) to `partials`
-// and counts the block done; returns, in every thread, whether this block
-// was the row's last of `chunks`.
-template <int S>
-__device__ __forceinline__ bool partials_done(const float v[S],
-                                              float* __restrict__ partials,
-                                              unsigned* counter,
-                                              long long chunks) {
+// Zeros in front of a level of m values: half the padding to whole
+// windows, rounded down; 0 at the top level (m <= 32).
+__host__ __device__ inline long long front_pad(long long m) {
+  return m <= kWindow ? 0 : (cdiv(m, kWindow) * kWindow - m) / 2;
+}
+
+// Where a row of n values puts its level-1 windows: window j covers values
+// [j * 1024 - offset, j * 1024 - offset + 1024).
+struct Law {
+  long long offset;  // front_pad(n) + 32 * front_pad(ceil(n / 32))
+  long long l1;      // level-1 sums of the row, ceil(n / 1024)
+  long long blocks;  // blocks of the row, ceil(l1 / 4)
+};
+
+__host__ __device__ inline Law law_of(long long n) {
+  Law law;
+  law.offset = front_pad(n) + kWindow * front_pad(cdiv(n, kWindow));
+  law.l1 = cdiv(n, kL1Span);
+  law.blocks = cdiv(law.l1, kWarps);
+  return law;
+}
+
+// Scratch floats a row needs per sum: its level-1 sums and every level
+// above them (a geometric series below 2 * l1 + 32).
+__host__ __device__ inline long long scratch_slots(long long l1) {
+  return 2 * l1 + kWindow;
+}
+
+// Levels 0 and 1 of the block's 4 level-1 windows for S sums at once.
+// `squares(e, v)` writes the S squares of value e of the row, 0 outside
+// [0, n). Lane 0 of warp w writes level-1 sum `first + w` (when it is
+// below `l1`) to partials[(first + w) * S + s].
+template <int S, class Squares>
+__device__ __forceinline__ void level1_sums(const Squares& squares,
+                                            const Law& law, long long first,
+                                            float* __restrict__ partials) {
+  __shared__ float tile[kWarps][S][kHalf][kWindow + 1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long j = first + warp;
+  const long long base = j * kL1Span - law.offset;
+  float l0[2][S];  // lane k < 16: the sums of windows k and 16 + k
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll 8
+    for (int k = 0; k < kHalf; ++k) {
+      float v[S];
+      squares(base + (long long)(h * kHalf + k) * kWindow + lane, v);
+#pragma unroll
+      for (int s = 0; s < S; ++s) tile[warp][s][k][lane] = v[s];
+    }
+    __syncwarp();
+    const int row = lane % kHalf;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < kWindow; ++i) {
+        acc = __fadd_rn(acc, tile[warp][s][row][i]);
+      }
+      l0[h][s] = acc;
+    }
+    __syncwarp();  // the tile is rewritten by the next half
+  }
+  // level 1: the 32 level-0 sums in order of window (lanes 0..15 hold
+  // windows 0..15, then 16..31)
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float t = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < kHalf; ++k) {
+        t = __fadd_rn(t, __shfl_sync(kFullMask, l0[h][s], k));
+      }
+    }
+    if (lane == 0 && j < law.l1) partials[j * S + s] = t;
+  }
+}
+
+// Thread 0 counts the block done once every lane's writes are visible;
+// returns, in every thread, whether this block was the row's last.
+__device__ __forceinline__ bool block_done(unsigned* counter,
+                                           long long blocks) {
   __shared__ unsigned done;
+  __threadfence();  // this block's sums are visible before the count
+  __syncthreads();
+  if (threadIdx.x == 0) done = atomicAdd(counter, 1u);
+  __syncthreads();
+  return done == (unsigned)(blocks - 1);
+}
+
+// The levels from 2 up, in the row's last block: its l1 level-1 sums sit
+// in partials[0, l1) (x S); each level's window sums are written after the
+// previous level's. Thread 0 ends with the row's S totals in tot[] and
+// resets the row's counter.
+template <int S>
+__device__ __forceinline__ void row_totals(float* partials, long long l1,
+                                           unsigned* counter, float tot[S]) {
+  long long m = l1, in = 0, out = l1;
+  while (m > kWindow) {
+    const long long windows = cdiv(m, kWindow), pad = front_pad(m);
+    for (long long w = threadIdx.x; w < windows; w += kThreads) {
+      float acc[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[s] = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < kWindow; ++i) {
+        const long long idx = w * kWindow + i - pad;
+        const bool ok = idx >= 0 && idx < m;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          acc[s] = __fadd_rn(acc[s],
+                             ok ? __ldcg(partials + (in + idx) * S + s) : 0.0f);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) partials[(out + w) * S + s] = acc[s];
+    }
+    __threadfence_block();
+    __syncthreads();
+    in = out;
+    out += windows;
+    m = windows;
+  }
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) partials[s] = v[s];
-    __threadfence();  // the partials are visible before the count
-    done = atomicAdd(counter, 1u);
-  }
-  __syncthreads();
-  return done == (unsigned)(chunks - 1);
-}
-
-// The second level of the law in the row's last block: the row's totals
-// from its `chunks` x S partials, on thread 0, which also resets the row's
-// counter.
-template <int S>
-__device__ __forceinline__ void row_totals(const float* partials,
-                                           long long chunks,
-                                           unsigned* counter,
-                                           float (*scratch)[kThreads],
-                                           float tot[S]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) tot[s] = 0.0f;
-  for (long long j = threadIdx.x; j < chunks; j += kThreads) {
-#pragma unroll
     for (int s = 0; s < S; ++s) {
-      tot[s] = __fadd_rn(tot[s], __ldcg(partials + j * S + s));
+      float t = 0.0f;
+      for (long long j = 0; j < m; ++j) {
+        t = __fadd_rn(t, __ldcg(partials + (in + j) * S + s));
+      }
+      tot[s] = t;
     }
+    *counter = 0u;
   }
-  block_tree<S>(tot, scratch);
-  if (threadIdx.x == 0) *counter = 0u;
 }
 
 }  // namespace taps

@@ -4,9 +4,9 @@
 // No TPU kernel: the JAX reference computes these taps in XLA inside its
 // fused cohort step (repro/obs/taps.py::cohort_tap_rows, with the wire bits
 // decoded by decode_qsgd_stack). The port takes them in a kernel of its own
-// so that each message's reduction order depends on d alone
-// (tap_reduce.cuh): a member's tap does not depend on the cohort it was
-// batched with, and the card equals the CPU bit for bit.
+// that sums each message in XLA:CPU's order (tap_reduce.cuh), which
+// depends on d alone: a member's tap does not depend on the cohort it was
+// batched with, and the card equals the CPU and the reference bit for bit.
 //
 // In:  deltas f32 (b, d); for qsgd uploads their packed codes uint8
 //      (b, rows, 16*bits) and norms f32 (b, rows), rows = ceil(d/128);
@@ -17,16 +17,19 @@
 //
 // qdq is the receiver's decode, the law of unpack_dequantize.cu (K3):
 // (sign*mag) * (norm * fl32(1/s)); the decoded values never reach memory.
+// As XLA:CPU compiles the reference's tap, the error is one fused
+// multiply-add, delta - (sign*mag) * scale rounded once.
 //
 // Bound: bytes. It reads the deltas once, the codes and the norms once:
 // B = 32 over the CNN's 624 rows, qsgd4 11,577,600 B (3.46 us at
 // 3.35 TB/s); B = 8 at d = 1e8, 3.625 GB (1.08 ms) — what K2 reads.
 //
-// Design: a simple first kernel. One block of 256 threads per 4,096-element
-// chunk of a message (32 wire rows); thread t always holds lane t % 128 of
-// its wire rows. It issues all its loads first (16 values, the 16 code
-// bytes that hold their codes and their rows' norms; a warp's 32 elements
-// share one row), then decodes, squares the errors and sums in order.
+// Design: tap_reduce.cuh's law: a warp reads its level-1 window of 1,024
+// values of a message coalesced (decoding each value's code from its byte
+// and its row's norm), stages the two squares through shared memory so that
+// a lane sums one window of 32 in order, and adds the 32 window sums in
+// order; a block of 4 warps writes 4 level-1 sums of one message, and the
+// message's last block runs the levels above them.
 #include "qsgd_common.cuh"
 #include "tap_reduce.cuh"
 
@@ -35,59 +38,56 @@ namespace {
 using taps::kThreads;
 constexpr int kSums = 2;
 
+// The two squares of value e of one message: delta^2 and, for qsgd
+// uploads, (delta - qdq(delta))^2; 0 outside [0, d).
 template <int BITS>  // 0: identity uploads, no codes
+struct UploadSquares {
+  const float* x;        // the message's deltas
+  const uint8_t* codes;  // its packed rows (BITS > 0)
+  const float* norms;    // its row norms (BITS > 0)
+  long long d;
+  __device__ __forceinline__ void operator()(long long e,
+                                             float v[kSums]) const {
+    const bool in = e >= 0 && e < d;
+    const float xv = in ? __ldg(x + e) : 0.0f;
+    v[0] = __fmul_rn(xv, xv);
+    v[1] = 0.0f;
+    if constexpr (BITS > 0) {
+      const long long r = in ? e / qsgd::kLanes : 0;
+      const int lane = in ? (int)(e % qsgd::kLanes) : 0;
+      const uint32_t byte =
+          in ? __ldg(codes + r * (16 * BITS) + lane * BITS / 8) : 0u;
+      const float nm = in ? __ldg(norms + r) : 0.0f;
+      const uint32_t code = (byte >> (lane * BITS % 8)) & ((1u << BITS) - 1u);
+      const float mag = (float)(code & ((1u << (BITS - 1)) - 1u));
+      const float sm = (code >> (BITS - 1)) ? -mag : mag;
+      const float scale = __fmul_rn(nm, __frcp_rn(qsgd::levels(BITS)));
+      const float err = __fmaf_rn(-sm, scale, xv);
+      v[1] = __fmul_rn(err, err);
+    }
+  }
+};
+
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
     upload_taps_kernel(const float* __restrict__ deltas,
                        const uint8_t* __restrict__ packed,
                        const float* __restrict__ norms, long long d,
-                       long long chunks, float* partials, unsigned* counters,
+                       taps::Law law, float* partials, unsigned* counters,
                        float* __restrict__ out) {
-  __shared__ float scratch[kSums][kThreads];
-  const long long row = blockIdx.x / chunks;
-  const long long c = blockIdx.x % chunks;
-  const float* x = deltas + row * d;
+  const long long row = blockIdx.x / law.blocks;
+  const long long blk = blockIdx.x % law.blocks;
   const long long wire_rows = (d + qsgd::kLanes - 1) / qsgd::kLanes;
-  const long long e0 = c * taps::kChunk + threadIdx.x;
-  const int lane = threadIdx.x % qsgd::kLanes;  // kChunk, kThreads: x128
-  // all loads first, then the in-order sums; past d a value, its code and
-  // its norm are 0, so its square and its error add +0 and change no sum
-  float v[taps::kPerThread];
-  uint32_t byte[taps::kPerThread];
-  float nm[taps::kPerThread];
-#pragma unroll
-  for (int i = 0; i < taps::kPerThread; ++i) {
-    const long long e = e0 + (long long)i * kThreads;
-    const bool in = e < d;
-    v[i] = in ? __ldg(x + e) : 0.0f;
-    if constexpr (BITS > 0) {
-      const long long r = row * wire_rows + e / qsgd::kLanes;
-      byte[i] = in ? __ldg(packed + r * (16 * BITS) + lane * BITS / 8) : 0u;
-      nm[i] = in ? __ldg(norms + r) : 0.0f;
-    }
-  }
-  float acc[kSums] = {0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < taps::kPerThread; ++i) {
-    acc[0] = __fadd_rn(acc[0], __fmul_rn(v[i], v[i]));
-    if constexpr (BITS > 0) {
-      const uint32_t code =
-          (byte[i] >> (lane * BITS % 8)) & ((1u << BITS) - 1u);
-      const float mag = (float)(code & ((1u << (BITS - 1)) - 1u));
-      const float sm = (code >> (BITS - 1)) ? -mag : mag;
-      const float scale =
-          __fmul_rn(nm[i], __frcp_rn(qsgd::levels(BITS)));
-      const float err = __fsub_rn(v[i], __fmul_rn(sm, scale));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(err, err));
-    }
-  }
-  taps::block_tree<kSums>(acc, scratch);
-  float* row_partials = partials + row * chunks * kSums;
-  if (!taps::partials_done<kSums>(acc, row_partials + c * kSums,
-                                  counters + row, chunks)) {
-    return;
-  }
+  const UploadSquares<BITS> squares{
+      deltas + row * d,
+      BITS > 0 ? packed + row * wire_rows * (16 * BITS) : nullptr,
+      BITS > 0 ? norms + row * wire_rows : nullptr, d};
+  float* row_partials =
+      partials + row * taps::scratch_slots(law.l1) * kSums;
+  taps::level1_sums<kSums>(squares, law, blk * taps::kWarps, row_partials);
+  if (!taps::block_done(counters + row, law.blocks)) return;
   float tot[kSums];
-  taps::row_totals<kSums>(row_partials, chunks, counters + row, scratch, tot);
+  taps::row_totals<kSums>(row_partials, law.l1, counters + row, tot);
   if (threadIdx.x != 0) return;
   const float dn = __fsqrt_rn(tot[0]);
   out[2 * row] = dn;
@@ -96,24 +96,25 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int BITS>
 void launch(const float* deltas, const uint8_t* packed, const float* norms,
-            long long b, long long d, long long chunks, float* partials,
+            long long b, long long d, const taps::Law& law, float* partials,
             unsigned* counters, float* out, cudaStream_t stream) {
-  upload_taps_kernel<BITS><<<(unsigned)(b * chunks), kThreads, 0, stream>>>(
-      deltas, packed, norms, d, chunks, partials, counters, out);
+  upload_taps_kernel<BITS>
+      <<<(unsigned)(b * law.blocks), kThreads, 0, stream>>>(
+          deltas, packed, norms, d, law, partials, counters, out);
 }
 
 }  // namespace
 
 // bits 0 (identity; packed and norms may be null), 2, 4 or 8. `partials`
-// holds b*chunks*2 floats, chunks = ceil(d / 4096); `counters` holds b
-// unsigned that are 0 between launches.
+// holds b * taps::scratch_slots(ceil(d / 1024)) * 2 floats; `counters`
+// holds b unsigned that are 0 between launches.
 extern "C" int upload_taps(const void* deltas, const void* packed,
                            const void* norms, long long b, long long d,
                            int bits, void* partials, void* counters,
                            void* out, void* stream) {
   if (b <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const long long chunks = (d + taps::kChunk - 1) / taps::kChunk;
-  if (b * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const taps::Law law = taps::law_of(d);
+  if (b * law.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (bits != 0 && (packed == nullptr || norms == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -125,10 +126,10 @@ extern "C" int upload_taps(const void* deltas, const void* packed,
   const auto o = (float*)out;
   const auto s = (cudaStream_t)stream;
   switch (bits) {
-    case 0: launch<0>(x, p, nm, b, d, chunks, pt, ct, o, s); break;
-    case 2: launch<2>(x, p, nm, b, d, chunks, pt, ct, o, s); break;
-    case 4: launch<4>(x, p, nm, b, d, chunks, pt, ct, o, s); break;
-    case 8: launch<8>(x, p, nm, b, d, chunks, pt, ct, o, s); break;
+    case 0: launch<0>(x, p, nm, b, d, law, pt, ct, o, s); break;
+    case 2: launch<2>(x, p, nm, b, d, law, pt, ct, o, s); break;
+    case 4: launch<4>(x, p, nm, b, d, law, pt, ct, o, s); break;
+    case 8: launch<8>(x, p, nm, b, d, law, pt, ct, o, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

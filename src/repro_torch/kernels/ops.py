@@ -55,9 +55,14 @@ def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
 
 
 def qsgd_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,
-                    n: int) -> torch.Tensor:
-    """Dequantize wire-layout codes back to a flat f32 vector of length n."""
-    return _qsgd.qsgd_unpack_dequantize(packed, norms, bits).reshape(-1)[:n]
+                    n: int, acc=None, weight=None) -> torch.Tensor:
+    """Dequantize wire-layout codes back to a flat f32 vector of length n;
+    with an f32 ``acc`` of length n, ``acc + decode`` with the decode's
+    last product fused into the add, or with a one-element ``weight`` too,
+    ``acc + weight * decode`` with the weight's product fused into the add
+    (one K3 launch either way)."""
+    return _qsgd.qsgd_unpack_dequantize(packed, norms, bits, acc=acc,
+                                        weight=weight).reshape(-1)[:n]
 
 
 def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
@@ -126,7 +131,7 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              k_enc, *, b: int, bits=None,
                              member_chunk=None, taps: bool = False,
                              group=None, basis_seed=None,
-                             residual=None) -> dict:
+                             residual=None, with_loss: bool = False):
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -163,27 +168,40 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
     ``{"flat": (b, d)}`` for identity and the sparse kinds. ``taps=True``
     adds ``"taps"``, the (b, 2) upload taps of the stack
     (``kernels.taps.upload_taps``: one more launch; lowrank: the (b, 3)
-    rows of ``lowrank_upload_taps``, two more)."""
+    rows of ``lowrank_upload_taps``, two more).
+
+    ``with_loss``: ``client_update`` returns ``(delta, losses)``, and so
+    does this step: ``(out, losses)`` with the members' (b, P) losses
+    ((P,) at b = 1)."""
+    losses = None
     if b == 1:
-        flat2d = client_update(hidden_flat, batches, k_train)[None]
+        res = client_update(hidden_flat, batches, k_train)
+        if with_loss:
+            res, losses = res
+        flat2d = res[None]
     else:
         keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
         step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
         if member_chunk is None or member_chunk >= b:
-            flat2d = step(hidden_flat, batches, keys)
+            res = [step(hidden_flat, batches, keys)]
         else:
             mc = int(member_chunk)
-            flat2d = torch.cat([
-                step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
-                     keys[i:i + mc]) for i in range(0, b, mc)])
+            res = [step(hidden_flat, tree_map(lambda v: v[i:i + mc], batches),
+                        keys[i:i + mc]) for i in range(0, b, mc)]
+        if with_loss:
+            losses = torch.cat([r[1] for r in res])
+            res = [r[0] for r in res]
+        flat2d = res[0] if len(res) == 1 else torch.cat(res)
     if group is not None:
-        return _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
-                               residual, taps)
-    if bits is None:
-        return _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
-    packed, norms = _encode_stack(flat2d, k_enc, bits)
-    return _with_upload_taps({"packed": packed, "norms": norms}, flat2d, bits,
-                             taps)
+        out = _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
+                              residual, taps)
+    elif bits is None:
+        out = _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
+    else:
+        packed, norms = _encode_stack(flat2d, k_enc, bits)
+        out = _with_upload_taps({"packed": packed, "norms": norms}, flat2d,
+                                bits, taps)
+    return (out, losses) if with_loss else out
 
 
 def _encode_stack(flat2d: torch.Tensor, k_enc, bits: int):

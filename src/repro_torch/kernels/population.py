@@ -132,19 +132,24 @@ def scenario_draws(scn: CompiledScenario, seeds, cids: torch.Tensor):
 
 
 def _draws(scn: CompiledScenario, seeds, cids: torch.Tensor):
-    """``scenario_draws`` plus the last product of the duration, ``(u,
-    m)`` with ``dur = u * m``, or None when the duration does not end in
-    a product: XLA contracts that product into the deadline's add,
-    ``arrival + dur = fma(u, m, arrival)``."""
+    """``scenario_draws`` plus the last products of the interarrival and
+    the duration, ``(u, m)`` with ``inter = u * m`` (``dur = u * m``), or
+    None where the value does not end in a product. XLA:CPU contracts
+    those products into the adds that consume them (read from its
+    object code: one ``vfmadd`` in each fusion): ``arr[-1] + inter[-1] =
+    fma(u[-1], m, arr[-1])`` for the next arrival and ``arrival + dur =
+    fma(u, m, arrival)`` for the deadline."""
     cids = cids.to(torch.int64)
     shape, dev = cids.shape, cids.device
     rate = np.float32(scn.rate)
+    inter_last = None
     if scn.arrival == "constant":
         inter = torch.full(shape, float(np.float32(1.0) / rate),
                            dtype=torch.float32, device=dev)
     else:  # poisson: XLA multiplies by the constant's f32 reciprocal
         ua = _channel_uniform(seeds, _CH_ARRIVAL, cids)
-        inter = -xla_math.log1p(-ua) * float(np.float32(1.0) / rate)
+        inter_last = (-xla_math.log1p(-ua), float(np.float32(1.0) / rate))
+        inter = inter_last[0] * inter_last[1]
 
     last = None
     if scn.latency == "trace":  # replay, cycled by global client id
@@ -189,7 +194,7 @@ def _draws(scn: CompiledScenario, seeds, cids: torch.Tensor):
             tiers = torch.where((ut >= _f32(lo)) & (ut < _f32(lo + frac)),
                                 torch.full_like(tiers, j), tiers)
             lo += frac
-    return inter, dur, drops, tiers, last
+    return inter, dur, drops, tiers, inter_last, last
 
 
 def _inorder_rows(x: torch.Tensor) -> torch.Tensor:
@@ -420,14 +425,18 @@ def advance(pop: Dict[str, torch.Tensor], seeds, version: int,
         cids = pop["next_cid"] + c["ar_b"]
         if draws is not None:
             inter, dur = draws["inter"], draws["dur"]
-            drops, tiers, last = draws["drop"], draws["tier"], None
+            drops, tiers = draws["drop"], draws["tier"]
+            inter_last = last = None
         else:
-            inter, dur, drops, tiers, last = _draws(scn, seeds, cids)
+            inter, dur, drops, tiers, inter_last, last = _draws(scn, seeds,
+                                                                cids)
         # member i arrives at base + the XLA-order sum of the first i
         # interarrivals
         arr = na + torch.cat([torch.zeros_like(inter[:1]),
                               xla_cumsum(inter[:-1])])
-        pop["next_arrival"].copy_(arr[-1] + inter[-1])
+        pop["next_arrival"].copy_(
+            arr[-1] + inter[-1] if inter_last is None
+            else fma_f32(inter_last[0][-1], inter_last[1], arr[-1]))
         pop["sp"].sub_(b)
         slots = pop["stack"][(pop["sp"] + c["ar_b"]).long()].long()
         dl = arr + dur if last is None else fma_f32(last[0], last[1], arr)

@@ -33,6 +33,8 @@ the reference has it in XLA beside its kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -216,25 +218,49 @@ def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
 
 
 def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
-                           bits: int, *, eager: bool = False) -> torch.Tensor:
+                           bits: int, *, eager: bool = False,
+                           acc: Optional[torch.Tensor] = None,
+                           weight: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Inverse of ``qsgd_quantize_pack``: packed uint8 (rows, 16*bits) +
     norms f32 (rows,) -> f32 (rows, 128). ``eager=True`` scales by
     ``norm / s`` (a true division, the reference's op-by-op decode) in
-    place of ``norm * fl32(1/s)`` (its jitted decode)."""
+    place of ``norm * fl32(1/s)`` (its jitted decode). An f32 accumulator
+    ``acc`` of n <= rows*128 values gives ``fma(sign*mag, norm *
+    fl32(1/s), acc)`` (0 past n) in the same launch: the decode fused into
+    the add that consumes it, as XLA:CPU compiles the round's x-hat + q.
+    With ``acc`` and a one-element f32 ``weight`` w on the same device:
+    ``fma((sign*mag) * (norm * fl32(1/s)), w, acc)``, the decoded value
+    rounded and its weighted add fused, as XLA:CPU compiles the round's
+    ``buf + w_k * dec``."""
     check_bits(bits)
     rows = packed.shape[0]
     check_tensor("packed", packed, torch.uint8, (None, LANES * bits // 8),
                  packed.device)
     check_tensor("norms", norms, torch.float32, (rows,), packed.device)
+    if acc is not None:
+        check_tensor("acc", acc, torch.float32, (None,), packed.device)
+        if eager or acc.numel() > rows * LANES:
+            raise ValueError(f"an accumulator of {acc.numel()} values takes "
+                             f"the jitted scale and at most {rows * LANES}")
+    if weight is not None:
+        if acc is None:
+            raise ValueError("a weight needs an accumulator")
+        weight = weight.reshape(1)
+        check_tensor("weight", weight, torch.float32, (1,), packed.device)
     if not on_card(packed):
-        return _ref.unpack_dequantize(packed, norms, bits, eager=eager)
+        return _ref.unpack_dequantize(packed, norms, bits, eager=eager,
+                                      acc=acc, weight=weight)
     check_aligned("packed", packed)
     out = torch.empty((rows, LANES), dtype=torch.float32, device=packed.device)
     if rows:
         fn = _build.entry("unpack_dequantize")
         _build.check("qsgd_unpack_dequantize", fn(
             packed.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, bits,
-            int(eager), torch.cuda.current_stream(packed.device).cuda_stream))
+            int(eager), None if acc is None else acc.data_ptr(),
+            0 if acc is None else acc.numel(),
+            None if weight is None else weight.data_ptr(),
+            torch.cuda.current_stream(packed.device).cuda_stream))
         LAUNCHES["qsgd_unpack_dequantize"] += 1
     return out
 
@@ -296,26 +322,27 @@ def sketch_scale(group: int) -> float:
     return float(np.float32(1.0 / float(group) ** 0.5))
 
 
-def _in_order(p: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right from +0."""
-    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
-    for j in range(p.shape[-1]):
-        acc = acc + p[..., j]
-    return acc
+def _halving_tree(t: torch.Tensor) -> torch.Tensor:
+    """(..., w) with w a power of two -> (...,): at width w, lane j < w/2
+    adds lane j + w/2, down to one lane."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
 
 
 def _group_sums(p: torch.Tensor, fused: bool) -> torch.Tensor:
     """(..., group) -> (...,) in XLA:CPU's order (section comment)."""
     g = p.shape[-1]
     if g > 32:
-        return _in_order(torch.stack(
-            [_in_order(p[..., w:w + 32]) for w in range(0, g, 32)], -1))
+        return _ref._in_order(torch.stack(
+            [_ref._in_order(p[..., w:w + 32]) for w in range(0, g, 32)], -1))
     if not fused or g <= 8:
-        return _in_order(p)
+        return _ref._in_order(p)
     acc = torch.zeros((*p.shape[:-1], 8), dtype=p.dtype, device=p.device)
     for j in range(0, g, 8):
         acc = acc + p[..., j:j + 8]
-    return _ref._halving_tree(acc)
+    return _halving_tree(acc)
 
 
 def sketch_project(c2d: torch.Tensor, seeds, group: int, *,

@@ -20,9 +20,9 @@ would differ in about a third of the rows or elements:
 * buffer aggregate: ``scale_k = (w_k*n_k) * fl32(1/s)`` and
   ``acc = fma(sign*mag, scale_k, acc)`` over ascending k from zero;
 * square root: correctly rounded, which torch's CPU ``sqrt`` is not;
-* metric taps (``flush_taps``, ``upload_taps``): sums of squares in the
-  fixed two-level order of ``tap_sum`` (``csrc/tap_reduce.cuh``), which
-  depends on the vector's length alone.
+* metric taps (``flush_taps``, ``upload_taps``): sums of squares in
+  XLA:CPU's own order for ``jnp.sum`` (``xla_sum``: windows of 32 with
+  the padding split, recursively), which depends on the length alone.
 
 Counter-hash words are uint32 values held in int64 tensors (torch has no
 uint32 shifts or adds on the CPU), masked after every add and multiply.
@@ -189,11 +189,32 @@ def signed_magnitudes(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return sign * mag
 
 
+_ACC_CHUNK_ROWS = 1 << 18  # rows per float64 chunk of the accumulating decode
+
+
 def unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,
-                      *, eager: bool = False):
+                      *, eager: bool = False, acc=None, weight=None):
     """Packed uint8 (rows, 128*bits//8) + norms f32 (rows,) -> f32
     (rows, 128) = (sign*mag) * (norm * fl32(1/s)), or with ``eager``
-    (sign*mag) * (norm / s), a true division."""
+    (sign*mag) * (norm / s), a true division. With an f32 accumulator
+    ``acc`` of n <= rows*128 values: fma(sign*mag, norm * fl32(1/s),
+    acc) (0 past n), or with a one-element f32 ``weight`` too,
+    fma((sign*mag) * (norm * fl32(1/s)), weight, acc);
+    ``_ACC_CHUNK_ROWS`` rows at a time so the float64 temporaries stay
+    small."""
+    if acc is not None:
+        rows = packed.shape[0]
+        flat = torch.nn.functional.pad(acc, (0, rows * LANES - acc.numel()))
+        out = flat.reshape(rows, LANES).clone()
+        scale = norms * reciprocal_levels(bits)
+        for r in range(0, rows, _ACC_CHUNK_ROWS):
+            sl = slice(r, r + _ACC_CHUNK_ROWS)
+            sm = signed_magnitudes(packed[sl], bits)
+            if weight is None:
+                out[sl] = fma_f32(sm, scale[sl, None], out[sl])
+            else:
+                out[sl] = fma_f32(sm * scale[sl, None], weight, out[sl])
+        return out
     if eager:
         scale = norms / torch.full_like(norms, float(levels(bits)))
     else:
@@ -231,6 +252,18 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor):
     return torch.where(tie, side, r)
 
 
+def fma_f32_(a: torch.Tensor, b, c: torch.Tensor,
+             chunk: int = 1 << 25) -> torch.Tensor:
+    """``fma_f32(a, b, c)`` of 1-D tensors written into ``c`` in place,
+    ``chunk`` elements at a time, so the float64 temporaries stay small at
+    any length (a 1.2e9-element vector would need ~60 GB of them at
+    once). Returns ``c``."""
+    for s in range(0, c.numel(), chunk):
+        bs = b[s:s + chunk] if isinstance(b, torch.Tensor) and b.dim() else b
+        c[s:s + chunk] = fma_f32(a[s:s + chunk], bs, c[s:s + chunk])
+    return c
+
+
 def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,
                      weights: torch.Tensor, bits: int) -> torch.Tensor:
     """sum_k w_k * dequant(stack[k], norms[k]) over ascending k, each step
@@ -250,48 +283,41 @@ def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,
     return acc
 
 
-# The metric taps' reduction law (csrc/tap_reduce.cuh): lanes of a block,
-# values a lane adds in order per chunk, and the chunk length.
-TAP_THREADS = 256
-TAP_PER_THREAD = 16
-TAP_CHUNK = TAP_THREADS * TAP_PER_THREAD
+XLA_WINDOW = 32  # XLA:CPU's reduce window (``xla_sum``)
 
 
-def _halving_tree(t: torch.Tensor) -> torch.Tensor:
-    """(..., w) with w a power of two -> (...,): at width w, lane j < w/2
-    adds lane j + w/2, down to one lane."""
-    while t.shape[-1] > 1:
-        h = t.shape[-1] // 2
-        t = t[..., :h] + t[..., h:]
-    return t[..., 0]
+def _in_order(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right from +0."""
+    acc = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+    for j in range(t.shape[-1]):
+        acc = acc + t[..., j]
+    return acc
 
 
-def _lanes_then_tree(t: torch.Tensor) -> torch.Tensor:
-    """(..., m) -> (...,): value j goes to lane j % TAP_THREADS (zero-padded
-    to whole lanes), each lane adds its values in order, and the lanes
-    close with the halving tree."""
-    m = t.shape[-1]
-    per_lane = -(-m // TAP_THREADS)
-    t = torch.nn.functional.pad(t, (0, per_lane * TAP_THREADS - m))
-    t = t.reshape(*t.shape[:-1], per_lane, TAP_THREADS)
-    acc = t[..., 0, :]
-    for i in range(1, per_lane):
-        acc = acc + t[..., i, :]
-    return _halving_tree(acc)
+def xla_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in XLA:CPU's order for an f32 ``jnp.sum`` (jax 0.9;
+    read from its optimised HLO, ``reduce-window(size=32, stride=32)``
+    with the padding split evenly, then a ``reduce``): cut the n values
+    into windows of 32, ``floor(pad/2)`` zeros in front and the rest
+    behind; sum each window in order from +0; reduce the window sums by
+    the same law until 32 or fewer are left, and sum those in order. Up to
+    32 values it is the in-order sum. Every add is an f32 add, so the
+    result is the same on every device."""
+    v = v.movedim(dim, -1)
+    while v.shape[-1] > XLA_WINDOW:
+        n = v.shape[-1]
+        windows = -(-n // XLA_WINDOW)
+        pad = windows * XLA_WINDOW - n
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = _in_order(v.reshape(*v.shape[:-1], windows, XLA_WINDOW))
+    return _in_order(v)
 
 
 def tap_sum(sq: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis of non-negative f32 values (squares) in the
-    tap kernels' order: chunks of ``TAP_CHUNK``, each reduced by
-    ``_lanes_then_tree``, then the chunk sums by ``_lanes_then_tree``
-    again. Missing values are +0, which leaves such a sum as it was, so
-    the result for a row depends on its length alone."""
-    n = sq.shape[-1]
-    chunks = -(-n // TAP_CHUNK)
-    sq = torch.nn.functional.pad(sq, (0, chunks * TAP_CHUNK - n))
-    partials = _lanes_then_tree(sq.reshape(*sq.shape[:-1], chunks,
-                                           TAP_CHUNK))
-    return _lanes_then_tree(partials)
+    """Sum over the last axis of f32 squares in the reference's order:
+    the taps' ``jnp.sum`` of materialized squares, which is ``xla_sum``
+    (the tap kernels' ``csrc/tap_reduce.cuh`` runs the same order)."""
+    return xla_sum(sq)
 
 
 def _relative(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -324,15 +350,20 @@ def upload_taps(flat2d: torch.Tensor, packed=None, norms=None, bits=None):
     """Per-message upload taps of a (b, d) delta stack, f32 (b, 2):
     ``[||delta_i||, ||delta_i - qdq(delta_i)|| / max(||delta_i||, 1e-30)]``
     with qdq the decode of the message's packed codes (``unpack_dequantize``
-    law); the error is 0 without codes (identity uploads)."""
+    law, its last product fused into the subtraction as XLA:CPU compiles
+    the reference's tap); the error is 0 without codes (identity
+    uploads)."""
     b, d = flat2d.shape
     dn = sqrt_f32(tap_sum(flat2d * flat2d))
     if packed is None:
         s_err = torch.zeros_like(dn)
     else:
         rows = packed.shape[1]
-        q = unpack_dequantize(packed.reshape(b * rows, -1),
-                              norms.reshape(-1), bits)
-        err = flat2d - q.reshape(b, rows * LANES)[:, :d]
+        # XLA:CPU fuses the decode's last product into the subtraction:
+        # delta - (sign*mag) * scale rounds once
+        sm = signed_magnitudes(packed, bits).reshape(b, rows * LANES)[:, :d]
+        scale = (norms * reciprocal_levels(bits))[:, :, None].expand(
+            b, rows, LANES).reshape(b, rows * LANES)[:, :d]
+        err = fma_f32(-sm, scale, flat2d)
         s_err = tap_sum(err * err)
     return torch.stack([dn, _relative(sqrt_f32(s_err), dn)], dim=1)

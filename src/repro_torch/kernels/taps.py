@@ -4,10 +4,10 @@ and ``csrc/upload_taps.cu``, on ``csrc/tap_reduce.cuh``).
 Counterpart of the tap math of ``repro/obs/taps.py`` (``flush_tap_vector``,
 ``cohort_tap_rows``, ``decode_qsgd_stack``), which the reference computes in
 XLA inside its fused dispatches. No Pallas kernel computes it; the port
-takes it in two kernels of its own so that every sum of squares runs in one
-fixed order that depends on the vector's length alone (``ref.tap_sum``):
-the card equals the CPU bit for bit, and a member's upload tap does not
-depend on the cohort it was batched with. Taps on cost one launch per
+takes it in two kernels of its own whose sums of squares run in XLA:CPU's
+order for ``jnp.sum`` (``ref.tap_sum``, which depends on the vector's
+length alone): the card equals the CPU and the reference bit for bit, and
+a member's upload tap does not depend on the cohort it was batched with. Taps on cost one launch per
 flush (``flush_taps``) and one per client-step encode (``upload_taps``).
 
 As the other wrappers: a CPU tensor runs the plain version
@@ -45,8 +45,11 @@ def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
     return c
 
 
-def _chunks(n: int) -> int:
-    return -(-n // _ref.TAP_CHUNK)
+def _scratch_slots(n: int) -> int:
+    """Scratch floats per sum of a row of n values (``tap_reduce.cuh``'s
+    ``scratch_slots``): its level-1 sums of 1,024 values and the levels
+    above them."""
+    return 2 * -(-n // 1024) + 32
 
 
 def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
@@ -67,7 +70,7 @@ def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
     if not on_card(x_old):
         return _ref.flush_taps(x_old, x_new, delta, diff, q, weights)
     k = 0 if weights is None else weights.shape[0]
-    partials = torch.empty(_chunks(n) * FLUSH_SUMS, dtype=torch.float32,
+    partials = torch.empty(_scratch_slots(n) * FLUSH_SUMS, dtype=torch.float32,
                            device=dev)
     out = torch.empty(7, dtype=torch.float32, device=dev)
     fn = _build.entry("flush_taps")
@@ -104,7 +107,7 @@ def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
         check_tensor("norms", norms, torch.float32, (b, rows), dev)
     if not on_card(flat2d):
         return _ref.upload_taps(flat2d, packed, norms, bits)
-    partials = torch.empty(b * _chunks(d) * UPLOAD_SUMS, dtype=torch.float32,
+    partials = torch.empty(b * _scratch_slots(d) * UPLOAD_SUMS, dtype=torch.float32,
                            device=dev)
     out = torch.empty((b, 2), dtype=torch.float32, device=dev)
     fn = _build.entry("upload_taps")

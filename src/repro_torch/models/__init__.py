@@ -1,1 +1,1 @@
-"""Models of the port: the paper's 4-layer CNN."""
+"""Models of the port: the paper's 4-layer CNN and the dense decoder."""

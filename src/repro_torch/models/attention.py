@@ -1,0 +1,154 @@
+"""Attention: GQA/MQA with qk-norm, logit softcapping, sliding windows.
+
+Counterpart of the training path of ``repro/models/attention.py``:
+``attention_train`` is causal (optionally windowed) self-attention over a
+whole sequence, computed blockwise with an online softmax (the
+flash-attention recurrence in plain torch, the reference's order of
+blocks), so the S x S logit matrix is never materialized. The logits,
+softmax and value sums run in f32. KV caches, ``attention_decode`` and
+prefill are ROADMAP queue A item 14b.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
+
+NEG_INF = -2.0e38
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype=None,
+                   lead=()) -> dict:
+    """The attention block's parameters (the reference's names and
+    shapes); ``lead`` prepends stacked super-block dims."""
+    dtype = dtype or cfg.p_dtype
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lead = tuple(lead)
+    dev = gen.device
+    p = {
+        "wq": dense_init(gen, lead + (d, h * hd), d, dtype),
+        "wk": dense_init(gen, lead + (d, kv * hd), d, dtype),
+        "wv": dense_init(gen, lead + (d, kv * hd), d, dtype),
+        "wo": dense_init(gen, lead + (h * hd, d), h * hd, dtype),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, params, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, KV, hd): projections, bias,
+    qk-norm and rotary embeddings, as the reference orders them."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.einsum("bsd,de->bse", x, params["wq"])
+    k = torch.einsum("bsd,de->bse", x, params["wk"])
+    v = torch.einsum("bsd,de->bse", x, params["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _logit_scale(cfg: ModelConfig) -> float:
+    if cfg.attn_logit_scale is not None:
+        return cfg.attn_logit_scale
+    return 1.0 / math.sqrt(cfg.hd)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor,
+                        kv_positions: torch.Tensor, *,
+                        window: Optional[int], scale: float,
+                        attn_softcap: Optional[float], q_block: int = 512,
+                        kv_block: int = 512) -> torch.Tensor:
+    """Causal (optionally windowed) attention without materializing S x S.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd) in
+    q's dtype. GQA: query heads are grouped per KV head (H = KV * G). Each
+    query block runs the online softmax over every KV block in order, in
+    f32, as the reference's scan does. The casts to f32 sit where the
+    reference's do, which sets the dtype its gradients add up in (bf16
+    activations): each KV block is cast once, as the reference's vmap over
+    query blocks casts it once, so its gradients from the query blocks
+    add in f32; the query block is cast in every KV step, as inside the
+    reference's scan, so its gradients from the KV steps add in q's dtype.
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    hd_v = v.shape[3]
+    g = h // kvh
+    if sq % q_block or skv % kv_block:
+        raise ValueError(f"sequence lengths {sq}, {skv} are not multiples "
+                         f"of the blocks {q_block}, {kv_block}")
+    nq, nk = sq // q_block, skv // kv_block
+    qb = q.reshape(b, nq, q_block, kvh, g, hd)
+    kb = k.reshape(b, nk, kv_block, kvh, hd)
+    vb = v.reshape(b, nk, kv_block, kvh, hd_v)
+    qp = q_positions.reshape(nq, q_block)
+    kp = kv_positions.reshape(nk, kv_block)
+    kf = [kb[:, j].to(torch.float32) for j in range(nk)]
+    vf = [vb[:, j].to(torch.float32) for j in range(nk)]
+    outs = []
+    for i in range(nq):
+        q_i = qb[:, i]
+        qpos = qp[i][None, :, None, None, None]
+        m = torch.full((b, q_block, kvh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, q_block, kvh, g), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, q_block, kvh, g, hd_v), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            logits = torch.einsum("bqkgd,bskd->bqkgs",
+                                  q_i.to(torch.float32), kf[j]) * scale
+            logits = softcap(logits, attn_softcap)
+            kpos = kp[j][None, None, None, None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgs,bskd->bqkgd", p, vf[j])
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1)
+    return out.reshape(b, sq, h, hd_v).to(q.dtype)
+
+
+def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    window: Optional[int] = None, q_block: int = 512,
+                    kv_block: int = 512, return_kv: bool = False):
+    """Self-attention over a full sequence (training). x: (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    out = blockwise_attention(
+        q, k, v, positions, positions, window=window,
+        scale=_logit_scale(cfg), attn_softcap=cfg.attn_softcap,
+        q_block=min(q_block, s), kv_block=min(kv_block, s))
+    out = torch.einsum("bse,ed->bsd", out.reshape(b, s, -1), params["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out

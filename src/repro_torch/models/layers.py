@@ -1,21 +1,58 @@
-"""Primitive layers of the paper's CNN.
+"""Primitive layers: norms, rotary embeddings, MLPs, initializers.
 
-Counterpart of the parts of ``repro/models/layers.py`` the CNN uses. Images
-are channel-last (B, H, W, C) as in the reference.
+Counterpart of ``repro/models/layers.py``. Images are channel-last
+(B, H, W, C) as in the reference. Math in f32, outputs cast back to the
+activation dtype, as the reference does; a matrix product runs in its
+operands' dtype (``torch.einsum``: f32 in, or bf16 in with f32
+accumulation on the card).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 
-def dense_init(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, fan_in: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init (cut at +-2 std), like the reference's;
-    the draws come from ``gen`` and are not the reference's numbers."""
-    w = torch.empty(shape, dtype=torch.float32)
+    the draws come from ``gen`` (on its device) and are not the
+    reference's numbers."""
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w / math.sqrt(fan_in)
+    return (w / math.sqrt(max(fan_in, 1))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal(0, 0.02) embeddings, drawn from ``gen`` on its device."""
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    w.normal_(0.0, 1.0, generator=gen)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             scale_plus_one: bool = False) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * scale over the last axis, in f32;
+    gemma's convention multiplies by (1 + scale)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    s = scale.to(torch.float32)
+    if scale_plus_one:
+        s = 1.0 + s
+    return (y * s).to(x.dtype)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -28,3 +65,71 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = xf.var(dim=(1, 2, 4), keepdim=True, correction=0)
     xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
     return (xf * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """1 / theta^(2i / head_dim) for i < head_dim / 2, f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions broadcastable to (..., S).
+    Rotates the two halves of the head dim (the reference's layout)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def _act(name: str):
+    # jax.nn.gelu is the tanh approximation by default
+    return {"silu": torch.nn.functional.silu,
+            "gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+            "relu": torch.relu}[name]
+
+
+def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU-style gated MLP: down(act(gate(x)) * up(x)), the activation
+    in f32."""
+    g = torch.einsum("...d,df->...f", x, params["w_gate"])
+    u = torch.einsum("...d,df->...f", x, params["w_up"])
+    h = _act(act)(g.to(torch.float32)).to(x.dtype) * u
+    return torch.einsum("...f,fd->...d", h, params["w_down"])
+
+
+def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                   dtype: torch.dtype = torch.float32, lead=()) -> dict:
+    """The MLP's three matrices; ``lead`` prepends stacked dims (one set
+    per super-block), each slice drawn at the single layer's fan-in."""
+    lead = tuple(lead)
+    return {
+        "w_gate": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
+        "w_up": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
+        "w_down": dense_init(gen, lead + (d_ff, d_model), d_ff, dtype),
+    }
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """cap * tanh(x / cap) in f32 (identity for None)."""
+    if cap is None:
+        return x
+    xf = x.to(torch.float32)
+    return (torch.tanh(xf / cap) * cap).to(x.dtype)

@@ -1,0 +1,230 @@
+"""The config-driven decoder, dense family.
+
+Counterpart of the dense path of ``repro/models/transformer.py``. Layer
+stacks are grouped into repeating super-blocks (``cfg.layer_pattern``):
+pattern ("attn",) for llama/qwen-style decoders, ("local", "global") for
+gemma2 (alternating sliding-window and full attention, (1+s) norms,
+post-norms, sqrt(d) embedding scale, logit softcaps). The parameter tree
+is the reference's, leaf for leaf: ``embed``, ``layers/pos{i}_{kind}``
+with each leaf stacked over the super-blocks, ``final_norm``, and
+``head`` only when embeddings are untied; it flattens in JAX's order
+(sorted keys), so flat vectors of the two packages compare coordinate by
+coordinate. The reference scans the super-blocks; here ``forward`` loops
+over them, under ``torch.utils.checkpoint`` with ``remat``.
+
+MoE, MLA, Mamba2, the hybrid and the VLM/audio frontends are ROADMAP
+queue A item 14c; caches, ``prefill`` and ``decode_step`` item 14b. Each
+raises ``NotImplementedError`` naming its item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.utils.checkpoint
+
+from repro_torch.common.device import resolve_device
+from repro_torch.common.tree import tree_map
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
+                                       init_gated_mlp, rms_norm, softcap)
+
+ATTN_KINDS = ("attn", "local", "global")
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense text decoder (what the port runs)."""
+    if (cfg.family != "dense" or cfg.modality != "text" or cfg.n_experts
+            or cfg.use_mla or cfg.use_mtp or cfg.n_dense_layers
+            or any(k not in ATTN_KINDS for k in cfg.layer_pattern)):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the port runs dense text decoders; MoE, MLA, "
+            "MTP, Mamba2, hybrid and VLM/audio models are ROADMAP queue A "
+            "item 14c")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
+                     lead=()) -> Dict[str, Any]:
+    """One attention block (norms, attention, gated MLP); ``lead`` stacks
+    it over the super-blocks."""
+    lead, dev, dt = tuple(lead), gen.device, cfg.p_dtype
+    fill = torch.zeros if cfg.norm_scale_plus_one else torch.ones
+    p: Dict[str, Any] = {"ln1": fill(lead + (cfg.d_model,), dtype=dt,
+                                     device=dev),
+                         "ln2": fill(lead + (cfg.d_model,), dtype=dt,
+                                     device=dev)}
+    if cfg.norm_scale_plus_one:  # gemma: zeros init -> effective scale 1
+        p["post_ln1"] = torch.zeros(lead + (cfg.d_model,), dtype=dt,
+                                    device=dev)
+        p["post_ln2"] = torch.zeros(lead + (cfg.d_model,), dtype=dt,
+                                    device=dev)
+    p["attn"] = attn_lib.init_attention(gen, cfg, lead=lead)
+    p["mlp"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead)
+    return p
+
+
+def _init_position(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                   reps: int) -> Dict[str, Any]:
+    """Pattern position ``kind``'s block, stacked over ``reps``."""
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"{kind!r} blocks are ROADMAP queue A "
+                                  "item 14c")
+    return _init_attn_block(gen, cfg, lead=(reps,))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device=None) -> Dict[str, Any]:
+    """Random parameters in the reference's tree, drawn on ``device``
+    (None: the card) from a generator seeded with ``seed``; the values are
+    not the reference's (carry those across with ``convert``)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.p_dtype)}
+    reps = cfg.n_super_blocks
+    params["layers"] = {f"pos{i}_{kind}": _init_position(gen, cfg, kind,
+                                                         reps)
+                        for i, kind in enumerate(cfg.layer_pattern)}
+    params["final_norm"] = (torch.zeros if cfg.norm_scale_plus_one
+                            else torch.ones)((cfg.d_model,),
+                                             dtype=cfg.p_dtype, device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
+                                    cfg.d_model, cfg.p_dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (training)
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor):
+    return rms_norm(x, scale, cfg.rms_eps, cfg.norm_scale_plus_one)
+
+
+def _attn_sublayer(cfg: ModelConfig, p, h: torch.Tensor,
+                   positions: torch.Tensor, *, window, aux,
+                   q_block: int, kv_block: int):
+    """Pre-norm attention and MLP with residuals (gemma: post-norms too)."""
+    a_in = _norm(cfg, h, p["ln1"])
+    a = attn_lib.attention_train(cfg, p["attn"], a_in, positions,
+                                 window=window, q_block=q_block,
+                                 kv_block=kv_block)
+    if cfg.norm_scale_plus_one:
+        a = _norm(cfg, a, p["post_ln1"])
+    h = h + a
+    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
+    if cfg.norm_scale_plus_one:
+        f = _norm(cfg, f, p["post_ln2"])
+    return h + f, aux
+
+
+def _window_for(cfg: ModelConfig, kind: str,
+                window_override: Optional[int]):
+    if kind == "local":
+        return cfg.sliding_window
+    return window_override  # None for full attention
+
+
+def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
+    h = params["embed"][inputs["tokens"].long()]
+    if cfg.norm_scale_plus_one:  # gemma: scale embeddings by sqrt(d)
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
+                             device=h.device)
+    return h.to(cfg.act_dtype)
+
+
+def forward(cfg: ModelConfig, params, inputs, *,
+            window_override: Optional[int] = None, remat: bool = True,
+            q_block: int = 512, kv_block: int = 512):
+    """Full-sequence forward. Returns (final-normed hidden (B, S, D), aux);
+    the logits are taken chunked by ``loss_fn`` / ``logits_fn``.
+    ``remat`` recomputes each super-block in the backward pass
+    (``torch.utils.checkpoint``); it runs under ``torch.autograd``, not
+    under ``torch.func.grad``, so the round's local SGD takes it off."""
+    _check_dense(cfg)
+    h = _embed_inputs(cfg, params, inputs)
+    s = h.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def super_block(h, aux, layer_slice):
+        for i, kind in enumerate(cfg.layer_pattern):
+            h, aux = _attn_sublayer(
+                cfg, layer_slice[f"pos{i}_{kind}"], h, positions,
+                window=_window_for(cfg, kind, window_override), aux=aux,
+                q_block=q_block, kv_block=kv_block)
+        return h, aux
+
+    for sb in range(cfg.n_super_blocks):
+        layer_slice = tree_map(lambda a: a[sb], params["layers"])
+        if remat:
+            h, aux = torch.utils.checkpoint.checkpoint(
+                super_block, h, aux, layer_slice, use_reentrant=False)
+        else:
+            h, aux = super_block(h, aux, layer_slice)
+    return _norm(cfg, h, params["final_norm"]), aux
+
+
+def logits_fn(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """Full logits of a (B, S, D) hidden, softcapped."""
+    if cfg.tie_embeddings:
+        lg = torch.einsum("bsd,vd->bsv", h, params["embed"])
+    else:
+        lg = torch.einsum("bsd,dv->bsv", h, params["head"])
+    return softcap(lg, cfg.final_softcap)
+
+
+def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
+                  labels: torch.Tensor, mask: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    """Next-token cross-entropy over sequence chunks (the largest divisor
+    of S not above ``chunk``), so (B, S, V) logits never exist at once."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        lg = logits_fn(cfg, params, h[:, c0:c0 + chunk]).to(torch.float32)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[:, c0:c0 + chunk, None].long())
+        m_c = mask[:, c0:c0 + chunk]
+        tot = tot + torch.sum((lse - gold[..., 0]) * m_c)
+        cnt = cnt + torch.sum(m_c)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *,
+            window_override: Optional[int] = None, remat: bool = True,
+            loss_chunk: int = 1024):
+    """Causal-LM loss. batch: {"tokens", "labels"} (+ optional
+    "loss_mask"). Returns (loss, {"xent", "aux"})."""
+    h, aux = forward(cfg, params, batch, window_override=window_override,
+                     remat=remat)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+    loss = _chunked_xent(cfg, params, h, labels, mask, loss_chunk)
+    return loss + cfg.router_aux_coef * aux, {"xent": loss, "aux": aux}
+
+
+def prefill(*args, **kwargs):
+    raise NotImplementedError("prefill and KV caches are ROADMAP queue A "
+                              "item 14b")
+
+
+def decode_step(*args, **kwargs):
+    raise NotImplementedError("decode_step and KV caches are ROADMAP queue "
+                              "A item 14b")

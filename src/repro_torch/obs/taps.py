@@ -4,9 +4,10 @@ client step emit with taps on, and their host-side named views.
 Counterpart of ``repro/obs/taps.py``. The tap math itself lives in
 ``kernels.taps``, re-exported here under the reference's names: two
 kernels (one launch per flush, one per client-step encode) whose sums of
-squares run in one fixed order that depends on a vector's length alone,
-so a tap is the same on the card and on the CPU, in the sequential and in
-the cohort engine, and whatever cohort a member was batched with. A
+squares run in XLA:CPU's order for ``jnp.sum`` (``kernels.ref.xla_sum``),
+which depends on a vector's length alone, so a tap is the reference's,
+the same on the card and on the CPU, in the sequential and in the cohort
+engine, and whatever cohort a member was batched with. A
 lowrank client step's three taps take the upload kernel twice. The
 reference's ``decode_qsgd_stack`` has no counterpart: the upload kernel
 decodes the wire codes itself, so the decoded stack never reaches memory.

@@ -161,3 +161,55 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     assert auto_member_chunk(32, 1000, free_bytes=1 << 40) is None
     assert resolve_device("cpu") == torch.device("cpu")
     assert init_cnn(0, device="cpu")["head"]["w"].device.type == "cpu"
+
+
+# the dense decoder and its round, under the reference's names
+LLM_NAMES = [
+    ("repro_torch.models.config", "ModelConfig"),
+    ("repro_torch.configs", "get_config"),
+    ("repro_torch.configs", "get_reduced"),
+    ("repro_torch.configs", "list_archs"),
+    ("repro_torch.models.layers", "rms_norm"),
+    ("repro_torch.models.layers", "apply_rope"),
+    ("repro_torch.models.layers", "rope_frequencies"),
+    ("repro_torch.models.layers", "gated_mlp"),
+    ("repro_torch.models.layers", "init_gated_mlp"),
+    ("repro_torch.models.layers", "softcap"),
+    ("repro_torch.models.layers", "embed_init"),
+    ("repro_torch.models.attention", "init_attention"),
+    ("repro_torch.models.attention", "blockwise_attention"),
+    ("repro_torch.models.attention", "attention_train"),
+    ("repro_torch.models.transformer", "init_params"),
+    ("repro_torch.models.transformer", "forward"),
+    ("repro_torch.models.transformer", "logits_fn"),
+    ("repro_torch.models.transformer", "loss_fn"),
+    ("repro_torch.data.synthetic", "synthetic_lm_batch"),
+    ("repro_torch.data.synthetic", "synthetic_batch_for_config"),
+    ("repro_torch.core.qafel", "local_sgd"),
+    ("repro_torch.distributed.steps", "RoundState"),
+    ("repro_torch.distributed.steps", "init_round_state"),
+    ("repro_torch.distributed.steps", "make_qafel_round"),
+    ("repro_torch.convert", "round_state_from_jax"),
+    ("repro_torch.examples.federated_llm", "main"),
+]
+
+
+@pytest.mark.parametrize("module,name", LLM_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_llm_slice_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
+def test_llm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.distributed.steps import init_round_state
+    from repro_torch.examples import federated_llm
+    from repro_torch.models.transformer import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_reduced("gemma2-2b")
+    for fn in (lambda: init_params(cfg), lambda: init_round_state(cfg),
+               lambda: federated_llm.main(["--rounds", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()

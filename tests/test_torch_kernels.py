@@ -181,6 +181,54 @@ def test_dequantize_eager_matches_jax_eager(bits, n):
 
 
 @pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_dequantize_accumulate_matches_jitted_apply(bits, n):
+    """K3 with an accumulator against the reference's jitted ``acc +
+    qsgd_dequantize(...)`` (the round's x-hat + q): XLA:CPU fuses the
+    decode's last product into the add, one rounding."""
+    rng = np.random.default_rng(n * 10 + bits + 7)
+    jk, _ = _key(n + 2)
+    jp, jn = jops.qsgd_quantize(jnp.asarray(_msg(rng, n)), jk, bits)
+    acc = (0.3 * rng.standard_normal(n)).astype(np.float32)
+    want = jax.jit(lambda a, p, nm: a + jops.qsgd_dequantize(p, nm, bits, n))(
+        jnp.asarray(acc), jp, jn)
+    got = ops.qsgd_dequantize(torch.from_numpy(np.array(jp)),
+                              torch.from_numpy(np.array(jn)), bits, n,
+                              acc=torch.from_numpy(acc))
+    assert tuple(got.shape) == (n,)
+    assert _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("n", SIZES)
+def test_dequantize_weighted_accumulate_matches_jitted_scan(bits, n):
+    """K3 with an accumulator and a weight against the reference round's
+    jitted ``buf + w * qsgd_dequantize(...)`` inside a scan over three
+    messages (``repro/distributed/steps.py:170``): XLA:CPU rounds the
+    decode, then fuses the weight's product into the add."""
+    rng = np.random.default_rng(n * 10 + bits + 9)
+    msgs = [jops.qsgd_quantize(jnp.asarray(_msg(rng, n)), _key(n + i)[0],
+                               bits) for i in range(3)]
+    jp = jnp.stack([m[0] for m in msgs])
+    jn = jnp.stack([m[1] for m in msgs])
+    w = rng.uniform(0.3, 1.0, 3).astype(np.float32)
+
+    def scan(p, nm, w):
+        body = lambda buf, i: (buf + i[2] * jops.qsgd_dequantize(
+            i[0], i[1], bits, n), None)
+        return jax.lax.scan(body, jnp.zeros((n,), jnp.float32),
+                            (p, nm, w))[0]
+    want = jax.jit(scan)(jp, jn, jnp.asarray(w))
+    got = torch.zeros(n)
+    for i in range(3):
+        got = ops.qsgd_dequantize(torch.from_numpy(np.array(jp[i])),
+                                  torch.from_numpy(np.array(jn[i])), bits, n,
+                                  acc=got, weight=torch.from_numpy(w[i:i + 1]))
+    assert tuple(got.shape) == (n,)
+    assert _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("k", (1, 4, 10))
 def test_buffer_aggregate_matches_jax(bits, k):
     n = 2000

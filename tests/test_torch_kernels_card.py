@@ -191,6 +191,54 @@ def test_unpack_dequantize_eager_random_codes(bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", BITS)
+def test_unpack_dequantize_accumulate_random_codes(bits):
+    """K3 with an accumulator (``fma(sign*mag, scale, acc)``, the round's
+    fused x-hat + q) against its plain version, accumulators shorter than
+    the rows (a ragged message) and as long; one launch per call."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits + 20)
+    for rows, n in ((1, 100), (625, 79_842), (1001, 1001 * 128),
+                    (40_001, 40_001 * 128 - 5)):
+        p = torch.randint(0, 256, (rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand(rows, generator=gen, device=dev) * 3.0
+        acc = torch.randn(n, generator=gen, device=dev)
+        before = tkernels.launches()["qsgd_unpack_dequantize"]
+        got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, acc=acc)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
+        want = ref.unpack_dequantize(p, nm, bits, acc=acc)
+        _assert_bits_equal(got, want)
+        assert not torch.equal(got.reshape(-1)[:n], acc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+def test_unpack_dequantize_weighted_accumulate_random_codes(bits):
+    """K3 with an accumulator and a weight (``fma(sign*mag * scale, w,
+    acc)``, the round's ``buf + w_k * dec``) against its plain version;
+    one launch per call."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits + 30)
+    for rows, n in ((1, 100), (625, 79_842), (40_001, 40_001 * 128 - 5)):
+        p = torch.randint(0, 256, (rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand(rows, generator=gen, device=dev) * 3.0
+        acc = torch.randn(n, generator=gen, device=dev)
+        w = torch.rand(1, generator=gen, device=dev)
+        before = tkernels.launches()["qsgd_unpack_dequantize"]
+        got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, acc=acc,
+                                                   weight=w)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
+        want = ref.unpack_dequantize(p, nm, bits, acc=acc, weight=w)
+        _assert_bits_equal(got, want)
+        assert not torch.equal(got, ref.unpack_dequantize(p, nm, bits,
+                                                          acc=acc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("b", (1, 3, 8, 65))
 def test_quantize_batch_every_shape(bits, b):
     """The batched encode with seed words >= 2**31, by value (B <= 64) and

@@ -10,18 +10,20 @@ same event stream; taps on call each tap function once per flush and per
 client step; the compile watch; the reports.
 
 Against the reference, on the same seed: the comparable event streams
-(no wall clock, no compile events) field for field, every field exact
-except the tap values, which are held to rtol 1e-5 — XLA:CPU's
-``jnp.sum`` takes its own reduction order, which the port does not
-reproduce (its taps run the fixed order of ``kernels.ref.tap_sum``); the
-worst relative difference is printed (``-s``). The plain tap functions
-against ``repro.obs.taps`` on numpy inputs at the same tolerance, and
-bit for bit across cohort sizes.
+(no wall clock, no compile events) field for field, every field exact,
+the tap values too — the port's taps sum in XLA:CPU's own order for
+``jnp.sum`` (``kernels.ref.xla_sum``: windows of 32 with the padding
+split evenly, recursively) and fuse the upload error's last product as
+XLA does. The plain tap functions against ``repro.obs.taps`` under
+``jax.jit`` (as the reference's dispatches compute them) on numpy inputs,
+bit for bit, and bit for bit across cohort sizes; the law against the
+jitted ``jnp.sum``.
 
 The quad task of tests/test_obs.py: 300 + 7 parameters, K = 3, P = 2,
 concurrency 4, 12 uploads; its batches come from a numpy generator seeded
 with the client's key, so both packages' engines see the same data.
 """
+import functools
 import json
 
 import jax
@@ -32,6 +34,7 @@ import torch
 
 from repro.core import QAFeL as JQAFeL
 from repro.core import QAFeLConfig as JConfig
+from repro.kernels import ops as jops
 from repro.obs import RunTracer as JRunTracer
 from repro.obs import taps as jtaps
 from repro.sim import AsyncFLSimulator as JAsync
@@ -50,7 +53,6 @@ from repro_torch.obs.schema import _selftest
 from repro_torch.obs.taps import named_population_counts
 from repro_torch.sim import AsyncFLSimulator, CohortAsyncFLSimulator, SimConfig
 
-TAP_RTOL = 1e-5
 D = 300
 QCFG = dict(client_lr=0.1, server_lr=1.2, server_momentum=0.3, buffer_size=3,
             local_steps=2, client_quantizer="qsgd4", server_quantizer="qsgd4")
@@ -418,9 +420,6 @@ def test_metrics_surface_keeps_legacy_keys(traced_run):
 
 # -- against the reference --------------------------------------------------
 
-_worst = {"rel": 0.0}  # the worst relative tap difference seen
-
-
 def _jquad_loss(params, batch, key):
     del key
     return jnp.sum((params["w"] - batch["target"]) ** 2)
@@ -435,21 +434,16 @@ def _jeval(params):
     return _mean_w(np.asarray(params["w"]))
 
 
-def _assert_taps_close(got, want):
-    """Tap values within ``TAP_RTOL`` of the reference's; records the worst
-    relative difference."""
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    np.testing.assert_allclose(got, want, rtol=TAP_RTOL, atol=0)
-    nz = want != 0.0
-    if nz.any():
-        rel = float(np.max(np.abs(got[nz] - want[nz]) / np.abs(want[nz])))
-        _worst["rel"] = max(_worst["rel"], rel)
-    print(f"worst relative tap difference so far: {_worst['rel']:.3e}")
+def _assert_taps_equal(got, want):
+    """Tap values equal to the reference's, bit for bit."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert (got.view(np.uint32) == want.view(np.uint32)).all(), (got, want)
 
 
 def _assert_streams_match(jtracer, ttracer):
-    """Event for event: every field exact but the taps, which agree to
-    ``TAP_RTOL``; records the worst relative difference."""
+    """Event for event: every field exact, the taps too."""
     jev, tev = _comparable_stream(jtracer), _comparable_stream(ttracer)
     assert len(jev) == len(tev) > 0
     for j, t in zip(jev, tev):
@@ -457,7 +451,7 @@ def _assert_streams_match(jtracer, ttracer):
         for key in j:
             if key == "taps":
                 assert list(j[key]) == list(t[key])
-                _assert_taps_close(list(t[key].values()),
+                _assert_taps_equal(list(t[key].values()),
                                    list(j[key].values()))
             else:
                 assert t[key] == j[key], (key, j, t)
@@ -545,6 +539,25 @@ def test_cohort_stream_matches_reference(scenario, cohort_size):
 # -- the plain tap functions ------------------------------------------------
 
 
+@jax.jit
+def _jit_flush_taps(x_old, x_new, delta, diff, q, weights, flag):
+    """The reference's flush taps as its jitted flush computes them: the
+    squares behind a hard boundary on a traced flag."""
+    return jtaps.flush_tap_vector(functools.partial(jops.hard_boundary, flag),
+                                  x_old, x_new, delta, diff, q, weights)
+
+
+@functools.partial(jax.jit, static_argnames=("bits", "d"))
+def _jit_upload_taps(flat2d, packed, norms, flag, *, bits, d):
+    """The reference's upload taps as its jitted cohort step computes them:
+    the wire bits decoded in the same computation, the squares behind a
+    hard boundary on a traced flag."""
+    q2d = None if bits is None else jtaps.decode_qsgd_stack(packed, norms,
+                                                            bits, d)
+    return jtaps.cohort_tap_rows(functools.partial(jops.hard_boundary, flag),
+                                 flat2d, q2d)
+
+
 def _flush_inputs(n, seed, identity=False, k=5):
     rng = np.random.default_rng(seed)
     x_old = rng.standard_normal(n).astype(np.float32)
@@ -559,17 +572,17 @@ def _flush_inputs(n, seed, identity=False, k=5):
 
 @pytest.mark.parametrize("n,identity,k", [
     (307, False, 3), (79_842, False, 10), (79_842, True, 4),
-    (3 * ref.TAP_CHUNK + 77, False, 0), (1, False, 1)])
+    (3 * 4096 + 77, False, 0), (1, False, 1)])
 def test_plain_flush_taps_match_reference(n, identity, k):
     args = _flush_inputs(n, n + k, identity, k)
-    want = np.asarray(jtaps.flush_tap_vector(
-        lambda t: t, *(jnp.asarray(a) for a in args[:5]),
-        None if args[5] is None else jnp.asarray(args[5])))
+    want = np.asarray(_jit_flush_taps(
+        *(jnp.asarray(a) for a in args[:5]),
+        None if args[5] is None else jnp.asarray(args[5]), jnp.asarray(True)))
     got = ktaps.flush_taps(*(torch.from_numpy(a) for a in args[:5]),
                            None if args[5] is None
                            else torch.from_numpy(args[5]))
     assert got.dtype == torch.float32 and got.shape == (7,)
-    _assert_taps_close(got.numpy(), want)
+    _assert_taps_equal(got.numpy(), want)
     if identity:
         assert got[3].item() == 0.0 and _same(got[2], got[4])
     if k == 0:
@@ -596,15 +609,13 @@ def _upload_inputs(b, d, bits, seed):
 @pytest.mark.parametrize("b,d", [(4, 2048), (3, 79_842), (2, 5 * 4096 + 9)])
 def test_plain_upload_taps_match_reference(b, d, bits):
     flat, packed, norms = _upload_inputs(b, d, bits, b * d)
-    q2d = None
-    if bits is not None:
-        q2d = jtaps.decode_qsgd_stack(jnp.asarray(packed.numpy()),
-                                      jnp.asarray(norms.numpy()), bits, d)
-    want = np.asarray(jtaps.cohort_tap_rows(lambda t: t, jnp.asarray(flat),
-                                            q2d))
+    want = np.asarray(_jit_upload_taps(
+        jnp.asarray(flat), None if bits is None else jnp.asarray(
+            packed.numpy()), None if bits is None else jnp.asarray(
+                norms.numpy()), jnp.asarray(True), bits=bits, d=d))
     got = ktaps.upload_taps(torch.from_numpy(flat), packed, norms, bits)
     assert got.dtype == torch.float32 and got.shape == (b, 2)
-    _assert_taps_close(got.numpy(), want)
+    _assert_taps_equal(got.numpy(), want)
     if b > 2:
         assert got[2].tolist() == [0.0, 0.0]
     if bits is None:
@@ -628,20 +639,26 @@ def test_plain_upload_taps_batch_invariant(bits):
 
 def _law_sum(v: np.ndarray) -> np.float32:
     """The taps' reduction law written out element by element in float32:
-    chunks of TAP_CHUNK, lane t adds values i*TAP_THREADS + t in order,
-    halving tree over the lanes; the chunk sums the same way."""
-    def lanes_then_tree(vals):
-        lanes = np.zeros(ref.TAP_THREADS, np.float32)
-        for start in range(0, vals.size, ref.TAP_THREADS):
-            part = vals[start:start + ref.TAP_THREADS]
-            lanes[:part.size] = lanes[:part.size] + part
-        while lanes.size > 1:
-            h = lanes.size // 2
-            lanes = lanes[:h] + lanes[h:]
-        return lanes[0]
-    chunks = [v[c:c + ref.TAP_CHUNK] for c in range(0, v.size, ref.TAP_CHUNK)]
-    return lanes_then_tree(np.array([lanes_then_tree(c) for c in chunks],
-                                    np.float32))
+    windows of 32 with floor(pad/2) zeros in front and the rest behind,
+    each summed in order from +0, the window sums again so until 32 or
+    fewer are left, summed in order."""
+    v = v.astype(np.float32)
+    while v.size > 32:
+        windows = -(-v.size // 32)
+        pad = windows * 32 - v.size
+        v = np.concatenate([np.zeros(pad // 2, np.float32), v,
+                            np.zeros(pad - pad // 2, np.float32)])
+        sums = np.zeros(windows, np.float32)
+        for w in range(windows):
+            acc = np.float32(0.0)
+            for x in v[32 * w:32 * w + 32]:
+                acc = np.float32(acc + x)
+            sums[w] = acc
+        v = sums
+    acc = np.float32(0.0)
+    for x in v:
+        acc = np.float32(acc + x)
+    return acc
 
 
 @pytest.mark.parametrize("n", [1, 255, 4096, 3 * 4096 + 77, 257 * 4096 + 5])
@@ -653,6 +670,33 @@ def test_tap_sum_is_the_written_law(n):
     # and it is a sum: close to the float64 one
     assert got.item() == pytest.approx(float(v.astype(np.float64).sum()),
                                        rel=1e-5)
+
+
+_JSUM = jax.jit(jnp.sum)
+
+
+@pytest.mark.parametrize("sizes", [
+    range(1, 70), range(70, 300, 3), range(300, 4101, 37),
+    (65, 100, 129, 200, 1000, 1024, 1025, 2055, 4100, 32768, 32769,
+     79_842, 100_000)], ids=["1-69", "70-299", "300-4100", "named"])
+def test_xla_sum_is_jitted_jnp_sum(sizes):
+    """``ref.xla_sum`` equals XLA:CPU's jitted f32 ``jnp.sum`` bit for bit,
+    signed values (not only squares), three vectors per size."""
+    for n in sizes:
+        for t in range(3):
+            v = np.random.default_rng(1000 * n + t).standard_normal(
+                n).astype(np.float32)
+            assert _same(ref.xla_sum(torch.from_numpy(v)), _JSUM(v)), n
+
+
+def test_xla_sum_along_rows():
+    """Per-row sums of a 2-D array (axis 1, as the upload taps take them)
+    follow the same law row by row."""
+    for n in (65, 100, 129, 200, 2048, 79_842):
+        v = np.random.default_rng(n).standard_normal((8, n)).astype(
+            np.float32) ** 2
+        want = jax.jit(lambda a: jnp.sum(a, axis=1))(v)
+        assert _same(ref.xla_sum(torch.from_numpy(v), dim=1), want), n
 
 
 def test_tap_wrappers_check_inputs():

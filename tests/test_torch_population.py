@@ -8,7 +8,10 @@ reference's jitted draws (XLA:CPU's log, log1p, exp, erfinv and ndtri
 spelled in ``kernels.xla_math``, its cumsum in ``xla_cumsum``); the macro
 step from ``init_population`` for 60 steps, host-fed and in-step draws,
 every ``PopStepOut`` field and every state array, including equal
-deadlines at the pop boundary, dropout reaps and the capacity error; the
+deadlines at the pop boundary, dropout reaps and the capacity error, on
+every preset and on 12 configurations off the presets (poisson arrivals
+under a latency scale or stragglers, where XLA:CPU fuses the last
+interarrival's product into the next arrival); the
 population simulator on the quad task (d = 2048) under host draws and
 under in-step draws (``trace_replay`` and ``lognormal_dropout``): x,
 x-hat, momentum, traffic, staleness, the accuracy trace, the sim clock and
@@ -233,6 +236,24 @@ def test_macro_step_matches_reference(name, host):
     assert outs[-1]["delivered_total"] > 20
     if SCENARIOS[name].dropout:
         assert outs[-1]["discarded_total"] > 0  # dropouts were reaped
+
+
+@pytest.mark.parametrize("scale,straggle", [(2.0, False), (0.7, False),
+                                           (1.0, True), (2.0, True)],
+                         ids=["scale2", "scale0.7", "stragglers",
+                              "scale2-stragglers"])
+@pytest.mark.parametrize("latency", ["half_normal", "lognormal", "uniform"])
+def test_macro_step_off_preset_configurations(latency, scale, straggle):
+    """Poisson arrivals under a latency scale or stragglers, in-step draws:
+    XLA:CPU contracts the last interarrival's product into the next
+    arrival's add, ``fma(-log1p(-u), fl32(1/rate), arr[-1])``, as it does
+    the duration's into the deadline; 60 macro steps bit for bit."""
+    cfg = ScenarioConfig(latency=latency, arrival="poisson",
+                         latency_scale=scale,
+                         straggler_frac=0.3 if straggle else 0.0,
+                         straggler_mult=2.0)
+    outs = _step_both(cfg, 4, 3, 60, host=False)
+    assert sum(o["admitted"] for o in outs) > 10
 
 
 @pytest.mark.parametrize("b,d,steps", [(1, 1, 60), (32, 32, 40),
