@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the seven CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build of the eight CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
    per element of the in-kernel threefry dither and of the batched
    encode's counter hash, by pipe, and the decode kernels' int32
@@ -90,29 +90,42 @@ Phases, each printing one JSON line:
     gradients against the reference's eager ones from the committed
     fixture, twice with cuDNN's default algorithms
     (``cnn_grad_vs_fixture``);
-12. the LLM round (ROADMAP queue A item 14a): ``distributed.steps
-    .make_qafel_round`` on gemma2-2b at full width in bf16, cut from 26 to
-    8 layers (d = 1,212,754,176), the federated example's settings (qsgd4
+12. the LLM round (ROADMAP queue A items 14a, 13a): ``distributed.steps
+    .make_qafel_round`` on gemma2-2b at full width and its published depth
+    (26 layers, d = 2,614,341,888) in bf16, every message encoded in row
+    chunks of 2^20 rows, remat on, the federated example's settings (qsgd4
     both ways, K = 4, P = 2, local batch 2, sequence 64): one warm-up and
     3 measured rounds with the launch counters set to 0 just before and
     read just after (``llm_round_step`` lines: loss, |x - x_hat|_1, ms by
     CUDA events; ``llm_round``: peak ``max_memory_allocated`` against the
-    ~50 GB reckoning, K1 and K3 launches per round = K + 1 by the counters
-    and by ``torch.profiler`` over a fourth round with their device time,
-    that round's device time by phase (the round's ``record_function``
-    ranges: client (local SGD and K1), accumulate (K3 into the weighted
-    sum), server and broadcast; each kernel counted in the range its
-    launch was made in), bytes per upload); then K1 and K3 (plain, with
-    the fused x-hat + q, and with the fused weighted add) at that d
-    against their plain versions taken in row chunks, bit for bit, timed
-    with their bounds (``llm_kernel``); then the reduced round on the card
-    and the CPU, 2 rounds, and its server half (``steps.accumulate`` and
-    ``steps.server_half``) on identical client messages bit for bit
-    (``llm_reduced_card_vs_cpu``);
-13. one line listing every kernel with its launches on both paths, on
+    reckoning of the round's buffers plus 15% and under 60 GB, K1, K3 and
+    server-update launches per round against the design's formula by the
+    counters and by ``torch.profiler`` over a fifth round, that round's
+    device time by phase (the round's ``record_function`` ranges: client
+    (local SGD and K1), accumulate (K3 into the weighted sum), server and
+    broadcast; each kernel counted in the range its launch was made in),
+    bytes per upload against (4 d + 32 ceil(d/128)) / 8); then at that d
+    K1 over the whole message and in the round's row chunks at their row
+    offsets, K3 plain, K3's weighted add into an f32 sum in place and its
+    broadcast decode into a bf16 x-hat in place, and the server-update
+    kernel on a bf16 state, each against its plain version taken in row
+    chunks, bit for bit, timed with its bound (``llm_kernel``); then
+    gemma2-2b cut to 2 layers, one round whole and one in ragged row
+    chunks of 4,099 from the same state, bit for bit, with each round's
+    peak (``llm_streamed_vs_whole``); then the reduced round on the card
+    and the CPU in row chunks, 2 rounds, and its server half
+    (``steps.accumulate`` and ``steps.server_half``) on identical client
+    messages bit for bit (``llm_reduced_card_vs_cpu``);
+13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
+    chunk by chunk) against ``run_client``: the quickstart's quad on the
+    card and the CPU, the paper's CNN on the card; codes, broadcasts,
+    state and meters bit for bit, the quad card against the CPU, K1
+    launches per streamed upload (``streamed_uplink``);
+14. one line listing every kernel with its launches on both paths, on
     the family's runs, on the population run and on the LLM round, times
-    and bound (the tap kernels' launches from the taps-on runs);
-14. last, ``{"ok": true, "device": {...}}``.
+    and bound (the tap kernels' launches from the taps-on runs; the
+    server update's from the LLM round, the only path that runs it);
+15. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Every record is also written
@@ -2476,15 +2489,32 @@ def run_population(dev, hash_int32: dict) -> tuple:
     return record, launches
 
 
-# the LLM round (queue A item 14a): gemma2-2b at full width and bf16, cut
-# from 26 to 8 layers (4 of its 13 (local, global) super-blocks), the
-# federated example's QAFeL settings (qsgd4 both ways, K = 4, P = 2, local
-# batch 2, sequence 64); one warm-up round, 3 measured, 1 profiled
-LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 8, 64, 3
-LLM_PEAK_RECKONING_GB = 50.0  # the round's peak by count of its buffers
+# the LLM round (queue A items 14a, 13a): gemma2-2b at full width and bf16
+# at its published depth (26 layers), the federated example's QAFeL
+# settings (qsgd4 both ways, K = 4, P = 2, local batch 2, sequence 64),
+# every message encoded in row chunks of LLM_CHUNK_ROWS, remat on (the
+# round's default); one warm-up round, 3 measured, 1 profiled
+LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 26, 64, 3
+LLM_CHUNK_ROWS = 1 << 20
+# the round's peak by count of its buffers (PERF.md section 5): x, x-hat
+# and m in bf16 (6 B an element), the f32 sum buf (4 B), a client's y and
+# its gradients in bf16 (4 B), one message's codes and norms (d/2 +
+# 4*ceil(d/128) B), the chunk transients (four f32 chunks) and the
+# activations with the tied embedding's second gradient
+LLM_TRANSIENT_BYTES = 4 * 4 * 128 * LLM_CHUNK_ROWS + 2.0e9
+LLM_PEAK_SLACK, LLM_PEAK_CAP_GB = 1.15, 60.0
 LLM_PLAIN_CHUNK_ROWS = 1 << 18  # rows per chunk of the plain versions
 # the reduced round card vs CPU: model math within this of the CPU's
 LLM_REDUCED_LOSS_RTOL = 1e-4
+LLM_REDUCED_CHUNK_ROWS = 1000
+# llm_streamed_vs_whole: full width cut to 2 layers (one super-block), one
+# round whole and one in ragged row chunks
+LLM_STREAM_LAYERS, LLM_STREAM_CHUNK_ROWS = 2, 4099
+
+
+def llm_peak_reckoning(d: int) -> float:
+    """The round's peak bytes by the count of its buffers."""
+    return 14.5 * d + 4 * -(-d // 128) + LLM_TRANSIENT_BYTES
 
 
 LLM_PHASES = ("client", "accumulate", "server", "broadcast")
@@ -2495,8 +2525,7 @@ def phase_device_ms(prof, path: Path) -> dict:
     kernel, copy and fill counts in the ``record_function`` range of
     ``LLM_PHASES`` during which its launch call was made (on any thread:
     the autograd engine launches the backward from its own), else in
-    ``"other"`` (the round's flatten and unflatten, the batch's copies,
-    the drift)."""
+    ``"other"`` (the batch's copies, the drift)."""
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
@@ -2519,13 +2548,14 @@ def phase_device_ms(prof, path: Path) -> dict:
 
 
 def llm_round(dev) -> tuple:
-    """The QAFeL round on gemma2-2b at full width (8 layers, bf16) through
-    ``distributed.steps.make_qafel_round``, as ``examples.federated_llm``
+    """The QAFeL round on gemma2-2b at full width and depth (26 layers,
+    bf16) through ``distributed.steps.make_qafel_round`` with
+    ``chunk_rows = LLM_CHUNK_ROWS`` and remat, as ``examples.federated_llm``
     drives it: one warm-up round, then ``LLM_ROUNDS`` rounds with the
     launch counters set to 0 just before and read just after (loss,
-    |x - x_hat|_1, ms by CUDA events split by phase, peak memory, bytes
-    per upload), then one round under ``torch.profiler`` (launches and
-    device time per kernel name). Returns (record, launches, d)."""
+    |x - x_hat|_1, ms by CUDA events, peak memory, bytes per upload), then
+    one round under ``torch.profiler`` (launches and device time per
+    kernel, device time by phase). Returns (record, launches, d)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2537,10 +2567,12 @@ def llm_round(dev) -> tuple:
     from repro_torch.distributed.steps import (init_round_state,
                                                make_qafel_round)
     from repro_torch.examples import federated_llm as fl
-    from repro_torch.kernels import buffer_agg, qsgd, reset_launches
-    from repro_torch.kernels import taps as ktaps
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
 
-    cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_LAYERS)
+    cfg = configs.get_config(LLM_ARCH)
+    if cfg.n_layers != LLM_LAYERS:
+        raise AssertionError(f"{LLM_ARCH} has {cfg.n_layers} layers")
     qcfg = fl.qafel_config(4)
     k = qcfg.buffer_size
     torch.cuda.empty_cache()
@@ -2549,7 +2581,9 @@ def llm_round(dev) -> tuple:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     d = sum(t.numel() for t in tree_leaves(holder[0].x))
-    round_fn = make_qafel_round(cfg, qcfg)
+    rows = -(-d // 128)
+    chunks = -(-rows // LLM_CHUNK_ROWS)
+    round_fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS)
     weights = torch.ones(k)
     rng = np.random.default_rng(0)
 
@@ -2574,8 +2608,8 @@ def llm_round(dev) -> tuple:
     warm = one(0)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    rows = [one(step) for step in range(1, 1 + LLM_ROUNDS)]
-    launches = {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES, **ktaps.LAUNCHES}
+    rows_out = [one(step) for step in range(1, 1 + LLM_ROUNDS)]
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2598,49 +2632,61 @@ def llm_round(dev) -> tuple:
                 "ms_per_launch": ms / n if n else None}
 
     k1 = kernel("quantize_pack_threefry")
-    k3 = kernel("unpack_dequantize_kernel")
+    k3 = kernel("unpack_dequantize")
+    su = kernel("server_update")
     busy = sum(t for _, t in by_name.values())
     phases = phase_device_ms(prof, ROOT / "build" / "llm_round_trace.json")
-    ms = [r["ms"] for r in rows]
+    ms = [r["ms"] for r in rows_out]
     per_round = lambda name: launches[name] / LLM_ROUNDS
+    # the design's launches per round: each of the K uploads and the
+    # broadcast is one K1 launch per row chunk; K3 decodes each upload into
+    # buf (weighted, in place) and the broadcast into x-hat (in place); one
+    # server update
+    want = {"qsgd_quantize_pack_threefry": (k + 1) * chunks,
+            "qsgd_unpack_dequantize": k + 1, "server_update": 1}
+    reckoning = llm_peak_reckoning(d)
+    upload_want = (4 * d + 32 * rows) / 8
     record = {
         "phase": "llm_round", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
-        "cut": "26 -> 8 layers (4 of 13 super-blocks); every width as "
-               "published", "d": d, "param_count": cfg.param_count(),
+        "cut": "none", "d": d, "param_count": cfg.param_count(),
         "dtype": cfg.param_dtype, "seq": LLM_SEQ, "local_batch":
         fl.LOCAL_BATCH, "K": k, "P": qcfg.local_steps,
-        "init_s": init_s, "warmup_round": warm, "rounds": rows,
+        "chunk_rows": LLM_CHUNK_ROWS, "row_chunks": chunks, "remat": True,
+        "init_s": init_s, "warmup_round": warm, "rounds": rows_out,
         "ms_median": statistics.median(ms), "ms_rounds": ms,
         "profiled_round": {"ms": profiled["ms"], "K1": k1, "K3": k3,
+                           "server_update": su,
                            "phases_device_ms": phases,
                            "client_training_device_ms": phases["client"]
-                           - k * (k1["ms_per_launch"] or 0.0),
+                           - k * chunks * (k1["ms_per_launch"] or 0.0),
                            "device_busy_ms": busy,
                            "device_launches": sum(
                                c for c, _ in by_name.values())},
         "peak_bytes": peak, "peak_gb": peak / 1e9,
-        "peak_reckoning_gb": LLM_PEAK_RECKONING_GB,
-        "launches_per_round": {
-            "qsgd_quantize_pack_threefry": per_round(
-                "qsgd_quantize_pack_threefry"),
-            "qsgd_unpack_dequantize": per_round("qsgd_unpack_dequantize")},
-        "upload_bytes": rows[0]["upload_bytes"],
+        "peak_reckoning_gb": reckoning / 1e9,
+        "peak_limit_gb": min(LLM_PEAK_SLACK * reckoning / 1e9,
+                             LLM_PEAK_CAP_GB),
+        "launches_per_round": {n: per_round(n) for n in want},
+        "launches_per_round_formula": {
+            "qsgd_quantize_pack_threefry": "(K + 1) * ceil(rows / chunk_rows)",
+            "qsgd_unpack_dequantize": "K + 1", "server_update": "1"},
+        "upload_bytes": rows_out[0]["upload_bytes"],
         "upload_bytes_formula": "(4*d + 32*ceil(d/128)) / 8"}
     checks = {
-        "losses_finite": all(math.isfinite(r["loss"]) for r in rows + [warm]),
-        "drift_positive": all(r["drift_l1"] > 0 for r in rows),
-        "k1_per_round": per_round("qsgd_quantize_pack_threefry") == k + 1,
-        "k3_per_round": per_round("qsgd_unpack_dequantize") == k + 1,
-        "k1_profiled": k1["launches"] == k + 1,
-        "k3_profiled": k3["launches"] == k + 1,
-        "other_kernels_idle": all(
-            v == 0 for n, v in launches.items()
-            if n not in ("qsgd_quantize_pack_threefry",
-                         "qsgd_unpack_dequantize")),
-        "peak_under_80gb": peak < 80e9,
+        "losses_finite": all(math.isfinite(r["loss"])
+                             for r in rows_out + [warm, profiled]),
+        "drift_positive": all(r["drift_l1"] > 0 for r in rows_out),
+        **{f"{n}_per_round": per_round(n) == v for n, v in want.items()},
+        "k1_profiled": k1["launches"] == want["qsgd_quantize_pack_threefry"],
+        "k3_profiled": k3["launches"] == want["qsgd_unpack_dequantize"],
+        "server_update_profiled": su["launches"] == 1,
+        "other_kernels_idle": all(v == 0 for n, v in launches.items()
+                                  if n not in want),
+        "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
+        and peak < LLM_PEAK_CAP_GB * 1e9,
         "phases_read": all(phases[name] > 0 for name in LLM_PHASES),
-        "upload_bytes_exact": rows[0]["upload_bytes"] == (
-            4 * d + 32 * -(-d // 128)) / 8}
+        "upload_bytes_exact": all(r["upload_bytes"] == upload_want
+                                  for r in rows_out)}
     record["checks"] = checks
     emit(record)
     if not all(checks.values()):
@@ -2669,23 +2715,40 @@ def _plain_threefry_rows(x, key, bits: int, r0: int, r1: int):
     return ref.quantize_pack(x2d.reshape(-1, 128), u.reshape(-1, 128), bits)
 
 
+def _det_values(a: int, b: int, scale: float, salt: int, dtype, dev):
+    """Values of flat elements [a, b) of a vector made from its indices
+    alone (a multiplicative hash, uniform in [-scale/2, scale/2)), so any
+    chunk of it can be made again after a kernel wrote over it."""
+    import torch
+
+    idx = torch.arange(a, b, dtype=torch.int64, device=dev)
+    h = ((idx + salt) * 0x9E3779B1) & 0xFFFFFF
+    return ((h.to(torch.float32) * 2.0 ** -24 - 0.5) * scale).to(dtype)
+
+
 def llm_kernels(dev, d: int, dither_int32: dict,
                 int32_ops_per_s: float) -> dict:
-    """K1 (the threefry upload and broadcast encode) and K3 (the decode,
-    the broadcast decode fused into x-hat + q, and the upload decode fused
-    into the weighted add buf + w_k * dec) at the LLM round's d, against
-    their plain versions taken in row chunks, bit for bit; kernel times
-    (CUDA events), plain times, bounds."""
+    """The round's kernels at its d, against their plain versions taken in
+    row chunks, bit for bit, with kernel times (CUDA events), plain times
+    and bounds: K1 (the threefry upload and broadcast encode) over the
+    whole message and in the round's row chunks at their row offsets
+    (each chunk bit-equal to those rows of the whole); K3 (the plain
+    decode, the weighted add into an f32 sum in place, the broadcast
+    decode added into a bf16 x-hat in place); the server-update kernel on
+    a bf16 state. The in-place kernels' inputs are made from their indices
+    (``_det_values``), so each chunk's plain version runs on the inputs
+    remade."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import qsgd, ref
+    from repro_torch.kernels.server_update import server_update_
 
     rows = ref.rows_for(d)
     chunk = LLM_PLAIN_CHUNK_ROWS
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(d, generator=gen, device=dev) * 1e-3
     x[:1000] = 0.0  # an all-zero bucket
-    acc = torch.randn(d, generator=gen, device=dev) * 1e-2
     key = torch.tensor([0x9E3779B9, 0xFFFFFFF0])
     code_b = 16 * BITS
     out = {}
@@ -2713,73 +2776,152 @@ def llm_kernels(dev, d: int, dither_int32: dict,
                                  f"(max abs err {err})")
         out[name] = rec
 
+    def chunks_of(step):
+        return [(r0, min(rows, r0 + step)) for r0 in range(0, rows, step)]
+
     packed, norms = qsgd.qsgd_quantize_pack_threefry(x, key, BITS)
     torch.cuda.synchronize()
     equal, err = True, 0.0
-    for r0 in range(0, rows, chunk):
-        r1 = min(rows, r0 + chunk)
+    for r0, r1 in chunks_of(chunk):
         p, n = _plain_threefry_rows(x, key, BITS, r0, r1)
         equal &= bits_equal(p, packed[r0:r1]) and bits_equal(n, norms[r0:r1])
         err = max(err, float((n - norms[r0:r1]).abs().max()))
+    k1_bytes = d * 4 + rows * (code_b + 4)
     finish("K1_threefry_llm", equal, err,
            device_ms(lambda: qsgd.qsgd_quantize_pack_threefry(x, key, BITS),
                      5),
-           timed(lambda: [_plain_threefry_rows(x, key, BITS, r, min(
-               rows, r + chunk)) for r in range(0, rows, chunk)]),
-           d * 4 + rows * (code_b + 4),
-           d * dither_int32["bound"], int32_ops_per_s,
+           timed(lambda: [_plain_threefry_rows(x, key, BITS, r0, r1)
+                          for r0, r1 in chunks_of(chunk)]),
+           k1_bytes, d * dither_int32["bound"], int32_ops_per_s,
            "d*4 x + rows*(128*bits/8 + 4)")
-    del x
-    weight = torch.tensor([0.7], device=dev)
-    for name, a, w in (("K3_llm", None, None), ("K3_apply_llm", acc, None),
-                       ("K3_accum_llm", acc, weight)):
-        got = qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=a,
-                                          weight=w)
-        torch.cuda.synchronize()
-        equal, err = True, 0.0
 
-        def plain_rows(r0, r1):
-            sub = None if a is None else a[r0 * 128:min(d, r1 * 128)]
-            return ref.unpack_dequantize(packed[r0:r1], norms[r0:r1], BITS,
-                                         acc=sub, weight=w)
-        for r0 in range(0, rows, chunk):
-            r1 = min(rows, r0 + chunk)
-            want = plain_rows(r0, r1)
-            equal &= bits_equal(want, got[r0:r1])
-            err = max(err, float((want - got[r0:r1]).abs().max()))
-        del got
+    def k1_chunked():
+        return [qsgd.qsgd_quantize_pack_threefry(
+            x[r0 * 128:r1 * 128], key, BITS, row0=r0, total_rows=rows)
+            for r0, r1 in chunks_of(LLM_CHUNK_ROWS)]
+
+    equal, err = True, 0.0
+    for (r0, r1), (p, n) in zip(chunks_of(LLM_CHUNK_ROWS), k1_chunked()):
+        equal &= bits_equal(p, packed[r0:r1]) and bits_equal(n, norms[r0:r1])
+        err = max(err, float((n - norms[r0:r1]).abs().max()))
+        want_p, want_n = ref.quantize_pack_threefry(
+            x[r0 * 128:r0 * 128 + 128 * min(2, r1 - r0)], key, BITS, row0=r0)
+        equal &= bits_equal(want_p, p[:2]) and bits_equal(want_n, n[:2])
+    finish("K1_row_offset_llm", equal, err, device_ms(k1_chunked, 5),
+           timed(lambda: [_plain_threefry_rows(x, key, BITS, r0, r1)
+                          for r0, r1 in chunks_of(chunk)]),
+           k1_bytes, d * dither_int32["bound"], int32_ops_per_s,
+           "d*4 x + rows*(128*bits/8 + 4), in chunks of "
+           f"{LLM_CHUNK_ROWS} rows")
+    del x
+    torch.cuda.empty_cache()
+
+    got = qsgd.qsgd_unpack_dequantize(packed, norms, BITS)
+    torch.cuda.synchronize()
+    equal, err = True, 0.0
+    for r0, r1 in chunks_of(chunk):
+        want = ref.unpack_dequantize(packed[r0:r1], norms[r0:r1], BITS)
+        equal &= bits_equal(want, got[r0:r1])
+        err = max(err, float((want - got[r0:r1]).abs().max()))
+    del got
+    finish("K3_llm", equal, err,
+           device_ms(lambda: qsgd.qsgd_unpack_dequantize(packed, norms,
+                                                         BITS), 5),
+           timed(lambda: [ref.unpack_dequantize(packed[r0:r1], norms[r0:r1],
+                                                BITS)
+                          for r0, r1 in chunks_of(chunk)]),
+           rows * (code_b + 4) + rows * 128 * 4, rows * 128 * 4,
+           F32_OPS_PER_S, "rows*(128*bits/8 + 4) + rows*128*4 out")
+
+    weight = torch.tensor([0.7], device=dev)
+    for name, dtype, w in (("K3_accum_inplace_llm", torch.float32, weight),
+                           ("K3_apply_inplace_bf16_llm", torch.bfloat16,
+                            None)):
+        make = lambda a, b: _det_values(a, b, 2e-2, 5, dtype, dev)
+        acc = torch.empty(d, dtype=dtype, device=dev)
+        for r0, r1 in chunks_of(chunk):
+            acc[r0 * 128:min(d, r1 * 128)] = make(r0 * 128,
+                                                  min(d, r1 * 128))
+        qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=acc, weight=w)
+        torch.cuda.synchronize()
+        equal, err, plain_ms = True, 0.0, 0.0
+        for r0, r1 in chunks_of(chunk):
+            a = make(r0 * 128, min(d, r1 * 128))
+            start = time.perf_counter()
+            want = ref.unpack_dequantize(
+                packed[r0:r1], norms[r0:r1], BITS, acc=a.to(torch.float32),
+                weight=w).reshape(-1)[:a.numel()].to(dtype)
+            torch.cuda.synchronize()
+            plain_ms += 1e3 * (time.perf_counter() - start)
+            seg = acc[r0 * 128:min(d, r1 * 128)]
+            equal &= bits_equal(want, seg)
+            err = max(err, float((want.float() - seg.float()).abs().max()))
+        size = acc.element_size()
         finish(name, equal, err,
                device_ms(lambda: qsgd.qsgd_unpack_dequantize(
-                   packed, norms, BITS, acc=a, weight=w), 5),
-               timed(lambda: [plain_rows(r, min(rows, r + chunk))
-                              for r in range(0, rows, chunk)]),
-               rows * (code_b + 4) + rows * 128 * 4
-               + (0 if a is None else d * 4),
-               rows * 128 * (4 if a is None else 5 if w is None else 6),
-               F32_OPS_PER_S,
-               "rows*(128*bits/8 + 4) + rows*128*4 out"
-               + ("" if a is None else " + d*4 acc"))
-    del packed, norms, acc
+                   packed, norms, BITS, acc=acc, weight=w), 5),
+               plain_ms, rows * (code_b + 4) + 2 * size * d,
+               d * (4 if w is None else 5), F32_OPS_PER_S,
+               f"rows*(128*bits/8 + 4) + d*{size} acc read + d*{size} "
+               "written")
+        del acc
+    del packed, norms
+    torch.cuda.empty_cache()
+
+    # the server update on a bf16 state: buf f32, m, x, x-hat bf16
+    specs = (("buf", torch.float32, 4e-2, 1), ("m", torch.bfloat16, 1e-2, 2),
+             ("x", torch.bfloat16, 2.0, 3), ("xhat", torch.bfloat16, 2.0, 4))
+    state = {}
+    for name, dtype, scale, salt in specs:
+        t = torch.empty(d, dtype=dtype, device=dev)
+        for r0, r1 in chunks_of(chunk):
+            a, b = r0 * 128, min(d, r1 * 128)
+            t[a:b] = _det_values(a, b, scale, salt, dtype, dev)
+        state[name] = t
+    kw = dict(k=4, beta=0.3, lr=1.0)
+    server_update_(state["buf"], state["m"], state["x"], state["xhat"], **kw)
+    torch.cuda.synchronize()
+    equal, err, plain_ms = True, 0.0, 0.0
+    for r0, r1 in chunks_of(chunk):
+        a, b = r0 * 128, min(d, r1 * 128)
+        fresh = [_det_values(a, b, scale, salt, dtype, dev)
+                 for _, dtype, scale, salt in specs]
+        start = time.perf_counter()
+        ref.server_update_(*fresh, inv_k=0.25, beta=float(np.float32(0.3)),
+                           lr=1.0)
+        torch.cuda.synchronize()
+        plain_ms += 1e3 * (time.perf_counter() - start)
+        for (name, _, _, _), want in zip(specs[:3], fresh[:3]):
+            equal &= bits_equal(want, state[name][a:b])
+            err = max(err, float((want.float() - state[name][a:b].float())
+                                 .abs().max()))
+    finish("server_update_llm", equal, err,
+           device_ms(lambda: server_update_(
+               state["buf"], state["m"], state["x"], state["xhat"], **kw), 5),
+           plain_ms, 18 * d, 7 * d, F32_OPS_PER_S,
+           "d*(4 buf + 3*2 m, x, x-hat read + 4 buf + 2*2 m, x written)")
+    del state
     torch.cuda.empty_cache()
     return out
 
 
 def llm_reduced_card_vs_cpu(dev) -> dict:
     """The reduced gemma2-2b round (f32) on the card and the CPU from the
-    same state, batches and keys: 2 rounds, losses within
+    same state, batches and keys, every message in row chunks of
+    ``LLM_REDUCED_CHUNK_ROWS``: 2 rounds, losses within
     ``LLM_REDUCED_LOSS_RTOL`` (the model math's orders differ) and the
     share of x-hat bit-equal; and the server half bit for bit: the same K
     packed client messages and weights through the round's weighted
-    accumulation (``steps.accumulate``: K3 with the fused weighted add) and
-    ``steps.server_half`` on both devices, equal x, x-hat, m and
+    accumulation (``steps.accumulate``: K3's weighted mode in place) and
+    ``steps.server_half`` (the server-update kernel, the chunked K1, K3
+    into x-hat in place) on both devices, equal x, x-hat, m and
     broadcast."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.common import prng
-    from repro_torch.common.tree import tree_leaves, tree_map
-    from repro_torch.core.quantizers import flatten_tree
+    from repro_torch.common.tree import tree_map
     from repro_torch.distributed import steps
     from repro_torch.examples import federated_llm as fl
     from repro_torch.kernels import ops
@@ -2789,10 +2931,11 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
     base = steps.init_round_state(cfg, 0, "cpu")
     runs = {}
     for where in ("cpu", dev):
-        st = steps.RoundState(*(tree_map(lambda t: t.to(where), tr)
-                                for tr in (base.x, base.hidden,
-                                           base.momentum)), t=0)
-        round_fn = steps.make_qafel_round(cfg, qcfg)
+        st = steps.RoundState.from_trees(
+            *(tree_map(lambda t: t.to(where), tr)
+              for tr in (base.x, base.hidden, base.momentum)))
+        round_fn = steps.make_qafel_round(
+            cfg, qcfg, chunk_rows=LLM_REDUCED_CHUNK_ROWS)
         rng = np.random.default_rng(0)
         losses = []
         for step in range(2):
@@ -2801,16 +2944,15 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
             losses.append(float(met["loss"]))
         runs[str(where)] = (st, losses)
     (cpu_st, cpu_l), (card_st, card_l) = runs["cpu"], runs[str(dev)]
-    flat = lambda tree: flatten_tree(tree)[0].cpu()
-    hid_equal = float((flat(cpu_st.hidden).view(torch.int32)
-                       == flat(card_st.hidden).view(torch.int32)).double()
+    hid_equal = float((cpu_st.flat[1].view(torch.int32)
+                       == card_st.flat[1].cpu().view(torch.int32)).double()
                       .mean())
     loss_ok = all(abs(a - b) <= LLM_REDUCED_LOSS_RTOL * abs(a)
                   for a, b in zip(cpu_l, card_l))
 
     # the server half on identical inputs
-    x, layout = flatten_tree(base.x)
-    d = layout.total_size
+    x = base.flat[0]
+    d = x.numel()
     g = torch.Generator().manual_seed(5)
     hidden = x + 2e-3 * torch.randn(d, generator=g)
     m = 1e-3 * torch.randn(d, generator=g)
@@ -2820,19 +2962,20 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
     w = torch.tensor([0.9, 1.0, 0.7, 0.5])
     halves = {}
     for where in ("cpu", dev):
+        xs, hs, ms = (t.clone().to(where) for t in (x, hidden, m))
         buf = torch.zeros(d, device=where)
         for kk in range(4):
-            buf = steps.accumulate(buf, packed[kk].to(where),
-                                   norms[kk].to(where),
-                                   w[kk:kk + 1].to(where), bits=BITS, d=d)
-        xn, hn, mn, (bp, bn) = steps.server_half(
-            x.to(where), hidden.to(where), m.to(where), buf,
-            prng.PRNGKey(9), qcfg=qcfg, sbits=BITS, d=d)
-        halves[str(where)] = [t.cpu() for t in (xn, hn, mn, bp, bn)]
+            steps.accumulate(buf, packed[kk].to(where), norms[kk].to(where),
+                             w[kk:kk + 1].to(where), bits=BITS, d=d)
+        bp, bn = steps.server_half(
+            xs, hs, ms, buf, prng.PRNGKey(9), qcfg=qcfg, sbits=BITS, d=d,
+            chunk_rows=LLM_REDUCED_CHUNK_ROWS)
+        halves[str(where)] = [t.cpu() for t in (xs, hs, ms, bp, bn)]
     half_equal = all(bits_equal(a, b) for a, b in
                      zip(halves["cpu"], halves[str(dev)]))
     record = {"phase": "llm_reduced_card_vs_cpu", "arch": cfg.arch_id,
-              "d": d, "cpu_losses": cpu_l, "card_losses": card_l,
+              "d": d, "chunk_rows": LLM_REDUCED_CHUNK_ROWS,
+              "cpu_losses": cpu_l, "card_losses": card_l,
               "losses_within_rtol": loss_ok,
               "loss_rtol": LLM_REDUCED_LOSS_RTOL,
               "hidden_bit_equal_share": hid_equal,
@@ -2843,13 +2986,219 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
     return record
 
 
+def llm_streamed_vs_whole(dev) -> dict:
+    """gemma2-2b at full width cut to 2 layers (one super-block), bf16:
+    one round at ``chunk_rows=None`` and one at the ragged
+    ``LLM_STREAM_CHUNK_ROWS`` from the same state, batch, weights and key
+    (``RoundState.clone``). x, x-hat, m, the loss, the first client's
+    upload codes and norms and the broadcast's must be bit-equal; the peak
+    ``max_memory_allocated`` of each round above what was allocated before
+    it is recorded (it includes the clones of the two messages). The
+    messages are read through the round's ``on_message`` hook."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+
+    cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_STREAM_LAYERS)
+    qcfg = fl.qafel_config(4)
+    torch.cuda.empty_cache()
+    base = steps.init_round_state(cfg, 1, dev)
+    d = sum(t.numel() for t in tree_leaves(base.x))
+    batch = fl.round_batch(cfg, qcfg, np.random.default_rng(3), LLM_SEQ, dev)
+    weights = torch.tensor([0.9, 1.0, 0.7, 0.5])
+    runs = {}
+    for chunk_rows in (None, LLM_STREAM_CHUNK_ROWS):
+        seen = {}
+
+        def keep(kind, index, packed, norms):
+            if kind == "broadcast" or index == 0:
+                seen[kind] = (packed.clone(), norms.clone())
+
+        state = base.clone()
+        round_fn = steps.make_qafel_round(cfg, qcfg, chunk_rows=chunk_rows,
+                                          on_message=keep)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = round_fn(state, batch, weights, prng.PRNGKey(7))
+        loss = float(met["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs[chunk_rows] = dict(
+            state=state, loss=loss, ms=ms, seen=seen,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            round_peak_gb=(torch.cuda.max_memory_allocated() - before) / 1e9)
+    whole, chunked = runs[None], runs[LLM_STREAM_CHUNK_ROWS]
+    equal = {
+        "x": bits_equal(whole["state"].flat[0], chunked["state"].flat[0]),
+        "hidden": bits_equal(whole["state"].flat[1],
+                             chunked["state"].flat[1]),
+        "momentum": bits_equal(whole["state"].flat[2],
+                               chunked["state"].flat[2]),
+        "loss": whole["loss"] == chunked["loss"],
+        "upload": all(bits_equal(a, b) for a, b in zip(
+            whole["seen"]["upload"], chunked["seen"]["upload"])),
+        "broadcast": all(bits_equal(a, b) for a, b in zip(
+            whole["seen"]["broadcast"], chunked["seen"]["broadcast"]))}
+    record = {"phase": "llm_streamed_vs_whole", "arch": cfg.arch_id,
+              "n_layers": cfg.n_layers, "d": d, "dtype": cfg.param_dtype,
+              "chunk_rows": LLM_STREAM_CHUNK_ROWS,
+              "row_chunks": -(-(-(-d // 128)) // LLM_STREAM_CHUNK_ROWS),
+              "loss": whole["loss"], "bit_equal": equal,
+              **{f"{name}_{key}": r[key]
+                 for name, r in (("whole", whole), ("chunked", chunked))
+                 for key in ("ms", "peak_gb", "round_peak_gb")}}
+    emit(record)
+    runs.clear()
+    del base, whole, chunked
+    torch.cuda.empty_cache()
+    if not all(equal.values()):
+        raise AssertionError(f"llm_streamed_vs_whole: {record}")
+    return record
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     """The LLM round phase; returns (round record, its launches, the
-    K1/K3 cases at its d)."""
+    kernel cases at its d)."""
     record, launches, d = llm_round(dev)
     cases = llm_kernels(dev, d, dither_int32, int32_ops_per_s)
+    llm_streamed_vs_whole(dev)
     llm_reduced_card_vs_cpu(dev)
     return record, launches, cases
+
+
+# the streamed uplink: uploads, bytes per upload (quad, CNN) and the chunk
+# sizes in wire rows (the quad's 2,048 values are 16 rows, the CNN's 624)
+STREAM_QUAD_UPLOADS, STREAM_QUAD_CHUNK = 12, 5
+STREAM_CNN_UPLOADS, STREAM_CNN_CHUNK = 8, 100
+
+
+def _stream_pair(make, uploads: int, chunk_rows: int, batches_of, dev):
+    """Two servers from ``make(device)``: A takes ``run_client`` uploads,
+    B the same uploads as ``run_client_stream`` chunks, delivered last
+    chunk first; the same batches and keys. Returns (A, B, every upload's
+    codes equal, every broadcast equal, K1 launches per streamed upload on
+    the card)."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.kernels import launches as kernel_launches
+
+    a, b = make(dev), make(dev)
+    key = prng.PRNGKey(21)
+    codes_equal = broadcasts_equal = True
+    k1 = []
+    for u in range(uploads):
+        key, k2, k3 = prng.split(key, 3)
+        batches = batches_of(u, dev)
+        ma, _ = a.run_client(batches, k2)
+        before = kernel_launches()["qsgd_quantize_pack_threefry"]
+        msgs, _ = b.run_client_stream(batches, k2, chunk_rows=chunk_rows)
+        k1.append(kernel_launches()["qsgd_quantize_pack_threefry"] - before)
+        codes_equal &= bits_equal(
+            torch.cat([m.payload["packed"] for m in msgs]),
+            ma.payload["packed"]) and bits_equal(
+            torch.cat([m.payload["norms"] for m in msgs]),
+            ma.payload["norms"])
+        ra = a.receive(ma, k3)
+        rb = [b.receive(m, k3) for m in msgs[::-1]][-1]
+        if (ra is None) != (rb is None):
+            broadcasts_equal = False
+        elif ra is not None:
+            broadcasts_equal &= (bits_equal(ra.payload["packed"],
+                                            rb.payload["packed"])
+                                 and ra.wire_bytes == rb.wire_bytes)
+    return a, b, codes_equal, broadcasts_equal, k1
+
+
+def _same_server(a, b) -> bool:
+    return a.state.t == b.state.t and all(
+        bits_equal(getattr(a.state, f).cpu(), getattr(b.state, f).cpu())
+        for f in ("x_flat", "hidden_flat", "momentum_flat"))
+
+
+def streamed_uplink(dev) -> dict:
+    """The streamed uplink (``QAFeL.run_client_stream``, then ``receive``
+    chunk by chunk) against ``run_client`` on the sequential engine: the
+    quickstart's quad (K = 4, 12 uploads, chunks of 5 of its 16 rows) on
+    the card and on the CPU, and the paper's CNN at full width (K = 4, 8
+    uploads, chunks of 100 of its 624 rows) on the card with cuDNN's
+    deterministic algorithms. Streamed and whole must agree bit for bit on
+    every upload's codes, every broadcast, the state and the meters; the
+    quad's streamed server on the card must equal the CPU's; a streamed
+    upload is ceil(rows / chunk) K1 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import cohort_scenarios, quickstart
+
+    def quad(where):
+        return QAFeL(quickstart.CONFIG, quickstart.loss_fn,
+                     {"w": torch.zeros(quickstart.D)}, device=where)
+
+    def quad_batches(u, where):
+        noise = np.random.default_rng(u).standard_normal(
+            (2, quickstart.D)).astype(np.float32)
+        return {"target": torch.from_numpy(quickstart.TARGET
+                                           + 0.1 * noise).to(where)}
+
+    out = {}
+    for where in ("cpu", dev):
+        out[str(where)] = _stream_pair(quad, STREAM_QUAD_UPLOADS,
+                                       STREAM_QUAD_CHUNK, quad_batches, where)
+    qa, qb, q_codes, q_bcast, q_k1 = out[str(dev)]
+    ca, cb = out["cpu"][:2]
+    quad_rows = -(-quickstart.D // 128)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        task = cohort_scenarios.cnn_task(dev)
+        qcfg = cohort_scenarios.qafel_config(4)
+        cnn_batches = [task.client_batches(u, None)
+                       for u in range(STREAM_CNN_UPLOADS)]
+        na, nb, n_codes, n_bcast, n_k1 = _stream_pair(
+            lambda where: QAFeL(qcfg, task.loss_fn, task.params0,
+                                device=where),
+            STREAM_CNN_UPLOADS, STREAM_CNN_CHUNK,
+            lambda u, where: cnn_batches[u], dev)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cnn_rows = -(-na.state.n // 128)
+    checks = {
+        "quad_codes_equal": q_codes and out["cpu"][2],
+        "quad_broadcasts_equal": q_bcast and out["cpu"][3],
+        "quad_state_equal": _same_server(qa, qb) and _same_server(ca, cb),
+        "quad_meters_equal": qa.meter.summary() == qb.meter.summary()
+        == ca.meter.summary() == cb.meter.summary(),
+        "quad_card_equals_cpu": _same_server(qb, cb),
+        "quad_k1_per_upload": set(q_k1) == {-(-quad_rows
+                                              // STREAM_QUAD_CHUNK)},
+        "cnn_codes_equal": n_codes, "cnn_broadcasts_equal": n_bcast,
+        "cnn_state_equal": _same_server(na, nb),
+        "cnn_meters_equal": na.meter.summary() == nb.meter.summary(),
+        "cnn_k1_per_upload": set(n_k1) == {-(-cnn_rows // STREAM_CNN_CHUNK)},
+        "cnn_upload_bytes": nb.meter.upload_bytes
+        == STREAM_CNN_UPLOADS * 42_417}
+    record = {"phase": "streamed_uplink",
+              "quad": {"uploads": STREAM_QUAD_UPLOADS, "rows": quad_rows,
+                       "chunk_rows": STREAM_QUAD_CHUNK, "server_steps":
+                       qb.state.t, "k1_per_upload": q_k1[0]},
+              "cnn": {"uploads": STREAM_CNN_UPLOADS, "rows": cnn_rows,
+                      "chunk_rows": STREAM_CNN_CHUNK, "server_steps":
+                      nb.state.t, "k1_per_upload": n_k1[0],
+                      "meter": nb.meter.summary()},
+              "checks": checks}
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"streamed_uplink: {checks}")
+    return record
 
 
 def main() -> int:
@@ -2910,6 +3259,7 @@ def main() -> int:
     family_cases, family_launches, _ = run_quantizer_family(dev)
     _, population_launches = run_population(dev, hash_int32)
     _, llm_launches, llm_cases = run_llm(dev, dither_int32, int32_ops_per_s)
+    streamed_uplink(dev)
 
     kernels_line = []
     for name, m in cnn.items():
@@ -2929,9 +3279,11 @@ def main() -> int:
         kernels_line[-1]["family_launches"] = family_launches[name]
         kernels_line[-1]["population_launches"] = population_launches[name]
         kernels_line[-1]["llm_round_launches"] = llm_launches[name]
-        llm = {"qsgd_quantize_pack_threefry": ("K1_threefry_llm",),
-               "qsgd_unpack_dequantize": ("K3_llm", "K3_apply_llm",
-                                          "K3_accum_llm")}
+        llm = {"qsgd_quantize_pack_threefry": ("K1_threefry_llm",
+                                               "K1_row_offset_llm"),
+               "qsgd_unpack_dequantize": ("K3_llm",
+                                          "K3_accum_inplace_llm",
+                                          "K3_apply_inplace_bf16_llm")}
         if name in llm:
             kernels_line[-1]["llm_cases"] = {
                 case: {key: llm_cases[case][key] for key in (
@@ -2968,6 +3320,18 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}
                 for case, c in taps.items() if case.startswith(name)}})
+    m = llm_cases["server_update_llm"]
+    kernels_line.append({
+        "name": "server_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/server_update.cu",
+        "replaces": None, "launches": llm_launches["server_update"],
+        "llm_round_launches": llm_launches["server_update"],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None, "equal": m["equal"],
+        "bytes_formula": m["bytes_formula"], "d": m["d"],
+        "launches_note": "the LLM round's 3 measured rounds (one a round); "
+                         "no other path runs it"})
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu",

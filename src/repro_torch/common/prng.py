@@ -112,6 +112,18 @@ def uniform(key, shape, device=None) -> torch.Tensor:
     return (bits(key, shape, device) >> 9).to(torch.float32) * 2.0 ** -23
 
 
+def uniform_range(key, start: int, count: int, device=None) -> torch.Tensor:
+    """Elements ``[start, start + count)`` of the flattened ``uniform(key,
+    shape)`` of any shape holding them (element i's counter is ``(0, i)``,
+    for ``start + count <= 2**32``): the dither of a row chunk of a
+    message, without drawing the rows before it."""
+    key = torch.as_tensor(key)
+    lo = torch.arange(int(start), int(start) + int(count), dtype=torch.int64,
+                      device=key.device if device is None else device)
+    w0, w1 = threefry2x32(key, torch.zeros_like(lo), lo)
+    return ((w0 ^ w1) >> 9).to(torch.float32) * 2.0 ** -23
+
+
 def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (p as f32)."""
     return uniform(key, shape, device) < p

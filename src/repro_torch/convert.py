@@ -44,10 +44,12 @@ def params_from_jax(tree_of_numpy, device=None):
 def round_state_from_jax(state, device=None):
     """The reference's ``distributed.steps.RoundState`` (its trees as
     numpy, e.g. ``jax.device_get(state)``) -> the port's
-    ``distributed.steps.RoundState`` on ``device``."""
+    ``distributed.steps.RoundState`` on ``device``, each leaf in its own
+    dtype: for a tree of one dtype, x, x-hat and m in one flat buffer each
+    with the trees as views (``RoundState.from_trees``)."""
     from repro_torch.distributed.steps import RoundState
 
-    return RoundState(x=params_from_jax(state.x, device),
-                      hidden=params_from_jax(state.hidden, device),
-                      momentum=params_from_jax(state.momentum, device),
-                      t=int(np.asarray(state.t)))
+    return RoundState.from_trees(params_from_jax(state.x, device),
+                                 params_from_jax(state.hidden, device),
+                                 params_from_jax(state.momentum, device),
+                                 t=int(np.asarray(state.t)))

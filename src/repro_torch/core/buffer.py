@@ -5,11 +5,13 @@ window are stored as they arrived on the wire — uint8 qsgd codes + bucket
 norms, stacked at flush time; lowrank's codes over the rank coordinates
 with each upload's basis seed pair; top_k / rand_k index / value pairs —
 or, for identity uploads (f32 on the wire), folded into one flat weighted
-sum. Uploads the server decoded on arrival (a bit-width tier's,
-``add_decoded_flat``) fold into a second flat sum. ``drain()`` hands the
-window's raw ingredients to the server flush, which dequantizes inside its
-fused aggregate launch (qsgd) or expands each upload (lowrank), and resets
-the buffer; the sparse pairs are scatter-added into the flat ``extra``.
+sum. A qsgd upload streamed in row chunks is validated and reassembled
+(``assemble_chunks``) and stored like any other. Uploads the server
+decoded on arrival (a bit-width tier's, ``add_decoded_flat``) fold into a
+second flat sum. ``drain()`` hands the window's raw ingredients to the
+server flush, which dequantizes inside its fused aggregate launch (qsgd)
+or expands each upload (lowrank), and resets the buffer; the sparse pairs
+are scatter-added into the flat ``extra``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import to_device
-from repro_torch.core.quantizers import Quantizer, TreeLayout
+from repro_torch.core.quantizers import (Quantizer, TreeLayout,
+                                         packed_qsgd_payload)
 
 
 @dataclasses.dataclass
@@ -170,6 +173,64 @@ class UpdateBuffer:
         self._weightsum += float(weight)
         self._weights.append(float(weight))
         self.count += 1
+
+    def assemble_chunks(self, chunks: List[dict]) -> dict:
+        """The packed qsgd payload (``quantizers.packed_qsgd_payload``) of
+        one upload that arrived as streamed row chunks
+        (``protocol.packed_qsgd_chunk_payload``), in any order, after
+        validating the whole set; the buffer is not changed. The chunks
+        must be packed_chunk payloads into a qsgd buffer, of one layout, n
+        and bits (the window's, if it has uploads), whose rows cover
+        ``[0, rows_for(n))`` without gap or overlap."""
+        if not chunks:
+            raise ValueError("empty chunk stream")
+        from repro_torch.kernels import ops as kops
+        first = chunks[0]
+        if any(ch.get("format") != "packed_chunk" for ch in chunks):
+            raise ValueError("add_encoded_chunks expects packed_chunk "
+                             "payloads (protocol.packed_qsgd_chunk_payload)")
+        if first["kind"] != "qsgd" or self.quantizer.spec.kind != "qsgd":
+            raise ValueError("chunk streaming is defined for qsgd uploads "
+                             f"(got {first['kind']!r} into a "
+                             f"{self.quantizer.spec.kind!r} buffer)")
+        for ch in chunks[1:]:
+            if (ch["layout"] != first["layout"] or ch["n"] != first["n"]
+                    or ch["bits"] != first["bits"]):
+                raise ValueError("inconsistent chunk stream: all chunks "
+                                 "must share one layout, n and bits")
+        if self._layout is not None:
+            if first["layout"] != self._layout:
+                raise ValueError("message layout mismatch: all buffered "
+                                 "uploads must encode the same tree")
+            if self._bits is not None and first["bits"] != self._bits:
+                raise ValueError(f"message bits mismatch: {first['bits']} "
+                                 f"!= {self._bits}")
+        rows = kops.rows_for(first["n"])
+        ordered = sorted(chunks, key=lambda ch: ch["row0"])
+        cover = 0
+        for ch in ordered:
+            if ch["row0"] != cover:
+                raise ValueError(f"chunk stream has a gap or overlap at row "
+                                 f"{cover} (next chunk starts at "
+                                 f"{ch['row0']})")
+            if ch["norms"].shape[0] != ch["rows"] or ch["rows"] <= 0:
+                raise ValueError("corrupt chunk: rows/norms mismatch")
+            cover += ch["rows"]
+        if cover != rows:
+            raise ValueError(f"chunk stream covers {cover} rows, the "
+                             f"message needs {rows}")
+        return packed_qsgd_payload(
+            torch.cat([ch["packed"] for ch in ordered]),
+            torch.cat([ch["norms"] for ch in ordered]), first["bits"],
+            first["n"], first["layout"])
+
+    def add_encoded_chunks(self, chunks: List[dict],
+                           weight: float = 1.0) -> None:
+        """Store one qsgd upload that arrived as streamed row chunks, in
+        any order: validated and assembled (``assemble_chunks``) before any
+        state changes, then stored as ``add_encoded`` stores an upload, so
+        the flush cannot tell them apart."""
+        self.add_encoded(self.assemble_chunks(chunks), weight=weight)
 
     @property
     def full(self) -> bool:

@@ -9,7 +9,9 @@ norm per 128-coordinate bucket for qsgd (over the rank coordinates for
 lowrank), 64 bits per kept coordinate for the sparse kinds, 32 bits per
 coordinate for identity.
 Broadcasts fan out: one server message reaches every client still training,
-so ``TrafficMeter.record`` takes the receiver count.
+so ``TrafficMeter.record`` takes the receiver count. A streamed upload
+(``packed_qsgd_chunk_payload``, ``frame_chunk_messages``) meters as one
+upload of exactly the unstreamed message's bytes.
 """
 from __future__ import annotations
 
@@ -94,6 +96,42 @@ def frame_cohort_messages(kind: str, quantizer: Quantizer, out: dict,
             for enc in payloads_from_fused(quantizer, out, layout, enc_keys,
                                            count=count,
                                            basis_seed=basis_seed)]
+
+
+def packed_qsgd_chunk_payload(packed_c, norms_c, bits: int, n: int,
+                              layout: TreeLayout, *, row0: int, seq: int,
+                              last: bool) -> dict:
+    """One streamed segment of a packed qsgd upload: ``packed_c`` /
+    ``norms_c`` are the wire rows ``[row0, row0 + len(norms_c))`` of the
+    whole ``(rows_for(n), ...)`` message. Each chunk carries bits, n and
+    the layout, so a receiver validates it before any state changes."""
+    return {"format": "packed_chunk", "kind": "qsgd", "packed": packed_c,
+            "norms": norms_c, "bits": bits, "n": n, "layout": layout,
+            "row0": int(row0), "rows": int(norms_c.shape[0]),
+            "seq": int(seq), "last": bool(last)}
+
+
+def frame_chunk_messages(kind: str, quantizer: Quantizer, chunks: List[dict],
+                         layout: TreeLayout, *, version: int = 0,
+                         stream: int = 0, client=None) -> List[Message]:
+    """Frame the streamed chunks of one upload as Messages, each meta
+    with the ``version``, the ``stream`` id and, when given, the
+    ``client`` id: the receiver holds a stream's chunks by these three. A
+    chunk's bytes are its codes plus one f32 norm per row; the last chunk
+    absorbs the metering remainder, so the stream totals exactly
+    ``wire_bytes_packed(layout)``, the unstreamed message's bytes."""
+    total = quantizer.wire_bytes_packed(layout)
+    meta = {"version": version, "stream": stream}
+    if client is not None:
+        meta["client"] = client
+    msgs, spent = [], 0.0
+    for ch in chunks:
+        wire = (total - spent if ch["last"]
+                else float(ch["packed"].numel() + 4 * ch["rows"]))
+        spent += wire
+        msgs.append(Message(kind=kind, payload=ch, wire_bytes=wire,
+                            meta=dict(meta)))
+    return msgs
 
 
 def encode_message_flat(kind: str, quantizer: Quantizer, flat, layout, key,
@@ -186,6 +224,16 @@ class TrafficMeter:
             self.broadcast_bytes += msg.wire_bytes * n_receivers
             self.broadcast_wire_bytes += msg.wire_bytes
             self.broadcast_receivers += n_receivers
+
+    def record_stream(self, enc, stream_bytes: float):
+        """One complete streamed upload: its chunks' summed bytes count as
+        one upload, of the kind its chunks describe."""
+        self.uploads += 1
+        self.upload_bytes += stream_bytes
+        label = payload_kind_label(enc)
+        self.uploads_by_kind[label] = self.uploads_by_kind.get(label, 0) + 1
+        self.upload_bytes_by_kind[label] = (
+            self.upload_bytes_by_kind.get(label, 0.0) + stream_bytes)
 
     def record_dropped(self, msg: Message):
         """An upload rejected at the server (staleness bound exceeded)."""

@@ -27,6 +27,12 @@ reference's simulator does, keyed by client id.
 
 FedBuff is QAFeL with identity quantizers (``core.fedbuff``).
 
+``QAFeL(chunk_rows=)`` encodes each upload that many wire rows at a time,
+bit for bit the unchunked codes, forming a b = 1 qsgd delta chunk by
+chunk; ``run_client_stream`` sends the upload as row-chunk messages,
+which ``receive`` reassembles (``UpdateBuffer.add_encoded_chunks``) and
+meters as one upload of the unstreamed message's bytes.
+
 ``QAFeL(..., telemetry=tracer)`` attaches an ``obs.RunTracer``: one typed
 event per upload, drop, flush and broadcast and, when the tracer has
 ``taps=True``, the client step's and the flush's metric taps on them (one
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -44,14 +51,17 @@ import torch
 
 from repro_torch.common import prng
 from repro_torch.common.device import resolve_device
-from repro_torch.common.tree import tree_leaves
+from repro_torch.common.tree import (tree_flatten, tree_leaves,
+                                     tree_unflatten)
 from repro_torch.core.buffer import UpdateBuffer
 from repro_torch.core.hidden_state import HiddenState
 from repro_torch.core.protocol import (CLIENT_UPDATE, HIDDEN_BROADCAST,
                                        Message, TrafficMeter,
                                        encode_message_flat,
+                                       frame_chunk_messages,
                                        frame_cohort_messages,
-                                       frame_packed_message)
+                                       frame_packed_message,
+                                       packed_qsgd_chunk_payload)
 from repro_torch.core.quantizers import (Quantizer, TreeLayout, flatten_tree,
                                          make_quantizer,
                                          packed_identity_payload,
@@ -88,83 +98,143 @@ class QAFeLConfig:
 # ---------------------------------------------------------------------------
 
 
-def round_to_leaf_dtypes_(layout: TreeLayout, flat: torch.Tensor):
-    """Round each leaf's segment of an f32 flat vector to the leaf's dtype
-    and back, in place: a bf16 leaf keeps bf16 values, as the reference's
-    tree does between its ops. A no-op for an all-f32 layout. Returns
-    ``flat``."""
-    off = 0
-    for dt, size in zip(layout.dtypes, layout.sizes):
-        if dt != "float32":
-            seg = flat[off:off + size]
-            seg.copy_(seg.to(getattr(torch, dt)))
-        off += size
-    return flat
+def _sgd_leaf_(y: torch.Tensor, g: torch.Tensor, lr: float,
+               inplace: bool) -> torch.Tensor:
+    """One step ``y - lr*g`` of one leaf in its dtype, as the reference's
+    jitted scan body compiles it on XLA:CPU (read from its optimised HLO):
+    an f32 leaf is one fused multiply-add, ``fma(-lr, g, y)``; a bf16 leaf
+    keeps both of the reference's bf16 roundings, the Python float ``lr``
+    being weakly typed: ``p = bf16(g * bf16(lr))``, then ``bf16(y - p)``,
+    each op in f32. ``inplace`` writes the step over ``y`` (and a bf16
+    leaf's ``g``)."""
+    lr32 = float(np.float32(lr))  # the f32 learning rate, as XLA has it
+    if y.dtype == torch.float32:
+        new = fma_f32(g.to(torch.float32), -lr32, y)
+        return y.copy_(new) if inplace else new
+    if y.dtype != torch.bfloat16:
+        raise ValueError(f"local SGD on a {y.dtype} leaf")
+    prod = g.to(torch.bfloat16).mul_(
+        float(torch.tensor(lr32).to(torch.bfloat16)))
+    return y.sub_(prod) if inplace else y - prod
 
 
-def _sgd_step(layout: TreeLayout, y: torch.Tensor, grads, lr: float):
-    """One step ``y - lr*g`` on the flat ``y`` in each leaf's dtype, as
-    the reference's jitted scan body compiles it on XLA:CPU (read from its
-    optimised HLO): an f32 leaf is one fused multiply-add, ``fma(-lr, g,
-    y)`` (with a separately rounded product the two packages drift apart
-    by an ulp per step even where their gradients agree bit for bit); a
-    bf16 leaf keeps both of the reference's bf16 roundings, the Python
-    float ``lr`` being weakly typed: ``p = bf16(g * bf16(lr))``, then
-    ``bf16(y - p)``, each op in f32 and rounded to bf16."""
-    neg_lr = -float(np.float32(lr))  # the f32 learning rate, as XLA has it
-    if all(dt == "float32" for dt in layout.dtypes):
-        g_flat = torch.cat([gi.reshape(-1) for gi in grads])
-        return fma_f32(g_flat, neg_lr, y)
-    lr_b = float(torch.tensor(-neg_lr).to(torch.bfloat16))
-    out, off = torch.empty_like(y), 0
-    for gi, dt, size in zip(grads, layout.dtypes, layout.sizes):
-        yi, gi, oi = y[off:off + size], gi.reshape(-1), out[off:off + size]
-        if dt == "float32":
-            oi.copy_(fma_f32(gi.to(torch.float32), neg_lr, yi))
-        elif dt == "bfloat16":
-            prod = (gi.to(torch.float32) * lr_b).to(torch.bfloat16)
-            oi.copy_((yi - prod.to(torch.float32)).to(torch.bfloat16))
-        else:
-            raise ValueError(f"local SGD on a {dt} leaf")
-        off += size
-    return out
-
-
-def local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
-              batches, keys, *, with_loss: bool = False):
-    """Algorithm 2 lines 2-4: P plain SGD steps from the flat ``y0_flat``
-    (``layout``'s coordinates), step p on ``batches[..][p]`` with
-    ``keys[p]``; the loss sees the parameter tree, in each leaf's dtype.
-    Each step rounds as ``_sgd_step`` says. Returns the final flat
-    parameters, and with ``with_loss`` also the (P,) losses of the steps
-    (the distributed round's metric)."""
-    step_fn = (torch.func.grad_and_value(loss_fn) if with_loss
-               else torch.func.grad(loss_fn))
-    y, losses = y0_flat, []
+def _local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
+               batches, keys, *, with_loss: bool, remat: bool):
+    """``local_sgd``'s loop. Returns ``(y_flat, leaves, losses)``:
+    ``y_flat`` the final flat f32 parameters of an all-f32 layout (None
+    otherwise) and ``leaves`` the final leaves, views of it where it
+    exists."""
+    if remat:
+        def step_fn(tree, batch, key):
+            leaves, treedef = tree_flatten(tree)
+            leaves = [t.detach().requires_grad_() for t in leaves]
+            loss = loss_fn(tree_unflatten(treedef, leaves), batch, key)
+            grads = torch.autograd.grad(loss, leaves)
+            g = tree_unflatten(treedef, list(grads))
+            return (g, loss.detach()) if with_loss else g
+    else:
+        step_fn = (torch.func.grad_and_value(loss_fn) if with_loss
+                   else torch.func.grad(loss_fn))
+    f32 = all(dt == "float32" for dt in layout.dtypes)
+    y_flat = y0_flat.to(torch.float32) if f32 else None
+    leaves = tree_leaves(layout.unflatten(y0_flat))
+    losses = []
     for p in range(len(keys)):
         batch = {k: v[p] for k, v in batches.items()}
-        out = step_fn(layout.unflatten(y), batch, keys[p])
+        out = step_fn(tree_unflatten(layout.treedef, leaves), batch, keys[p])
         g = out[0] if with_loss else out
         if with_loss:
             losses.append(out[1].detach().to(torch.float32))
-        y = _sgd_step(layout, y, tree_leaves(g), lr)
+        if f32:
+            g_flat = torch.cat([gi.reshape(-1) for gi in tree_leaves(g)])
+            y_flat = fma_f32(g_flat, -float(np.float32(lr)), y_flat)
+            leaves = tree_leaves(layout.unflatten(y_flat))
+            del g_flat
+        else:
+            leaves = [_sgd_leaf_(yi, gi, lr, inplace=p > 0)
+                      for yi, gi in zip(leaves, tree_leaves(g))]
         del g, out
-    return (y, torch.stack(losses)) if with_loss else y
+    return (y_flat if f32 else None), leaves, (
+        torch.stack(losses) if with_loss else None)
+
+
+def local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
+              batches, keys, *, with_loss: bool = False,
+              remat: bool = False):
+    """Algorithm 2 lines 2-4: P plain SGD steps from the flat ``y0_flat``
+    (``layout``'s coordinates, f32 or the leaves' one dtype), step p on
+    ``batches[..][p]`` with ``keys[p]``; the loss sees the parameter
+    tree, in each leaf's dtype. Returns the final parameter tree, and
+    with ``with_loss`` also the (P,) losses of the steps (the distributed
+    round's metric).
+
+    Each step rounds as the reference's jitted scan body on XLA:CPU (read
+    from its optimised HLO): an all-f32 tree steps its flat vector with
+    one fused multiply-add, ``fma(-lr, g, y)`` (with a separately rounded
+    product the two packages drift apart by an ulp per step even where
+    their gradients agree bit for bit); a bf16 leaf keeps both of the
+    reference's bf16 roundings, and any other tree steps leaf by leaf
+    (``_sgd_leaf_``). y stays in the leaves' dtypes: the first step writes
+    new leaves, the later ones step them in place, so no f32 vector of
+    length d is built for a bf16 model.
+
+    ``remat=True`` takes the gradient with ``torch.autograd.grad``, under
+    which a loss that wraps its blocks in ``torch.utils.checkpoint``
+    recomputes them in the backward pass (``torch.func.grad``, the
+    default, does not run the checkpoint); the values are the same. It
+    does not run under ``torch.func.vmap``."""
+    _, leaves, losses = _local_sgd(loss_fn, lr, layout, y0_flat, batches,
+                                   keys, with_loss=with_loss, remat=remat)
+    tree = tree_unflatten(layout.treedef, leaves)
+    return (tree, losses) if with_loss else tree
+
+
+class DeltaRows:
+    """A client's delta ``y_P - y_0`` in the flat wire coordinates, formed
+    on request one element range at a time (``rows(a, b)``): each leaf's
+    segment ``y - x_hat`` in f32, rounded to the leaf's dtype as the
+    reference subtracts its trees, as f32. The row-chunked upload encodes
+    it chunk by chunk, so no f32 vector of length d is built."""
+
+    def __init__(self, layout: TreeLayout, y_flat, leaves, x_hat_flat):
+        self.layout, self.y_flat, self.leaves = layout, y_flat, leaves
+        self.x_hat_flat = x_hat_flat
+        self.n = layout.total_size
+
+    def rows(self, a: int, b: int) -> torch.Tensor:
+        """The f32 delta of flat elements ``[a, b)``."""
+        if self.y_flat is not None:
+            return (self.y_flat[a:b]
+                    - self.x_hat_flat[a:b].to(torch.float32))
+        pieces, off = [], 0
+        for leaf, size in zip(self.leaves, self.layout.sizes):
+            lo, hi = max(a, off), min(b, off + size)
+            if lo < hi:
+                d = (leaf.reshape(-1)[lo - off:hi - off].to(torch.float32)
+                     - self.x_hat_flat[lo:hi].to(torch.float32))
+                pieces.append(d if leaf.dtype == torch.float32 else
+                              d.to(leaf.dtype).to(torch.float32))
+            off += size
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
 def client_update(loss_fn: Callable, qcfg: QAFeLConfig, layout: TreeLayout,
-                  x_hat_flat, batches, key, *, with_loss: bool = False):
+                  x_hat_flat, batches, key, *, with_loss: bool = False,
+                  remat: bool = False, streamed: bool = False):
     """Algorithm 2: y_0 <- x-hat; P local SGD steps; delta = y_P - y_0
-    (the text's sign convention, as in the reference), all flat in
-    ``layout``'s coordinates; a bf16 leaf's delta is rounded to bf16, as
-    the reference subtracts its trees. ``batches`` leaves have leading
-    dim P. Returns the unquantized flat delta, and with ``with_loss``
-    also the (P,) losses."""
+    (the text's sign convention, as in the reference), in ``layout``'s
+    flat coordinates; a bf16 leaf's delta is rounded to bf16, as the
+    reference subtracts its trees. ``batches`` leaves have leading dim P.
+    Returns the unquantized flat f32 delta, or with ``streamed`` a
+    ``DeltaRows`` that forms it one range at a time; with ``with_loss``
+    also the (P,) losses. ``remat`` as in ``local_sgd``."""
     keys = prng.split(key, qcfg.local_steps)
-    out = local_sgd(loss_fn, qcfg.client_lr, layout, x_hat_flat, batches,
-                    keys, with_loss=with_loss)
-    y_final, losses = out if with_loss else (out, None)
-    delta = round_to_leaf_dtypes_(layout, y_final - x_hat_flat)
+    y_flat, leaves, losses = _local_sgd(
+        loss_fn, qcfg.client_lr, layout, x_hat_flat, batches, keys,
+        with_loss=with_loss, remat=remat)
+    delta = DeltaRows(layout, y_flat, leaves, x_hat_flat)
+    if not streamed:
+        delta = delta.rows(0, delta.n)
     return (delta, losses) if with_loss else delta
 
 
@@ -172,7 +242,9 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        hidden_flat, batches, k_train, k_enc, *, b: int = 1,
                        member_chunk: Optional[int] = None,
                        taps: bool = False, residual=None,
-                       basis_seed=None, with_loss: bool = False):
+                       basis_seed=None, with_loss: bool = False,
+                       chunk_rows: Optional[int] = None,
+                       remat: bool = False):
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
@@ -185,19 +257,29 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
     identity and the sparse kinds, and with ``taps`` the ``"taps"`` rows;
     ``with_loss`` returns ``(out, losses)``, the members' (b, P) (at b = 1
     (P,)) step losses, the distributed round's metric.
+
+    ``chunk_rows`` encodes the upload ``chunk_rows`` wire rows at a time,
+    bit for bit the unchunked codes; a qsgd upload at b = 1 forms its
+    delta chunk by chunk too (``kernels.ops.cohort_train_encode_step``).
+    ``remat`` takes local SGD's gradient through ``torch.autograd``
+    (``local_sgd``), at b = 1 only.
     """
     lowrank = spec.kind == "lowrank"
     if lowrank and basis_seed is None:
         raise ValueError("a lowrank client step needs the round's basis "
                          "seed pair")
+    if remat and b > 1:
+        raise NotImplementedError(
+            "remat under the vmapped cohort step (b > 1): torch.func.vmap "
+            "does not run torch.autograd.grad; ROADMAP queue A item 13b")
     return kops.cohort_train_encode_step(
         functools.partial(client_update, loss_fn, qcfg, layout,
-                          with_loss=with_loss), hidden_flat,
+                          with_loss=with_loss, remat=remat), hidden_flat,
         batches, k_train, k_enc, b=b, with_loss=with_loss,
         bits=spec.bits if spec.kind in ("qsgd", "lowrank") else None,
         member_chunk=member_chunk, taps=taps,
         group=spec.group if lowrank else None, basis_seed=basis_seed,
-        residual=residual)
+        residual=residual, chunk_rows=chunk_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +355,18 @@ class QAFeL:
     ``basis_seed`` keys the lowrank sketch bases of the run."""
 
     def __init__(self, qcfg: QAFeLConfig, loss_fn: Callable, params0,
-                 device=None, telemetry=None, basis_seed: int = 0):
+                 device=None, telemetry=None, basis_seed: int = 0,
+                 chunk_rows: Optional[int] = None):
         self.qcfg = qcfg
+        # encode the client uploads this many wire rows at a time (bit for
+        # bit the unchunked codes); the streamed uplink's default chunk
+        if chunk_rows is not None and int(chunk_rows) <= 0:
+            raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+        self.chunk_rows = None if chunk_rows is None else int(chunk_rows)
+        # streamed uploads in flight, by (client, stream, version), and
+        # the ids of the streams this instance frames
+        self._pending_chunks: Dict[Any, list] = {}
+        self._stream_ids = itertools.count()
         self.basis_seed = int(basis_seed)
         # lowrank error-feedback residuals, one (d,) row per client id
         self._residuals: Dict[Any, torch.Tensor] = {}
@@ -335,7 +427,8 @@ class QAFeL:
                   "basis_seed": self.round_basis_seed()}
         out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
                                  st.layout, st.hidden_flat, batches, k_train,
-                                 k_enc, taps=self._taps, **kw)
+                                 k_enc, taps=self._taps,
+                                 chunk_rows=self.chunk_rows, **kw)
         if kw:
             self.store_residuals([client], out["residual"])
         msg = frame_cohort_messages(CLIENT_UPDATE, self.cq, out, st.layout,
@@ -344,6 +437,46 @@ class QAFeL:
         if self._taps:
             msg.meta["taps"] = named_cohort_taps(out["taps"][0])
         return msg, st.t
+
+    def run_client_stream(self, batches, key, *,
+                          chunk_rows: Optional[int] = None,
+                          client=None) -> Tuple[list, int]:
+        """Algorithm 2 with a streamed uplink: local SGD as in
+        ``run_client`` (``k_train, k_enc = split(key)``), then the delta
+        formed and encoded ``chunk_rows`` wire rows at a time (the
+        argument, else ``QAFeL(chunk_rows=)``), each chunk one K1 launch
+        at its global row offset (``kernels.ops.qsgd_encode_chunks``): the
+        chunks reassemble to ``run_client``'s message bit for bit, and
+        neither the f32 delta nor the whole message is built. Returns
+        ``(chunk messages, version)``; each message's meta carries the
+        ``version``, a ``stream`` id no other stream of this instance has
+        and, when given, the ``client`` id. ``receive`` takes the messages
+        in any order, interleaved with other streams, and buffers the
+        upload when its chunks hold all its rows. qsgd client quantizers
+        only."""
+        if self.cq.spec.kind != "qsgd":
+            raise ValueError("streamed uploads are defined for qsgd client "
+                             f"quantizers (got {self.cq.spec.kind!r})")
+        c = self.chunk_rows if chunk_rows is None else int(chunk_rows)
+        if c is None or c <= 0:
+            raise ValueError("run_client_stream needs a positive chunk_rows "
+                             "(argument or QAFeL(chunk_rows=...))")
+        k_train, k_enc = prng.split(key)
+        st = self.state
+        delta = client_update(self.loss_fn, self.qcfg, st.layout,
+                              st.hidden_flat, batches, k_train,
+                              streamed=True)
+        n, bits = st.n, self.cq.spec.bits
+        rows = kops.rows_for(n)
+        chunks = [packed_qsgd_chunk_payload(p_c, n_c, bits, n, st.layout,
+                                            row0=r0, seq=i, last=r1 == rows)
+                  for i, (r0, r1, p_c, n_c) in enumerate(
+                      kops.qsgd_encode_chunks(delta.rows, n, k_enc, bits, c))]
+        msgs = frame_chunk_messages(CLIENT_UPDATE, self.cq, chunks,
+                                    st.layout, version=st.t,
+                                    stream=next(self._stream_ids),
+                                    client=client)
+        return msgs, st.t
 
     # -- checkpoint / resume ----------------------------------------------
     def save_checkpoint(self, path) -> None:
@@ -366,7 +499,12 @@ class QAFeL:
         quantizer is buffered packed (undecoded); one of another bit width,
         kind or sketch group — a tier's — is decoded on arrival (K3 at its
         own bits for qsgd and lowrank) into the buffer's flat sum.
-        ``n_receivers`` is the broadcast's fan-out for byte accounting."""
+        ``n_receivers`` is the broadcast's fan-out for byte accounting.
+        A chunk of a streamed upload (``run_client_stream``) is held until
+        its stream's last chunk (``_receive_chunk``)."""
+        if (isinstance(msg.payload, dict)
+                and msg.payload.get("format") == "packed_chunk"):
+            return self._receive_chunk(msg, key, n_receivers)
         version = msg.meta["version"]
         if version > self.state.t:
             raise ValueError(
@@ -401,6 +539,57 @@ class QAFeL:
         else:
             self.buffer.add_decoded_flat(self.cq.decode_flat(payload),
                                          weight=w, layout=payload["layout"])
+        if not self.buffer.full:
+            return None
+        return self._flush(key, n_receivers)
+
+    def _receive_chunk(self, msg: Message, key,
+                       n_receivers: int) -> Optional[Message]:
+        """One chunk of a streamed upload, held by its (client, stream,
+        version) key. The stream completes when its chunks hold as many
+        rows as the message has, in whatever order they came (the
+        reference waits for the chunk flagged last, and refuses a stream
+        whose last chunk came first). Its chunks are then validated and
+        assembled (``UpdateBuffer.assemble_chunks``) before anything else
+        changes: a malformed stream raises and is discarded, and the
+        meters, the staleness monitor, the telemetry and the buffer are
+        left as they were. A valid stream meters as one upload, with its
+        summed chunk bytes (the unstreamed message's exactly,
+        ``protocol.frame_chunk_messages``); the staleness decision and the
+        buffer insert also happen once, then, against the server clock at
+        that time."""
+        version = msg.meta["version"]
+        if version > self.state.t:
+            raise ValueError(
+                f"message version {version} is ahead of the server clock "
+                f"t={self.state.t} (clock skew or replay)")
+        sid = (msg.meta.get("client", -1), msg.meta.get("stream", 0), version)
+        pend = self._pending_chunks.setdefault(sid, [[], 0.0])
+        pend[0].append(msg.payload)
+        pend[1] += msg.wire_bytes
+        if (sum(ch["rows"] for ch in pend[0])
+                < kops.rows_for(msg.payload["n"])):
+            return None
+        chunks, stream_bytes = self._pending_chunks.pop(sid)
+        enc = self.buffer.assemble_chunks(chunks)
+        tau = self.state.t - version
+        if self.staleness.would_drop(tau):
+            self.meter.uploads_dropped += 1
+            self.meter.dropped_bytes += stream_bytes
+            self.staleness.record_dropped(tau)
+            if self.telemetry is not None:
+                self.telemetry.emit("drop", step=self.state.t,
+                                    client=msg.meta.get("client", -1),
+                                    tau=tau, reason="stale")
+            return None
+        self.meter.record_stream(enc, stream_bytes)
+        self.staleness.observe(tau)
+        w = (1.0 / math.sqrt(1.0 + tau)) if self.qcfg.staleness_scaling else 1.0
+        if self.telemetry is not None:
+            self.telemetry.emit("upload", step=self.state.t,
+                                client=msg.meta.get("client", -1),
+                                tau=tau, weight=w)
+        self.buffer.add_encoded(enc, weight=w)
         if not self.buffer.full:
             return None
         return self._flush(key, n_receivers)

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.common import prng
 from repro_torch.common.tree import tree_flatten, tree_unflatten
-from repro_torch.kernels.ref import (LANES, fma_f32, rows2d, sqrt_f32,
-                                     xla_sum)
+from repro_torch.kernels.ref import (LANES, fma_f32, rows2d, rows_for,
+                                     sqrt_f32, xla_sum)
 
 _KINDS = ("qsgd", "top_k", "rand_k", "identity", "lowrank")
 
@@ -314,8 +314,31 @@ def _rand_k_qdq_flat(x: torch.Tensor, key, k: int,
     return out.to(x.dtype)
 
 
+def qsgd_encode_rows(x3d: torch.Tensor, seeds, bits: int, row_off: int, *,
+                     chunk_rows=None):
+    """Counter-hash quantize-pack of an f32 (B, R, 128) row block whose
+    first row is wire row ``row_off`` of its messages: K2 with that row
+    offset, so any tiling of the rows emits the whole message's wire bits.
+    ``chunk_rows`` encodes ``chunk_rows`` rows at a time
+    (``kernels.ops.qsgd_encode_chunks``; the tail chunk as it is: the
+    reference pads it with zero rows, which encode to zero codes and are
+    sliced off). ``seeds`` is the (B, 2) word stack.
+    Returns ``(packed (B, R, 16*bits), norms (B, R))``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import qsgd as _kq
+
+    b, rows = x3d.shape[0], x3d.shape[1]
+    if chunk_rows is None or chunk_rows >= rows:
+        return _kq.qsgd_quantize_pack_batch(x3d.contiguous(), seeds, bits,
+                                            row0=row_off)
+    return kops.qsgd_quantize_rows(
+        lambda a, e: x3d[:, a // LANES:e // LANES].reshape(b, -1),
+        rows * LANES, seeds, bits, chunk_rows, device=x3d.device, b=b,
+        threefry=False, row0=row_off)
+
+
 def qsgd_encode_flat2d(flat2d: torch.Tensor, keys, bits: int, *,
-                       threefry: bool = False):
+                       threefry: bool = False, chunk_rows=None):
     """Quantize-pack a (B, n) stack in wire layout.
 
     ``threefry=True`` (B == 1, ``keys`` one key) is the single-message
@@ -323,14 +346,23 @@ def qsgd_encode_flat2d(flat2d: torch.Tensor, keys, bits: int, *,
     engine's upload. ``threefry=False`` (``keys`` a (B, 2) stack) is the
     batched counter-hash convention of the broadcast encode.
 
+    ``chunk_rows`` encodes ``chunk_rows`` wire rows at a time, each chunk
+    keyed by its global row offset (K1 or K2 with a row offset): the codes
+    are the unchunked encode's bit for bit at any chunk size.
+
     Returns ``(packed uint8 (B, rows, 16*bits), norms f32 (B, rows))``.
     """
     from repro_torch.kernels import ops as kops
 
+    b, n = flat2d.shape
+    if threefry and b != 1:
+        raise ValueError("threefry dither is the single-message path; "
+                         f"got B={b}")
+    if chunk_rows is not None and chunk_rows < rows_for(n):
+        return kops.qsgd_quantize_rows(lambda a, e: flat2d[:, a:e], n, keys,
+                                       bits, chunk_rows, device=flat2d.device,
+                                       b=b, threefry=threefry)
     if threefry:
-        if flat2d.shape[0] != 1:
-            raise ValueError("threefry dither is the single-message path; "
-                             f"got B={flat2d.shape[0]}")
         packed, norms = kops.qsgd_quantize(flat2d[0], keys, bits)
         return packed[None], norms[None]
     return kops.qsgd_quantize_batch(flat2d, keys, bits)

@@ -8,49 +8,69 @@ Counterpart of the baseline round of ``repro/distributed/steps.py``
   shared hidden state with its own batch slice: ``core.qafel
   .client_update_flat`` at b = 1 (flat x-hat in, real packed qsgd wire
   codes out: K1, the threefry upload encode), then the server decodes the
-  client's own wire bits (K3) and accumulates ``buf + w_k * dec``.
-* The server half (``server_half``): ``delta_bar = buf * (1/K)``, the
-  FedBuff momentum and update, the broadcast diff ``x_new - x-hat``
-  encoded with the threefry dither (K1) and decoded (K3), ``x-hat + q``.
-* The state enters and leaves as trees in the leaves' dtypes (bf16 for
-  gemma2-2b): ``layout.unflatten`` rounds x, x-hat and m to nearest even
-  every round, as the reference's does.
+  client's own wire bits and adds them, weighted, into the f32 sum ``buf``
+  in place (K3, ``accumulate``).
+* The server half (``server_half``): the server-update kernel
+  (``kernels.server_update``: ``delta_bar = buf * fl32(1/K)``, the FedBuff
+  momentum and update, the broadcast diff ``x_new - x-hat`` left in
+  ``buf``), the diff encoded with the threefry dither (K1) and its decode
+  added into x-hat in place (K3).
+* ``chunk_rows`` encodes every message ``chunk_rows`` wire rows at a time,
+  each chunk keyed by its global row offset, so the round's bits are the
+  same at any chunking; a client then forms its delta chunk by chunk too,
+  and only the codes and the norms of its upload exist whole.
+* ``remat`` (the default, as in the reference) recomputes each
+  super-block in local SGD's backward pass: the gradient is taken with
+  ``torch.autograd.grad`` (``core.qafel.local_sgd``), under which the
+  model's ``torch.utils.checkpoint`` runs; the values are those of
+  ``remat=False``, which takes ``torch.func.grad``.
 
-Per round: K + 1 launches of K1 and K + 1 of K3 on the card (each client's
-decode and weighted add is one K3 launch, ``accumulate``). The phases run
-under ``torch.profiler.record_function`` ranges named ``"client"`` (local
-SGD and the K1 upload encode), ``"accumulate"`` (K3 into ``buf``),
-``"server"`` (the momentum and the update) and ``"broadcast"`` (K1, K3 and
-the hidden-state apply), so a profiled round reads its time by phase. Every product
-and sum of the server half rounds where the reference's jitted round
-rounds on XLA:CPU (``server_half``), so the wire bits, x, x-hat and m are
-the reference's bit for bit for the same client messages; the model math
-(forward, gradients) agrees within a tolerance (tests/
+**The state is updated in place**, unlike the reference's functional
+round: where every leaf has one dtype (every config of ``configs``),
+``RoundState`` holds x, x-hat and m as one flat buffer each in that dtype
+(``RoundState.flat``), its trees are views of them, and ``round_fn``
+updates the buffers and returns the same state with ``t + 1``. A caller
+that keeps the state from before a round clones it
+(``RoundState.clone``). The memory it saves is what lets gemma2-2b run
+at its published depth on one card. A mixed-dtype tree goes through f32
+copies of the three vectors and leaves as a new state. x, x-hat and m are
+rounded to the leaves' dtype, nearest even, as the reference's
+``layout.unflatten`` rounds them every round.
+
+Per round, with R = ceil(d/128) wire rows in ``ceil(R / chunk_rows)``
+chunks (1 without ``chunk_rows``): K1 (K + 1) x chunks launches, K3 K + 1
+and the server update 1. The phases run under
+``torch.profiler.record_function`` ranges named ``"client"`` (local SGD and
+the K1 upload encode), ``"accumulate"`` (K3 into ``buf``), ``"server"``
+(the server update) and ``"broadcast"`` (K1, K3), so a profiled round
+reads its time by phase. Every product and sum of the server half rounds
+where the reference's jitted round rounds on XLA:CPU, so the wire bits, x,
+x-hat and m are the reference's bit for bit for the same client messages;
+the model math (forward, gradients) agrees within a tolerance (tests/
 test_torch_llm_round.py).
 
 Not ported here: quantizers other than qsgd and the pod-quantized round
-(ROADMAP queue A item 14d), ``chunk_rows`` streaming, ``remat`` and the
-round's taps (item 13), prefill / decode (item 14b); each raises
-``NotImplementedError`` naming its item.
+(ROADMAP queue A item 14d), the round's taps (item 13c), prefill / decode
+(item 14b); each raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.common import prng
 from repro_torch.common.device import to_device
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.core.qafel import QAFeLConfig, client_update_flat
 from repro_torch.core.protocol import payload_wire_bytes
-from repro_torch.core.quantizers import (flatten_tree, make_quantizer,
-                                         packed_qsgd_payload)
+from repro_torch.core.quantizers import (TreeLayout, flatten_tree,
+                                         make_quantizer, packed_qsgd_payload)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import fma_f32_
+from repro_torch.kernels import qsgd as _kq
+from repro_torch.kernels.server_update import server_update_
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -59,12 +79,48 @@ from repro_torch.models.config import ModelConfig
 class RoundState:
     """The round's state: the full-precision server model ``x``, the
     shared hidden state x-hat (``hidden``), the server momentum (trees in
-    the leaves' dtypes) and the server step ``t``."""
+    the leaves' dtypes) and the server step ``t``. ``flat`` is the
+    ``(x, hidden, momentum)`` triple of flat buffers whose views the trees
+    are (a tree of one dtype; ``from_trees``), or None."""
 
     x: Any
     hidden: Any
     momentum: Any
     t: int = 0
+    flat: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+
+    @staticmethod
+    def from_trees(x, hidden, momentum, t: int = 0) -> "RoundState":
+        """A state of the three trees: copied into one flat buffer each
+        where every leaf has one dtype (the trees then view them), else
+        kept as they are."""
+        layout = TreeLayout.of(x)
+        if len(set(layout.dtypes)) != 1:
+            return RoundState(x=x, hidden=hidden, momentum=momentum, t=t)
+        dtype = getattr(torch, layout.dtypes[0])
+        flats = []
+        for tree in (x, hidden, momentum):
+            leaves = tree_leaves(tree)
+            buf = torch.empty(layout.total_size, dtype=dtype,
+                              device=leaves[0].device)
+            off = 0
+            for leaf, size in zip(leaves, layout.sizes):
+                buf[off:off + size].copy_(leaf.reshape(-1))
+                off += size
+            flats.append(buf)
+        trees = [layout.unflatten(f) for f in flats]
+        return RoundState(*trees, t=t, flat=tuple(flats))
+
+    def clone(self) -> "RoundState":
+        """A copy that later rounds on this state leave untouched."""
+        if self.flat is None:
+            return RoundState(*(tree_map(torch.clone, tr) for tr in
+                                (self.x, self.hidden, self.momentum)),
+                              t=self.t)
+        flats = tuple(f.clone() for f in self.flat)
+        layout = TreeLayout.of(self.x)
+        return RoundState(*(layout.unflatten(f) for f in flats), t=self.t,
+                          flat=flats)
 
 
 def init_round_state(cfg: ModelConfig, seed: int = 0,
@@ -72,68 +128,71 @@ def init_round_state(cfg: ModelConfig, seed: int = 0,
     """Random parameters (``transformer.init_params``) as x and x-hat,
     zero momentum, t = 0, on ``device`` (None: the card)."""
     params = T.init_params(cfg, seed, device)
-    return RoundState(x=params, hidden=tree_map(torch.clone, params),
-                      momentum=tree_map(torch.zeros_like, params), t=0)
-
-
-def _f32(value: float) -> float:
-    return float(np.float32(value))
+    return RoundState.from_trees(params, params,
+                                 tree_map(torch.zeros_like, params))
 
 
 def accumulate(buf, packed, norms, weight, *, bits: int, d: int):
-    """One client's message into the weighted sum: ``buf + w_k * dec``
-    with ``dec`` the decode of the packed qsgd codes, rounded, and the
-    weight's product fused into the add, ``fma(dec, w_k, buf)``, as
+    """One client's message into the weighted sum, in place: ``buf + w_k *
+    dec`` with ``dec`` the decode of the packed qsgd codes, rounded, and
+    the weight's product fused into the add, ``fma(dec, w_k, buf)``, as
     XLA:CPU compiles the reference round's scan
     (``repro/distributed/steps.py:170``); one K3 launch. ``weight`` is a
-    one-element f32 tensor on ``buf``'s device. Returns the new sum (a new
-    tensor; ``buf`` is left as it was)."""
-    return kops.qsgd_dequantize(packed, norms, bits, d, acc=buf,
-                                weight=weight)
+    one-element f32 tensor on ``buf``'s device; ``buf`` holds d f32
+    values. Returns ``buf``."""
+    if buf.numel() != d:
+        raise ValueError(f"buf: {buf.numel()} values, expected {d}")
+    return _kq.qsgd_unpack_dequantize(packed, norms, bits, acc=buf,
+                                      weight=weight.reshape(1))
 
 
 def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
-                qcfg: QAFeLConfig, sbits: int, d: int):
-    """The server half of the round on flat f32 vectors: from the
-    clients' weighted sum ``buf`` (``accumulate``) to ``(x_new,
-    hidden_new, m_new, (packed, norms))``, rounded where the reference's
+                qcfg: QAFeLConfig, sbits: int, d: int,
+                chunk_rows: Optional[int] = None):
+    """The server half of the round on the flat state (x, x-hat and m:
+    d values each in one dtype, f32 or bf16), in place, from the clients'
+    weighted sum ``buf`` (``accumulate``), rounded where the reference's
     jitted round rounds on XLA:CPU (``repro/distributed/steps.py:172-194``,
-    read from its optimised program and pinned by tests): ``delta_bar =
-    buf * fl32(1/K)``; the momentum's product fused into its add, ``m_new
-    = fma(m, beta, delta_bar)``; ``x_new = m_new + x`` (XLA drops the
-    product by a server lr of 1, else ``fma(m_new, lr, x)``); ``diff =
-    x_new - x-hat``; the broadcast K1 of the diff (threefry dither keyed
-    by ``k_server``, ``sbits``-bit qsgd); ``x-hat + q`` with the decode's
-    last product fused into the add, ``fma(sign*mag, norm * fl32(1/s),
-    x-hat)``, one K3 launch.
+    read from its optimised program and pinned by tests):
 
-    ``buf`` is overwritten (it becomes ``m_new``); the momentum's and the
-    server lr's multiply-adds are the plain single-rounded ``ref.fma_f32_``
-    in chunks (no float64 vector of length d), the one pass over d of the
-    round not in a kernel (ROADMAP queue A item 13)."""
+    1. the server-update kernel (``kernels.server_update``): ``delta_bar =
+       buf * fl32(1/K)``; the momentum's product fused into its add,
+       ``m_new = fma(m, beta, delta_bar)``; ``x_new = m_new + x`` (XLA
+       drops the product by a server lr of 1, else ``fma(m_new, lr, x)``);
+       ``diff = x_new - x-hat`` into ``buf``; m and x rounded to the
+       state's dtype;
+    2. the broadcast K1 of the diff (threefry dither keyed by
+       ``k_server``, ``sbits``-bit qsgd), ``chunk_rows`` rows at a time
+       when given;
+    3. ``x-hat + q`` with the decode's last product fused into the add,
+       ``fma(sign*mag, norm * fl32(1/s), x-hat)``, written over x-hat and
+       rounded to its dtype: one K3 launch.
+
+    Returns the broadcast ``(packed, norms)``; ``buf`` ends holding the
+    diff."""
     with record_function("server"):
-        m_new = buf.mul_(_f32(1.0 / qcfg.buffer_size))
-        if qcfg.server_momentum:
-            fma_f32_(momentum_flat, _f32(qcfg.server_momentum), m_new)
-        if qcfg.server_lr == 1.0:
-            x_new = m_new + x_flat
-        else:
-            x_new = fma_f32_(m_new, _f32(qcfg.server_lr), x_flat.clone())
-        diff = x_new - hidden_flat
+        server_update_(buf, momentum_flat, x_flat, hidden_flat,
+                       k=qcfg.buffer_size,
+                       beta=(qcfg.server_momentum if qcfg.server_momentum
+                             else None), lr=qcfg.server_lr)
     with record_function("broadcast"):
-        packed, norms = kops.qsgd_quantize(diff, k_server, sbits)
-        del diff
-        hidden_new = kops.qsgd_dequantize(packed, norms, sbits, d,
-                                          acc=hidden_flat)
-    return x_new, hidden_new, m_new, (packed, norms)
+        if chunk_rows is None:
+            packed, norms = kops.qsgd_quantize(buf, k_server, sbits)
+        else:
+            packed, norms = (t[0] for t in kops.qsgd_quantize_rows(
+                lambda a, e: buf[None, a:e], d, k_server, sbits, chunk_rows,
+                device=buf.device))
+        _kq.qsgd_unpack_dequantize(packed, norms, sbits, acc=hidden_flat)
+    return packed, norms
 
 
 def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
-                     remat: bool = False,
+                     remat: bool = True,
                      window_override: Optional[int] = None,
                      pod_quantized: bool = False, mesh=None,
                      podq_bits: int = 4, taps: bool = False,
-                     chunk_rows: Optional[int] = None) -> Callable:
+                     chunk_rows: Optional[int] = None,
+                     on_message: Optional[Callable] = None) -> Callable:
     """The round function for a decoder architecture:
     ``round_fn(state, batch, weights, key) -> (state, metrics)``.
 
@@ -143,26 +202,22 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     clients of their mean step loss (a 0-dim f32 tensor);
     ``"upload_bytes"`` and ``"broadcast_bytes"`` the metered bytes of one
     upload and of the broadcast (``protocol.payload_wire_bytes``). Both
-    quantizers are qsgd.
-
-    ``remat`` (the reference's default is True) raises: the round's
-    activations at the example's sequence length are small, and
-    ``torch.func.grad`` cannot run ``torch.utils.checkpoint``."""
-    if remat:
-        raise NotImplementedError(
-            "remat inside the round: local SGD takes torch.func.grad, which "
-            "does not run torch.utils.checkpoint; a recomputing "
-            "autograd.Function is ROADMAP queue A item 13 (the full-depth "
-            "round's memory levers)")
+    quantizers are qsgd. ``chunk_rows`` and ``remat`` as in the module
+    docstring: neither changes a bit of the round. The state is updated in
+    place (module docstring). ``on_message(kind, index, packed, norms)``,
+    when given, sees each message of the round as it is made:
+    ``("upload", k, ...)`` for client k's upload and ``("broadcast", K,
+    ...)``; the tensors are the round's own and are freed or overwritten
+    after the call, so a caller that keeps them clones them."""
     if pod_quantized or mesh is not None:
         raise NotImplementedError("the pod-quantized round is ROADMAP queue "
                                   "A item 14d")
-    if chunk_rows is not None:
-        raise NotImplementedError("chunk_rows streaming is ROADMAP queue A "
-                                  "item 13")
     if taps:
-        raise NotImplementedError("the round's taps are ROADMAP queue A "
-                                  "item 13")
+        raise NotImplementedError(
+            "the round's taps are ROADMAP queue A item 13c: their five "
+            "whole-vector sums cannot be read from a state updated in place")
+    if chunk_rows is not None and int(chunk_rows) <= 0:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     del podq_bits
     cq = make_quantizer(qcfg.client_quantizer).spec
     sq = make_quantizer(qcfg.server_quantizer).spec
@@ -171,6 +226,7 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
             raise NotImplementedError(
                 f"a {spec.kind} {name} quantizer in the round is ROADMAP "
                 "queue A item 14d")
+
     def loss(params, batch, key):
         del key
         return T.loss_fn(cfg, params, batch, remat=remat,
@@ -179,8 +235,14 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     def round_fn(state: RoundState, batch: Dict[str, torch.Tensor],
                  weights, key):
         k_clients, k_server = prng.split(key)
-        hidden_flat, layout = flatten_tree(state.hidden)
+        layout = TreeLayout.of(state.x)
         d = layout.total_size
+        if state.flat is not None:
+            x_flat, hidden_flat, m_flat = state.flat
+        else:  # a mixed-dtype tree: f32 copies, a new state at the end
+            x_flat, hidden_flat, m_flat = (
+                flatten_tree(tr)[0]
+                for tr in (state.x, state.hidden, state.momentum))
         dev = hidden_flat.device
         w = to_device(torch.as_tensor(weights, dtype=torch.float32), dev)
         ckeys = prng.split(k_clients, qcfg.buffer_size)
@@ -192,29 +254,35 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
             with record_function("client"):
                 out, losses = client_update_flat(
                     loss, qcfg, cq, layout, hidden_flat, batches_k, k_train,
-                    k_enc, b=1, with_loss=True)
+                    k_enc, b=1, with_loss=True, chunk_rows=chunk_rows,
+                    remat=remat)
             if k == 0:
                 upload_bytes = _wire_bytes(out["packed"][0],
                                            out["norms"][0], cq.bits, layout)
+            if on_message is not None:
+                on_message("upload", k, out["packed"][0], out["norms"][0])
             with record_function("accumulate"):
-                buf = accumulate(buf, out["packed"][0], out["norms"][0],
-                                 w[k:k + 1], bits=cq.bits, d=d)
+                accumulate(buf, out["packed"][0], out["norms"][0],
+                           w[k:k + 1], bits=cq.bits, d=d)
             del out
             loss_sum = loss_sum + losses.mean()
-        x_flat = flatten_tree(state.x)[0]
-        m_flat = flatten_tree(state.momentum)[0]
-        x_new, hidden_new, m_new, (packed, norms) = server_half(
-            x_flat, hidden_flat, m_flat, buf, k_server, qcfg=qcfg,
-            sbits=sq.bits, d=d)
-        del x_flat, m_flat, buf, hidden_flat
-        new_state = RoundState(x=layout.unflatten(x_new),
-                               hidden=layout.unflatten(hidden_new),
-                               momentum=layout.unflatten(m_new),
-                               t=state.t + 1)
-        return new_state, {"loss": loss_sum / qcfg.buffer_size,
-                           "upload_bytes": upload_bytes,
-                           "broadcast_bytes": _wire_bytes(packed, norms,
-                                                          sq.bits, layout)}
+        packed, norms = server_half(x_flat, hidden_flat, m_flat, buf,
+                                    k_server, qcfg=qcfg, sbits=sq.bits, d=d,
+                                    chunk_rows=chunk_rows)
+        del buf
+        if on_message is not None:
+            on_message("broadcast", qcfg.buffer_size, packed, norms)
+        metrics = {"loss": loss_sum / qcfg.buffer_size,
+                   "upload_bytes": upload_bytes,
+                   "broadcast_bytes": _wire_bytes(packed, norms, sq.bits,
+                                                  layout)}
+        if state.flat is None:
+            return RoundState(x=layout.unflatten(x_flat),
+                              hidden=layout.unflatten(hidden_flat),
+                              momentum=layout.unflatten(m_flat),
+                              t=state.t + 1), metrics
+        state.t += 1
+        return state, metrics
 
     return round_fn
 

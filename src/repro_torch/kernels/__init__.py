@@ -2,21 +2,24 @@
 plain PyTorch versions (``ref``), the wrappers (``qsgd``, ``buffer_agg``,
 ``taps``) and the wire-layout entry points (``ops``); and the population
 engine's macro step (``population``, with ``xla_math``), plain torch as
-the reference's is XLA code."""
+the reference's is XLA code; and the round's server update
+(``server_update``), a kernel with no Pallas counterpart."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import buffer_agg, qsgd, taps
+from repro_torch.kernels import buffer_agg, qsgd, server_update, taps
 
 
 def launches() -> Dict[str, int]:
     """Kernel launches per kernel since the last ``reset_launches``."""
-    return {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES, **taps.LAUNCHES}
+    return {**qsgd.LAUNCHES, **buffer_agg.LAUNCHES, **taps.LAUNCHES,
+            **server_update.LAUNCHES}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for counts in (qsgd.LAUNCHES, buffer_agg.LAUNCHES, taps.LAUNCHES):
+    for counts in (qsgd.LAUNCHES, buffer_agg.LAUNCHES, taps.LAUNCHES,
+                   server_update.LAUNCHES):
         for name in counts:
             counts[name] = 0

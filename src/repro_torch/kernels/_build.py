@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
+_F = ctypes.c_float
 SEEDS_BY_VALUE = 64  # messages whose seed words ride in the launch's params
 
 
@@ -47,17 +48,19 @@ class SeedWords(ctypes.Structure):
 SIGNATURES = {
     "quantize_pack": ("qsgd_quantize_pack", (_P, _P, _P, _P, _LL, _I, _P)),
     "quantize_pack_threefry": ("qsgd_quantize_pack_threefry",
-                               (_P, _LL, _P, _P, _I, _U32, _U32, _P)),
+                               (_P, _LL, _P, _P, _I, _U32, _U32, _LL, _P)),
     "quantize_pack_batch": ("qsgd_quantize_pack_batch",
-                            (_P, _LL, _LL, _LL, _I, SeedWords, _P, _P, _P,
-                             _P)),
+                            (_P, _LL, _LL, _LL, _LL, _I, SeedWords, _P, _P,
+                             _P, _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize",
-                          (_P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P)),
+                          (_P, _P, _P, _LL, _I, _I, _LL, _P, _I, _P)),
     "buffer_aggregate": ("buffer_aggregate", (_P, _P, _P, _P, _I, _LL, _I, _P)),
     "flush_taps": ("flush_taps", (_P, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P,
                                   _P)),
     "upload_taps": ("upload_taps", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P,
                                     _P)),
+    "server_update": ("server_update", (_P, _P, _P, _P, _LL, _I, _F, _F, _I,
+                                        _F, _I, _P)),
 }
 
 _loaded: Dict[str, object] = {}  # library name -> loaded entry point
@@ -124,7 +127,8 @@ def entry(name: str):
     """The C entry point of kernel library ``name``, built on first use,
     with its argument types set (every pointer and the stream as
     ``c_void_p``, key words as ``c_uint32``, batched seed words as the
-    ``SeedWords`` structure) and an ``int``
+    ``SeedWords`` structure, the server update's scalars as ``c_float``)
+    and an ``int``
     (``cudaError_t``) result."""
     fn = _loaded.get(name)
     if fn is None:

@@ -12,9 +12,12 @@
 //      whatever their dither), so a ragged message needs no padding pass.
 //
 // The dither of element (row, lane) of message b is two murmur3 fmix32
-// rounds of (seeds[b], element index row*128 + lane), top 24 bits times
-// 2^-24, in native uint32 arithmetic: the same law as the reference, so a
-// message's codes depend neither on the batch nor on the tiling or grid.
+// rounds of (seeds[b], element index (row0 + row)*128 + lane mod 2^32), top
+// 24 bits times 2^-24, in native uint32 arithmetic: the same law as the
+// reference (its row_offset), so a message's codes depend neither on the
+// batch nor on the tiling or grid, and rows [row0, row0 + rows) of a longer
+// message encode exactly as those rows of the whole (the row-chunked
+// streaming encode).
 //
 // Bound: the larger of bytes and integer issue. Bytes: 4 B of x per
 // element plus rows*(16*bits + 4) out (d = 1e8, qsgd4: 0.45 GB, 0.135 ms at
@@ -125,7 +128,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // aligned (the wrapper checks the base; a flat message's start need not be).
 struct Msg {
   const float* x;
-  long long n, rows;
+  long long n, rows, row0;
   uint8_t* packed;
   float* norms;
   uint32_t seed0, seed1;
@@ -200,7 +203,8 @@ __device__ __forceinline__ void quantize_tile(const Msg& m, long long tile,
   const float s = qsgd::levels(BITS);
   const float inv = norm > 0.0f ? __fdiv_rn(s, fmaxf(norm, 1e-30f)) : 0.0f;
   const int w = lane & 3;
-  const uint32_t idx0 = (uint32_t)r * (uint32_t)qsgd::kLanes + 32u * w;
+  const uint32_t idx0 =
+      (uint32_t)(m.row0 + r) * (uint32_t)qsgd::kLanes + 32u * w;
   uint32_t words[BITS] = {};
 #pragma unroll
   for (int e = 0; e < 32; ++e) {
@@ -219,7 +223,7 @@ __device__ __forceinline__ void quantize_tile(const Msg& m, long long tile,
 template <int BITS, bool kWhole>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     quantize_pack_batch_kernel(const float* __restrict__ x, long long n,
-                               long long stride,
+                               long long stride, long long row0,
                                const __grid_constant__ SeedWords seeds,
                                const uint32_t* __restrict__ seeds_dev,
                                uint8_t* __restrict__ packed,
@@ -232,6 +236,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const Msg m{x + b * stride,
               n,
               rows,
+              row0,
               packed + b * rows * (16 * BITS),
               norms + b * rows,
               seeds_dev ? seeds_dev[2 * b] : seeds.w[2 * b],
@@ -258,8 +263,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 }
 
 template <int BITS>
-void launch(const float* x, long long n, long long stride, long long batch,
-            const SeedWords& seeds, const uint32_t* seeds_dev,
+void launch(const float* x, long long n, long long stride, long long row0,
+            long long batch, const SeedWords& seeds, const uint32_t* seeds_dev,
             uint8_t* packed, float* norms, int sms, cudaStream_t stream) {
   const long long rows = (n + qsgd::kLanes - 1) / qsgd::kLanes;
   const long long tiles = (rows + kTileRows - 1) / kTileRows;
@@ -272,17 +277,18 @@ void launch(const float* x, long long n, long long stride, long long batch,
                   (unsigned)batch);
   if (n % qsgd::kLanes == 0 && stride % 4 == 0) {
     quantize_pack_batch_kernel<BITS, true><<<grid, kThreads, 0, stream>>>(
-        x, n, stride, seeds, seeds_dev, packed, norms);
+        x, n, stride, row0, seeds, seeds_dev, packed, norms);
   } else {
     quantize_pack_batch_kernel<BITS, false><<<grid, kThreads, 0, stream>>>(
-        x, n, stride, seeds, seeds_dev, packed, norms);
+        x, n, stride, row0, seeds, seeds_dev, packed, norms);
   }
 }
 
 }  // namespace
 
 extern "C" int qsgd_quantize_pack_batch(const void* x, long long n,
-                                        long long stride, long long batch,
+                                        long long stride, long long row0,
+                                        long long batch,
                                         int bits, SeedWords seeds,
                                         const void* seeds_dev, void* packed,
                                         void* norms, void* stream) {
@@ -298,9 +304,9 @@ extern "C" int qsgd_quantize_pack_batch(const void* x, long long n,
   const auto o = (float*)norms;
   const auto s = (cudaStream_t)stream;
   switch (bits) {
-    case 2: launch<2>(xf, n, stride, batch, seeds, sd, p, o, sms, s); break;
-    case 4: launch<4>(xf, n, stride, batch, seeds, sd, p, o, sms, s); break;
-    case 8: launch<8>(xf, n, stride, batch, seeds, sd, p, o, sms, s); break;
+    case 2: launch<2>(xf, n, stride, row0, batch, seeds, sd, p, o, sms, s); break;
+    case 4: launch<4>(xf, n, stride, row0, batch, seeds, sd, p, o, sms, s); break;
+    case 8: launch<8>(xf, n, stride, row0, batch, seeds, sd, p, o, sms, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

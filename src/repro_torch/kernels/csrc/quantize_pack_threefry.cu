@@ -5,12 +5,17 @@
 // with the XLA fusion that feeds it jax.random.uniform(key, (rows, 128))
 // (repro/kernels/ops.py::qsgd_quantize).
 //
-// In:  x f32 (n,), key words (k0, k1) by value; rows = ceil(n / 128).
+// In:  x f32 (n,), key words (k0, k1) by value, the row offset row0;
+//      rows = ceil(n / 128).
 // Out: packed uint8 (rows, 128*bits/8), norms f32 (rows,); bits in {2,4,8}.
 // Computes exactly quantize_pack(pad(x), uniform(key, (rows, 128)), bits):
 // the lanes past n read as zeros (zero codes, whatever their dither), and
-// the uniform of flat element i = row*128 + lane is threefry.cuh's law, for
-// rows*128 < 2^32 (the wrapper checks). The uniforms never touch memory.
+// the uniform of flat element i = (row0 + row)*128 + lane is threefry.cuh's
+// law, for (row0 + rows)*128 < 2^32 (the wrapper checks against the whole
+// message's rows). With row0 > 0, x is rows [row0, row0 + rows) of a longer
+// message, and its codes are exactly those rows of the whole message's: the
+// row-chunked streaming encode (ops.qsgd_quantize_chunk). The uniforms never
+// touch memory.
 //
 // Mapping: the given-uniforms kernel's (quantize_pack.cu): one warp per row,
 // four lanes per thread loaded as one float4 (scalar loads only in the
@@ -45,7 +50,8 @@ __global__ void quantize_pack_threefry_kernel(const float* __restrict__ x,
                                               uint8_t* __restrict__ packed,
                                               float* __restrict__ norms,
                                               long long rows, int bits,
-                                              uint32_t k0, uint32_t k1) {
+                                              uint32_t k0, uint32_t k1,
+                                              long long row0) {
   __shared__ float sq[qsgd::kWarpsPerBlock][qsgd::kLanes];
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
@@ -61,7 +67,8 @@ __global__ void quantize_pack_threefry_kernel(const float* __restrict__ x,
   const int out_lanes = qsgd::kLanes * bits / 8;
   qsgd::quantize_pack_row(
       v, packed + row * out_lanes, norms + row, sq[warp], t, bits,
-      ThreefryUniforms{k0, k1, (uint32_t)row * (uint32_t)qsgd::kLanes});
+      ThreefryUniforms{k0, k1,
+                       (uint32_t)(row0 + row) * (uint32_t)qsgd::kLanes});
 }
 
 }  // namespace
@@ -69,13 +76,14 @@ __global__ void quantize_pack_threefry_kernel(const float* __restrict__ x,
 extern "C" int qsgd_quantize_pack_threefry(const void* x, long long n,
                                            void* packed, void* norms, int bits,
                                            unsigned int k0, unsigned int k1,
-                                           void* stream) {
+                                           long long row0, void* stream) {
   const long long rows = (n + qsgd::kLanes - 1) / qsgd::kLanes;
   const long long blocks =
       (rows + qsgd::kWarpsPerBlock - 1) / qsgd::kWarpsPerBlock;
   quantize_pack_threefry_kernel<<<(unsigned)blocks,
                                   qsgd::kWarpsPerBlock * 32, 0,
                                   (cudaStream_t)stream>>>(
-      (const float*)x, n, (uint8_t*)packed, (float*)norms, rows, bits, k0, k1);
+      (const float*)x, n, (uint8_t*)packed, (float*)norms, rows, bits, k0, k1,
+      row0);
   return (int)cudaGetLastError();
 }

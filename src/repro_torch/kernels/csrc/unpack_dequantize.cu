@@ -7,19 +7,23 @@
 // Out: f32 (rows, 128) = (sign*mag) * (norm * fl32(1/s)) — the reference's
 //      division by s as XLA compiles it under jit, reproduced on purpose;
 //      with eager != 0, (sign*mag) * (norm / s) with a true division, the
-//      reference's decode run op by op (its non-fused flush chain); with an
-//      accumulator acc (f32, n values), fma(sign*mag, norm * fl32(1/s),
-//      acc[e]) (0 past n): the decode fused into the add that consumes it,
-//      as XLA:CPU compiles the reference round's hidden-state apply
-//      x-hat + q (repro/distributed/steps.py:194); with an accumulator and
-//      a weight w (one f32 on the card), fma((sign*mag) * (norm *
-//      fl32(1/s)), w, acc[e]): the decoded value rounded, then its weighted
-//      add fused, as XLA:CPU compiles the round's buf + w_k * dec
-//      (repro/distributed/steps.py:170).
+//      reference's decode run op by op (its non-fused flush chain).
+// Accumulating modes, written over an accumulator acc of n values in
+// place (nothing past n is written):
+//      apply: acc[e] = fma(sign*mag, norm * fl32(1/s), acc[e]), the decode
+//      fused into the add that consumes it, as XLA:CPU compiles the
+//      reference round's hidden-state apply x-hat + q
+//      (repro/distributed/steps.py:194); acc is f32 or bf16 (the result
+//      rounded to nearest even): x-hat of an f32 or a bf16 state;
+//      weighted, with a weight w (one f32 on the card): acc[e] =
+//      fma((sign*mag) * (norm * fl32(1/s)), w, acc[e]), the decoded value
+//      rounded, then its weighted add fused, as XLA:CPU compiles the
+//      round's buf + w_k * dec (repro/distributed/steps.py:170); acc f32.
 //
 // Bound: bytes. It reads bits/8 B per element plus 4 B per row and writes
 // 4 B per element (d = 1e8, qsgd4: 0.45 GB, 0.135 ms at 3.35 TB/s); at the
-// CNN's 624 rows a launch is latency-bound.
+// CNN's 624 rows a launch is latency-bound. An accumulating mode also
+// reads acc.
 //
 // Design: buffer_aggregate.cu's decode at K = 1 with a unit weight, on
 // code_vec.cuh. A thread owns one 16-byte code vector (a quarter row at 4
@@ -27,9 +31,12 @@
 // its row's norm once and computes scale = norm * fl32(1/s) once, decodes
 // with the funnel shift and writes sign*mag * scale as float4 stores through
 // the warp's swizzled shared tile: each warp-wide store covers whole
-// 128-byte lines. The accumulating variants read a thread's acc values (its
-// outputs' positions, contiguous) one by one; the weighted one loads its
-// weight once per thread.
+// 128-byte lines. The accumulating modes have a kernel of their own: a
+// thread decodes its code vector, reads its acc values 16 bytes at a time
+// (one at a time at the ragged end) and writes its results back to the same
+// places, so no thread writes what another reads.
+#include <cuda_bf16.h>
+
 #include "code_vec.cuh"
 
 namespace {
@@ -39,16 +46,14 @@ using codevec::kWarps;
 using codevec::Vec;
 
 // The scale and the output of one decode: plain sign*mag * scale, eager
-// (scale by a true division), apply fma(sign*mag, scale, acc), weighted
-// fma(sign*mag * scale, w, acc).
+// (scale by a true division); in place, apply fma(sign*mag, scale, acc),
+// weighted fma(sign*mag * scale, w, acc).
 enum Mode { kPlain, kEager, kApply, kWeighted };
 
 template <int BITS, int WORDS, int MODE>
 __global__ void __launch_bounds__(kThreads)
     unpack_dequantize_kernel(const uint32_t* __restrict__ packed,
                              const float* __restrict__ norms,
-                             const float* __restrict__ acc, long long n,
-                             const float* __restrict__ weight,
                              float4* __restrict__ out, long long rows) {
   using V = Vec<BITS, WORDS>;
   __shared__ float4 tiles[kWarps][32 * V::kPass];
@@ -65,41 +70,105 @@ __global__ void __launch_bounds__(kThreads)
   const float scale =
       MODE == kEager ? __fdiv_rn(norm, (float)qsgd::levels(BITS))
                      : __fmul_rn(norm, __frcp_rn(qsgd::levels(BITS)));
-  const float w = MODE == kWeighted ? __ldg(weight) : 0.0f;
   float val[V::kCodes];
 #pragma unroll
   for (int c = 0; c < V::kCodes; ++c) {
-    const float sm = codevec::signed_mag<BITS>(q, c);
-    const long long e = t * V::kCodes + c;
-    if constexpr (MODE == kApply) {
-      val[c] = __fmaf_rn(sm, scale, e < n ? __ldg(acc + e) : 0.0f);
-    } else if constexpr (MODE == kWeighted) {
-      val[c] = __fmaf_rn(__fmul_rn(sm, scale), w,
-                         e < n ? __ldg(acc + e) : 0.0f);
-    } else {
-      val[c] = __fmul_rn(sm, scale);
-    }
+    val[c] = __fmul_rn(codevec::signed_mag<BITS>(q, c), scale);
   }
   codevec::store_warp<BITS, WORDS>(val, tiles[warp], out, t0, threads, lane);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void round_to(float v, float* out) { *out = v; }
+__device__ __forceinline__ void round_to(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);
+}
+
+// The accumulating modes, written over acc (n values of T): a thread decodes
+// one 16-byte code vector and updates its kCodes contiguous acc values, 8 at
+// a time through 16-byte loads and stores when they all lie before n.
+template <int BITS, int MODE, typename T>
+__global__ void __launch_bounds__(kThreads)
+    unpack_dequantize_acc_kernel(const uint32_t* __restrict__ packed,
+                                 const float* __restrict__ norms, T* acc,
+                                 long long n,
+                                 const float* __restrict__ weight,
+                                 long long rows) {
+  using V = Vec<BITS, 4>;
+  constexpr int kGroup = 8;                   // values per pass
+  constexpr int kWords = sizeof(T) * kGroup / 16;  // 16-byte words per pass
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= rows * V::kPerRow) return;
+  const long long e0 = t * V::kCodes;
+  if (e0 >= n) return;  // the zero padding of the last row
+  uint32_t q[4];
+  codevec::load_words<4>(packed + t * 4, q);
+  const float norm = __ldg(norms + t / V::kPerRow);
+  const float scale = __fmul_rn(norm, __frcp_rn(qsgd::levels(BITS)));
+  const float w = MODE == kWeighted ? __ldg(weight) : 0.0f;
+  const bool whole = e0 + V::kCodes <= n;
+#pragma unroll
+  for (int g = 0; g < V::kCodes / kGroup; ++g) {
+    T* a = acc + e0 + kGroup * g;
+    uint4 raw[kWords] = {};
+    T* vals = reinterpret_cast<T*>(raw);
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) raw[i] = reinterpret_cast<uint4*>(a)[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (e0 + kGroup * g + i < n) vals[i] = a[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const float sm = codevec::signed_mag<BITS>(q, kGroup * g + i);
+      const float old = to_f32(vals[i]);
+      round_to(MODE == kApply ? __fmaf_rn(sm, scale, old)
+                              : __fmaf_rn(__fmul_rn(sm, scale), w, old),
+               vals + i);
+    }
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) reinterpret_cast<uint4*>(a)[i] = raw[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (e0 + kGroup * g + i < n) a[i] = vals[i];
+      }
+    }
+  }
 }
 
 struct Args {
   const uint32_t* packed;
   const float* norms;
-  const float* acc;     // null: no accumulator
-  long long n;          // acc's length
-  const float* weight;  // null: no weight (needs acc)
-  float4* out;
+  void* out;            // the output, or the accumulator
+  long long n;          // the accumulator's length
+  const float* weight;  // null: no weight
   long long rows;
 };
+
+template <int BITS, int MODE, typename T>
+void launch_acc(const Args& a, cudaStream_t stream) {
+  const long long threads = a.rows * Vec<BITS, 4>::kPerRow;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  unpack_dequantize_acc_kernel<BITS, MODE, T>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+          a.packed, a.norms, (T*)a.out, a.n, a.weight, a.rows);
+}
 
 template <int BITS, int WORDS, int MODE>
 void launch(const Args& a, cudaStream_t stream) {
   const long long threads = a.rows * Vec<BITS, WORDS>::kPerRow;
   const long long blocks = (threads + kThreads - 1) / kThreads;
   unpack_dequantize_kernel<BITS, WORDS, MODE>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(
-          a.packed, a.norms, a.acc, a.n, a.weight, a.out, a.rows);
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(a.packed, a.norms,
+                                                  (float4*)a.out, a.rows);
 }
 
 template <int BITS, int MODE>
@@ -111,43 +180,52 @@ void launch_width(const Args& a, int sms, cudaStream_t stream) {
   }
 }
 
+enum Acc { kNone = 0, kF32 = 1, kBf16 = 2 };
+
 template <int BITS>
-void launch_bits(const Args& a, int sms, int eager, cudaStream_t stream) {
-  if (a.weight != nullptr) {
-    launch_width<BITS, kWeighted>(a, sms, stream);
-  } else if (a.acc != nullptr) {
-    launch_width<BITS, kApply>(a, sms, stream);
-  } else if (eager) {
-    launch_width<BITS, kEager>(a, sms, stream);
+void launch_bits(const Args& a, int sms, int eager, int acc,
+                 cudaStream_t stream) {
+  if (acc == kNone) {
+    if (eager) {
+      launch_width<BITS, kEager>(a, sms, stream);
+    } else {
+      launch_width<BITS, kPlain>(a, sms, stream);
+    }
+  } else if (a.weight != nullptr) {
+    launch_acc<BITS, kWeighted, float>(a, stream);
+  } else if (acc == kBf16) {
+    launch_acc<BITS, kApply, __nv_bfloat16>(a, stream);
   } else {
-    launch_width<BITS, kPlain>(a, sms, stream);
+    launch_acc<BITS, kApply, float>(a, stream);
   }
 }
 
 }  // namespace
 
-// `acc` may be null (no accumulator; `n` unused). An accumulator takes the
-// jitted scale (eager 0). `weight` (one f32 on the device) may be null; a
-// weight needs an accumulator.
+// acc 0: `out` is a fresh f32 (rows, 128) output (`n`, `weight` unused).
+// acc 1 (f32) or 2 (bf16, no weight): `out` is an accumulator of n <=
+// rows*128 values, updated in place with the jitted scale (eager 0);
+// `weight` (one f32 on the device, f32 only) may be null.
 extern "C" int qsgd_unpack_dequantize(const void* packed, const void* norms,
                                       void* out, long long rows, int bits,
-                                      int eager, const void* acc, long long n,
-                                      const void* weight, void* stream) {
-  if (acc != nullptr && (eager || n < 0 || n > rows * qsgd::kLanes)) {
+                                      int eager, long long n,
+                                      const void* weight, int acc,
+                                      void* stream) {
+  if (acc < kNone || acc > kBf16) return (int)cudaErrorInvalidValue;
+  if (acc != kNone && (eager || n < 0 || n > rows * qsgd::kLanes)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (weight != nullptr && acc == nullptr) return (int)cudaErrorInvalidValue;
+  if (weight != nullptr && acc != kF32) return (int)cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t err = qsgd::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  const Args a{(const uint32_t*)packed, (const float*)norms,
-               (const float*)acc, n, (const float*)weight, (float4*)out,
-               rows};
+  const Args a{(const uint32_t*)packed, (const float*)norms, out, n,
+               (const float*)weight, rows};
   const auto s = (cudaStream_t)stream;
   switch (bits) {
-    case 2: launch_bits<2>(a, sms, eager, s); break;
-    case 4: launch_bits<4>(a, sms, eager, s); break;
-    case 8: launch_bits<8>(a, sms, eager, s); break;
+    case 2: launch_bits<2>(a, sms, eager, acc, s); break;
+    case 4: launch_bits<4>(a, sms, eager, acc, s); break;
+    case 8: launch_bits<8>(a, sms, eager, acc, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

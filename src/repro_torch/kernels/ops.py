@@ -31,7 +31,7 @@ from repro_torch.common.tree import tree_map
 from repro_torch.kernels import buffer_agg as _agg
 from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import taps as _taps
-from repro_torch.kernels.ref import fma_f32
+from repro_torch.kernels.ref import LANES, fma_f32
 from repro_torch.kernels.ref import rows2d, rows_for  # noqa: F401 (re-export)
 
 
@@ -45,6 +45,85 @@ def qsgd_quantize(flat: torch.Tensor, key, bits: int = 4):
         flat.to(torch.float32).contiguous(), key, bits)
 
 
+def qsgd_quantize_chunk(flat_chunk: torch.Tensor, key, row_start: int, *,
+                        bits: int, total_rows: int, threefry: bool = True):
+    """Encode rows ``[row_start, row_start + rows_c)`` of a flat message of
+    ``total_rows`` wire rows, ``rows_c = ceil(len(flat_chunk) / 128)`` (a
+    ragged chunk is zero-padded to whole rows by the kernel): the
+    streaming encode, one launch per chunk, whose chunks reassemble to the
+    whole message's codes bit for bit at any chunking.
+
+    ``threefry=True`` is the b=1 upload's convention (``qsgd_quantize``):
+    the dither of the chunk's element i is that of element
+    ``row_start*128 + i`` of ``uniform(key, (total_rows, 128))``, drawn in
+    K1 from the global row offset. ``threefry=False`` is the batched
+    counter hash keyed by the first two words of ``key`` and the global
+    element index (K2 with a row offset). Returns ``(packed uint8
+    (rows_c, 16*bits), norms f32 (rows_c,))``."""
+    flat_chunk = flat_chunk.to(torch.float32).contiguous()
+    rows_c = rows_for(flat_chunk.numel())
+    if row_start < 0 or row_start + rows_c > total_rows:
+        raise ValueError(f"rows [{row_start}, {row_start + rows_c}) lie "
+                         f"outside a message of {total_rows} rows")
+    if threefry:
+        return _qsgd.qsgd_quantize_pack_threefry(
+            flat_chunk, key, bits, row0=row_start, total_rows=total_rows)
+    seeds = torch.as_tensor(key).reshape(1, -1)[:, :2]
+    packed, norms = _qsgd.qsgd_quantize_pack_batch_flat(
+        flat_chunk[None], seeds, bits, row0=row_start)
+    return packed[0], norms[0]
+
+
+def qsgd_encode_chunks(rows_fn, n: int, keys, bits: int, chunk_rows: int,
+                       *, threefry: bool = True, row0: int = 0,
+                       total_rows=None):
+    """The streaming encode's one loop: a message block of n elements
+    whose first wire row is row ``row0`` of its message (of
+    ``total_rows`` rows; default ``row0 + rows_for(n)``), encoded
+    ``chunk_rows`` wire rows at a time, each chunk keyed by its global row
+    offset, so the chunks are the unchunked encode's rows bit for bit. The
+    f32 values are formed on request: ``rows_fn(a, e)`` returns elements
+    ``[a, e)`` of the block as a (B, e - a) stack. ``threefry=True``
+    (B == 1, ``keys`` one key) is K1's dither (``qsgd_quantize_chunk``);
+    ``threefry=False`` the counter hash keyed by the (B, 2) ``keys``, one
+    K2 launch per chunk. Yields ``(r0, r1, packed, norms)`` for the
+    block's rows ``[r0, r1)``: (r1 - r0, 16*bits) and (r1 - r0,) at
+    threefry, else with the leading B."""
+    rows = rows_for(n)
+    total_rows = row0 + rows if total_rows is None else int(total_rows)
+    c = int(chunk_rows)
+    if c <= 0:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    for r0 in range(0, rows, c):
+        r1 = min(rows, r0 + c)
+        x = rows_fn(r0 * LANES, min(n, r1 * LANES))
+        if threefry:
+            p, nm = qsgd_quantize_chunk(x.reshape(-1), keys, row0 + r0,
+                                        bits=bits, total_rows=total_rows)
+        else:
+            p, nm = _qsgd.qsgd_quantize_pack_batch_flat(
+                x.to(torch.float32).contiguous(), keys, bits, row0=row0 + r0)
+        yield r0, r1, p, nm
+
+
+def qsgd_quantize_rows(rows_fn, n: int, keys, bits: int, chunk_rows: int, *,
+                       device, b: int = 1, threefry: bool = True,
+                       row0: int = 0):
+    """The whole (B, rows) message stack of ``qsgd_encode_chunks`` (same
+    arguments; ``b`` the stack's B): only the codes and the norms exist
+    whole. Returns ``(packed (b, rows, 16*bits), norms (b, rows))``, bit
+    for bit the unchunked encode's."""
+    rows = rows_for(n)
+    packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,
+                         device=device)
+    norms = torch.empty((b, rows), dtype=torch.float32, device=device)
+    for r0, r1, p, nm in qsgd_encode_chunks(rows_fn, n, keys, bits,
+                                            chunk_rows, threefry=threefry,
+                                            row0=row0):
+        packed[:, r0:r1], norms[:, r0:r1] = p, nm
+    return packed, norms
+
+
 def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
     """Quantize a (B, n) stack in one launch (the kernel pads the ragged
     last rows); message b's dither is the counter hash keyed by the two
@@ -55,14 +134,9 @@ def qsgd_quantize_batch(flat_batch: torch.Tensor, keys, bits: int = 4):
 
 
 def qsgd_dequantize(packed: torch.Tensor, norms: torch.Tensor, bits: int,
-                    n: int, acc=None, weight=None) -> torch.Tensor:
-    """Dequantize wire-layout codes back to a flat f32 vector of length n;
-    with an f32 ``acc`` of length n, ``acc + decode`` with the decode's
-    last product fused into the add, or with a one-element ``weight`` too,
-    ``acc + weight * decode`` with the weight's product fused into the add
-    (one K3 launch either way)."""
-    return _qsgd.qsgd_unpack_dequantize(packed, norms, bits, acc=acc,
-                                        weight=weight).reshape(-1)[:n]
+                    n: int) -> torch.Tensor:
+    """Dequantize wire-layout codes back to a flat f32 vector of length n."""
+    return _qsgd.qsgd_unpack_dequantize(packed, norms, bits).reshape(-1)[:n]
 
 
 def buffer_aggregate(packed_stack: torch.Tensor, norms: torch.Tensor,
@@ -131,7 +205,8 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              k_enc, *, b: int, bits=None,
                              member_chunk=None, taps: bool = False,
                              group=None, basis_seed=None,
-                             residual=None, with_loss: bool = False):
+                             residual=None, with_loss: bool = False,
+                             chunk_rows=None):
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -172,13 +247,23 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
 
     ``with_loss``: ``client_update`` returns ``(delta, losses)``, and so
     does this step: ``(out, losses)`` with the members' (b, P) losses
-    ((P,) at b = 1)."""
+    ((P,) at b = 1).
+
+    ``chunk_rows`` encodes ``chunk_rows`` wire rows at a time, each chunk
+    keyed by its global row offset, so the codes are the unchunked
+    encode's bit for bit. At b = 1 ``client_update(..., streamed=True)``
+    hands back the delta as ``core.qafel.DeltaRows``, and a chunked qsgd
+    upload without taps forms it chunk by chunk: the only whole-message
+    outputs are then the codes and the norms."""
     losses = None
     if b == 1:
-        res = client_update(hidden_flat, batches, k_train)
+        delta = client_update(hidden_flat, batches, k_train, streamed=True)
         if with_loss:
-            res, losses = res
-        flat2d = res[None]
+            delta, losses = delta
+        n = delta.n
+        streamed = (chunk_rows is not None and bits is not None
+                    and group is None and not taps)
+        flat2d = None if streamed else delta.rows(0, n)[None]
     else:
         keys = to_device(torch.as_tensor(k_train), hidden_flat.device)
         step = torch.func.vmap(client_update, in_dims=(None, 0, 0))
@@ -192,32 +277,42 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
             losses = torch.cat([r[1] for r in res])
             res = [r[0] for r in res]
         flat2d = res[0] if len(res) == 1 else torch.cat(res)
+        n = flat2d.shape[1]
     if group is not None:
         out = _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
-                              residual, taps)
+                              residual, taps, chunk_rows)
     elif bits is None:
         out = _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
     else:
-        packed, norms = _encode_stack(flat2d, k_enc, bits)
+        rows_fn = ((lambda a, e: delta.rows(a, e)[None]) if flat2d is None
+                   else (lambda a, e: flat2d[:, a:e]))
+        packed, norms = _encode_stack(rows_fn, n, b, k_enc, bits, chunk_rows,
+                                      hidden_flat.device)
         out = _with_upload_taps({"packed": packed, "norms": norms}, flat2d,
                                 bits, taps)
     return (out, losses) if with_loss else out
 
 
-def _encode_stack(flat2d: torch.Tensor, k_enc, bits: int):
-    """The upload encode of a (b, n) stack: at b = 1 the threefry K1 of
-    the sequential engine, above it one K2 launch whose dither is the
-    counter hash keyed by the first two words of each member's key."""
-    b = flat2d.shape[0]
+def _encode_stack(rows_fn, n: int, b: int, k_enc, bits: int, chunk_rows,
+                  device):
+    """The upload encode of a (b, n) stack whose ranges ``rows_fn(a, e)``
+    gives: at b = 1 the threefry K1 of the sequential engine, above it one
+    K2 launch whose dither is the counter hash keyed by the first two
+    words of each member's key; with ``chunk_rows``, ``chunk_rows`` rows
+    at a time (``qsgd_quantize_rows``)."""
+    keys = k_enc if b == 1 else torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
+    if chunk_rows is not None:
+        return qsgd_quantize_rows(rows_fn, n, keys, bits, chunk_rows,
+                                  device=device, b=b, threefry=b == 1)
+    flat2d = rows_fn(0, n)
     if b == 1:
-        packed, norms = qsgd_quantize(flat2d[0], k_enc, bits)
+        packed, norms = qsgd_quantize(flat2d[0], keys, bits)
         return packed[None], norms[None]
-    seeds = torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
-    return qsgd_quantize_batch(flat2d, seeds, bits)
+    return qsgd_quantize_batch(flat2d, keys, bits)
 
 
 def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
-                    residual, taps: bool) -> dict:
+                    residual, taps: bool, chunk_rows=None) -> dict:
     """The lowrank half of ``cohort_train_encode_step``."""
     from repro_torch.core.quantizers import (lowrank_expand_flat2d,
                                              lowrank_project_flat2d)
@@ -228,7 +323,9 @@ def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
     d = flat2d.shape[1]
     c2d = flat2d if residual is None else flat2d + residual
     y2d = lowrank_project_flat2d(c2d, basis_seed, group)
-    packed, norms = _encode_stack(y2d, k_enc, bits)
+    packed, norms = _encode_stack(lambda a, e: y2d[:, a:e], y2d.shape[1],
+                                  y2d.shape[0], k_enc, bits, chunk_rows,
+                                  y2d.device)
     qy2d = qsgd_dequantize_stack(packed, norms, bits, y2d.shape[1])
     # the expand's last product fused into the subtraction, as XLA:CPU
     # contracts it in the reference's jitted step: fma(-x, scale, c)

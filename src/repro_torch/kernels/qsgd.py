@@ -109,22 +109,35 @@ def qsgd_quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
     return packed, norms
 
 
-def qsgd_quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
+def qsgd_quantize_pack_threefry(flat: torch.Tensor, key, bits: int, *,
+                                row0: int = 0,
+                                total_rows: Optional[int] = None):
     """Quantize + pack one flat f32 (n,) message over its zero-padded
     ``rows = ceil(n/128)`` rows with the dither ``prng.uniform(key,
     (rows, 128))``, which the kernel draws itself (a key is two uint32
     words, see ``common.prng``). Returns (packed uint8 (rows, 16*bits),
-    norms f32 (rows,)). The counter law is pinned for ``rows*128 < 2**32``
+    norms f32 (rows,)).
+
+    ``row0`` makes ``flat`` the rows ``[row0, row0 + rows)`` of a message
+    of ``total_rows`` rows (default ``row0 + rows``): the dither of its
+    element i is that of element ``row0*128 + i`` of the whole message, so
+    the chunk's codes and norms are exactly those rows of the whole
+    message's. The counter law is pinned for ``total_rows*128 < 2**32``
     only, so larger messages raise."""
     check_bits(bits)
     check_tensor("flat", flat, torch.float32, (None,), flat.device)
     n = flat.shape[0]
     rows = _ref.rows_for(n)
-    if rows * LANES >= 2 ** 32:
-        raise ValueError(f"flat: {rows} rows; the threefry dither needs "
-                         "rows*128 < 2**32")
+    row0 = int(row0)
+    total = row0 + rows if total_rows is None else int(total_rows)
+    if row0 < 0 or row0 + rows > total:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) lie outside a "
+                         f"message of {total} rows")
+    if total * LANES >= 2 ** 32:
+        raise ValueError(f"a message of {total} rows; the threefry dither "
+                         "needs rows*128 < 2**32")
     if not on_card(flat):
-        return _ref.quantize_pack_threefry(flat, key, bits)
+        return _ref.quantize_pack_threefry(flat, key, bits, row0=row0)
     check_aligned("flat", flat)
     k0, k1 = prng.key_words(key)
     packed = torch.empty((rows, LANES * bits // 8), dtype=torch.uint8,
@@ -134,7 +147,7 @@ def qsgd_quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
         fn = _build.entry("quantize_pack_threefry")
         _build.check("qsgd_quantize_pack_threefry", fn(
             flat.data_ptr(), n, packed.data_ptr(), norms.data_ptr(), bits,
-            k0, k1, torch.cuda.current_stream(flat.device).cuda_stream))
+            k0, k1, row0, torch.cuda.current_stream(flat.device).cuda_stream))
         LAUNCHES["qsgd_quantize_pack_threefry"] += 1
     return packed, norms
 
@@ -160,11 +173,11 @@ def _check_seeds(seeds, b: int) -> torch.Tensor:
 
 
 def _launch_batch(x: torch.Tensor, n: int, stride: int, b: int,
-                  seeds: torch.Tensor, bits: int):
+                  seeds: torch.Tensor, bits: int, row0: int):
     """The batched kernel on B messages of n elements, message b at
-    ``x.data_ptr() + 4*b*stride``; the kernel zero-pads each ragged last
-    row. Seed words go by value, or for B above the cap through a device
-    buffer."""
+    ``x.data_ptr() + 4*b*stride``, whose first row is row ``row0`` of the
+    whole message; the kernel zero-pads each ragged last row. Seed words go
+    by value, or for B above the cap through a device buffer."""
     check_aligned("x", x)
     rows = _ref.rows_for(n)
     packed = torch.empty((b, rows, LANES * bits // 8), dtype=torch.uint8,
@@ -178,7 +191,7 @@ def _launch_batch(x: torch.Tensor, n: int, stride: int, b: int,
             words = _build.SeedWords()
         fn = _build.entry("quantize_pack_batch")
         _build.check("qsgd_quantize_pack_batch", fn(
-            x.data_ptr(), n, stride, b, bits, words,
+            x.data_ptr(), n, stride, row0, b, bits, words,
             None if on_dev is None else on_dev.data_ptr(), packed.data_ptr(),
             norms.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["qsgd_quantize_pack_batch"] += 1
@@ -186,24 +199,27 @@ def _launch_batch(x: torch.Tensor, n: int, stride: int, b: int,
 
 
 def qsgd_quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor,
-                             bits: int):
+                             bits: int, *, row0: int = 0):
     """Quantize + pack an f32 (B, rows, 128) stack; the dither is the
     in-kernel counter hash keyed by each message's seed words ``seeds[b]``
     ((B, 2) int64 holding uint32 values, best on the CPU: up to
     ``SEEDS_BY_VALUE`` messages they ride in the launch itself) and the
-    element index ``row*128 + lane``. Returns (packed uint8
-    (B, rows, 16*bits), norms f32 (B, rows))."""
+    element index ``(row0 + row)*128 + lane`` (mod 2**32, the reference's
+    ``row_offset``: the stack is rows ``[row0, row0 + rows)`` of longer
+    messages). Returns (packed uint8 (B, rows, 16*bits), norms f32
+    (B, rows))."""
     check_bits(bits)
     b, rows = x3d.shape[0], x3d.shape[1]
     check_tensor("x3d", x3d, torch.float32, (None, None, LANES), x3d.device)
     seeds = _check_seeds(seeds, b)
     if not on_card(x3d):
-        return _ref.quantize_pack_batch(x3d, seeds, bits)
-    return _launch_batch(x3d, rows * LANES, rows * LANES, b, seeds, bits)
+        return _ref.quantize_pack_batch(x3d, seeds, bits, row0=row0)
+    return _launch_batch(x3d, rows * LANES, rows * LANES, b, seeds, bits,
+                         int(row0))
 
 
 def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
-                                  bits: int):
+                                  bits: int, *, row0: int = 0):
     """``qsgd_quantize_pack_batch`` of a flat f32 (B, n) stack over each
     message's zero-padded ``rows = ceil(n/128)`` rows: the same kernel,
     which pads the ragged last rows itself, so the call is one launch."""
@@ -213,8 +229,9 @@ def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
     b, n = flat2d.shape
     seeds = _check_seeds(seeds, b)
     if not on_card(flat2d):
-        return _ref.quantize_pack_batch(_ref.rows2d(flat2d), seeds, bits)
-    return _launch_batch(flat2d, n, n, b, seeds, bits)
+        return _ref.quantize_pack_batch(_ref.rows2d(flat2d), seeds, bits,
+                                        row0=row0)
+    return _launch_batch(flat2d, n, n, b, seeds, bits, int(row0))
 
 
 def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
@@ -225,21 +242,26 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
     """Inverse of ``qsgd_quantize_pack``: packed uint8 (rows, 16*bits) +
     norms f32 (rows,) -> f32 (rows, 128). ``eager=True`` scales by
     ``norm / s`` (a true division, the reference's op-by-op decode) in
-    place of ``norm * fl32(1/s)`` (its jitted decode). An f32 accumulator
-    ``acc`` of n <= rows*128 values gives ``fma(sign*mag, norm *
-    fl32(1/s), acc)`` (0 past n) in the same launch: the decode fused into
-    the add that consumes it, as XLA:CPU compiles the round's x-hat + q.
-    With ``acc`` and a one-element f32 ``weight`` w on the same device:
-    ``fma((sign*mag) * (norm * fl32(1/s)), w, acc)``, the decoded value
-    rounded and its weighted add fused, as XLA:CPU compiles the round's
-    ``buf + w_k * dec``."""
+    place of ``norm * fl32(1/s)`` (its jitted decode).
+
+    With an accumulator ``acc`` of n <= rows*128 values the decode is
+    added into it in place, in the same launch, and ``acc`` is returned
+    (nothing past its n values is written): ``fma(sign*mag, norm *
+    fl32(1/s), acc)``, the decode fused into the add that consumes it, as
+    XLA:CPU compiles the round's x-hat + q (``acc`` f32, or bf16 with the
+    result rounded to nearest even); with a one-element f32 ``weight`` w
+    on the same device, ``fma((sign*mag) * (norm * fl32(1/s)), w, acc)``,
+    the decoded value rounded and its weighted add fused, as XLA:CPU
+    compiles the round's ``buf + w_k * dec`` (``acc`` f32)."""
     check_bits(bits)
     rows = packed.shape[0]
     check_tensor("packed", packed, torch.uint8, (None, LANES * bits // 8),
                  packed.device)
     check_tensor("norms", norms, torch.float32, (rows,), packed.device)
     if acc is not None:
-        check_tensor("acc", acc, torch.float32, (None,), packed.device)
+        bf16 = weight is None and acc.dtype == torch.bfloat16
+        check_tensor("acc", acc, torch.bfloat16 if bf16 else torch.float32,
+                     (None,), packed.device)
         if eager or acc.numel() > rows * LANES:
             raise ValueError(f"an accumulator of {acc.numel()} values takes "
                              f"the jitted scale and at most {rows * LANES}")
@@ -249,17 +271,26 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
         weight = weight.reshape(1)
         check_tensor("weight", weight, torch.float32, (1,), packed.device)
     if not on_card(packed):
-        return _ref.unpack_dequantize(packed, norms, bits, eager=eager,
-                                      acc=acc, weight=weight)
+        if acc is None:
+            return _ref.unpack_dequantize(packed, norms, bits, eager=eager)
+        return acc.copy_(_ref.unpack_dequantize(
+            packed, norms, bits, acc=acc.to(torch.float32),
+            weight=weight).reshape(-1)[:acc.numel()])
     check_aligned("packed", packed)
-    out = torch.empty((rows, LANES), dtype=torch.float32, device=packed.device)
+    if acc is None:
+        out = torch.empty((rows, LANES), dtype=torch.float32,
+                          device=packed.device)
+        mode = 0
+    else:
+        check_aligned("acc", acc)
+        out = acc
+        mode = 2 if acc.dtype == torch.bfloat16 else 1
     if rows:
         fn = _build.entry("unpack_dequantize")
         _build.check("qsgd_unpack_dequantize", fn(
             packed.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, bits,
-            int(eager), None if acc is None else acc.data_ptr(),
-            0 if acc is None else acc.numel(),
-            None if weight is None else weight.data_ptr(),
+            int(eager), 0 if acc is None else acc.numel(),
+            None if weight is None else weight.data_ptr(), mode,
             torch.cuda.current_stream(packed.device).cuda_stream))
         LAUNCHES["qsgd_unpack_dequantize"] += 1
     return out

@@ -117,13 +117,16 @@ def quantize_pack(x2d: torch.Tensor, u2d: torch.Tensor, bits: int):
     return _pack(code, bits), norm
 
 
-def quantize_pack_threefry(flat: torch.Tensor, key, bits: int):
+def quantize_pack_threefry(flat: torch.Tensor, key, bits: int, *,
+                           row0: int = 0):
     """f32 (n,) message quantized with the threefry dither ``uniform(key,
     (rows, 128))`` over its zero-padded rows -> (packed uint8
-    (rows, 128*bits//8), norms f32 (rows,)): the b=1 upload."""
+    (rows, 128*bits//8), norms f32 (rows,)): the b=1 upload. With ``row0``
+    the message is rows ``[row0, row0 + rows)`` of a longer one, and
+    element i takes the dither of its element ``row0*128 + i``."""
     x2d = rows2d(flat)
-    return quantize_pack(x2d, prng.uniform(key, x2d.shape, device=flat.device),
-                         bits)
+    u = prng.uniform_range(key, row0 * LANES, x2d.numel(), device=flat.device)
+    return quantize_pack(x2d, u.reshape(x2d.shape), bits)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -152,26 +155,28 @@ def counter_uniform(seed0, seed1, idx: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def hash_uniform(seeds: torch.Tensor, rows: int):
+def hash_uniform(seeds: torch.Tensor, rows: int, row0: int = 0):
     """The counter-hash dither of the batched kernel: for message b and
-    element index ``row*128 + lane``, ``counter_uniform`` keyed by
-    ``seeds[b]``. ``seeds`` is (B, 2) int64 holding uint32 words; returns
-    f32 (B, rows, 128) on the seeds' device."""
+    element index ``(row0 + row)*128 + lane`` mod 2**32, ``counter_uniform``
+    keyed by ``seeds[b]``. ``seeds`` is (B, 2) int64 holding uint32 words;
+    returns f32 (B, rows, 128) on the seeds' device."""
     dev = seeds.device
-    row = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=dev)
     lane = torch.arange(LANES, dtype=torch.int64, device=dev)[None, :]
-    idx = (row * LANES + lane)[None]
+    idx = ((row[:, None] * LANES + lane) & MASK32)[None]
     s0 = (seeds[:, 0] & MASK32).reshape(-1, 1, 1)
     s1 = (seeds[:, 1] & MASK32).reshape(-1, 1, 1)
     return counter_uniform(s0, s1, idx)
 
 
-def quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor, bits: int):
+def quantize_pack_batch(x3d: torch.Tensor, seeds: torch.Tensor, bits: int,
+                        *, row0: int = 0):
     """f32 (B, rows, 128) stack + (B, 2) int64 seed words -> (packed uint8
     (B, rows, 128*bits//8), norms f32 (B, rows)); the dither is
-    ``hash_uniform``, so a message's codes do not depend on the batch."""
+    ``hash_uniform`` from row ``row0`` on, so a message's codes depend
+    neither on the batch nor on how its rows are cut into chunks."""
     b, rows, _ = x3d.shape
-    u = hash_uniform(seeds.to(x3d.device), rows)
+    u = hash_uniform(seeds.to(x3d.device), rows, int(row0))
     packed, norms = quantize_pack(x3d.reshape(b * rows, LANES),
                                   u.reshape(b * rows, LANES), bits)
     return packed.reshape(b, rows, -1), norms.reshape(b, rows)
@@ -252,16 +257,28 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor):
     return torch.where(tie, side, r)
 
 
-def fma_f32_(a: torch.Tensor, b, c: torch.Tensor,
-             chunk: int = 1 << 25) -> torch.Tensor:
-    """``fma_f32(a, b, c)`` of 1-D tensors written into ``c`` in place,
-    ``chunk`` elements at a time, so the float64 temporaries stay small at
-    any length (a 1.2e9-element vector would need ~60 GB of them at
-    once). Returns ``c``."""
-    for s in range(0, c.numel(), chunk):
-        bs = b[s:s + chunk] if isinstance(b, torch.Tensor) and b.dim() else b
-        c[s:s + chunk] = fma_f32(a[s:s + chunk], bs, c[s:s + chunk])
-    return c
+def server_update_(buf: torch.Tensor, m: torch.Tensor, x: torch.Tensor,
+                   xhat: torch.Tensor, *, inv_k: float, beta, lr: float,
+                   chunk: int = 1 << 25):
+    """The round's server update over the first n = ``x.numel()`` values,
+    in place, ``chunk`` elements at a time: ``delta_bar = buf * inv_k``,
+    ``m_new = fma(m, beta, delta_bar)`` (``beta`` None: ``delta_bar``),
+    ``x_new = m_new + x`` for ``lr == 1`` else ``fma(m_new, lr, x)``,
+    ``diff = x_new - xhat``; then ``buf <- diff`` (f32), ``m <- m_new`` and
+    ``x <- x_new`` rounded to their dtype (f32 or bf16, nearest even).
+    ``inv_k``, ``beta`` and ``lr`` are f32 values; m, x and xhat share one
+    dtype and buf is f32. Returns ``buf``."""
+    for s in range(0, x.numel(), chunk):
+        sl = slice(s, min(x.numel(), s + chunk))
+        delta_bar = buf[sl] * inv_k
+        m_new = (delta_bar if beta is None else
+                 fma_f32(m[sl].to(torch.float32), beta, delta_bar))
+        x32 = x[sl].to(torch.float32)
+        x_new = m_new + x32 if lr == 1.0 else fma_f32(m_new, lr, x32)
+        buf[sl] = x_new - xhat[sl].to(torch.float32)
+        m[sl] = m_new.to(m.dtype)
+        x[sl] = x_new.to(x.dtype)
+    return buf
 
 
 def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,

@@ -178,7 +178,7 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
             out = client_update_flat(
                 self.algo.loss_fn, self.algo.qcfg, q.spec, st.layout,
                 st.hidden_flat, grp_batches, gt, ge, b=b, member_chunk=chunk,
-                taps=self.algo._taps, **kw)
+                taps=self.algo._taps, chunk_rows=self.algo.chunk_rows, **kw)
             self.groups += 1
             if cids is not None:
                 self.algo.store_residuals(cids[:members.size],

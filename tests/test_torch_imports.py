@@ -194,6 +194,46 @@ LLM_NAMES = [
 ]
 
 
+# the streamed encode and uplink and the full-depth round's pieces, under
+# the reference's names where it has them
+STREAM_NAMES = [
+    ("repro_torch.kernels.ops", "qsgd_quantize_chunk"),
+    ("repro_torch.kernels.ops", "qsgd_quantize_rows"),
+    ("repro_torch.kernels.ops", "qsgd_encode_chunks"),
+    ("repro_torch.kernels.server_update", "server_update_"),
+    ("repro_torch.kernels.ref", "server_update_"),
+    ("repro_torch.core.quantizers", "qsgd_encode_rows"),
+    ("repro_torch.core.quantizers", "qsgd_encode_flat2d"),
+    ("repro_torch.core.protocol", "packed_qsgd_chunk_payload"),
+    ("repro_torch.core.protocol", "frame_chunk_messages"),
+    ("repro_torch.core.buffer", "UpdateBuffer"),
+    ("repro_torch.core.qafel", "DeltaRows"),
+    ("repro_torch.core.qafel", "client_update"),
+    ("repro_torch.distributed.steps", "accumulate"),
+    ("repro_torch.distributed.steps", "server_half"),
+]
+
+
+@pytest.mark.parametrize("module,name", STREAM_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_stream_slice_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
+def test_stream_methods_exist():
+    from repro_torch.core import QAFeL
+    from repro_torch.core.buffer import UpdateBuffer
+    from repro_torch.core.protocol import TrafficMeter
+    from repro_torch.distributed.steps import RoundState
+    for cls, name in ((QAFeL, "run_client_stream"),
+                      (UpdateBuffer, "add_encoded_chunks"),
+                      (UpdateBuffer, "assemble_chunks"),
+                      (TrafficMeter, "record_stream"),
+                      (RoundState, "from_trees"), (RoundState, "clone")):
+        assert callable(getattr(cls, name)), (cls, name)
+
+
 @pytest.mark.parametrize("module,name", LLM_NAMES,
                          ids=lambda v: v.split(".")[-1])
 def test_llm_slice_entry_points(module, name):

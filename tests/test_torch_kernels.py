@@ -183,26 +183,28 @@ def test_dequantize_eager_matches_jax_eager(bits, n):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("n", SIZES)
 def test_dequantize_accumulate_matches_jitted_apply(bits, n):
-    """K3 with an accumulator against the reference's jitted ``acc +
-    qsgd_dequantize(...)`` (the round's x-hat + q): XLA:CPU fuses the
-    decode's last product into the add, one rounding."""
+    """K3 with an accumulator, written over it, against the reference's
+    jitted ``acc + qsgd_dequantize(...)`` (the round's x-hat + q): XLA:CPU
+    fuses the decode's last product into the add, one rounding."""
     rng = np.random.default_rng(n * 10 + bits + 7)
     jk, _ = _key(n + 2)
     jp, jn = jops.qsgd_quantize(jnp.asarray(_msg(rng, n)), jk, bits)
     acc = (0.3 * rng.standard_normal(n)).astype(np.float32)
     want = jax.jit(lambda a, p, nm: a + jops.qsgd_dequantize(p, nm, bits, n))(
         jnp.asarray(acc), jp, jn)
-    got = ops.qsgd_dequantize(torch.from_numpy(np.array(jp)),
-                              torch.from_numpy(np.array(jn)), bits, n,
-                              acc=torch.from_numpy(acc))
-    assert tuple(got.shape) == (n,)
+    acc_t = torch.from_numpy(acc.copy())
+    got = tkernels.qsgd.qsgd_unpack_dequantize(
+        torch.from_numpy(np.array(jp)), torch.from_numpy(np.array(jn)), bits,
+        acc=acc_t)
+    assert got is acc_t and tuple(got.shape) == (n,)
     assert _bits_equal(want, got)
 
 
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("n", SIZES)
 def test_dequantize_weighted_accumulate_matches_jitted_scan(bits, n):
-    """K3 with an accumulator and a weight against the reference round's
+    """K3 with an accumulator and a weight, written over the accumulator,
+    against the reference round's
     jitted ``buf + w * qsgd_dequantize(...)`` inside a scan over three
     messages (``repro/distributed/steps.py:170``): XLA:CPU rounds the
     decode, then fuses the weight's product into the add."""
@@ -221,10 +223,10 @@ def test_dequantize_weighted_accumulate_matches_jitted_scan(bits, n):
     want = jax.jit(scan)(jp, jn, jnp.asarray(w))
     got = torch.zeros(n)
     for i in range(3):
-        got = ops.qsgd_dequantize(torch.from_numpy(np.array(jp[i])),
-                                  torch.from_numpy(np.array(jn[i])), bits, n,
-                                  acc=got, weight=torch.from_numpy(w[i:i + 1]))
-    assert tuple(got.shape) == (n,)
+        tkernels.qsgd.qsgd_unpack_dequantize(
+            torch.from_numpy(np.array(jp[i])),
+            torch.from_numpy(np.array(jn[i])), bits, acc=got,
+            weight=torch.from_numpy(w[i:i + 1]))
     assert _bits_equal(want, got)
 
 

@@ -203,13 +203,15 @@ def test_unpack_dequantize_accumulate_random_codes(bits):
                           device=dev, dtype=torch.uint8)
         nm = torch.rand(rows, generator=gen, device=dev) * 3.0
         acc = torch.randn(n, generator=gen, device=dev)
+        old = acc.clone()
+        want = ref.unpack_dequantize(p, nm, bits, acc=acc).reshape(-1)[:n]
         before = tkernels.launches()["qsgd_unpack_dequantize"]
         got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, acc=acc)
         torch.cuda.synchronize()
         assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
-        want = ref.unpack_dequantize(p, nm, bits, acc=acc)
+        assert got is acc
         _assert_bits_equal(got, want)
-        assert not torch.equal(got.reshape(-1)[:n], acc)
+        assert not torch.equal(got, old)
 
 
 @pytest.mark.gpu
@@ -226,15 +228,18 @@ def test_unpack_dequantize_weighted_accumulate_random_codes(bits):
         nm = torch.rand(rows, generator=gen, device=dev) * 3.0
         acc = torch.randn(n, generator=gen, device=dev)
         w = torch.rand(1, generator=gen, device=dev)
+        want = ref.unpack_dequantize(p, nm, bits, acc=acc,
+                                     weight=w).reshape(-1)[:n]
+        unweighted = ref.unpack_dequantize(p, nm, bits,
+                                           acc=acc).reshape(-1)[:n]
         before = tkernels.launches()["qsgd_unpack_dequantize"]
         got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, acc=acc,
                                                    weight=w)
         torch.cuda.synchronize()
         assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
-        want = ref.unpack_dequantize(p, nm, bits, acc=acc, weight=w)
+        assert got is acc
         _assert_bits_equal(got, want)
-        assert not torch.equal(got, ref.unpack_dequantize(p, nm, bits,
-                                                          acc=acc))
+        assert not torch.equal(got, unweighted)
 
 
 @pytest.mark.gpu
@@ -399,3 +404,123 @@ def test_upload_taps_match_plain_on_card(b, d, bits):
             None if packed is None else packed[i:i + 1].to(dev),
             None if norms is None else norms[i:i + 1].to(dev), bits)
         _assert_bits_equal(one, got[i:i + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("chunk", (1, 7, 1000))
+def test_threefry_quantize_row_offset(bits, chunk):
+    """K1 on row chunks at their row offsets (``row0``): each chunk equal
+    to those rows of the whole message's encode and to the plain version
+    with the same offset; ragged last rows; one launch per chunk."""
+    dev = _card()
+    rng = np.random.default_rng(bits + chunk)
+    n = 128 * 2500 - 37
+    rows = ref.rows_for(n)
+    x = torch.from_numpy((rng.standard_normal(n) * 0.1).astype(
+        np.float32)).to(dev)
+    k = torch.tensor(KEYS[2])
+    whole = tkernels.qsgd.qsgd_quantize_pack_threefry(x, k, bits)
+    for r0 in range(0, rows, chunk):
+        r1 = min(rows, r0 + chunk)
+        seg = x[r0 * 128:r1 * 128]
+        before = tkernels.launches()["qsgd_quantize_pack_threefry"]
+        got = tkernels.qsgd.qsgd_quantize_pack_threefry(
+            seg, k, bits, row0=r0, total_rows=rows)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_quantize_pack_threefry"] == \
+            before + 1
+        _assert_bits_equal(got, (whole[0][r0:r1], whole[1][r0:r1]))
+        if r0 < 3 * chunk or r1 == rows:
+            _assert_bits_equal(got, ref.quantize_pack_threefry(
+                seg, k, bits, row0=r0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_batch_row_offset(bits):
+    """K2 at row offsets (the counter hash's global row index, wrapping
+    past 2**32 / 128 rows) against its plain version."""
+    dev = _card()
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy((rng.standard_normal((3, 77, 128)) * 0.1).astype(
+        np.float32)).to(dev)
+    seeds = prng.split(prng.PRNGKey(bits), 3)
+    for row0 in (0, 5, 2 ** 25 - 30):
+        got = tkernels.qsgd.qsgd_quantize_pack_batch(x, seeds, bits,
+                                                     row0=row0)
+        torch.cuda.synchronize()
+        _assert_bits_equal(got, ref.quantize_pack_batch(x, seeds, bits,
+                                                        row0=row0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("mode", ("apply_f32", "apply_bf16", "weighted"))
+def test_unpack_dequantize_in_place(bits, mode):
+    """K3's accumulating modes, written over the accumulator (f32, or
+    bf16 rounded to nearest even for the apply mode), against the
+    wrapper's plain path on the CPU; nothing past n is written; one
+    launch per call."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(bits + 40)
+    dtype = torch.bfloat16 if mode == "apply_bf16" else torch.float32
+    for rows, n in ((1, 100), (625, 79_842), (40_001, 40_001 * 128 - 5)):
+        p = torch.randint(0, 256, (rows, 16 * bits), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        nm = torch.rand(rows, generator=gen, device=dev) * 3.0
+        store = torch.randn(n + 64, generator=gen, device=dev).to(dtype)
+        acc = store[:n]
+        tail = store[n:].clone()
+        w = (torch.rand(1, generator=gen, device=dev)
+             if mode == "weighted" else None)
+        want = tkernels.qsgd.qsgd_unpack_dequantize(
+            p.cpu(), nm.cpu(), bits, acc=acc.cpu(),
+            weight=None if w is None else w.cpu())
+        before = tkernels.launches()["qsgd_unpack_dequantize"]
+        got = tkernels.qsgd.qsgd_unpack_dequantize(p, nm, bits, acc=acc,
+                                                   weight=w)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
+        assert got is acc
+        if dtype == torch.bfloat16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        _assert_bits_equal(got.cpu(), want)
+        assert torch.equal(store[n:], tail)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("beta,lr", ((0.3, 1.0), (None, 1.0), (0.9, 0.7)))
+def test_server_update_matches_plain_on_card(dtype, beta, lr):
+    """The server-update kernel against its plain version on the card and
+    on the CPU, bit for bit, with a tail past the last 8-element vector
+    and a buf longer than the state; one launch per call."""
+    from repro_torch.kernels.server_update import server_update_
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dt = getattr(torch, dtype)
+    for n in (5, 4096, 1_000_003):
+        buf = torch.randn(n + 3, generator=gen, device=dev) * 1e-2
+        m = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(dt)
+        x = torch.randn(n, generator=gen, device=dev).to(dt)
+        xhat = (x.float() + torch.randn(n, generator=gen, device=dev)
+                * 1e-3).to(dt)
+        cpu = [t.cpu() for t in (buf, m, x)]
+        card = [t.clone() for t in (buf, m, x)]
+        plain = [t.clone() for t in (buf, m, x)]
+        before = tkernels.launches()["server_update"]
+        server_update_(*card, xhat, k=4, beta=beta, lr=lr)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["server_update"] == before + 1
+        f32 = lambda v: float(np.float32(v))
+        ref.server_update_(*plain, xhat, inv_k=0.25,
+                           beta=None if beta is None else f32(beta),
+                           lr=f32(lr))
+        server_update_(*cpu, xhat.cpu(), k=4, beta=beta, lr=lr)
+        for a, b, c in zip(card, plain, cpu):
+            if a.dtype == torch.bfloat16:
+                a, b, c = (t.view(torch.int16) for t in (a, b, c))
+            _assert_bits_equal(a, b)
+            _assert_bits_equal(a.cpu(), c)

@@ -51,8 +51,9 @@ from repro_torch import configs as TC
 from repro_torch.common import prng
 from repro_torch.common.tree import tree_leaves
 from repro_torch.convert import params_from_jax, round_state_from_jax
-from repro_torch.core.qafel import QAFeLConfig, local_sgd
-from repro_torch.core.quantizers import TreeLayout, flatten_tree
+from repro_torch.core.qafel import QAFeLConfig, client_update_flat, local_sgd
+from repro_torch.core.quantizers import (TreeLayout, flatten_tree,
+                                         make_quantizer)
 from repro_torch.distributed import steps as TS
 from repro_torch.examples import federated_llm
 from repro_torch.kernels import ops as tops
@@ -129,9 +130,9 @@ def test_bf16_local_sgd_rounds_as_the_reference():
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     y0, layout = flatten_tree(tp)
     assert layout.dtypes == ("float32", "bfloat16")
-    y = local_sgd(_linear_loss_torch, 3e-2, layout, y0,
-                  {"c": torch.from_numpy(c)}, prng.split(prng.PRNGKey(0), 3))
-    got = layout.unflatten(y)
+    got = local_sgd(_linear_loss_torch, 3e-2, layout, y0,
+                    {"c": torch.from_numpy(c)},
+                    prng.split(prng.PRNGKey(0), 3))
     assert got["w"].dtype == torch.bfloat16
     assert _same(got["w"], want["w"]) and _same(got["v"], want["v"])
     # a separately rounded bf16 step (no product rounding) would differ
@@ -151,9 +152,9 @@ def test_f32_local_sgd_keeps_its_fused_step():
                                               k)[0])(jp, {"c": c}, keys)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     y0, layout = flatten_tree(tp)
-    got = layout.unflatten(local_sgd(
-        _linear_loss_torch, 0.37, layout, y0, {"c": torch.from_numpy(c)},
-        prng.split(prng.PRNGKey(1), 2)))
+    got = local_sgd(_linear_loss_torch, 0.37, layout, y0,
+                    {"c": torch.from_numpy(c)},
+                    prng.split(prng.PRNGKey(1), 2))
     assert _same(got["w"], want["w"]) and _same(got["v"], want["v"])
 
 
@@ -186,9 +187,8 @@ def test_bf16_reduced_config_local_sgd_near_reference():
     from repro_torch.models import transformer as TT
     tloss = lambda p, b, k: TT.loss_fn(tc, p, b, remat=False)[0]
     tb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
-    y, tl = local_sgd(tloss, 3e-2, layout, y0, tb,
-                      prng.split(prng.PRNGKey(3), 2), with_loss=True)
-    got = layout.unflatten(y)
+    got, tl = local_sgd(tloss, 3e-2, layout, y0, tb,
+                        prng.split(prng.PRNGKey(3), 2), with_loss=True)
     assert all(t.dtype == torch.bfloat16 for t in tree_leaves(got))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
                                rtol=0, atol=BF16_SGD_LOSS_ATOL)
@@ -210,8 +210,7 @@ def test_bf16_reduced_config_local_sgd_near_reference():
     y32 = local_sgd(lambda p, b, k: tloss(_to_bf16(p), b, k), 3e-2,
                     TreeLayout.of(_to_f32(tp)), y0.float(), tb,
                     prng.split(prng.PRNGKey(3), 2))
-    c_share, c_l1, _, _ = delta_stats(
-        TreeLayout.of(_to_f32(tp)).unflatten(y32))
+    c_share, c_l1, _, _ = delta_stats(y32)
     print(f"bf16 local SGD: {moved:.4f} of coordinates moved; on them "
           f"{share:.4f} equal, L1 {l1:.3e}, {one_sided:.4f} moved by one "
           f"side only; f32-y control {c_share:.4f} equal, L1 {c_l1:.3e}")
@@ -280,29 +279,36 @@ def _reference_half(x, hidden, m, packed, norms, w, kser, *, d, bits, qcfg):
             layout.unflatten(m_new), bp[0], bn[0])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_server_half_bit_for_bit(dtype):
+@pytest.mark.parametrize("dtype,chunk_rows", [
+    ("float32", None), ("float32", 1000), ("bfloat16", None),
+    ("bfloat16", 4099)])
+def test_server_half_bit_for_bit(dtype, chunk_rows):
+    """The port's ``accumulate`` and ``server_half`` on the round's flat
+    state (``RoundState.from_trees``: one buffer each in the leaves' dtype,
+    updated in place), the broadcast encoded ``chunk_rows`` rows at a time,
+    against the reference's jitted server half run unchunked (its chunked
+    threefry encode is no oracle on this jax, ROADMAP queue C)."""
     bits = 4
     x, hidden, m, packed, norms, w, d = _half_inputs(dtype, bits=bits)
     jq = JConfig(**QCFG)
     want = jax.jit(lambda *a: _reference_half(*a, d=d, bits=bits, qcfg=jq))(
         x, hidden, m, jnp.asarray(packed.numpy()), jnp.asarray(norms.numpy()),
         jnp.asarray(w), jax.random.PRNGKey(9))
-    tx, th, tm = (params_from_jax(jax.tree.map(np.asarray, t), device="cpu")
-                  for t in (x, hidden, m))
-    hf, layout = flatten_tree(th)
+    state = TS.RoundState.from_trees(
+        *(params_from_jax(jax.tree.map(np.asarray, t), device="cpu")
+          for t in (x, hidden, m)))
+    assert state.flat[0].dtype == getattr(torch, dtype)
     buf = torch.zeros(d)
     for k in range(packed.shape[0]):
-        buf = TS.accumulate(buf, packed[k], norms[k],
-                            torch.from_numpy(w[k:k + 1]), bits=bits, d=d)
-    x_new, h_new, m_new, (bp, bn) = TS.server_half(
-        flatten_tree(tx)[0], hf, flatten_tree(tm)[0], buf,
-        prng.PRNGKey(9), qcfg=QAFeLConfig(**QCFG), sbits=bits, d=d)
+        TS.accumulate(buf, packed[k], norms[k], torch.from_numpy(w[k:k + 1]),
+                      bits=bits, d=d)
+    bp, bn = TS.server_half(*state.flat, buf, prng.PRNGKey(9),
+                            qcfg=QAFeLConfig(**QCFG), sbits=bits, d=d,
+                            chunk_rows=chunk_rows)
     assert _same(bp, want[3]) and _same(bn, want[4])
-    for got, ref_tree in ((x_new, want[0]), (h_new, want[1]),
-                          (m_new, want[2])):
-        gt = layout.unflatten(got)
-        for a, b in zip(tree_leaves(gt), jax.tree.leaves(ref_tree)):
+    for got, ref_tree in ((state.x, want[0]), (state.hidden, want[1]),
+                          (state.momentum, want[2])):
+        for a, b in zip(tree_leaves(got), jax.tree.leaves(ref_tree)):
             assert str(a.dtype).endswith(dtype) and _same(a, b)
 
 
@@ -388,14 +394,24 @@ def test_two_rounds_match_reference():
 def test_round_refuses_what_it_does_not_port():
     cfg, q = TC.get_reduced("gemma2-2b"), QAFeLConfig(**QCFG)
     for kw, item in ((dict(pod_quantized=True), "14d"),
-                     (dict(chunk_rows=8), "13"), (dict(taps=True), "13"),
-                     (dict(remat=True), "13")):
+                     (dict(taps=True), "13c")):
         with pytest.raises(NotImplementedError, match=item):
             TS.make_qafel_round(cfg, q, **kw)
     with pytest.raises(NotImplementedError, match="14d"):
         TS.make_qafel_round(cfg, QAFeLConfig(client_quantizer="top_k0.1"))
     with pytest.raises(NotImplementedError, match="14b"):
         TS.make_prefill_step(cfg)
+    with pytest.raises(ValueError, match="chunk_rows"):
+        TS.make_qafel_round(cfg, q, chunk_rows=0)
+    # remat and chunk_rows are ported: no refusal
+    TS.make_qafel_round(cfg, q, remat=True, chunk_rows=8)
+    # remat under the vmapped cohort step stays refused
+    flat, layout = flatten_tree({"w": torch.zeros(8)})
+    with pytest.raises(NotImplementedError, match="13b"):
+        client_update_flat(lambda p, b, k: p["w"].sum(), q,
+                           make_quantizer("qsgd4").spec, layout, flat,
+                           {"t": torch.zeros(2, 2, 1)}, None, None, b=2,
+                           remat=True)
 
 
 def test_federated_llm_example_runs_on_cpu(capsys):
@@ -410,3 +426,198 @@ def test_federated_llm_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         federated_llm.main(["--rounds", "1"])
+
+
+# ---------------------------------------------------------------------------
+# The full-depth levers: chunk_rows, remat, the in-place state
+# ---------------------------------------------------------------------------
+
+def _tiny_cfg():
+    """gemma2-2b's reduced config narrowed further (d = 5,792, 46 rows with
+    a ragged last one) so a round at one row per chunk stays quick."""
+    return TC.get_reduced("gemma2-2b").replace(
+        d_model=16, vocab=64, n_heads=2, n_kv_heads=1, head_dim=8, d_ff=32,
+        sliding_window=8)
+
+
+_TINY = {}
+
+
+def _tiny_rounds(chunk_rows, remat, dtype="float32"):
+    """Two rounds of the tiny config from one seeded state, with every
+    message the rounds made (``on_message``); cached."""
+    key = (chunk_rows, remat, dtype)
+    if key not in _TINY:
+        cfg = _tiny_cfg().replace(param_dtype=dtype, dtype=dtype)
+        qcfg = QAFeLConfig(**QCFG)
+        state = TS.init_round_state(cfg, 3, "cpu")
+        msgs = []
+        rf = TS.make_qafel_round(
+            cfg, qcfg, remat=remat, chunk_rows=chunk_rows,
+            on_message=lambda kind, i, p, nm: msgs.append(
+                (kind, i, p.clone(), nm.clone())))
+        rng = np.random.default_rng(1)
+        mets = []
+        for step in range(2):
+            batch = federated_llm.round_batch(cfg, qcfg, rng, 16, "cpu")
+            state, met = rf(state, batch, torch.tensor([0.9, 1, 0.7, 0.5]),
+                            prng.PRNGKey(step))
+            mets.append(met)
+        _TINY[key] = (state, mets, msgs)
+    return _TINY[key]
+
+
+@pytest.mark.parametrize("chunk_rows,remat,dtype", [
+    (1, False, "float32"), (3, True, "float32"), (5, False, "float32"),
+    (None, True, "float32"), (3, True, "bfloat16"),
+    (None, True, "bfloat16")])
+def test_round_chunk_rows_and_remat_change_no_bit(chunk_rows, remat, dtype):
+    """The round at ``chunk_rows`` 1, 3 and 5 and with ``remat`` equals
+    the round at ``chunk_rows=None`` without remat: x, x-hat, m, the
+    losses, the metered bytes and every upload's and broadcast's codes
+    and norms, bit for bit, in f32 and bf16."""
+    base, bmets, bmsgs = _tiny_rounds(None, False, dtype)
+    st, mets, msgs = _tiny_rounds(chunk_rows, remat, dtype)
+    assert [m[:2] for m in msgs] == [m[:2] for m in bmsgs] == 2 * (
+        [("upload", k) for k in range(4)] + [("broadcast", 4)])
+    for m, bm in zip(msgs, bmsgs):
+        assert _same(m[2], bm[2]) and _same(m[3], bm[3])
+    assert st.t == base.t == 2
+    assert st.flat[0].dtype == getattr(torch, dtype)
+    for a, b in zip(st.flat, base.flat):
+        assert _same(a, b)
+    for m, bm in zip(mets, bmets):
+        assert _same(m["loss"], bm["loss"])
+        assert m["upload_bytes"] == bm["upload_bytes"]
+        assert m["broadcast_bytes"] == bm["broadcast_bytes"]
+
+
+def test_round_updates_the_state_in_place():
+    """The round returns its own state, t + 1, its trees still views of
+    the flat buffers; a state cloned before the round is untouched."""
+    cfg = _tiny_cfg()
+    qcfg = QAFeLConfig(**QCFG)
+    state = TS.init_round_state(cfg, 3, "cpu")
+    before = state.clone()
+    ptrs = [f.data_ptr() for f in state.flat]
+    rf = TS.make_qafel_round(cfg, qcfg, chunk_rows=7)
+    batch = federated_llm.round_batch(cfg, qcfg, np.random.default_rng(1),
+                                      16, "cpu")
+    out, _ = rf(state, batch, torch.ones(4), prng.PRNGKey(0))
+    assert out is state and state.t == 1 and before.t == 0
+    assert [f.data_ptr() for f in state.flat] == ptrs
+    for tree, flat in zip((state.x, state.hidden, state.momentum),
+                          state.flat):
+        lo, hi = flat.data_ptr(), flat.data_ptr() + 4 * flat.numel()
+        assert all(lo <= t.data_ptr() < hi for t in tree_leaves(tree))
+    assert not torch.equal(state.flat[0], before.flat[0])
+    fresh = TS.init_round_state(cfg, 3, "cpu")
+    for a, b in zip(before.flat, fresh.flat):
+        assert _same(a, b)
+
+
+def test_mixed_dtype_round_keeps_a_new_state():
+    """A tree of two dtypes (here the final norm in bf16) keeps its trees:
+    the round runs on f32 copies of x, x-hat and m and returns a new state
+    in the leaves' dtypes, leaving the old one as it was."""
+    cfg = _tiny_cfg()
+    qcfg = QAFeLConfig(**QCFG)
+    base = TS.init_round_state(cfg, 3, "cpu")
+    mixed = TS.RoundState.from_trees(
+        *(dict(tr, final_norm=tr["final_norm"].to(torch.bfloat16))
+          for tr in (base.x, base.hidden, base.momentum)))
+    assert mixed.flat is None
+    rf = TS.make_qafel_round(cfg, qcfg, remat=False)
+    batch = federated_llm.round_batch(cfg, qcfg, np.random.default_rng(1),
+                                      16, "cpu")
+    new, met = rf(mixed, batch, torch.ones(4), prng.PRNGKey(0))
+    assert new is not mixed and new.t == 1 and mixed.t == 0
+    assert new.x["final_norm"].dtype == torch.bfloat16
+    assert torch.isfinite(met["loss"])
+    assert torch.equal(mixed.x["embed"], base.x["embed"])
+    assert not torch.equal(new.x["embed"], base.x["embed"])
+
+
+@pytest.mark.parametrize("dtype,beta,lr", [
+    ("float32", 0.3, 1.0), ("float32", None, 1.0), ("float32", 0.3, 0.7),
+    ("bfloat16", 0.3, 1.0), ("bfloat16", 0.9, 1.3)])
+def test_plain_server_update_is_the_old_op_sequence(dtype, beta, lr):
+    """``kernels.server_update.server_update_`` on CPU tensors (its plain
+    version, ``ref.server_update_``) against the round's earlier server
+    half: ``buf * fl32(1/K)``, the float64-exact ``ref.fma_f32`` for the
+    momentum and a server lr other than 1, ``m_new + x`` for lr 1, the
+    diff, and the unflatten's rounding; bit for bit, chunk edges
+    included."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.server_update import server_update_
+
+    n, k = 5000, 4
+    rng = np.random.default_rng(7)
+    t = lambda s: torch.from_numpy(
+        (s * rng.standard_normal(n)).astype(np.float32))
+    dt = getattr(torch, dtype)
+    buf, m, x = t(1e-2), t(1e-3).to(dt), t(1.0).to(dt)
+    xhat = (x.float() + t(1e-3)).to(dt)
+    f32 = lambda v: float(np.float32(v))
+    m_new = buf * f32(1.0 / k)
+    if beta:
+        m_new = ref.fma_f32(m.float(), f32(beta), m_new)
+    x_new = (m_new + x.float() if lr == 1.0
+             else ref.fma_f32(m_new, f32(lr), x.float()))
+    want = (x_new - xhat.float(), m_new.to(dt), x_new.to(dt))
+    got_buf, got_m, got_x = buf.clone(), m.clone(), x.clone()
+    out = ref.server_update_(got_buf, got_m, got_x, xhat,
+                             inv_k=f32(1.0 / k),
+                             beta=None if beta is None else f32(beta),
+                             lr=f32(lr), chunk=777)
+    assert out is got_buf
+    for a, b in zip((got_buf, got_m, got_x), want):
+        assert _same(a, b)
+    got2 = (buf.clone(), m.clone(), x.clone())
+    server_update_(*got2, xhat, k=k, beta=beta, lr=lr)
+    for a, b in zip(got2, want):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_round_state_from_jax_builds_the_flat_state(dtype):
+    jc = JC.get_reduced("gemma2-2b").replace(param_dtype=dtype, dtype=dtype)
+    js = JS.init_round_state(jc, jax.random.PRNGKey(4))
+    ts = round_state_from_jax(jax.device_get(js), device="cpu")
+    assert ts.t == 0 and ts.flat is not None
+    assert all(f.dtype == getattr(torch, dtype) for f in ts.flat)
+    for name, flat in zip(("x", "hidden", "momentum"), ts.flat):
+        tl, jl = tree_leaves(getattr(ts, name)), jax.tree.leaves(
+            getattr(js, name))
+        assert len(tl) == len(jl)
+        lo, hi = flat.data_ptr(), flat.data_ptr() + flat.element_size() * \
+            flat.numel()
+        for a, b in zip(tl, jl):
+            assert _same(a, np.asarray(b)) and lo <= a.data_ptr() < hi
+    assert TreeLayout.of(ts.x).dtypes == tuple(
+        dtype for _ in jax.tree.leaves(js.x))
+
+
+def test_local_sgd_remat_matches_without():
+    """Local SGD on the reduced gemma2-2b with the blocks checkpointed
+    (``remat=True``: ``torch.autograd.grad``) and without
+    (``torch.func.grad``): the losses and the parameters after two steps
+    (so the gradients) bit for bit."""
+    from repro_torch.data.synthetic import synthetic_lm_batch
+    from repro_torch.models import transformer as TT
+
+    tc = TC.get_reduced("gemma2-2b")
+    tp = TT.init_params(tc, 5, "cpu")
+    y0, layout = flatten_tree(tp)
+    raw = synthetic_lm_batch(np.random.default_rng(2), 4, 16, tc.vocab)
+    tb = {k: torch.from_numpy(v.reshape((2, 2) + v.shape[1:]))
+          for k, v in raw.items()}
+    keys = prng.split(prng.PRNGKey(3), 2)
+    out = {}
+    for remat in (False, True):
+        loss = lambda p, b, k, r=remat: TT.loss_fn(tc, p, b, remat=r)[0]
+        out[remat] = local_sgd(loss, 3e-2, layout, y0, tb, keys,
+                               with_loss=True, remat=remat)
+    assert _same(out[True][1], out[False][1])
+    for a, b in zip(tree_leaves(out[True][0]), tree_leaves(out[False][0])):
+        assert _same(a, b)
