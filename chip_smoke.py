@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the eight CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build of the nine CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
    per element of the in-kernel threefry dither and of the batched
    encode's counter hash, by pipe, and the decode kernels' int32
@@ -104,18 +104,39 @@ Phases, each printing one JSON line:
     device time by phase (the round's ``record_function`` ranges: client
     (local SGD and K1), accumulate (K3 into the weighted sum), server and
     broadcast; each kernel counted in the range its launch was made in),
-    bytes per upload against (4 d + 32 ceil(d/128)) / 8); then at that d
-    K1 over the whole message and in the round's row chunks at their row
-    offsets, K3 plain, K3's weighted add into an f32 sum in place and its
-    broadcast decode into a bf16 x-hat in place, and the server-update
-    kernel on a bf16 state, each against its plain version taken in row
-    chunks, bit for bit, timed with its bound (``llm_kernel``); then
-    gemma2-2b cut to 2 layers, one round whole and one in ragged row
+    bytes per upload against (4 d + 32 ceil(d/128)) / 8); one more round
+    with the taps on (``llm_round_taps``: its ms, its launches (one
+    finishing launch more), the seven taps finite, its peak against the
+    reckoning with the tap rows) and a taps-off and a taps-on round timed
+    by CUDA events from the last upload on (the device ms the taps add to
+    the server half and after the broadcast); then
+    serving the x that round trained, hidden state and momentum freed
+    (``launch.serve.serve``): ``serve_gemma2`` (B = 4, prompt 64, 32
+    greedy steps: prefill ms, each decode step by CUDA events, tokens/s,
+    device launches per decode step and the idle share of the decode loop
+    from a profiled call, the byte bound of a step, peak memory, the
+    cache's k and v bytes against their count, decode against forward at
+    the last position) and ``serve_gemma2_long`` (B = 1, prompt 4,160 past
+    the local layers' 4,096-slot ring, 64 steps: the cache's bytes, every
+    ``slot_pos`` against the ring law, decode against forward); then at
+    the round's d K1 over the whole message and in the round's row chunks
+    at their row offsets, K3 plain, K3's weighted add into an f32 sum in
+    place, its broadcast decode into a bf16 x-hat in place and that apply
+    with the round's taps, the server-update kernel on a bf16 state
+    without and with the taps, and the taps' finishing pass, each against
+    its plain version taken in chunks, bit for bit, timed with its bound
+    (``llm_kernel``); then gemma2-2b cut to 2 layers, a taps-off and a
+    taps-on round from clones of one state bit-equal, the taps equal to
+    ``ref.round_taps`` over the materialized vectors
+    (``llm_round_taps_2layer``); one round whole and one in ragged row
     chunks of 4,099 from the same state, bit for bit, with each round's
     peak (``llm_streamed_vs_whole``); then the reduced round on the card
     and the CPU in row chunks, 2 rounds, and its server half
     (``steps.accumulate`` and ``steps.server_half``) on identical client
-    messages bit for bit (``llm_reduced_card_vs_cpu``);
+    messages bit for bit (``llm_reduced_card_vs_cpu``); the reduced
+    config served on the card and the CPU (B = 2, 32 tokens, 8 steps,
+    with and without a window): logits within the CPU tests' bound,
+    tokens and ``slot_pos`` equal (``serve_reduced_card_vs_cpu``);
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
@@ -124,7 +145,8 @@ Phases, each printing one JSON line:
 14. one line listing every kernel with its launches on both paths, on
     the family's runs, on the population run and on the LLM round, times
     and bound (the tap kernels' launches from the taps-on runs; the
-    server update's from the LLM round, the only path that runs it);
+    server update's from the LLM round, the only path that runs it; the
+    round's finishing pass from its taps-on round);
 15. last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -2512,30 +2534,40 @@ LLM_REDUCED_CHUNK_ROWS = 1000
 LLM_STREAM_LAYERS, LLM_STREAM_CHUNK_ROWS = 2, 4099
 
 
-def llm_peak_reckoning(d: int) -> float:
-    """The round's peak bytes by the count of its buffers."""
-    return 14.5 * d + 4 * -(-d // 128) + LLM_TRANSIENT_BYTES
+def llm_peak_reckoning(d: int, taps: bool = False) -> float:
+    """The round's peak bytes by the count of its buffers; with taps, the
+    five rows of level-1 window sums, 20 B per 32 elements, on top."""
+    return (14.5 * d + 4 * -(-d // 128) + LLM_TRANSIENT_BYTES
+            + (20 * -(-d // 32) if taps else 0))
 
 
 LLM_PHASES = ("client", "accumulate", "server", "broadcast")
+# the port's kernels on the round's path
+ROUND_KERNELS = ("qsgd_quantize_pack_threefry", "qsgd_unpack_dequantize",
+                 "server_update", "round_taps")
 
 
-def phase_device_ms(prof, path: Path) -> dict:
-    """Device time by phase of a profiled round, from its trace: each
+def phase_activity(prof, path: Path, phases) -> dict:
+    """Device activity by phase of a profiled run, from its trace: each
     kernel, copy and fill counts in the ``record_function`` range of
-    ``LLM_PHASES`` during which its launch call was made (on any thread:
-    the autograd engine launches the backward from its own), else in
-    ``"other"`` (the batch's copies, the drift)."""
+    ``phases`` during which its launch call was made (on any thread: the
+    autograd engine launches the backward from its own), else in
+    ``"other"``. Returns {phase: {"ms", "launches", "wall_ms"}}, ``ms`` the
+    device time, ``launches`` the device activities, ``wall_ms`` the
+    range's own duration on the host."""
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
     ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                     if e.get("cat") == "user_annotation"
-                    and e.get("name") in LLM_PHASES)
+                    and e.get("name") in phases)
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    out = {name: 0.0 for name in LLM_PHASES + ("other",)}
+    out = {name: {"ms": 0.0, "launches": 0, "wall_ms": 0.0}
+           for name in tuple(phases) + ("other",)}
+    for t0, t1, name in ranges:
+        out[name]["wall_ms"] += (t1 - t0) / 1e3
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
                 or "spin_kernel" in e.get("name", ""):
@@ -2543,8 +2575,32 @@ def phase_device_ms(prof, path: Path) -> dict:
         ts = launched.get(e.get("args", {}).get("correlation"))
         name = next((n for t0, t1, n in ranges
                      if ts is not None and t0 <= ts <= t1), "other")
-        out[name] += e["dur"] / 1e3
+        out[name]["ms"] += e["dur"] / 1e3
+        out[name]["launches"] += 1
     return out
+
+
+def phase_device_ms(prof, path: Path) -> dict:
+    """Device ms by phase of a profiled round (``phase_activity`` over the
+    round's ranges ``LLM_PHASES``; the batch's copies and the drift go to
+    ``"other"``)."""
+    return {name: v["ms"] for name, v in
+            phase_activity(prof, path, LLM_PHASES).items()}
+
+
+def kernel_table(prof) -> dict:
+    """{kernel name: (launches, device ms)} of a profile's CUDA kernels
+    (the profiler's own spin kernel left out)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation \
+                and "spin_kernel" not in e.key:
+            c, t = by_name.get(e.key, (0, 0.0))
+            by_name[e.key] = (c + e.count,
+                              t + e.self_device_time_total / 1e3)
+    return by_name
 
 
 def llm_round(dev) -> tuple:
@@ -2555,10 +2611,14 @@ def llm_round(dev) -> tuple:
     launch counters set to 0 just before and read just after (loss,
     |x - x_hat|_1, ms by CUDA events, peak memory, bytes per upload), then
     one round under ``torch.profiler`` (launches and device time per
-    kernel, device time by phase). Returns (record, launches, d)."""
+    kernel, device time by phase); then one round with the taps on
+    (``llm_round_taps``: its ms, launches and taps, its peak against the
+    reckoning with the tap rows) and a taps-off and a taps-on round timed
+    by CUDA events from the last upload on (the device ms the taps add to
+    the server half and after the broadcast). Hidden and momentum are then freed and the trained x kept for
+    serving. Returns (record, launches, d, x tree, taps record)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -2569,6 +2629,7 @@ def llm_round(dev) -> tuple:
     from repro_torch.examples import federated_llm as fl
     from repro_torch.kernels import launches as kernel_launches
     from repro_torch.kernels import reset_launches
+    from repro_torch.obs.taps import FLUSH_TAP_NAMES
 
     cfg = configs.get_config(LLM_ARCH)
     if cfg.n_layers != LLM_LAYERS:
@@ -2587,12 +2648,12 @@ def llm_round(dev) -> tuple:
     weights = torch.ones(k)
     rng = np.random.default_rng(0)
 
-    def one(step: int) -> dict:
+    def one(step: int, fn=round_fn) -> dict:
         batch = fl.round_batch(cfg, qcfg, rng, LLM_SEQ, dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        new, met = round_fn(holder[0], batch, weights, prng.PRNGKey(step))
+        new, met = fn(holder[0], batch, weights, prng.PRNGKey(step))
         end.record()
         holder[0] = new
         del batch
@@ -2602,6 +2663,8 @@ def llm_round(dev) -> tuple:
                "drift_l1": float(drift), "ms": start.elapsed_time(end),
                "upload_bytes": met["upload_bytes"],
                "broadcast_bytes": met["broadcast_bytes"]}
+        if "taps" in met:
+            row["taps"] = met["taps"].cpu().tolist()
         emit({"phase": "llm_round_step", **row})
         return row
 
@@ -2616,15 +2679,9 @@ def llm_round(dev) -> tuple:
         torch.cuda._sleep(20_000_000)
         torch.cuda.synchronize()
         profiled = one(1 + LLM_ROUNDS)
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation \
-                and "spin_kernel" not in e.key:
-            c, t = by_name.get(e.key, (0, 0.0))
-            by_name[e.key] = (c + e.count,
-                              t + e.self_device_time_total / 1e3)
+    by_name = kernel_table(prof)
 
-    def kernel(part: str) -> dict:
+    def kernel(part: str, by_name=by_name) -> dict:
         hits = [(c, t) for name, (c, t) in by_name.items() if part in name]
         n = sum(c for c, _ in hits)
         ms = sum(t for _, t in hits)
@@ -2691,10 +2748,91 @@ def llm_round(dev) -> tuple:
     emit(record)
     if not all(checks.values()):
         raise AssertionError(f"llm_round: {checks}")
-    holder.clear()
-    del round_fn
+
+    # one round with the taps on (queue A item 13c), after the taps-off
+    # ones: timed and counted; then one taps-off and one taps-on round with
+    # CUDA events at the last client's upload (A), at the broadcast (B,
+    # after its decode into x-hat) and at the round's end (C): B - A is the
+    # device time of the last weighted add, the server update and the
+    # broadcast, where the taps' squares are taken; C - B holds the taps'
+    # finishing pass (the clients run the same code either way)
+    taps_fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS,
+                               taps=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trow = one(2 + LLM_ROUNDS, taps_fn)
+    taps_launches = kernel_launches()
+    taps_peak = torch.cuda.max_memory_allocated()
+
+    def windowed(taps: bool, step: int) -> dict:
+        ev = {}
+
+        def mark(name):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+
+        def at_message(kind, index, packed, norms):
+            if (kind, index) in (("upload", k - 1), ("broadcast", k)):
+                mark(kind)
+
+        fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS,
+                              taps=taps, on_message=at_message)
+
+        def timed_fn(*args):
+            out = fn(*args)
+            mark("end")
+            return out
+
+        one(step, timed_fn)
+        return {"server_broadcast_ms": ev["upload"].elapsed_time(
+                    ev["broadcast"]),
+                "after_broadcast_ms": ev["broadcast"].elapsed_time(ev["end"])}
+
+    w_off, w_on = windowed(False, 3 + LLM_ROUNDS), windowed(True,
+                                                            4 + LLM_ROUNDS)
+    taps_reckoning = llm_peak_reckoning(d, taps=True)
+    taps_record = {
+        "phase": "llm_round_taps", "arch": cfg.arch_id,
+        "n_layers": cfg.n_layers, "d": d, "ms": trow["ms"],
+        "ms_taps_off_median": record["ms_median"],
+        "taps": dict(zip(FLUSH_TAP_NAMES, trow["taps"])),
+        "device_ms_taps_off": w_off, "device_ms_taps_on": w_on,
+        "added_device_ms": {n: w_on[n] - w_off[n] for n in w_on},
+        "added_device_ms_note": "server_broadcast: the last weighted add, "
+        "the server update and the broadcast (K1 chunks, K3 into x-hat), "
+        "by CUDA events; after_broadcast: the taps' finishing pass",
+        "added_port_launches": {n: taps_launches[n] - launches[n]
+                                / LLM_ROUNDS for n in ROUND_KERNELS},
+        "launches": {n: v for n, v in taps_launches.items() if v},
+        "peak_bytes": taps_peak, "peak_gb": taps_peak / 1e9,
+        "peak_reckoning_gb": taps_reckoning / 1e9,
+        "peak_limit_gb": min(LLM_PEAK_SLACK * taps_reckoning / 1e9,
+                             LLM_PEAK_CAP_GB),
+        "partials_gb": 20 * -(-d // 32) / 1e9}
+    want_taps = {**want, "round_taps": 1}
+    taps_checks = {
+        "taps_finite": all(math.isfinite(v) for v in trow["taps"]),
+        "taps_seven": len(trow["taps"]) == len(FLUSH_TAP_NAMES) == 7,
+        **{f"{n}_launches": taps_launches[n] == v
+           for n, v in want_taps.items()},
+        "other_kernels_idle": all(v == 0 for n, v in taps_launches.items()
+                                  if n not in want_taps),
+        "one_added_port_launch": all(
+            v == (n == "round_taps")
+            for n, v in taps_record["added_port_launches"].items()),
+        "peak_under_reckoning": taps_peak <= LLM_PEAK_SLACK * taps_reckoning
+        and taps_peak < LLM_PEAK_CAP_GB * 1e9}
+    taps_record["checks"] = taps_checks
+    emit(taps_record)
+    if not all(taps_checks.values()):
+        raise AssertionError(f"llm_round_taps: {taps_checks}")
+    launches["round_taps"] = taps_launches["round_taps"]
+
+    # serve the trained x: hidden, momentum and the round's buffers go
+    x_tree = holder.pop().x
+    del round_fn, taps_fn
     torch.cuda.empty_cache()
-    return record, launches, d
+    return record, launches, d, x_tree, taps_record
 
 
 def _plain_threefry_rows(x, key, bits: int, r0: int, r1: int):
@@ -2734,8 +2872,10 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     whole message and in the round's row chunks at their row offsets
     (each chunk bit-equal to those rows of the whole); K3 (the plain
     decode, the weighted add into an f32 sum in place, the broadcast
-    decode added into a bf16 x-hat in place); the server-update kernel on
-    a bf16 state. The in-place kernels' inputs are made from their indices
+    decode added into a bf16 x-hat in place, and that apply with the
+    round's taps); the server-update kernel on a bf16 state, without and
+    with the taps; the taps' finishing pass over the tap rows the two
+    wrote. The in-place kernels' inputs are made from their indices
     (``_det_values``), so each chunk's plain version runs on the inputs
     remade."""
     import numpy as np
@@ -2743,8 +2883,11 @@ def llm_kernels(dev, d: int, dither_int32: dict,
 
     from repro_torch.kernels import qsgd, ref
     from repro_torch.kernels.server_update import server_update_
+    from repro_torch.kernels.taps import round_taps
 
     rows = ref.rows_for(d)
+    windows = ref.tap_windows(d)
+    parts = torch.empty((ref.ROUND_TAP_SUMS, windows), device=dev)
     chunk = LLM_PLAIN_CHUNK_ROWS
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(d, generator=gen, device=dev) * 1e-3
@@ -2865,6 +3008,41 @@ def llm_kernels(dev, d: int, dither_int32: dict,
                f"rows*(128*bits/8 + 4) + d*{size} acc read + d*{size} "
                "written")
         del acc
+
+    # K3's x-hat apply with the round's taps: a bf16 x-hat, an f32 diff
+    make_acc = lambda a, b: _det_values(a, b, 2e-2, 5, torch.bfloat16, dev)
+    make_diff = lambda a, b: _det_values(a, b, 4e-3, 6, torch.float32, dev)
+    acc = torch.empty(d, dtype=torch.bfloat16, device=dev)
+    diff = torch.empty(d, device=dev)
+    for r0, r1 in chunks_of(chunk):
+        a, b = r0 * 128, min(d, r1 * 128)
+        acc[a:b], diff[a:b] = make_acc(a, b), make_diff(a, b)
+    qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=acc, tap_diff=diff,
+                                taps=parts[3:])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = ref.dequantize_taps(packed, norms, BITS, diff)
+    equal = bits_equal(want, parts[3:])
+    err = float((want - parts[3:]).abs().max())
+    for r0, r1 in chunks_of(chunk):
+        a, b = r0 * 128, min(d, r1 * 128)
+        w_acc = ref.unpack_dequantize(
+            packed[r0:r1], norms[r0:r1], BITS,
+            acc=make_acc(a, b).to(torch.float32)).reshape(-1)[:b - a].to(
+                torch.bfloat16)
+        equal &= bits_equal(w_acc, acc[a:b])
+        err = max(err, float((w_acc.float() - acc[a:b].float()).abs().max()))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    finish("K3_apply_taps_bf16_llm", equal, err,
+           device_ms(lambda: qsgd.qsgd_unpack_dequantize(
+               packed, norms, BITS, acc=acc, tap_diff=diff, taps=parts[3:]),
+               5),
+           plain_ms, rows * (code_b + 4) + 2 * 2 * d + 4 * d + 8 * windows,
+           8 * d, F32_OPS_PER_S,
+           "rows*(128*bits/8 + 4) + d*2 acc read + d*2 written + d*4 diff "
+           "+ ceil(d/32)*2*4 tap rows")
+    del acc, diff, want
     del packed, norms
     torch.cuda.empty_cache()
 
@@ -2900,7 +3078,55 @@ def llm_kernels(dev, d: int, dither_int32: dict,
                state["buf"], state["m"], state["x"], state["xhat"], **kw), 5),
            plain_ms, 18 * d, 7 * d, F32_OPS_PER_S,
            "d*(4 buf + 3*2 m, x, x-hat read + 4 buf + 2*2 m, x written)")
-    del state
+
+    # the same with the round's taps: three rows of level-1 window sums
+    for name, dtype, scale, salt in specs:
+        for r0, r1 in chunks_of(chunk):
+            a, b = r0 * 128, min(d, r1 * 128)
+            state[name][a:b] = _det_values(a, b, scale, salt, dtype, dev)
+    server_update_(state["buf"], state["m"], state["x"], state["xhat"],
+                   taps=parts[:3], **kw)
+    torch.cuda.synchronize()
+    want = torch.empty((3, windows), device=dev)
+    equal, err, plain_ms = True, 0.0, 0.0
+    for r0, r1 in chunks_of(chunk):
+        a, b = r0 * 128, min(d, r1 * 128)
+        fresh = [_det_values(a, b, scale, salt, dtype, dev)
+                 for _, dtype, scale, salt in specs]
+        start = time.perf_counter()
+        ref.server_update_(*fresh, inv_k=0.25, beta=float(np.float32(0.3)),
+                           lr=1.0, taps=want[:, a // 32:-(-b // 32)])
+        torch.cuda.synchronize()
+        plain_ms += 1e3 * (time.perf_counter() - start)
+        for (name, _, _, _), w in zip(specs[:3], fresh[:3]):
+            equal &= bits_equal(w, state[name][a:b])
+            err = max(err, float((w.float() - state[name][a:b].float())
+                                 .abs().max()))
+    equal &= bits_equal(want, parts[:3])
+    err = max(err, float((want - parts[:3]).abs().max()))
+    finish("server_update_taps_llm", equal, err,
+           device_ms(lambda: server_update_(
+               state["buf"], state["m"], state["x"], state["xhat"],
+               taps=parts[:3], **kw), 5),
+           plain_ms, 18 * d + 12 * windows, 13 * d, F32_OPS_PER_S,
+           "d*18 (the update) + ceil(d/32)*3*4 tap rows")
+    del state, want
+    torch.cuda.empty_cache()
+
+    # the taps' finishing pass over the five rows the two kernels wrote
+    weights = torch.tensor([0.9, 1.0, 0.7, 0.5], device=dev)
+    got = round_taps(parts, weights)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = ref.round_taps_finish(parts, weights)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    finish("round_taps_llm", bits_equal(got, want),
+           float((got - want).abs().max()),
+           device_ms(lambda: round_taps(parts, weights), 5), plain_ms,
+           4 * ref.ROUND_TAP_SUMS * windows, ref.ROUND_TAP_SUMS * windows,
+           F32_OPS_PER_S, "5 rows * ceil(d/32) * 4 read")
+    del parts
     torch.cuda.empty_cache()
     return out
 
@@ -3062,13 +3288,332 @@ def llm_streamed_vs_whole(dev) -> dict:
     return record
 
 
+def llm_round_taps_2layer(dev) -> dict:
+    """gemma2-2b at full width cut to 2 layers, bf16: one round with the
+    taps off and one with them on from clones of one state, batch, weights
+    and key. x, x-hat, m, the loss and every upload and broadcast must be
+    bit-equal (taps change no bit of the round), and the seven taps equal
+    to ``ref.round_taps`` over the round's materialized f32 vectors: x
+    before, the clients' weighted sum remade from their uploads through
+    the round's own ``steps.accumulate``, delta_bar, x_new in f32 (before
+    its rounding to bf16) and the diff, with the broadcast's codes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import ref
+
+    cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_STREAM_LAYERS)
+    qcfg = fl.qafel_config(4)
+    torch.cuda.empty_cache()
+    base = steps.init_round_state(cfg, 2, dev)
+    d = sum(t.numel() for t in tree_leaves(base.x))
+    batch = fl.round_batch(cfg, qcfg, np.random.default_rng(4), LLM_SEQ, dev)
+    weights = torch.tensor([0.9, 1.0, 0.7, 0.5], device=dev)
+    runs = {}
+    for taps in (False, True):
+        seen = []
+        round_fn = steps.make_qafel_round(
+            cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS, taps=taps,
+            on_message=lambda kind, i, p, nm: seen.append(
+                (kind, i, p.clone(), nm.clone())))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = round_fn(base.clone(), batch, weights, prng.PRNGKey(5))
+        loss = float(met["loss"])
+        runs[taps] = dict(state=state, met=met, seen=seen, loss=loss,
+                          ms=1e3 * (time.perf_counter() - t0))
+    off, on = runs[False], runs[True]
+    ms = {"ms_taps_off": off["ms"], "ms_taps_on": on["ms"]}
+    equal = {
+        "x": bits_equal(off["state"].flat[0], on["state"].flat[0]),
+        "hidden": bits_equal(off["state"].flat[1], on["state"].flat[1]),
+        "momentum": bits_equal(off["state"].flat[2], on["state"].flat[2]),
+        "loss": off["loss"] == on["loss"],
+        "messages": len(off["seen"]) == len(on["seen"]) == 5 and all(
+            a[:2] == b[:2] and bits_equal(a[2], b[2])
+            and bits_equal(a[3], b[3])
+            for a, b in zip(off["seen"], on["seen"]))}
+    del off
+    runs.pop(False)
+    on["state"] = None
+    torch.cuda.empty_cache()
+
+    # the round's vectors, materialized in f32 from the state before it
+    buf = torch.zeros(d, device=dev)
+    for kind, i, p, nm in on["seen"][:4]:
+        steps.accumulate(buf, p, nm, weights[i:i + 1], bits=BITS, d=d)
+    delta = buf * np.float32(1.0 / qcfg.buffer_size)
+    del buf
+    x_old = base.flat[0].float()
+    x_new = torch.empty(d, device=dev)
+    step = 1 << 26
+    for a in range(0, d, step):
+        b = min(d, a + step)
+        x_new[a:b] = ref.fma_f32(
+            base.flat[2][a:b].float(), float(np.float32(qcfg.server_momentum)),
+            delta[a:b]) + x_old[a:b]
+    diff = x_new - base.flat[1].float()
+    _, _, bp, bn = on["seen"][4]
+    want = ref.round_taps(x_old, x_new, delta, diff, bp, bn, BITS, weights)
+    got = on["met"]["taps"]
+    record = {"phase": "llm_round_taps_2layer", "arch": cfg.arch_id,
+              "n_layers": cfg.n_layers, "d": d, "dtype": cfg.param_dtype,
+              "taps": got.cpu().tolist(), "plain_taps": want.cpu().tolist(),
+              "taps_equal_plain": bits_equal(got, want),
+              "taps_off_vs_on_bit_equal": equal, **ms}
+    emit(record)
+    del base, x_old, x_new, diff, delta, want, on
+    runs.clear()
+    torch.cuda.empty_cache()
+    if not (all(equal.values()) and record["taps_equal_plain"]):
+        raise AssertionError(f"llm_round_taps_2layer: {record}")
+    return record
+
+
+# serving (queue A item 14b): launch/serve.py's defaults on the trained
+# gemma2-2b, then a prompt past the local layers' 4,096-slot ring
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 64, 32
+SERVE_LONG_PROMPT, SERVE_LONG_STEPS, SERVE_LONG_BLOCK = 4160, 64, 520
+SERVE_PHASES = ("prefill", "decode")
+# decode against the full forward at the last position, bf16 at 26 layers:
+# max |logit difference| (measured 0.079 at B = 4 and 0.070 at the
+# 4,160-token prompt, with logits up to 7.6 and the greedy tokens equal)
+SERVE_BF16_DECODE_VS_FORWARD = 0.25
+# the reduced f32 config, card against CPU: the CPU tests' bound
+SERVE_REDUCED_RTOL, SERVE_REDUCED_STEPS = 1e-5, 8
+
+
+def _kv_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for lc in cache["layers"].values()
+               for n, t in lc.items() if n in ("k", "v"))
+
+
+def _decode_vs_forward(cfg, params, prompt, out, block: int) -> dict:
+    """The served tokens through the full-sequence forward: the logits at
+    the last position against the last decode step's, and the greedy
+    token there."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    seq = torch.cat([prompt, out["tokens"][:, :-1]], dim=1)
+    with torch.no_grad():
+        h, _ = T.forward(cfg, params, {"tokens": seq}, remat=False,
+                         q_block=block, kv_block=block)
+        want = T.logits_fn(cfg, params, h[:, -1:]).float()
+    got = out["last_logits"].float()
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "greedy_equal_share": float(
+                (want[:, -1].argmax(-1) == got[:, -1].argmax(-1))
+                .double().mean()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def serve_gemma2(dev, cfg, params) -> dict:
+    """``launch.serve.serve`` on the x of the full-depth round just run
+    (gemma2-2b, 26 layers, bf16): B = 4, prompt 64, 32 greedy steps (the
+    launcher's defaults), after a warm-up call. Prefill ms, each decode
+    step by CUDA events, tokens/s, peak memory, the cache's k and v bytes
+    against 26 * 2 * B * w * 4 * 256 * 2; a profiled call: device
+    launches per decode step and the device's idle share in the decode
+    loop; decode against forward at the last position."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+
+    batch = synthetic_batch_for_config(cfg, np.random.default_rng(0),
+                                       SERVE_BATCH, SERVE_PROMPT)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    serve(cfg, params, tokens, decode_steps=2)  # warm-up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, params, tokens, decode_steps=SERVE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    w = SERVE_PROMPT + SERVE_STEPS
+    kv_want = cfg.n_layers * 2 * SERVE_BATCH * w * cfg.n_kv_heads * cfg.hd * 2
+    kv = _kv_bytes(out["cache"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(cfg, params, tokens, decode_steps=SERVE_STEPS)
+    act = phase_activity(prof, ROOT / "build" / "serve_trace.json",
+                         SERVE_PHASES)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    check = _decode_vs_forward(cfg, params, tokens, out, w)
+    dec = act["decode"]
+    record = {
+        "phase": "serve_gemma2", "arch": cfg.arch_id,
+        "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+        "weights": "x of the full-depth QAFeL round", "batch": SERVE_BATCH,
+        "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+        "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_step_ms_median": statistics.median(out["step_ms"]),
+        "decode_step_ms": out["step_ms"], "decode_s": out["decode_s"],
+        "tokens_per_s": SERVE_BATCH * SERVE_STEPS / out["decode_s"],
+        "device_launches_per_decode_step": dec["launches"] / SERVE_STEPS,
+        "decode_device_ms_per_step": dec["ms"] / SERVE_STEPS,
+        "decode_idle_share": 1 - dec["ms"] / dec["wall_ms"],
+        "prefill_device": act["prefill"],
+        "decode_step_bound_ms": 1e3 * (weight_bytes + kv) / HBM_BYTES_PER_S,
+        "bound_formula": "(weights + k and v of the cache) / 3.35 TB/s",
+        "weight_bytes": weight_bytes, "kv_bytes": kv,
+        "kv_bytes_reckoning": kv_want,
+        "peak_gb": peak / 1e9, "peak_over_resident_gb": (peak - before) / 1e9,
+        "decode_vs_forward": check,
+        "decode_vs_forward_bound": SERVE_BF16_DECODE_VS_FORWARD,
+        "sample_tokens": out["tokens"][0].cpu().tolist()[:16]}
+    checks = {"kv_bytes_exact": kv == kv_want,
+              "tokens_shape": tuple(out["tokens"].shape)
+              == (SERVE_BATCH, SERVE_STEPS + 1),
+              "finite": check["finite"],
+              "decode_vs_forward": check["max_abs_err"]
+              <= SERVE_BF16_DECODE_VS_FORWARD}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_gemma2: {checks}")
+    return record
+
+
+def serve_gemma2_long(dev, cfg, params) -> dict:
+    """The same served model, B = 1, a prompt of 4,160 (past the local
+    layers' 4,096-slot ring, which wraps inside prefill) and 64 greedy
+    steps: prefill ms, decode step ms, the cache's bytes (13 local layers
+    at 4,096 slots, 13 global at 4,224), every layer's ``slot_pos`` equal
+    to the ring law, decode against forward at the last position."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+
+    batch = synthetic_batch_for_config(cfg, np.random.default_rng(1), 1,
+                                       SERVE_LONG_PROMPT)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, params, tokens, decode_steps=SERVE_LONG_STEPS,
+                q_block=SERVE_LONG_BLOCK, kv_block=SERVE_LONG_BLOCK)
+    peak = torch.cuda.max_memory_allocated()
+    total = SERVE_LONG_PROMPT + SERVE_LONG_STEPS
+    last = total - 1
+    law_ok = True
+    for key, lc in out["cache"]["layers"].items():
+        w = lc["slot_pos"].shape[1]
+        if key.endswith("local"):
+            slots = torch.arange(w)
+            want = last - ((last - slots) % w)
+        else:
+            want = torch.arange(w)
+        law_ok &= bool(torch.equal(lc["slot_pos"].cpu(),
+                                   want.to(torch.int32)[None].expand(
+                                       lc["slot_pos"].shape)))
+    kv = _kv_bytes(out["cache"])
+    check = _decode_vs_forward(cfg, params, tokens, out, total // 8)
+    record = {
+        "phase": "serve_gemma2_long", "batch": 1,
+        "prompt": SERVE_LONG_PROMPT, "decode_steps": SERVE_LONG_STEPS,
+        "attention_blocks": SERVE_LONG_BLOCK,
+        "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_step_ms_median": statistics.median(out["step_ms"]),
+        "tokens_per_s": SERVE_LONG_STEPS / out["decode_s"],
+        "kv_bytes": kv, "kv_bytes_reckoning": 443_023_360,
+        "slots": {k: int(v["slot_pos"].shape[1])
+                  for k, v in out["cache"]["layers"].items()},
+        "peak_gb": peak / 1e9, "decode_vs_forward": check,
+        "decode_vs_forward_bound": SERVE_BF16_DECODE_VS_FORWARD}
+    checks = {"kv_bytes_exact": kv == 443_023_360, "slot_pos_law": law_ok,
+              "finite": check["finite"],
+              "decode_vs_forward": check["max_abs_err"]
+              <= SERVE_BF16_DECODE_VS_FORWARD}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_gemma2_long: {checks}")
+    return record
+
+
+def serve_reduced_card_vs_cpu(dev) -> dict:
+    """The reduced gemma2-2b (f32) served on the card and the CPU from the
+    same weights and prompts (B = 2, 32 tokens, 8 greedy steps, without and
+    with ``window_override=16``), deterministic algorithms on the card:
+    the prefill's and the last step's logits within ``SERVE_REDUCED_RTOL``
+    of the CPU's largest value, the tokens and every ``slot_pos`` equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_map
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_reduced(LLM_ARCH)
+    params = T.init_params(cfg, 0, "cpu")
+    card_params = tree_map(lambda t: t.to(dev), params)
+    tokens = torch.from_numpy(synthetic_batch_for_config(
+        cfg, np.random.default_rng(2), 2, 32)["tokens"])
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    record = {"phase": "serve_reduced_card_vs_cpu", "arch": cfg.arch_id,
+              "decode_steps": SERVE_REDUCED_STEPS,
+              "rtol": SERVE_REDUCED_RTOL, "cases": {}}
+    ok = True
+    try:
+        for window in (None, 16):
+            cpu = serve(cfg, params, tokens,
+                        decode_steps=SERVE_REDUCED_STEPS, window=window)
+            card = serve(cfg, card_params, tokens.to(dev),
+                         decode_steps=SERVE_REDUCED_STEPS, window=window)
+            rel = {n: float((card[n].cpu() - cpu[n]).abs().max()
+                            / cpu[n].abs().max())
+                   for n in ("logits", "last_logits")}
+            slots = all(torch.equal(lc["slot_pos"].cpu(),
+                                    cpu["cache"]["layers"][k]["slot_pos"])
+                        for k, lc in card["cache"]["layers"].items())
+            case = {"rel_err": rel, "tokens_equal": torch.equal(
+                card["tokens"].cpu(), cpu["tokens"]),
+                "slot_pos_equal": slots}
+            ok &= (all(v <= SERVE_REDUCED_RTOL for v in rel.values())
+                   and case["tokens_equal"] and slots)
+            record["cases"][str(window)] = case
+    finally:
+        torch.use_deterministic_algorithms(det)
+    record["ok"] = ok
+    emit(record)
+    if not ok:
+        raise AssertionError(f"serve_reduced_card_vs_cpu: {record}")
+    return record
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
-    """The LLM round phase; returns (round record, its launches, the
-    kernel cases at its d)."""
-    record, launches, d = llm_round(dev)
+    """The LLM round phase, serving the model it trained, then the
+    kernels at its d; returns (round record, its launches, the kernel
+    cases at its d)."""
+    from repro_torch import configs
+
+    record, launches, d, x_tree, _ = llm_round(dev)
+    cfg = configs.get_config(LLM_ARCH)
+    serve_gemma2(dev, cfg, x_tree)
+    serve_gemma2_long(dev, cfg, x_tree)
+    del x_tree
+    import torch
+    torch.cuda.empty_cache()
     cases = llm_kernels(dev, d, dither_int32, int32_ops_per_s)
+    llm_round_taps_2layer(dev)
     llm_streamed_vs_whole(dev)
     llm_reduced_card_vs_cpu(dev)
+    serve_reduced_card_vs_cpu(dev)
     return record, launches, cases
 
 
@@ -3283,7 +3828,8 @@ def main() -> int:
                                                "K1_row_offset_llm"),
                "qsgd_unpack_dequantize": ("K3_llm",
                                           "K3_accum_inplace_llm",
-                                          "K3_apply_inplace_bf16_llm")}
+                                          "K3_apply_inplace_bf16_llm",
+                                          "K3_apply_taps_bf16_llm")}
         if name in llm:
             kernels_line[-1]["llm_cases"] = {
                 case: {key: llm_cases[case][key] for key in (
@@ -3320,6 +3866,8 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}
                 for case, c in taps.items() if case.startswith(name)}})
+    case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_share", "equal", "max_abs_err", "bytes_formula")
     m = llm_cases["server_update_llm"]
     kernels_line.append({
         "name": "server_update", "route": "cuda",
@@ -3331,7 +3879,22 @@ def main() -> int:
         "bound_by": m["bound_by"], "library_ms": None, "equal": m["equal"],
         "bytes_formula": m["bytes_formula"], "d": m["d"],
         "launches_note": "the LLM round's 3 measured rounds (one a round); "
-                         "no other path runs it"})
+                         "no other path runs it",
+        "llm_cases": {case: {key: llm_cases[case][key] for key in case_keys}
+                      for case in ("server_update_llm",
+                                   "server_update_taps_llm")}})
+    m = llm_cases["round_taps_llm"]
+    kernels_line.append({
+        "name": "round_taps", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/round_taps.cu",
+        "replaces": None, "launches": llm_launches["round_taps"],
+        "llm_round_launches": llm_launches["round_taps"],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None, "equal": m["equal"],
+        "bytes_formula": m["bytes_formula"], "d": m["d"],
+        "launches_note": "the full-depth round with the taps on (one a "
+                         "round); every other path runs with taps off"})
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu",

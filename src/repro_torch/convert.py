@@ -53,3 +53,13 @@ def round_state_from_jax(state, device=None):
                                  params_from_jax(state.hidden, device),
                                  params_from_jax(state.momentum, device),
                                  t=int(np.asarray(state.t)))
+
+
+def cache_from_jax(cache, device=None):
+    """The reference's serving cache (``transformer.prefill`` /
+    ``init_cache``: ``{"layers": {pos: {"k", "v", "slot_pos"}}}``, k and v
+    in the activation dtype, ``slot_pos`` int32; as numpy, e.g.
+    ``jax.device_get(cache)``) -> the port's, each leaf in its own dtype on
+    ``device`` (None: the card), so the port's ``decode_step`` continues
+    from the reference's own prefill."""
+    return params_from_jax(cache, device)

@@ -49,9 +49,24 @@ x-hat and m are the reference's bit for bit for the same client messages;
 the model math (forward, gradients) agrees within a tolerance (tests/
 test_torch_llm_round.py).
 
+``taps=True`` adds the reference's flush tap vector (``metrics["taps"]``,
+f32 (7,) in ``obs.taps.FLUSH_TAP_NAMES`` order: the norms of delta_bar,
+x_new - x, the diff and the broadcast q, the relative error ||diff - q|| /
+||diff||, the weights' sum and minimum). Its five whole-vector sums cannot
+be read after the round has overwritten buf, x and x-hat, so the kernels
+that overwrite them take the squares as they go: the server-update kernel
+writes the level-1 window sums (XLA:CPU's sum law) of delta_bar^2,
+(x_new - x)^2 and diff^2, K3's x-hat apply those of err^2 and q^2, into
+one f32 (5, ceil(d/32)) buffer that lives for the round, and one more
+launch (``kernels.taps.round_taps``) finishes the law. Taps on change no
+bit of the round and add that one launch.
+
+``make_prefill_step`` and ``make_decode_step`` wrap ``transformer.prefill``
+and ``transformer.decode_step`` (the serving side, ``launch.serve``).
+
 Not ported here: quantizers other than qsgd and the pod-quantized round
-(ROADMAP queue A item 14d), the round's taps (item 13c), prefill / decode
-(item 14b); each raises ``NotImplementedError`` naming its item.
+(ROADMAP queue A item 14d); each raises ``NotImplementedError`` naming its
+item.
 """
 from __future__ import annotations
 
@@ -70,7 +85,9 @@ from repro_torch.core.quantizers import (TreeLayout, flatten_tree,
                                          make_quantizer, packed_qsgd_payload)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import qsgd as _kq
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.server_update import server_update_
+from repro_torch.kernels.taps import round_taps
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -148,7 +165,8 @@ def accumulate(buf, packed, norms, weight, *, bits: int, d: int):
 
 def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
                 qcfg: QAFeLConfig, sbits: int, d: int,
-                chunk_rows: Optional[int] = None):
+                chunk_rows: Optional[int] = None,
+                taps: Optional[torch.Tensor] = None):
     """The server half of the round on the flat state (x, x-hat and m:
     d values each in one dtype, f32 or bf16), in place, from the clients'
     weighted sum ``buf`` (``accumulate``), rounded where the reference's
@@ -168,13 +186,19 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
        ``fma(sign*mag, norm * fl32(1/s), x-hat)``, written over x-hat and
        rounded to its dtype: one K3 launch.
 
+    With ``taps``, an f32 (5, ``ref.tap_windows(d)``) buffer, step 1
+    writes rows 0-2 and step 3 rows 3-4 of the taps' level-1 window sums
+    (``kernels.taps.round_taps`` finishes them); the launches and every
+    other output are the same.
+
     Returns the broadcast ``(packed, norms)``; ``buf`` ends holding the
     diff."""
     with record_function("server"):
         server_update_(buf, momentum_flat, x_flat, hidden_flat,
                        k=qcfg.buffer_size,
                        beta=(qcfg.server_momentum if qcfg.server_momentum
-                             else None), lr=qcfg.server_lr)
+                             else None), lr=qcfg.server_lr,
+                       taps=None if taps is None else taps[:3])
     with record_function("broadcast"):
         if chunk_rows is None:
             packed, norms = kops.qsgd_quantize(buf, k_server, sbits)
@@ -182,7 +206,10 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
             packed, norms = (t[0] for t in kops.qsgd_quantize_rows(
                 lambda a, e: buf[None, a:e], d, k_server, sbits, chunk_rows,
                 device=buf.device))
-        _kq.qsgd_unpack_dequantize(packed, norms, sbits, acc=hidden_flat)
+        _kq.qsgd_unpack_dequantize(
+            packed, norms, sbits, acc=hidden_flat,
+            tap_diff=None if taps is None else buf[:d],
+            taps=None if taps is None else taps[3:])
     return packed, norms
 
 
@@ -201,7 +228,10 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     key (``common.prng``). ``metrics["loss"]`` is the mean over the
     clients of their mean step loss (a 0-dim f32 tensor);
     ``"upload_bytes"`` and ``"broadcast_bytes"`` the metered bytes of one
-    upload and of the broadcast (``protocol.payload_wire_bytes``). Both
+    upload and of the broadcast (``protocol.payload_wire_bytes``); with
+    ``taps``, ``"taps"`` the f32 (7,) tap vector on the state's device
+    (module docstring), equal to the reference's bit for bit on equal
+    messages. Both
     quantizers are qsgd. ``chunk_rows`` and ``remat`` as in the module
     docstring: neither changes a bit of the round. The state is updated in
     place (module docstring). ``on_message(kind, index, packed, norms)``,
@@ -212,10 +242,6 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     if pod_quantized or mesh is not None:
         raise NotImplementedError("the pod-quantized round is ROADMAP queue "
                                   "A item 14d")
-    if taps:
-        raise NotImplementedError(
-            "the round's taps are ROADMAP queue A item 13c: their five "
-            "whole-vector sums cannot be read from a state updated in place")
     if chunk_rows is not None and int(chunk_rows) <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     del podq_bits
@@ -266,9 +292,12 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
                            w[k:k + 1], bits=cq.bits, d=d)
             del out
             loss_sum = loss_sum + losses.mean()
+        partials = (torch.empty((_ref.ROUND_TAP_SUMS, _ref.tap_windows(d)),
+                                dtype=torch.float32, device=dev)
+                    if taps else None)
         packed, norms = server_half(x_flat, hidden_flat, m_flat, buf,
                                     k_server, qcfg=qcfg, sbits=sq.bits, d=d,
-                                    chunk_rows=chunk_rows)
+                                    chunk_rows=chunk_rows, taps=partials)
         del buf
         if on_message is not None:
             on_message("broadcast", qcfg.buffer_size, packed, norms)
@@ -276,6 +305,10 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
                    "upload_bytes": upload_bytes,
                    "broadcast_bytes": _wire_bytes(packed, norms, sq.bits,
                                                   layout)}
+        if partials is not None:
+            with record_function("server"):
+                metrics["taps"] = round_taps(partials, w)
+            del partials
         if state.flat is None:
             return RoundState(x=layout.unflatten(x_flat),
                               hidden=layout.unflatten(hidden_flat),
@@ -294,9 +327,24 @@ def _wire_bytes(packed, norms, bits: int, layout) -> float:
         packed, norms, bits, layout.total_size, layout))
 
 
-def make_prefill_step(*args, **kwargs):
-    raise NotImplementedError("prefill is ROADMAP queue A item 14b")
+def make_prefill_step(cfg: ModelConfig, *, max_len: Optional[int] = None,
+                      window_override: Optional[int] = None,
+                      q_block: int = 512, kv_block: int = 512) -> Callable:
+    """``prefill_step(params, inputs) -> (logits, cache)``:
+    ``transformer.prefill`` with the caches sized for ``max_len`` (the
+    attention blocks must divide the prompt's length)."""
+    def prefill_step(params, inputs):
+        return T.prefill(cfg, params, inputs, max_len=max_len,
+                         window_override=window_override, q_block=q_block,
+                         kv_block=kv_block)
+    return prefill_step
 
 
-def make_decode_step(*args, **kwargs):
-    raise NotImplementedError("decode_step is ROADMAP queue A item 14b")
+def make_decode_step(cfg: ModelConfig, *,
+                     window_override: Optional[int] = None) -> Callable:
+    """``decode_step(params, cache, inputs, pos) -> (logits, cache)``:
+    ``transformer.decode_step``, the cache written in place."""
+    def decode_step(params, cache, inputs, pos):
+        return T.decode_step(cfg, params, cache, inputs, pos,
+                             window_override=window_override)
+    return decode_step

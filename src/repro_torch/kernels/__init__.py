@@ -3,7 +3,8 @@ plain PyTorch versions (``ref``), the wrappers (``qsgd``, ``buffer_agg``,
 ``taps``) and the wire-layout entry points (``ops``); and the population
 engine's macro step (``population``, with ``xla_math``), plain torch as
 the reference's is XLA code; and the round's server update
-(``server_update``), a kernel with no Pallas counterpart."""
+(``server_update``) and the round's tap finishing pass
+(``taps.round_taps``), kernels with no Pallas counterpart."""
 from __future__ import annotations
 
 from typing import Dict

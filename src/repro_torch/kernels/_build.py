@@ -53,14 +53,16 @@ SIGNATURES = {
                             (_P, _LL, _LL, _LL, _LL, _I, SeedWords, _P, _P,
                              _P, _P)),
     "unpack_dequantize": ("qsgd_unpack_dequantize",
-                          (_P, _P, _P, _LL, _I, _I, _LL, _P, _I, _P)),
+                          (_P, _P, _P, _LL, _I, _I, _LL, _P, _I, _P, _P, _LL,
+                           _LL, _P)),
     "buffer_aggregate": ("buffer_aggregate", (_P, _P, _P, _P, _I, _LL, _I, _P)),
     "flush_taps": ("flush_taps", (_P, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P,
                                   _P)),
     "upload_taps": ("upload_taps", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P,
                                     _P)),
     "server_update": ("server_update", (_P, _P, _P, _P, _LL, _I, _F, _F, _I,
-                                        _F, _I, _P)),
+                                        _F, _I, _P, _LL, _LL, _P)),
+    "round_taps": ("round_taps", (_P, _LL, _P, _I, _P, _P, _P, _P)),
 }
 
 _loaded: Dict[str, object] = {}  # library name -> loaded entry point

@@ -69,25 +69,7 @@ __global__ void __launch_bounds__(kThreads)
   if (!taps::block_done(counter, law.blocks)) return;
   float tot[kSums];
   taps::row_totals<kSums>(partials, law.l1, counter, tot);
-  if (threadIdx.x != 0) return;
-  float r[kSums];
-#pragma unroll
-  for (int s = 0; s < kSums; ++s) r[s] = __fsqrt_rn(tot[s]);
-  out[0] = r[0];
-  out[1] = r[1];
-  out[2] = r[2];
-  out[3] = __fdiv_rn(r[3], fmaxf(r[2], 1e-30f));
-  out[4] = r[4];
-  float wsum = 0.0f, wmin = 0.0f;
-  if (k > 0) {
-    wsum = wmin = weights[0];
-    for (int j = 1; j < k; ++j) {
-      wsum = __fadd_rn(wsum, weights[j]);
-      wmin = fminf(wmin, weights[j]);
-    }
-  }
-  out[5] = wsum;
-  out[6] = wmin;
+  if (threadIdx.x == 0) taps::tap_vector(tot, weights, k, out);
 }
 
 }  // namespace

@@ -26,6 +26,20 @@
 // tail past the last whole vector runs one element a thread. Each element
 // is read and written by one thread, so the update is safely in place. The
 // wrapper checks 16-byte alignment of the four buffers.
+//
+// Taps (a separate instantiation; the kernel above is unchanged without
+// them): the level-1 window sums of XLA:CPU's sum law (tap_reduce.cuh) of
+// the round's three taps on the server side, delta_bar^2, (x_new - x)^2
+// (x_new the f32 value before rounding, as the reference squares it) and
+// diff^2, each square rounded, into three rows of `windows` floats. Window
+// w holds elements [32 w - front, 32 w - front + 32), front = half the
+// padding of n to whole windows, so windows split across threads and the
+// sums are in order from +0: a block takes tiles of 2,048 elements aligned
+// to windows (64 windows), each thread updates 8 elements and writes their
+// squares to a padded shared tile, and one thread sums each window in
+// order. The 8 elements go as one vector when they lie in [0, n) on a
+// 16-byte boundary (front a multiple of 8, as at every gemma2 size, where
+// front is 0), else one at a time. Extra bytes: 12 per 32 elements.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,12 +129,100 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tap rows and the window law of the taps instantiation.
+struct Taps {
+  float* out;          // 3 rows of `windows` floats
+  long long windows;   // ceil(n / 32)
+  long long front;     // zeros in front of window 0
+};
+
+constexpr int kTile = kThreads * kVec;         // elements per tile
+constexpr int kTileWindows = kTile / 32;       // windows per tile
+constexpr int kTapSums = 3;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    server_update_taps_kernel(float* buf, T* m, T* x,
+                              const T* __restrict__ xhat, long long n,
+                              Params p, Taps taps) {
+  __shared__ float sq[kTapSums][kTileWindows][33];
+  const long long tiles = (taps.windows + kTileWindows - 1) / kTileWindows;
+  const bool vec_ok = taps.front % kVec == 0;
+  const int local = threadIdx.x * kVec;  // the thread's first tile element
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e = tile * kTile - taps.front + local;
+    float b[kVec], mv[kVec], xv[kVec], hv[kVec];
+    float sd[kVec], su[kVec], sf[kVec];
+    if (vec_ok && e >= 0 && e + kVec <= n) {
+      load8(buf + e, b);
+      load8(m + e, mv);
+      load8(x + e, xv);
+      load8(xhat + e, hv);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float x_old = xv[i];
+        sd[i] = __fmul_rn(b[i], p.inv_k);
+        update(b[i], mv[i], xv[i], hv[i], p);
+        const float upd = __fsub_rn(xv[i], x_old);
+        sd[i] = __fmul_rn(sd[i], sd[i]);
+        su[i] = __fmul_rn(upd, upd);
+        sf[i] = __fmul_rn(b[i], b[i]);
+      }
+      store8(buf + e, b);
+      store8(m + e, mv);
+      store8(x + e, xv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const long long ei = e + i;
+        sd[i] = su[i] = sf[i] = 0.0f;
+        if (ei < 0 || ei >= n) continue;
+        float bv = buf[ei], mi = to_f32(m[ei]), xi = to_f32(x[ei]);
+        const float x_old = xi, db = __fmul_rn(bv, p.inv_k);
+        update(bv, mi, xi, to_f32(xhat[ei]), p);
+        const float upd = __fsub_rn(xi, x_old);
+        sd[i] = __fmul_rn(db, db);
+        su[i] = __fmul_rn(upd, upd);
+        sf[i] = __fmul_rn(bv, bv);
+        buf[ei] = bv;
+        round_to(mi, m + ei);
+        round_to(xi, x + ei);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int l = local + i;
+      sq[0][l / 32][l % 32] = sd[i];
+      sq[1][l / 32][l % 32] = su[i];
+      sq[2][l / 32][l % 32] = sf[i];
+    }
+    __syncthreads();
+    if (threadIdx.x < kTapSums * kTileWindows) {
+      const int s = threadIdx.x / kTileWindows, w = threadIdx.x % kTileWindows;
+      const long long win = tile * kTileWindows + w;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < 32; ++i) acc = __fadd_rn(acc, sq[s][w][i]);
+      if (win < taps.windows) taps.out[s * taps.windows + win] = acc;
+    }
+    __syncthreads();  // the tile is rewritten by the next iteration
+  }
+}
+
 template <typename T>
 void launch(void* buf, void* m, void* x, const void* xhat, long long n,
-            const Params& p, int sms, cudaStream_t stream) {
+            const Params& p, const Taps& taps, int sms,
+            cudaStream_t stream) {
+  const long long cap = (long long)kBlocksPerSm * sms;
+  if (taps.out != nullptr) {
+    const long long tiles = (taps.windows + kTileWindows - 1) / kTileWindows;
+    server_update_taps_kernel<T>
+        <<<(unsigned)(tiles < cap ? tiles : cap), kThreads, 0, stream>>>(
+            (float*)buf, (T*)m, (T*)x, (const T*)xhat, n, p, taps);
+    return;
+  }
   const long long vecs = n / kVec + 1;
   const long long wanted = (vecs + kThreads - 1) / kThreads;
-  const long long cap = (long long)kBlocksPerSm * sms;
   server_update_kernel<T><<<(unsigned)(wanted < cap ? wanted : cap), kThreads,
                             0, stream>>>((float*)buf, (T*)m, (T*)x,
                                          (const T*)xhat, n, p);
@@ -129,20 +231,28 @@ void launch(void* buf, void* m, void* x, const void* xhat, long long n,
 }  // namespace
 
 // dtype: 0 for f32 state buffers, 1 for bf16. has_beta 0: no momentum
-// (m_new = delta_bar); lr_one 1: server lr 1 (x_new = m_new + x).
+// (m_new = delta_bar); lr_one 1: server lr 1 (x_new = m_new + x). taps:
+// null, or 3 rows of `windows` = ceil(n / 32) floats for the tap sums, the
+// windows starting `front` zeros before element 0.
 extern "C" int server_update(void* buf, void* m, void* x, const void* xhat,
                              long long n, int dtype, float inv_k, float beta,
-                             int has_beta, float lr, int lr_one,
+                             int has_beta, float lr, int lr_one, void* taps,
+                             long long windows, long long front,
                              void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (taps != nullptr && (windows != (n + 31) / 32 || front < 0 ||
+                          front >= 32)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int sms = 0;
   const cudaError_t err = qsgd::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const Params p{inv_k, beta, lr, has_beta != 0, lr_one != 0};
+  const Taps t{(float*)taps, windows, front};
   const auto s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: launch<float>(buf, m, x, xhat, n, p, sms, s); break;
-    case 1: launch<__nv_bfloat16>(buf, m, x, xhat, n, p, sms, s); break;
+    case 0: launch<float>(buf, m, x, xhat, n, p, t, sms, s); break;
+    case 1: launch<__nv_bfloat16>(buf, m, x, xhat, n, p, t, sms, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Sums of squares in XLA:CPU's order, shared by the metric-tap kernels
-// (flush_taps.cu, upload_taps.cu; sm_90a, built with -fmad=false).
+// (flush_taps.cu, upload_taps.cu, round_taps.cu; sm_90a, built with
+// -fmad=false).
 //
 // The law is the reference's own: XLA:CPU compiles an f32 jnp.sum of n
 // values to reduce-windows of 32 (repro_torch/kernels/ref.py ``xla_sum``
@@ -28,6 +29,12 @@
 // launch per call; launches that share counters must run on one stream.
 // The order depends on n alone: not on the number of rows in a launch, the
 // grid, the SM count or the card.
+//
+// The law is recursive: past level 0 it is the same law applied to the
+// level-0 sums. So a kernel that writes the level-0 (32-value window) sums
+// of a vector (server_update.cu and unpack_dequantize.cu with taps) leaves
+// the rest to round_taps.cu, which runs this file's two passes over those
+// sums with the identity in place of the square.
 //
 // Every product, difference and sum is an explicit _rn intrinsic.
 #pragma once
@@ -183,6 +190,32 @@ __device__ __forceinline__ void row_totals(float* partials, long long l1,
     }
     *counter = 0u;
   }
+}
+
+// The flush's tap vector (obs/taps.py FLUSH_TAP_NAMES) from the five sums'
+// totals (delta^2, upd^2, diff^2, err^2, q^2) and the K weights, in thread
+// 0: correctly rounded roots, ||err|| / max(||diff||, 1e-30), the weights'
+// sum in order of k and their minimum (zeros when k is 0).
+__device__ inline void tap_vector(const float tot[5], const float* weights,
+                                  int k, float* out) {
+  float r[5];
+#pragma unroll
+  for (int s = 0; s < 5; ++s) r[s] = __fsqrt_rn(tot[s]);
+  out[0] = r[0];
+  out[1] = r[1];
+  out[2] = r[2];
+  out[3] = __fdiv_rn(r[3], fmaxf(r[2], 1e-30f));
+  out[4] = r[4];
+  float wsum = 0.0f, wmin = 0.0f;
+  if (k > 0) {
+    wsum = wmin = weights[0];
+    for (int j = 1; j < k; ++j) {
+      wsum = __fadd_rn(wsum, weights[j]);
+      wmin = fminf(wmin, weights[j]);
+    }
+  }
+  out[5] = wsum;
+  out[6] = wmin;
 }
 
 }  // namespace taps

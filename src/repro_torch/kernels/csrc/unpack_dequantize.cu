@@ -20,6 +20,24 @@
 //      rounded, then its weighted add fused, as XLA:CPU compiles the
 //      round's buf + w_k * dec (repro/distributed/steps.py:170); acc f32.
 //
+// Taps, with apply (a separate kernel; the kernels above are unchanged
+// without them): the round's two broadcast taps as level-1 window sums of
+// XLA:CPU's sum law (tap_reduce.cuh), reading the diff the broadcast
+// encoded (f32, n values): err^2 with err = fma(-(sign*mag), scale, diff),
+// the decode's last product fused into the subtraction as XLA:CPU compiles
+// the reference round's diff - q, and q^2 with q = (sign*mag) * scale
+// rounded (the materialized decode, not the fused apply's), each square
+// rounded, into two rows of `windows` floats. A thread owns one window of
+// 32 elements ([32 w - front, 32 w - front + 32)), applies its elements
+// and sums the squares in order from +0. At 4 bits with front 0 (every
+// gemma2 size) a window is one 16-byte code vector, and a warp's 32
+// windows (1,024 elements) pass their acc and diff values through shared
+// memory: the warp loads and stores them 16 bytes a lane, coalesced, and
+// a thread reads its window's 32 values from a tile padded to 33 floats a
+// row (no bank conflicts); otherwise each element's code word, norm, acc
+// and diff are read one at a time. Extra bytes: 4 per element (diff) and
+// 8 per 32 elements.
+//
 // Bound: bytes. It reads bits/8 B per element plus 4 B per row and writes
 // 4 B per element (d = 1e8, qsgd4: 0.45 GB, 0.135 ms at 3.35 TB/s); at the
 // CNN's 624 rows a launch is latency-bound. An accumulating mode also
@@ -144,6 +162,158 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tap rows and the window law of the taps kernel.
+struct Taps {
+  const float* diff;   // n values
+  float* out;          // 2 rows of `windows` floats: err^2, q^2 sums
+  long long windows;   // ceil(n / 32)
+  long long front;     // zeros in front of window 0
+};
+
+// One element of the taps kernel: the apply over acc, and the squares.
+__device__ __forceinline__ float apply_tap(float sm, float scale, float old,
+                                          float diff, float& s_err,
+                                          float& s_q) {
+  const float q = __fmul_rn(sm, scale);
+  const float err = __fmaf_rn(-sm, scale, diff);
+  s_err = __fadd_rn(s_err, __fmul_rn(err, err));
+  s_q = __fadd_rn(s_q, __fmul_rn(q, q));
+  return __fmaf_rn(sm, scale, old);
+}
+
+// The apply (acc[e] = fma(sign*mag, scale, acc[e])) with the taps, one
+// window per thread, each element's code word, norm, acc and diff read
+// one at a time (any bit width and front padding).
+template <int BITS, typename T>
+__global__ void __launch_bounds__(kThreads)
+    unpack_dequantize_taps_kernel(const uint32_t* __restrict__ packed,
+                                  const float* __restrict__ norms, T* acc,
+                                  long long n, Taps taps) {
+  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (w >= taps.windows) return;
+  const float rcp = __frcp_rn(qsgd::levels(BITS));
+  const long long e0 = w * 32 - taps.front;
+  float s_err = 0.0f, s_q = 0.0f;
+  for (int i = 0; i < 32; ++i) {
+    const long long e = e0 + i;
+    if (e < 0 || e >= n) continue;  // zeros of the padding add nothing
+    const long long row = e / qsgd::kLanes;
+    const int lane = (int)(e % qsgd::kLanes);
+    const uint32_t word = __ldg(packed + row * 4 * BITS + lane * BITS / 32);
+    const float sm = codevec::signed_mag<BITS>(&word, lane % (32 / BITS));
+    const float scale = __fmul_rn(__ldg(norms + row), rcp);
+    round_to(apply_tap(sm, scale, to_f32(acc[e]), __ldg(taps.diff + e),
+                       s_err, s_q),
+             acc + e);
+  }
+  taps.out[w] = s_err;
+  taps.out[taps.windows + w] = s_q;
+}
+
+// The taps kernel at 4 bits with front 0: window w is code vector w, and
+// each warp stages its 32 windows' acc and diff values in shared memory.
+constexpr int kSpan = 32 * 32;       // elements of a warp's 32 windows
+constexpr int kRow = 33;             // padded floats per window in a tile
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    unpack_dequantize_taps_staged_kernel(const uint32_t* __restrict__ packed,
+                                         const float* __restrict__ norms,
+                                         T* acc, long long n, Taps taps) {
+  __shared__ float tile_acc[kWarps][32 * kRow];
+  __shared__ float tile_diff[kWarps][32 * kRow];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long w0 = ((long long)blockIdx.x * kWarps + warp) * 32;
+  if (w0 >= taps.windows) return;  // whole warps only
+  const long long e_base = w0 * 32;
+  float* sa = tile_acc[warp];
+  float* sd = tile_diff[warp];
+  // element j of the span sits at j + j / 32 of a tile
+  constexpr int kPerLoad = 16 / sizeof(T);  // acc values per 16 bytes
+  if (e_base + kSpan <= n) {
+#pragma unroll
+    for (int i = 0; i < kSpan / 4 / 32; ++i) {
+      const int j = 4 * (i * 32 + lane);
+      const float4 d = __ldg(reinterpret_cast<const float4*>(
+          taps.diff + e_base + j));
+      const int r = j + j / 32;
+      sd[r] = d.x;
+      sd[r + 1] = d.y;
+      sd[r + 2] = d.z;
+      sd[r + 3] = d.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kSpan / kPerLoad / 32; ++i) {
+      const int j = kPerLoad * (i * 32 + lane);
+      const uint4 raw = *reinterpret_cast<const uint4*>(acc + e_base + j);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int c = 0; c < kPerLoad; ++c) sa[j + c + (j + c) / 32] = to_f32(v[c]);
+    }
+  } else {
+    for (int j = lane; j < kSpan; j += 32) {
+      const long long e = e_base + j;
+      sd[j + j / 32] = e < n ? __ldg(taps.diff + e) : 0.0f;
+      sa[j + j / 32] = e < n ? to_f32(acc[e]) : 0.0f;
+    }
+  }
+  __syncwarp();
+  const long long w = w0 + lane;
+  if (w < taps.windows) {
+    uint32_t q[4];
+    codevec::load_words<4>(packed + w * 4, q);
+    const float scale =
+        __fmul_rn(__ldg(norms + w / 4), __frcp_rn(qsgd::levels(4)));
+    float s_err = 0.0f, s_q = 0.0f;
+    float* ra = sa + lane * kRow;
+    const float* rd = sd + lane * kRow;
+#pragma unroll 8
+    for (int i = 0; i < 32; ++i) {
+      const float sm = codevec::signed_mag<4>(q, i);
+      float e_sq = 0.0f, q_sq = 0.0f;
+      const float v = apply_tap(sm, scale, ra[i], rd[i], e_sq, q_sq);
+      if (w * 32 + i < n) {  // padding past n adds +0
+        ra[i] = v;
+        s_err = __fadd_rn(s_err, e_sq);
+        s_q = __fadd_rn(s_q, q_sq);
+      }
+    }
+    taps.out[w] = s_err;
+    taps.out[taps.windows + w] = s_q;
+  }
+  __syncwarp();
+  if (e_base + kSpan <= n) {
+#pragma unroll
+    for (int i = 0; i < kSpan / kPerLoad / 32; ++i) {
+      const int j = kPerLoad * (i * 32 + lane);
+      uint4 raw;
+      T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int c = 0; c < kPerLoad; ++c) round_to(sa[j + c + (j + c) / 32], v + c);
+      *reinterpret_cast<uint4*>(acc + e_base + j) = raw;
+    }
+  } else {
+    for (int j = lane; j < kSpan; j += 32) {
+      if (e_base + j < n) round_to(sa[j + j / 32], acc + e_base + j);
+    }
+  }
+}
+
+template <int BITS, typename T>
+void launch_taps(const uint32_t* packed, const float* norms, void* acc,
+                 long long n, const Taps& taps, cudaStream_t stream) {
+  const long long blocks = (taps.windows + kThreads - 1) / kThreads;
+  if (BITS == 4 && taps.front == 0) {
+    unpack_dequantize_taps_staged_kernel<T>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(packed, norms, (T*)acc,
+                                                    n, taps);
+  } else {
+    unpack_dequantize_taps_kernel<BITS, T>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(packed, norms, (T*)acc,
+                                                    n, taps);
+  }
+}
+
 struct Args {
   const uint32_t* packed;
   const float* norms;
@@ -184,8 +354,15 @@ enum Acc { kNone = 0, kF32 = 1, kBf16 = 2 };
 
 template <int BITS>
 void launch_bits(const Args& a, int sms, int eager, int acc,
-                 cudaStream_t stream) {
-  if (acc == kNone) {
+                 const Taps& taps, cudaStream_t stream) {
+  if (taps.out != nullptr) {
+    if (acc == kBf16) {
+      launch_taps<BITS, __nv_bfloat16>(a.packed, a.norms, a.out, a.n, taps,
+                                       stream);
+    } else {
+      launch_taps<BITS, float>(a.packed, a.norms, a.out, a.n, taps, stream);
+    }
+  } else if (acc == kNone) {
     if (eager) {
       launch_width<BITS, kEager>(a, sms, stream);
     } else {
@@ -205,27 +382,38 @@ void launch_bits(const Args& a, int sms, int eager, int acc,
 // acc 0: `out` is a fresh f32 (rows, 128) output (`n`, `weight` unused).
 // acc 1 (f32) or 2 (bf16, no weight): `out` is an accumulator of n <=
 // rows*128 values, updated in place with the jitted scale (eager 0);
-// `weight` (one f32 on the device, f32 only) may be null.
+// `weight` (one f32 on the device, f32 only) may be null. taps (the apply,
+// no weight): null, or 2 rows of `windows` = ceil(n / 32) floats for the
+// tap sums over `tap_diff` (n f32 values), the windows starting `front`
+// zeros before element 0.
 extern "C" int qsgd_unpack_dequantize(const void* packed, const void* norms,
                                       void* out, long long rows, int bits,
                                       int eager, long long n,
                                       const void* weight, int acc,
+                                      const void* tap_diff, void* taps,
+                                      long long windows, long long front,
                                       void* stream) {
   if (acc < kNone || acc > kBf16) return (int)cudaErrorInvalidValue;
   if (acc != kNone && (eager || n < 0 || n > rows * qsgd::kLanes)) {
     return (int)cudaErrorInvalidValue;
   }
   if (weight != nullptr && acc != kF32) return (int)cudaErrorInvalidValue;
+  if (taps != nullptr &&
+      (acc == kNone || weight != nullptr || tap_diff == nullptr || n <= 0 ||
+       windows != (n + 31) / 32 || front < 0 || front >= 32)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int sms = 0;
   const cudaError_t err = qsgd::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const Args a{(const uint32_t*)packed, (const float*)norms, out, n,
                (const float*)weight, rows};
+  const Taps t{(const float*)tap_diff, (float*)taps, windows, front};
   const auto s = (cudaStream_t)stream;
   switch (bits) {
-    case 2: launch_bits<2>(a, sms, eager, acc, s); break;
-    case 4: launch_bits<4>(a, sms, eager, acc, s); break;
-    case 8: launch_bits<8>(a, sms, eager, acc, s); break;
+    case 2: launch_bits<2>(a, sms, eager, acc, t, s); break;
+    case 4: launch_bits<4>(a, sms, eager, acc, t, s); break;
+    case 8: launch_bits<8>(a, sms, eager, acc, t, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

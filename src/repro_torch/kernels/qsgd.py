@@ -237,7 +237,9 @@ def qsgd_quantize_pack_batch_flat(flat2d: torch.Tensor, seeds: torch.Tensor,
 def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
                            bits: int, *, eager: bool = False,
                            acc: Optional[torch.Tensor] = None,
-                           weight: Optional[torch.Tensor] = None
+                           weight: Optional[torch.Tensor] = None,
+                           tap_diff: Optional[torch.Tensor] = None,
+                           taps: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Inverse of ``qsgd_quantize_pack``: packed uint8 (rows, 16*bits) +
     norms f32 (rows,) -> f32 (rows, 128). ``eager=True`` scales by
@@ -252,7 +254,14 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
     result rounded to nearest even); with a one-element f32 ``weight`` w
     on the same device, ``fma((sign*mag) * (norm * fl32(1/s)), w, acc)``,
     the decoded value rounded and its weighted add fused, as XLA:CPU
-    compiles the round's ``buf + w_k * dec`` (``acc`` f32)."""
+    compiles the round's ``buf + w_k * dec`` (``acc`` f32).
+
+    ``taps`` (with ``acc`` and no weight: the round's x-hat + q), an f32
+    (2, ``ref.tap_windows(n)``) tensor, gets in the same launch the level-1
+    window sums of the round's two broadcast taps over ``tap_diff`` (the n
+    f32 values the codes encode): ``err**2``, err ``fma(-(sign*mag),
+    scale, diff)``, and ``q**2``, q the materialized decode
+    (``ref.dequantize_taps``)."""
     check_bits(bits)
     rows = packed.shape[0]
     check_tensor("packed", packed, torch.uint8, (None, LANES * bits // 8),
@@ -270,9 +279,22 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
             raise ValueError("a weight needs an accumulator")
         weight = weight.reshape(1)
         check_tensor("weight", weight, torch.float32, (1,), packed.device)
+    if (taps is None) != (tap_diff is None):
+        raise ValueError("taps and tap_diff go together")
+    if taps is not None:
+        if acc is None or weight is not None:
+            raise ValueError("taps come with the unweighted accumulating "
+                             "decode (the round's x-hat + q)")
+        n = acc.numel()
+        check_tensor("tap_diff", tap_diff, torch.float32, (n,),
+                     packed.device)
+        check_tensor("taps", taps, torch.float32, (2, _ref.tap_windows(n)),
+                     packed.device)
     if not on_card(packed):
         if acc is None:
             return _ref.unpack_dequantize(packed, norms, bits, eager=eager)
+        if taps is not None:
+            taps.copy_(_ref.dequantize_taps(packed, norms, bits, tap_diff))
         return acc.copy_(_ref.unpack_dequantize(
             packed, norms, bits, acc=acc.to(torch.float32),
             weight=weight).reshape(-1)[:acc.numel()])
@@ -285,12 +307,18 @@ def qsgd_unpack_dequantize(packed: torch.Tensor, norms: torch.Tensor,
         check_aligned("acc", acc)
         out = acc
         mode = 2 if acc.dtype == torch.bfloat16 else 1
+    if taps is not None:
+        check_aligned("tap_diff", tap_diff)
     if rows:
         fn = _build.entry("unpack_dequantize")
         _build.check("qsgd_unpack_dequantize", fn(
             packed.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, bits,
             int(eager), 0 if acc is None else acc.numel(),
             None if weight is None else weight.data_ptr(), mode,
+            None if taps is None else tap_diff.data_ptr(),
+            None if taps is None else taps.data_ptr(),
+            0 if taps is None else _ref.tap_windows(acc.numel()),
+            0 if taps is None else _ref.tap_front(acc.numel()),
             torch.cuda.current_stream(packed.device).cuda_stream))
         LAUNCHES["qsgd_unpack_dequantize"] += 1
     return out

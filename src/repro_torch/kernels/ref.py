@@ -259,23 +259,33 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor):
 
 def server_update_(buf: torch.Tensor, m: torch.Tensor, x: torch.Tensor,
                    xhat: torch.Tensor, *, inv_k: float, beta, lr: float,
-                   chunk: int = 1 << 25):
+                   taps=None, chunk: int = 1 << 25):
     """The round's server update over the first n = ``x.numel()`` values,
-    in place, ``chunk`` elements at a time: ``delta_bar = buf * inv_k``,
-    ``m_new = fma(m, beta, delta_bar)`` (``beta`` None: ``delta_bar``),
-    ``x_new = m_new + x`` for ``lr == 1`` else ``fma(m_new, lr, x)``,
-    ``diff = x_new - xhat``; then ``buf <- diff`` (f32), ``m <- m_new`` and
-    ``x <- x_new`` rounded to their dtype (f32 or bf16, nearest even).
-    ``inv_k``, ``beta`` and ``lr`` are f32 values; m, x and xhat share one
-    dtype and buf is f32. Returns ``buf``."""
-    for s in range(0, x.numel(), chunk):
-        sl = slice(s, min(x.numel(), s + chunk))
+    in place, about ``chunk`` elements at a time: ``delta_bar = buf *
+    inv_k``, ``m_new = fma(m, beta, delta_bar)`` (``beta`` None:
+    ``delta_bar``), ``x_new = m_new + x`` for ``lr == 1`` else
+    ``fma(m_new, lr, x)``, ``diff = x_new - xhat``; then ``buf <- diff``
+    (f32), ``m <- m_new`` and ``x <- x_new`` rounded to their dtype (f32 or
+    bf16, nearest even). ``inv_k``, ``beta`` and ``lr`` are f32 values; m,
+    x and xhat share one dtype and buf is f32. With ``taps``, an f32 (3,
+    ``tap_windows(n)``) tensor, its rows get the level-1 window sums
+    (``window_chunks``) of ``delta_bar**2``, ``(x_new - x)**2`` (x_new the
+    f32 value before rounding) and ``diff**2``, each square rounded, as
+    XLA:CPU computes the reference round's taps. Returns ``buf``."""
+    n = x.numel()
+    for w0, w1, a, b, lo, hi in window_chunks(n, max(1, chunk // 32)):
+        sl = slice(a, b)
         delta_bar = buf[sl] * inv_k
         m_new = (delta_bar if beta is None else
                  fma_f32(m[sl].to(torch.float32), beta, delta_bar))
         x32 = x[sl].to(torch.float32)
         x_new = m_new + x32 if lr == 1.0 else fma_f32(m_new, lr, x32)
-        buf[sl] = x_new - xhat[sl].to(torch.float32)
+        diff = x_new - xhat[sl].to(torch.float32)
+        if taps is not None:
+            upd = x_new - x32
+            for row, v in enumerate((delta_bar, upd, diff)):
+                taps[row, w0:w1] = window_sums(v * v, lo, hi)
+        buf[sl] = diff
         m[sl] = m_new.to(m.dtype)
         x[sl] = x_new.to(x.dtype)
     return buf
@@ -330,6 +340,41 @@ def xla_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _in_order(v)
 
 
+def tap_front(n: int) -> int:
+    """Zeros in front of a level of n values in ``xla_sum``'s law: half the
+    padding to whole windows of 32, rounded down (none at 32 or fewer,
+    where the level is summed in order)."""
+    if n <= XLA_WINDOW:
+        return 0
+    return (-(-n // XLA_WINDOW) * XLA_WINDOW - n) // 2
+
+
+def tap_windows(n: int) -> int:
+    """Level-1 windows of a vector of n values, ``ceil(n / 32)``."""
+    return -(-n // XLA_WINDOW)
+
+
+def window_chunks(n: int, windows: int):
+    """The level-1 windows of a vector of n values, ``windows`` at a time:
+    yields ``(w0, w1, a, b, lo, hi)``, windows [w0, w1) covering the
+    elements [a, b) with ``lo`` zeros in front and ``hi`` behind (window w
+    holds elements [32 w - f, 32 w - f + 32), f = ``tap_front(n)``)."""
+    f, total = tap_front(n), tap_windows(n)
+    for w0 in range(0, total, windows):
+        w1 = min(total, w0 + windows)
+        s, e = XLA_WINDOW * w0 - f, XLA_WINDOW * w1 - f
+        a, b = max(s, 0), min(e, n)
+        yield w0, w1, a, b, a - s, e - b
+
+
+def window_sums(sq: torch.Tensor, lo: int = 0, hi: int = 0) -> torch.Tensor:
+    """Level-1 window sums of ``xla_sum``'s law: ``sq`` (the squares of a
+    run of whole windows, ``lo`` zeros in front and ``hi`` behind) summed
+    32 at a time in order from +0."""
+    sq = torch.nn.functional.pad(sq, (lo, hi))
+    return _in_order(sq.reshape(-1, XLA_WINDOW))
+
+
 def tap_sum(sq: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis of f32 squares in the reference's order:
     the taps' ``jnp.sum`` of materialized squares, which is ``xla_sum``
@@ -351,16 +396,7 @@ def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
     err = diff - q
     roots = sqrt_f32(torch.stack([tap_sum(v * v)
                                   for v in (delta, upd, diff, err, q)]))
-    if weights is None or weights.numel() == 0:
-        wsum = wmin = torch.zeros((), dtype=torch.float32,
-                                  device=x_old.device)
-    else:
-        wsum = weights[0]
-        for k in range(1, weights.shape[0]):
-            wsum = wsum + weights[k]
-        wmin = torch.min(weights)
-    return torch.stack([roots[0], roots[1], roots[2],
-                        _relative(roots[3], roots[2]), roots[4], wsum, wmin])
+    return _tap_vector(roots, weights, x_old.device)
 
 
 def upload_taps(flat2d: torch.Tensor, packed=None, norms=None, bits=None):
@@ -384,3 +420,88 @@ def upload_taps(flat2d: torch.Tensor, packed=None, norms=None, bits=None):
         err = fma_f32(-sm, scale, flat2d)
         s_err = tap_sum(err * err)
     return torch.stack([dn, _relative(sqrt_f32(s_err), dn)], dim=1)
+
+
+def _decode_slice(packed: torch.Tensor, norms: torch.Tensor, bits: int,
+                  a: int, b: int):
+    """``sign*mag`` and ``norm * fl32(1/s)`` of the elements [a, b) of a
+    message's codes, each f32 (b - a,)."""
+    r0, r1 = a // LANES, rows_for(b)
+    sm = signed_magnitudes(packed[r0:r1], bits).reshape(-1)
+    scale = (norms[r0:r1] * reciprocal_levels(bits)).repeat_interleave(LANES)
+    return (sm[a - r0 * LANES:b - r0 * LANES],
+            scale[a - r0 * LANES:b - r0 * LANES])
+
+
+def dequantize_taps(packed: torch.Tensor, norms: torch.Tensor, bits: int,
+                    diff: torch.Tensor, *, chunk: int = 1 << 25):
+    """The broadcast's two taps as level-1 window sums, f32 (2,
+    ``tap_windows(n)``) for the n values of ``diff``: of ``err**2``, err
+    ``fma(-(sign*mag), norm * fl32(1/s), diff)``, and of ``q**2``, q the
+    materialized decode ``(sign*mag) * (norm * fl32(1/s))``: XLA:CPU
+    fuses the decode's last product into the reference round's ``diff - q``
+    (read from its object code, one ``vfnmadd``), as in the upload taps."""
+    n = diff.numel()
+    out = torch.empty((2, tap_windows(n)), dtype=torch.float32,
+                      device=diff.device)
+    for w0, w1, a, b, lo, hi in window_chunks(n, max(1, chunk // 32)):
+        sm, scale = _decode_slice(packed, norms, bits, a, b)
+        q = sm * scale
+        err = fma_f32(-sm, scale, diff[a:b])
+        out[0, w0:w1] = window_sums(err * err, lo, hi)
+        out[1, w0:w1] = window_sums(q * q, lo, hi)
+    return out
+
+
+ROUND_TAP_SUMS = 5  # delta_bar, x_new - x, diff, diff - q, q
+
+
+def round_taps_finish(partials: torch.Tensor, weights=None) -> torch.Tensor:
+    """The round's tap vector, f32 (7,) in ``obs.taps.FLUSH_TAP_NAMES``
+    order, from its level-1 window sums: the f32 (5, W) rows of
+    ``delta_bar**2``, ``(x_new - x)**2``, ``diff**2`` (``server_update_``),
+    ``err**2`` and ``q**2`` (``dequantize_taps``). Each row's total is ``xla_sum`` of its window sums (the rest of
+    XLA's law), then ``flush_taps``' roots, ratio and weights."""
+    roots = sqrt_f32(xla_sum(partials))
+    return _tap_vector(roots, weights, partials.device)
+
+
+def _tap_vector(roots: torch.Tensor, weights, device) -> torch.Tensor:
+    """[r0, r1, r2, r3 / max(r2, 1e-30), r4, sum w, min w] from the five
+    roots; the weights summed in order from the first (zeros without)."""
+    if weights is None or weights.numel() == 0:
+        wsum = wmin = torch.zeros((), dtype=torch.float32, device=device)
+    else:
+        wsum = weights[0]
+        for k in range(1, weights.shape[0]):
+            wsum = wsum + weights[k]
+        wmin = torch.min(weights)
+    return torch.stack([roots[0], roots[1], roots[2],
+                        _relative(roots[3], roots[2]), roots[4], wsum, wmin])
+
+
+def round_taps(x_old: torch.Tensor, x_new: torch.Tensor,
+               delta: torch.Tensor, diff: torch.Tensor, packed: torch.Tensor,
+               norms: torch.Tensor, bits: int, weights=None, *,
+               chunk: int = 1 << 25) -> torch.Tensor:
+    """The QAFeL round's tap vector, f32 (7,), from its materialized f32
+    vectors (x before and after the server update, ``delta_bar``, the
+    broadcast diff) and the broadcast's codes: ``xla_sum`` of each rounded
+    square (``delta``, ``x_new - x_old``, ``diff``, the error ``fma(-(sign
+    *mag), scale, diff)`` and the decode q), correctly rounded roots, the
+    ratio and the weights' sum and minimum. The sums run over windows of
+    ``chunk`` values at a time (``xla_sum`` is ``xla_sum`` of its level-1
+    window sums), so a long vector needs no whole-length temporaries. The
+    plain version of the kernel path (the server update's and K3's tap
+    outputs, then ``kernels.taps.round_taps``), for the tests."""
+    n = diff.numel()
+    parts = torch.empty((ROUND_TAP_SUMS, tap_windows(n)),
+                        dtype=torch.float32, device=diff.device)
+    for w0, w1, a, b, lo, hi in window_chunks(n, max(1, chunk // 32)):
+        sm, scale = _decode_slice(packed, norms, bits, a, b)
+        q = sm * scale
+        err = fma_f32(-sm, scale, diff[a:b])
+        upd = x_new[a:b] - x_old[a:b]
+        for row, v in enumerate((delta[a:b], upd, diff[a:b], err, q)):
+            parts[row, w0:w1] = window_sums(v * v, lo, hi)
+    return round_taps_finish(parts, weights)

@@ -1,5 +1,6 @@
-"""Wrappers of the metric-tap kernels (CUDA C++ in ``csrc/flush_taps.cu``
-and ``csrc/upload_taps.cu``, on ``csrc/tap_reduce.cuh``).
+"""Wrappers of the metric-tap kernels (CUDA C++ in ``csrc/flush_taps.cu``,
+``csrc/upload_taps.cu`` and ``csrc/round_taps.cu``, on
+``csrc/tap_reduce.cuh``).
 
 Counterpart of the tap math of ``repro/obs/taps.py`` (``flush_tap_vector``,
 ``cohort_tap_rows``, ``decode_qsgd_stack``), which the reference computes in
@@ -9,6 +10,10 @@ order for ``jnp.sum`` (``ref.tap_sum``, which depends on the vector's
 length alone): the card equals the CPU and the reference bit for bit, and
 a member's upload tap does not depend on the cohort it was batched with. Taps on cost one launch per
 flush (``flush_taps``) and one per client-step encode (``upload_taps``).
+The QAFeL round's taps (``round_taps``) are the flush's seven, finished in
+one launch from the level-1 window sums that the server-update kernel and
+K3's x-hat apply write as they go (the round updates its state in place,
+so no pass over the materialized vectors is possible).
 
 As the other wrappers: a CPU tensor runs the plain version
 (``ref.flush_taps``, ``ref.upload_taps``), a CUDA tensor launches the
@@ -26,7 +31,7 @@ from repro_torch.kernels.qsgd import check_bits, check_tensor, on_card
 from repro_torch.kernels.ref import LANES
 
 # launches per kernel since the last reset (``kernels.reset_launches``)
-LAUNCHES = {"flush_taps": 0, "upload_taps": 0}
+LAUNCHES = {"flush_taps": 0, "upload_taps": 0, "round_taps": 0}
 
 FLUSH_SUMS, UPLOAD_SUMS = 5, 2  # partial sums a block writes
 _counters: Dict[torch.device, torch.Tensor] = {}
@@ -80,6 +85,36 @@ def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
         n, partials.data_ptr(), _row_counters(dev, 1).data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["flush_taps"] += 1
+    return out
+
+
+def round_taps(partials: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The QAFeL round's tap vector, f32 (7,) in
+    ``obs.taps.FLUSH_TAP_NAMES`` order, from the f32 (5, W) level-1 window
+    sums of its five squares (rows delta_bar, x_new - x, diff:
+    ``server_update_(taps=)``; err, q: ``qsgd_unpack_dequantize(taps=)``)
+    and its (K,) staleness weights or None: XLA's sum law finished on each
+    row (``ref.round_taps_finish``), one launch."""
+    check_tensor("partials", partials, torch.float32,
+                 (_ref.ROUND_TAP_SUMS, None), partials.device)
+    windows, dev = partials.shape[1], partials.device
+    if weights is not None:
+        check_tensor("weights", weights, torch.float32, (None,), dev)
+    if windows == 0:
+        raise ValueError("round_taps needs a non-empty vector")
+    if not on_card(partials):
+        return _ref.round_taps_finish(partials, weights)
+    k = 0 if weights is None else weights.shape[0]
+    scratch = torch.empty(_scratch_slots(windows) * _ref.ROUND_TAP_SUMS,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty(7, dtype=torch.float32, device=dev)
+    fn = _build.entry("round_taps")
+    _build.check("round_taps", fn(
+        partials.data_ptr(), windows, weights.data_ptr() if k else None, k,
+        scratch.data_ptr(), _row_counters(dev, 1).data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    LAUNCHES["round_taps"] += 1
     return out
 
 

@@ -5,8 +5,14 @@ Counterpart of the training path of ``repro/models/attention.py``:
 whole sequence, computed blockwise with an online softmax (the
 flash-attention recurrence in plain torch, the reference's order of
 blocks), so the S x S logit matrix is never materialized. The logits,
-softmax and value sums run in f32. KV caches, ``attention_decode`` and
-prefill are ROADMAP queue A item 14b.
+softmax and value sums run in f32.
+
+Serving: ``init_attn_cache`` (a per-layer KV cache; with a window, a ring
+buffer of ``min(window, max_len)`` slots), ``prefill_into_cache`` and
+``attention_decode`` (one token against the cache, the logits and p.V in
+f32), from the reference's ``attention.py:163-220``. The port writes a
+cache in place and returns the same dict; the positions are Python ints
+from the host loop, so a decode step never waits on the card.
 """
 from __future__ import annotations
 
@@ -152,3 +158,75 @@ def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    window: Optional[int] = None, dtype=None,
+                    device=None) -> dict:
+    """One layer's cache: ``k`` and ``v`` (B, w, KV, hd) zeros in the
+    activation dtype and ``slot_pos`` (w,) int32 -1 (an empty slot), w =
+    ``min(window, max_len)`` with a window (a ring buffer), else
+    ``max_len``."""
+    dtype = dtype or cfg.act_dtype
+    w = min(window, max_len) if window is not None else max_len
+    shape = (batch, w, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((w,), -1, dtype=torch.int32,
+                                   device=device)}
+
+
+def prefill_into_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                       start: int = 0) -> dict:
+    """Write (B, S, KV, hd) keys and values at slots [start, start + S)
+    (no ring wrap), in place; returns ``cache``."""
+    s = k.shape[1]
+    cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+    cache["slot_pos"][start:start + s] = torch.arange(
+        start, start + s, dtype=torch.int32, device=cache["slot_pos"].device)
+    return cache
+
+
+def ring_slot(pos: int, w: int, window: Optional[int]) -> int:
+    """The slot of absolute position ``pos`` in a cache of w slots:
+    ``pos % w`` in a ring (a window), else ``min(pos, w - 1)``."""
+    return pos % w if window is not None else min(pos, w - 1)
+
+
+def attention_decode(cfg: ModelConfig, params, x: torch.Tensor, cache: dict,
+                     pos: int, *, window: Optional[int] = None):
+    """One-token decode. x: (B, 1, D); ``pos`` the token's absolute
+    position (a Python int). The token's key and value go to their ring
+    slot (``ring_slot``) in place; the query attends to every slot whose
+    position is valid (``slot_pos`` >= 0, <= pos and, with a window, >
+    pos - window), the logits and p.V in f32 with the attention softcap.
+    Returns (out (B, 1, D), ``cache``, written in place)."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
+    slot = ring_slot(pos, kc.shape[1], window)
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    spos[slot] = pos
+    logits = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(b, kvh, g, hd).to(torch.float32),
+                          kc.to(torch.float32)) * _logit_scale(cfg)
+    logits = softcap(logits, cfg.attn_softcap)
+    valid = (spos >= 0) & (spos <= pos)
+    if window is not None:
+        valid = valid & (spos > pos - window)
+    logits = torch.where(valid[None, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vc.to(torch.float32))
+    out = out.reshape(b, 1, h * hd).to(x.dtype)
+    return torch.einsum("bse,ed->bsd", out, params["wo"]), cache

@@ -12,9 +12,16 @@ with each leaf stacked over the super-blocks, ``final_norm``, and
 coordinate. The reference scans the super-blocks; here ``forward`` loops
 over them, under ``torch.utils.checkpoint`` with ``remat``.
 
+Serving (the reference's ``transformer.py:328-528``): ``init_cache`` (one
+cache per pattern position, stacked over the super-blocks; local layers a
+ring of ``sliding_window`` slots, global ones ``window_override`` or the
+whole ``max_len``), ``prefill`` (the prompt's forward, each layer's keys
+and values written into its ring, the last position's logits only) and
+``decode_step`` (one token through every layer, the caches written in
+place).
+
 MoE, MLA, Mamba2, the hybrid and the VLM/audio frontends are ROADMAP
-queue A item 14c; caches, ``prefill`` and ``decode_step`` item 14b. Each
-raises ``NotImplementedError`` naming its item.
+queue A item 14c and raise ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -220,11 +227,140 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     return loss + cfg.router_aux_coef * aux, {"xent": loss, "aux": aux}
 
 
-def prefill(*args, **kwargs):
-    raise NotImplementedError("prefill and KV caches are ROADMAP queue A "
-                              "item 14b")
+# ---------------------------------------------------------------------------
+# Serving: cache init, prefill, decode
+# ---------------------------------------------------------------------------
 
 
-def decode_step(*args, **kwargs):
-    raise NotImplementedError("decode_step and KV caches are ROADMAP queue "
-                              "A item 14b")
+def _ring_write(layer_cache: dict, arrays: Dict[str, torch.Tensor], s: int,
+                window: Optional[int]) -> None:
+    """Write full-sequence tensors (B, S, ...) into a layer's (ring) cache
+    of w slots, in place: only the last ``min(S, w)`` positions, position
+    i at slot ``i % w``; ``slot_pos`` gets their positions."""
+    w = layer_cache["slot_pos"].shape[0]
+    wk = min(s, w)
+    dev = layer_cache["slot_pos"].device
+    idxs = torch.arange(s - wk, s, dtype=torch.int64, device=dev)
+    slots = idxs % w
+    for name, x in arrays.items():
+        layer_cache[name].index_copy_(
+            1, slots, x[:, s - wk:].to(layer_cache[name].dtype))
+    layer_cache["slot_pos"].index_copy_(0, slots, idxs.to(torch.int32))
+
+
+def _attn_sublayer_prefill(cfg: ModelConfig, p, h: torch.Tensor,
+                           positions: torch.Tensor, *, window, layer_cache,
+                           q_block: int, kv_block: int) -> torch.Tensor:
+    """``_attn_sublayer`` that also fills the layer's cache (in place)."""
+    s = h.shape[1]
+    a_in = _norm(cfg, h, p["ln1"])
+    a, (k, v) = attn_lib.attention_train(
+        cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
+        kv_block=kv_block, return_kv=True)
+    _ring_write(layer_cache, {"k": k, "v": v}, s, window)
+    if cfg.norm_scale_plus_one:
+        a = _norm(cfg, a, p["post_ln1"])
+    h = h + a
+    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
+    if cfg.norm_scale_plus_one:
+        f = _norm(cfg, f, p["post_ln2"])
+    return h + f
+
+
+def _layer_cache(cache, key: str, sb: int) -> dict:
+    """Super-block ``sb``'s slice of a stacked cache entry (views)."""
+    return {name: t[sb] for name, t in cache["layers"][key].items()}
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, inputs, *,
+            max_len: Optional[int] = None,
+            window_override: Optional[int] = None, q_block: int = 512,
+            kv_block: int = 512):
+    """Process a full prompt: returns (the last position's logits (B, 1,
+    V), the filled cache). ``max_len`` (default the prompt's length) sizes
+    the caches of the layers without a window; a prompt longer than a
+    layer's ring leaves its last w positions there. ``q_block`` and
+    ``kv_block`` must divide the prompt's length, as in ``forward``."""
+    _check_dense(cfg)
+    h = _embed_inputs(cfg, params, inputs)
+    b, s, _ = h.shape
+    max_len = max_len if max_len is not None else s
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)
+    cache = init_cache(cfg, b, max_len, window_override, device=h.device)
+    for sb in range(cfg.n_super_blocks):
+        for i, kind in enumerate(cfg.layer_pattern):
+            key = f"pos{i}_{kind}"
+            h = _attn_sublayer_prefill(
+                cfg, tree_map(lambda a: a[sb], params["layers"][key]), h,
+                positions, window=_window_for(cfg, kind, window_override),
+                layer_cache=_layer_cache(cache, key, sb), q_block=q_block,
+                kv_block=kv_block)
+    h = _norm(cfg, h[:, -1:], params["final_norm"])
+    return logits_fn(cfg, params, h), cache
+
+
+def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                    window_override: Optional[int], reps: int, device):
+    window = _window_for(cfg, kind, window_override)
+    one = attn_lib.init_attn_cache(cfg, batch, max_len, window,
+                                   device=device)
+    return {name: t[None].expand((reps,) + t.shape).clone()
+            for name, t in one.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               window_override: Optional[int] = None, device=None):
+    """Empty caches, one entry per pattern position, each leaf stacked over
+    the super-blocks (leading dim ``n_super_blocks``), on ``device``
+    (None: the card)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    return {"layers": {
+        f"pos{i}_{kind}": _position_cache(cfg, kind, batch, max_len,
+                                          window_override,
+                                          cfg.n_super_blocks, dev)
+        for i, kind in enumerate(cfg.layer_pattern)}}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   window_override: Optional[int] = None):
+    """``init_cache``'s shapes and dtypes without memory (``meta``
+    tensors)."""
+    return init_cache(cfg, batch, max_len, window_override,
+                      device=torch.device("meta"))
+
+
+def _decode_sublayer(cfg: ModelConfig, kind: str, p, h: torch.Tensor,
+                     layer_cache: dict, pos: int,
+                     window_override: Optional[int]) -> torch.Tensor:
+    a_in = _norm(cfg, h, p["ln1"])
+    a, _ = attn_lib.attention_decode(
+        cfg, p["attn"], a_in, layer_cache, pos,
+        window=_window_for(cfg, kind, window_override))
+    if cfg.norm_scale_plus_one:
+        a = _norm(cfg, a, p["post_ln1"])
+    h = h + a
+    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
+    if cfg.norm_scale_plus_one:
+        f = _norm(cfg, f, p["post_ln2"])
+    return h + f
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, cache, inputs, pos: int, *,
+                window_override: Optional[int] = None):
+    """One-token decode through the whole stack. inputs: {"tokens": (B,
+    1)}; ``pos`` the token's absolute position (a Python int). Returns
+    (logits (B, 1, V), ``cache``, written in place)."""
+    _check_dense(cfg)
+    pos = int(pos)
+    h = _embed_inputs(cfg, params, inputs)
+    for sb in range(cfg.n_super_blocks):
+        for i, kind in enumerate(cfg.layer_pattern):
+            key = f"pos{i}_{kind}"
+            h = _decode_sublayer(
+                cfg, kind, tree_map(lambda a: a[sb], params["layers"][key]),
+                h, _layer_cache(cache, key, sb), pos, window_override)
+    h = _norm(cfg, h, params["final_norm"])
+    return logits_fn(cfg, params, h), cache

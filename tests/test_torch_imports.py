@@ -253,3 +253,52 @@ def test_llm_entry_points_default_to_cuda(monkeypatch):
                lambda: federated_llm.main(["--rounds", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
+
+
+# serving and the round's taps, under the reference's names where it has
+# them
+SERVE_NAMES = [
+    ("repro_torch.models.attention", "init_attn_cache"),
+    ("repro_torch.models.attention", "prefill_into_cache"),
+    ("repro_torch.models.attention", "attention_decode"),
+    ("repro_torch.models.transformer", "prefill"),
+    ("repro_torch.models.transformer", "init_cache"),
+    ("repro_torch.models.transformer", "abstract_cache"),
+    ("repro_torch.models.transformer", "decode_step"),
+    ("repro_torch.distributed.steps", "make_prefill_step"),
+    ("repro_torch.distributed.steps", "make_decode_step"),
+    ("repro_torch.convert", "cache_from_jax"),
+    ("repro_torch.launch.serve", "main"),
+    ("repro_torch.launch.serve", "serve"),
+    ("repro_torch.examples.serve_model", "main"),
+    ("repro_torch.kernels.taps", "round_taps"),
+    ("repro_torch.kernels.ref", "round_taps"),
+    ("repro_torch.kernels.ref", "round_taps_finish"),
+    ("repro_torch.kernels.ref", "dequantize_taps"),
+]
+
+
+@pytest.mark.parametrize("module,name", SERVE_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_serve_slice_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch",
+                                    "repro_torch.launch.serve"])
+def test_launch_imports_without_jax(module):
+    """The launchers import, with jax and the JAX package blocked, and
+    bring neither in."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n"
+            "assert not any(m.startswith(('jax', 'repro.')) for m in "
+            "sys.modules if sys.modules[m] is not None)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

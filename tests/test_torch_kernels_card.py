@@ -524,3 +524,80 @@ def test_server_update_matches_plain_on_card(dtype, beta, lr):
                 a, b, c = (t.view(torch.int16) for t in (a, b, c))
             _assert_bits_equal(a, b)
             _assert_bits_equal(a.cpu(), c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("bits,n", (
+    (4, 4_100), (4, 4_095), (4, 4_080), (4, 79_842), (4, 100_000),
+    (2, 79_842), (8, 79_842), (8, 4_096), (2, 100_000), (4, 10 ** 8)))
+def test_round_tap_outputs_match_plain_on_card(dtype, bits, n):
+    """The round's taps on the card: the server-update kernel's tap rows,
+    K3's x-hat apply with its tap rows and the finishing pass
+    (``kernels.taps.round_taps``) against their plain versions on the
+    card, bit for bit, and the seven taps against ``ref.round_taps`` over
+    the materialized vectors; the state written as without taps; one
+    launch each. The lengths take every path of the window law: front
+    padding 14 (4,100), 0 with a ragged last window (4,095), 8 (4,080), 15
+    (the CNN's 79,842), none (100,000, d = 1e8)."""
+    from repro_torch.kernels.server_update import server_update_
+    from repro_torch.kernels.taps import round_taps
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(n % 1000 + bits)
+    dt = getattr(torch, dtype)
+    buf = torch.randn(n, generator=gen, device=dev) * 4e-2
+    m = (torch.randn(n, generator=gen, device=dev) * 1e-2).to(dt)
+    x = torch.randn(n, generator=gen, device=dev).to(dt)
+    xhat = (x.float() + torch.randn(n, generator=gen, device=dev) * 1e-2
+            ).to(dt)
+    w = torch.tensor([0.9, 1.0, 0.7, 0.5], device=dev)
+    x_old = x.float().clone()
+    delta = buf * np.float32(0.25)
+    x_new = ref.fma_f32(m.float(), float(np.float32(0.3)), delta) + x_old
+    plain_state = [t.clone() for t in (buf, m, x)]
+    parts = torch.empty((5, ref.tap_windows(n)), device=dev)
+    want = torch.empty_like(parts)
+    ref.server_update_(*plain_state, xhat, inv_k=0.25,
+                       beta=float(np.float32(0.3)), lr=1.0, taps=want[:3])
+    no_taps = [t.clone() for t in (buf, m, x)]
+    server_update_(*no_taps, xhat, k=4, beta=0.3, lr=1.0)
+    before = tkernels.launches()
+    server_update_(buf, m, x, xhat, k=4, beta=0.3, lr=1.0, taps=parts[:3])
+    torch.cuda.synchronize()
+    assert tkernels.launches()["server_update"] == \
+        before["server_update"] + 1
+    for a, b, c in zip((buf, m, x), plain_state, no_taps):
+        if a.dtype == torch.bfloat16:
+            a, b, c = (t.view(torch.int16) for t in (a, b, c))
+        _assert_bits_equal(a, b)
+        _assert_bits_equal(a, c)
+    _assert_bits_equal(parts[:3], want[:3])
+    del plain_state, no_taps
+
+    diff = buf
+    packed, norms = tkernels.qsgd.qsgd_quantize_pack_threefry(
+        diff, torch.tensor(KEYS[1]), bits)
+    acc, acc_plain = xhat.clone(), xhat.clone()
+    tkernels.qsgd.qsgd_unpack_dequantize(packed, norms, bits, acc=acc_plain)
+    want[3:] = ref.dequantize_taps(packed, norms, bits, diff)
+    before = tkernels.launches()
+    tkernels.qsgd.qsgd_unpack_dequantize(packed, norms, bits, acc=acc,
+                                         tap_diff=diff, taps=parts[3:])
+    torch.cuda.synchronize()
+    assert tkernels.launches()["qsgd_unpack_dequantize"] == \
+        before["qsgd_unpack_dequantize"] + 1
+    if dt == torch.bfloat16:
+        acc, acc_plain = acc.view(torch.int16), acc_plain.view(torch.int16)
+    _assert_bits_equal(acc, acc_plain)
+    _assert_bits_equal(parts[3:], want[3:])
+
+    before = tkernels.launches()["round_taps"]
+    got = round_taps(parts, w)
+    torch.cuda.synchronize()
+    assert tkernels.launches()["round_taps"] == before + 1
+    _assert_bits_equal(got, ref.round_taps_finish(parts, w))
+    _assert_bits_equal(got, ref.round_taps(x_old, x_new, delta, diff, packed,
+                                           norms, bits, w))
+    _assert_bits_equal(got.cpu(), round_taps(parts.cpu(), w.cpu()))
+    assert torch.isfinite(got).all()

@@ -393,18 +393,17 @@ def test_two_rounds_match_reference():
 
 def test_round_refuses_what_it_does_not_port():
     cfg, q = TC.get_reduced("gemma2-2b"), QAFeLConfig(**QCFG)
-    for kw, item in ((dict(pod_quantized=True), "14d"),
-                     (dict(taps=True), "13c")):
-        with pytest.raises(NotImplementedError, match=item):
-            TS.make_qafel_round(cfg, q, **kw)
+    with pytest.raises(NotImplementedError, match="14d"):
+        TS.make_qafel_round(cfg, q, pod_quantized=True)
     with pytest.raises(NotImplementedError, match="14d"):
         TS.make_qafel_round(cfg, QAFeLConfig(client_quantizer="top_k0.1"))
-    with pytest.raises(NotImplementedError, match="14b"):
-        TS.make_prefill_step(cfg)
     with pytest.raises(ValueError, match="chunk_rows"):
         TS.make_qafel_round(cfg, q, chunk_rows=0)
-    # remat and chunk_rows are ported: no refusal
-    TS.make_qafel_round(cfg, q, remat=True, chunk_rows=8)
+    # remat, chunk_rows, the taps (tests/test_torch_round_taps.py) and the
+    # serving steps (tests/test_torch_serve.py) are ported: no refusal
+    TS.make_qafel_round(cfg, q, remat=True, chunk_rows=8, taps=True)
+    TS.make_prefill_step(cfg)
+    TS.make_decode_step(cfg)
     # remat under the vmapped cohort step stays refused
     flat, layout = flatten_tree({"w": torch.zeros(8)})
     with pytest.raises(NotImplementedError, match="13b"):

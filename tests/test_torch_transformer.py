@@ -427,10 +427,16 @@ def test_loss_and_gradients_bf16_match_eager_and_jitted(model_bf16):
 
 
 def test_serving_paths_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match="14b"):
-        TT.prefill()
-    with pytest.raises(NotImplementedError, match="14b"):
-        TT.decode_step()
+    """Serving is ported on the dense path (tests/test_torch_serve.py); a
+    model the port does not run raises naming its item there too."""
     moe = TC.get_reduced("gemma2-2b").replace(n_experts=4)
     with pytest.raises(NotImplementedError, match="14c"):
         TT.init_params(moe, device="cpu")
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="14c"):
+        TT.prefill(moe, {}, tokens)
+    with pytest.raises(NotImplementedError, match="14c"):
+        TT.decode_step(moe, {}, {}, tokens, 0)
+    with pytest.raises(NotImplementedError, match="14c"):
+        TT.init_cache(moe.replace(use_mla=True, n_experts=0), 1, 8,
+                      device="cpu")
