@@ -136,14 +136,30 @@ Phases, each printing one JSON line:
     messages bit for bit (``llm_reduced_card_vs_cpu``); the reduced
     config served on the card and the CPU (B = 2, 32 tokens, 8 steps,
     with and without a window): logits within the CPU tests' bound,
-    tokens and ``slot_pos`` equal (``serve_reduced_card_vs_cpu``);
+    tokens and ``slot_pos`` equal (``serve_reduced_card_vs_cpu``); then
+    the training launcher (``launch.train.run``) on gemma2-2b as published
+    at its defaults (seq 128, global batch 32, K = 4, P = 1, qsgd4 both
+    ways, remat off), 4 rounds with the launch counters set to 0 just
+    before and read just after: losses, K1, K3 and server-update
+    launches, peak under 60 GB, bytes per upload, and its msgpack
+    checkpoint of x (bytes, seconds to write and to read, the reloaded x
+    bit-equal to the trained x), then ms per round by CUDA events over 3
+    more rounds of its round function (``train_launcher``); then the
+    round under the other quantizers at full width and 2 layers, two
+    rounds each (the first cold) for a lowrank4g32 client under a
+    top_k0.1 server, rand_k0.1 and identity both ways (``llm_quantizers``:
+    ms, peak, metered bytes, launches by kernel), and the reduced config's
+    server half under each
+    non-qsgd server kind bit for bit card vs CPU
+    (``llm_quantizers_card_vs_cpu``);
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
     state and meters bit for bit, the quad card against the CPU, K1
     launches per streamed upload (``streamed_uplink``);
 14. one line listing every kernel with its launches on both paths, on
-    the family's runs, on the population run and on the LLM round, times
+    the family's runs, on the population run, on the LLM round, the
+    launcher's rounds and the quantizer rounds, times
     and bound (the tap kernels' launches from the taps-on runs; the
     server update's from the LLM round, the only path that runs it; the
     round's finishing pass from its taps-on round);
@@ -245,6 +261,8 @@ def bits_equal(a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -2627,6 +2645,7 @@ def llm_round(dev) -> tuple:
     from repro_torch.distributed.steps import (init_round_state,
                                                make_qafel_round)
     from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
     from repro_torch.kernels import launches as kernel_launches
     from repro_torch.kernels import reset_launches
     from repro_torch.obs.taps import FLUSH_TAP_NAMES
@@ -2649,7 +2668,7 @@ def llm_round(dev) -> tuple:
     rng = np.random.default_rng(0)
 
     def one(step: int, fn=round_fn) -> dict:
-        batch = fl.round_batch(cfg, qcfg, rng, LLM_SEQ, dev)
+        batch = round_batch(cfg, qcfg, rng, fl.LOCAL_BATCH, LLM_SEQ, dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3150,6 +3169,7 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
     from repro_torch.common.tree import tree_map
     from repro_torch.distributed import steps
     from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
     from repro_torch.kernels import ops
 
     cfg = configs.get_reduced(LLM_ARCH)
@@ -3165,7 +3185,8 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
         rng = np.random.default_rng(0)
         losses = []
         for step in range(2):
-            batch = fl.round_batch(cfg, qcfg, rng, LLM_SEQ, where)
+            batch = round_batch(cfg, qcfg, rng, fl.LOCAL_BATCH, LLM_SEQ,
+                                where)
             st, met = round_fn(st, batch, torch.ones(4), prng.PRNGKey(step))
             losses.append(float(met["loss"]))
         runs[str(where)] = (st, losses)
@@ -3194,7 +3215,7 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
             steps.accumulate(buf, packed[kk].to(where), norms[kk].to(where),
                              w[kk:kk + 1].to(where), bits=BITS, d=d)
         bp, bn = steps.server_half(
-            xs, hs, ms, buf, prng.PRNGKey(9), qcfg=qcfg, sbits=BITS, d=d,
+            xs, hs, ms, buf, prng.PRNGKey(9), qcfg=qcfg, d=d,
             chunk_rows=LLM_REDUCED_CHUNK_ROWS)
         halves[str(where)] = [t.cpu() for t in (xs, hs, ms, bp, bn)]
     half_equal = all(bits_equal(a, b) for a, b in
@@ -3229,13 +3250,15 @@ def llm_streamed_vs_whole(dev) -> dict:
     from repro_torch.common.tree import tree_leaves
     from repro_torch.distributed import steps
     from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
 
     cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_STREAM_LAYERS)
     qcfg = fl.qafel_config(4)
     torch.cuda.empty_cache()
     base = steps.init_round_state(cfg, 1, dev)
     d = sum(t.numel() for t in tree_leaves(base.x))
-    batch = fl.round_batch(cfg, qcfg, np.random.default_rng(3), LLM_SEQ, dev)
+    batch = round_batch(cfg, qcfg, np.random.default_rng(3), fl.LOCAL_BATCH,
+                        LLM_SEQ, dev)
     weights = torch.tensor([0.9, 1.0, 0.7, 0.5])
     runs = {}
     for chunk_rows in (None, LLM_STREAM_CHUNK_ROWS):
@@ -3305,6 +3328,7 @@ def llm_round_taps_2layer(dev) -> dict:
     from repro_torch.common.tree import tree_leaves
     from repro_torch.distributed import steps
     from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
     from repro_torch.kernels import ref
 
     cfg = configs.get_config(LLM_ARCH).replace(n_layers=LLM_STREAM_LAYERS)
@@ -3312,7 +3336,8 @@ def llm_round_taps_2layer(dev) -> dict:
     torch.cuda.empty_cache()
     base = steps.init_round_state(cfg, 2, dev)
     d = sum(t.numel() for t in tree_leaves(base.x))
-    batch = fl.round_batch(cfg, qcfg, np.random.default_rng(4), LLM_SEQ, dev)
+    batch = round_batch(cfg, qcfg, np.random.default_rng(4), fl.LOCAL_BATCH,
+                        LLM_SEQ, dev)
     weights = torch.tensor([0.9, 1.0, 0.7, 0.5], device=dev)
     runs = {}
     for taps in (False, True):
@@ -3596,10 +3621,286 @@ def serve_reduced_card_vs_cpu(dev) -> dict:
     return record
 
 
+# the training launcher at its defaults (``launch.train``), and the round
+# under the other quantizers at full width and 2 layers
+TRAIN_STEPS = 4
+TRAIN_TIMED = 3  # rounds timed by CUDA events after the launcher's run
+TRAIN_ARGV = ["--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--seq", "128",
+              "--global-batch", "32", "--checkpoint-dir",
+              str(ROOT / "build" / "train_ckpt")]
+# the activations of the launcher's 1,024 tokens a client without remat,
+# on top of the round's buffers: 26 layers x ~126 kB a token of saved
+# layer activations, and the 256,000-wide logits with their softcap,
+# softmax and gradient
+TRAIN_ACTIVATION_BYTES = 26 * 126e3 * 1024 + 3.5e9
+QUANT_LAYERS = 2
+QUANT_ROUNDS = 2  # the first cold, the second timed warm
+QUANT_PAIRS = (("lowrank4g32", "top_k0.1"), ("rand_k0.1", "rand_k0.1"),
+               ("identity", "identity"))
+
+
+def train_launcher(dev) -> dict:
+    """``launch.train`` on gemma2-2b as published (26 layers, bf16) at the
+    launcher's defaults (seq 128, global batch 32 so local 8, K = 4, P = 1,
+    qsgd4 both ways, remat off), ``TRAIN_STEPS`` rounds with the launch
+    counters set to 0 just before and read just after: losses, peak
+    ``max_memory_allocated`` against the reckoning plus the activations,
+    bytes per upload; then the checkpoint of x it wrote (bytes, seconds to
+    write and to read) loaded back onto the card and held bit for bit
+    against the trained x; then ms per round by CUDA events over
+    ``TRAIN_TIMED`` more rounds of the launcher's round function on its
+    trained state (each batch built before its start event, as
+    ``llm_round`` times its rounds)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.staleness import staleness_weight
+    from repro_torch.distributed.steps import make_qafel_round
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = train.parse_args(TRAIN_ARGV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train.run(args)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    state = out["state"]
+    d = sum(t.numel() for t in tree_leaves(state.x))
+    rows = -(-d // 128)
+    chunks = -(-rows // train.CHUNK_ROWS)
+    path = Path(out["checkpoint"]) / "state.msgpack"
+    ckpt_bytes = path.stat().st_size
+    # the seconds to write: the launcher's save, timed again on the trained
+    # x (the same bytes), then the read back onto the card
+    from repro_torch.checkpoint import save_checkpoint
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = save_checkpoint(str(ROOT / "build" / "train_ckpt_again"),
+                            TRAIN_STEPS, {"x": state.x}, {"arch": LLM_ARCH})
+    write_s = time.perf_counter() - t1
+    same_file = (Path(again) / "state.msgpack").read_bytes() == \
+        path.read_bytes()
+    shutil.rmtree(ROOT / "build" / "train_ckpt_again", ignore_errors=True)
+    t2 = time.perf_counter()
+    back = load_checkpoint(str(ckpt_dir), TRAIN_STEPS, {"x": state.x})
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t2
+    reload_equal = all(
+        a.dtype == b.dtype and a.device == b.device and bits_equal(a, b)
+        for a, b in zip(tree_leaves(back["x"]), tree_leaves(state.x)))
+    del back
+    k = args.buffer_k
+    local = args.global_batch // (k * args.local_steps)
+    cfg = configs.get_config(args.arch)
+    qcfg = train.qafel_config(args)
+    round_fn = make_qafel_round(cfg, qcfg, remat=False,
+                                chunk_rows=train.CHUNK_ROWS)
+    weights = staleness_weight(torch.zeros(k)).to(dev)
+    rng = np.random.default_rng(args.seed + 1)
+    ms, timed_losses = [], []
+    for step in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TIMED):
+        batch = train.round_batch(cfg, qcfg, rng, local, args.seq, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = round_fn(state, batch, weights,
+                              train.round_key(args.seed, step))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        timed_losses.append(float(met["loss"]))
+        del batch
+    want = {"qsgd_quantize_pack_threefry": TRAIN_STEPS * (k + 1) * chunks,
+            "qsgd_unpack_dequantize": TRAIN_STEPS * (k + 1),
+            "server_update": TRAIN_STEPS}
+    reckoning = llm_peak_reckoning(d)
+    prediction = reckoning + TRAIN_ACTIVATION_BYTES
+    metrics = out["metrics"]
+    record = {
+        "phase": "train_launcher", "argv": TRAIN_ARGV, "arch": LLM_ARCH,
+        "n_layers": LLM_LAYERS, "d": d, "seq": args.seq,
+        "global_batch": args.global_batch, "local_batch": args.global_batch
+        // (k * args.local_steps), "K": k, "P": args.local_steps,
+        "remat": False, "chunk_rows": train.CHUNK_ROWS, "row_chunks": chunks,
+        "losses": out["losses"].tolist(), "ms_rounds": ms,
+        "ms_median": statistics.median(ms), "timed_losses": timed_losses,
+        "ms_note": "rounds TRAIN_STEPS.. of the launcher's round function "
+        "after its run, each batch built before the start event",
+        "loop_s": out["seconds"],
+        "run_s": total_s, "launches": {n: v for n, v in launches.items()
+                                       if v},
+        "peak_bytes": peak, "peak_gb": peak / 1e9,
+        "peak_reckoning_gb": reckoning / 1e9,
+        "peak_predicted_gb": prediction / 1e9,
+        "upload_bytes": metrics["upload_bytes"],
+        "broadcast_bytes": metrics["broadcast_bytes"],
+        "checkpoint": str(path.relative_to(ROOT)),
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_write_s": write_s,
+        "checkpoint_read_s": read_s,
+        "checkpoint_write_gb_per_s": ckpt_bytes / write_s / 1e9,
+        "checkpoint_read_gb_per_s": ckpt_bytes / read_s / 1e9}
+    checks = {
+        "losses_finite": all(math.isfinite(v) for v in
+                             record["losses"] + timed_losses),
+        "rounds": len(out["losses"]) == TRAIN_STEPS
+        and state.t == TRAIN_STEPS + TRAIN_TIMED,
+        **{f"{n}_launches": launches[n] == v for n, v in want.items()},
+        "other_kernels_idle": all(v == 0 for n, v in launches.items()
+                                  if n not in want),
+        "peak_under_gate": peak < LLM_PEAK_CAP_GB * 1e9,
+        "upload_bytes_exact": metrics["upload_bytes"]
+        == (4 * d + 32 * rows) / 8,
+        "checkpoint_holds_x": ckpt_bytes > 2 * d,
+        "same_bytes_written_twice": same_file,
+        "reloaded_x_bit_equal": reload_equal}
+    record["checks"] = checks
+    emit(record)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del out, state
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"train_launcher: {checks}")
+    return record
+
+
+def llm_round_quantizers(dev) -> dict:
+    """The round under the other quantizers on gemma2-2b at full width
+    and ``QUANT_LAYERS`` layers (d = 745,558,272), bf16, the federated
+    example's settings with the quantizers swapped, row chunks of 2^20:
+    ``QUANT_ROUNDS`` rounds for each pair of ``QUANT_PAIRS`` from one
+    state, the launch counters set to 0 just before and read just after
+    (``llm_quantizers`` lines: ms of each round by CUDA events, the first
+    cold, peak, metered upload and broadcast bytes,
+    launches by kernel name: K1 and K3 only where qsgd codes travel);
+    then the reduced config's server half under each non-qsgd server
+    kind, on the card and the CPU from the same state and clients' sum,
+    bit for bit with the taps (``llm_quantizers_card_vs_cpu``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core.quantizers import make_quantizer
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import ref, reset_launches
+    from repro_torch.kernels.taps import round_taps
+
+    cfg = configs.get_config(LLM_ARCH).replace(n_layers=QUANT_LAYERS)
+    base = steps.init_round_state(cfg, 0, dev)
+    d = base.flat[0].numel()
+    rows = []
+    for cq, sq in QUANT_PAIRS:
+        qcfg = dataclasses.replace(fl.qafel_config(4), client_quantizer=cq,
+                                   server_quantizer=sq)
+        state = base.clone()
+        round_fn = steps.make_qafel_round(cfg, qcfg, remat=False,
+                                          chunk_rows=LLM_CHUNK_ROWS)
+        batch = round_batch(cfg, qcfg, np.random.default_rng(0),
+                            fl.LOCAL_BATCH, LLM_SEQ, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ms = []
+        for step in range(QUANT_ROUNDS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, met = round_fn(state, batch, torch.ones(4),
+                                  prng.PRNGKey(step))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        launches = {n: v for n, v in kernel_launches().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        cspec, sspec = make_quantizer(cq).spec, make_quantizer(sq).spec
+        qsgd_codes = cspec.kind in ("qsgd", "lowrank")
+        want = {"server_update": QUANT_ROUNDS}
+        if qsgd_codes:
+            n = d if cspec.kind == "qsgd" else cspec.rank(d)
+            want["qsgd_quantize_pack_threefry"] = QUANT_ROUNDS * 4 * -(
+                -(-(-n // 128)) // LLM_CHUNK_ROWS)
+            want["qsgd_unpack_dequantize"] = QUANT_ROUNDS * 4
+        row = {"phase": "llm_quantizers", "arch": cfg.arch_id,
+               "n_layers": cfg.n_layers, "d": d, "client": cq, "server": sq,
+               "ms": ms[-1], "ms_rounds": ms,
+               "ms_note": "the first round is cold (first use of the round "
+               "function); ms is the last",
+               "loss": float(met["loss"]),
+               "peak_bytes": peak, "peak_gb": peak / 1e9,
+               "upload_bytes": met["upload_bytes"],
+               "broadcast_bytes": met["broadcast_bytes"],
+               "launches": launches}
+        checks = {"loss_finite": math.isfinite(row["loss"]),
+                  "launches": launches == want,
+                  "state_moved": not torch.equal(state.flat[1],
+                                                 base.flat[1])}
+        row["checks"] = checks
+        emit(row)
+        rows.append(row)
+        del state, batch, round_fn
+        if not all(checks.values()):
+            raise AssertionError(f"llm_quantizers {cq}/{sq}: {checks}")
+    del base
+    torch.cuda.empty_cache()
+
+    # the reduced config's server half on the card and the CPU
+    rcfg = configs.get_reduced(LLM_ARCH)
+    rstate = steps.init_round_state(rcfg, 0, "cpu")
+    rd = rstate.flat[0].numel()
+    g = torch.Generator().manual_seed(5)
+    hidden = rstate.flat[0] + 2e-3 * torch.randn(rd, generator=g)
+    m = 1e-3 * torch.randn(rd, generator=g)
+    buf0 = 3e-3 * torch.randn(rd, generator=g)
+    w = torch.tensor([0.9, 1.0, 0.7, 0.5])
+    equal = {}
+    for kind in ("identity", "top_k0.1", "rand_k0.1", "lowrank4g32"):
+        qcfg = dataclasses.replace(fl.qafel_config(4), server_quantizer=kind)
+        outs = {}
+        for where in ("cpu", dev):
+            xs, hs, ms_ = (t.clone().to(where) for t in (rstate.flat[0],
+                                                          hidden, m))
+            buf = buf0.clone().to(where)
+            parts = torch.empty((ref.ROUND_TAP_SUMS, ref.tap_windows(rd)),
+                                device=where)
+            msg = steps.server_half(xs, hs, ms_, buf, prng.PRNGKey(9),
+                                    qcfg=qcfg, d=rd, taps=parts)
+            taps = round_taps(parts, w.to(where))
+            outs[str(where)] = [t.cpu() for t in (xs, hs, ms_, taps, msg[0])]
+        equal[kind] = all(bits_equal(a, b) for a, b in
+                          zip(outs["cpu"], outs[str(dev)]))
+    record = {"phase": "llm_quantizers_card_vs_cpu", "arch": rcfg.arch_id,
+              "d": rd, "server_half_bit_equal": equal}
+    emit(record)
+    if not all(equal.values()):
+        raise AssertionError(f"llm_quantizers_card_vs_cpu: {record}")
+    return {"rounds": rows, "card_vs_cpu": record}
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     """The LLM round phase, serving the model it trained, then the
-    kernels at its d; returns (round record, its launches, the kernel
-    cases at its d)."""
+    kernels at its d, the training launcher and the round under the other
+    quantizers; returns (round record, its launches, the kernel cases at
+    its d, the launcher's and the quantizer rounds' launches by kernel)."""
     from repro_torch import configs
 
     record, launches, d, x_tree, _ = llm_round(dev)
@@ -3614,7 +3915,16 @@ def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     llm_streamed_vs_whole(dev)
     llm_reduced_card_vs_cpu(dev)
     serve_reduced_card_vs_cpu(dev)
-    return record, launches, cases
+    train = train_launcher(dev)
+    quant = llm_round_quantizers(dev)
+    # the two new paths' launches of the round's kernels
+    extra = {"train_launcher": train["launches"],
+             "llm_quantizers": {}}
+    for row in quant["rounds"]:
+        for name, v in row["launches"].items():
+            extra["llm_quantizers"][name] = extra["llm_quantizers"].get(
+                name, 0) + v
+    return record, launches, cases, extra
 
 
 # the streamed uplink: uploads, bytes per upload (quad, CNN) and the chunk
@@ -3803,7 +4113,8 @@ def main() -> int:
     taps, taps_main, taps_cohort = run_telemetry(dev)
     family_cases, family_launches, _ = run_quantizer_family(dev)
     _, population_launches = run_population(dev, hash_int32)
-    _, llm_launches, llm_cases = run_llm(dev, dither_int32, int32_ops_per_s)
+    _, llm_launches, llm_cases, new_paths = run_llm(dev, dither_int32,
+                                                     int32_ops_per_s)
     streamed_uplink(dev)
 
     kernels_line = []
@@ -3824,6 +4135,8 @@ def main() -> int:
         kernels_line[-1]["family_launches"] = family_launches[name]
         kernels_line[-1]["population_launches"] = population_launches[name]
         kernels_line[-1]["llm_round_launches"] = llm_launches[name]
+        for path, counts in new_paths.items():
+            kernels_line[-1][f"{path}_launches"] = counts.get(name, 0)
         llm = {"qsgd_quantize_pack_threefry": ("K1_threefry_llm",
                                                "K1_row_offset_llm"),
                "qsgd_unpack_dequantize": ("K3_llm",
@@ -3879,7 +4192,10 @@ def main() -> int:
         "bound_by": m["bound_by"], "library_ms": None, "equal": m["equal"],
         "bytes_formula": m["bytes_formula"], "d": m["d"],
         "launches_note": "the LLM round's 3 measured rounds (one a round); "
-                         "no other path runs it",
+                         "the launcher's rounds and the quantizer rounds "
+                         "below",
+        **{f"{path}_launches": counts.get("server_update", 0)
+           for path, counts in new_paths.items()},
         "llm_cases": {case: {key: llm_cases[case][key] for key in case_keys}
                       for case in ("server_update_llm",
                                    "server_update_taps_llm")}})

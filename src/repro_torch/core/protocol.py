@@ -20,6 +20,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.quantizers import (Quantizer, TreeLayout,
+                                         flatten_tree,
                                          packed_identity_payload,
                                          packed_lowrank_payload,
                                          packed_qsgd_payload, seed_pair)
@@ -34,6 +35,35 @@ class Message:
     payload: Any  # packed payload dict (quantizers.packed_*_payload)
     wire_bytes: float
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def encode_message(kind: str, quantizer: Quantizer, tree, key, *,
+                   fast: bool = False, **meta) -> Message:
+    """Encode a parameter tree as one packed message and frame it
+    (``Quantizer.encode``: the tree's flat f32 vector, one wire message).
+    ``fast=True`` encodes a qsgd message with the batched kernel's
+    counter-hash dither (K2, keyed by the key's two words), the
+    reference's ``encode_fast``: the same wire format, other codes; the
+    other kinds ignore it."""
+    if fast and quantizer.spec.kind == "qsgd":
+        from repro_torch.kernels import ops as kops
+
+        flat, layout = flatten_tree(tree)
+        seeds = seed_pair(key).reshape(1, 2).to(flat.device)
+        packed, norms = kops.qsgd_quantize_batch(flat[None], seeds,
+                                                 quantizer.spec.bits)
+        enc = packed_qsgd_payload(packed[0], norms[0], quantizer.spec.bits,
+                                  int(flat.numel()), layout)
+    else:
+        enc = quantizer.encode(tree, key)
+    return Message(kind=kind, payload=enc,
+                   wire_bytes=quantizer.wire_bytes_packed(enc["layout"]),
+                   meta=dict(meta))
+
+
+def decode_message(quantizer: Quantizer, msg: Message):
+    """Decode a packed message to its parameter tree."""
+    return quantizer.decode(msg.payload)
 
 
 def frame_packed_message(kind: str, quantizer: Quantizer, enc: dict,

@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.common import prng
 from repro_torch.common.device import resolve_device
-from repro_torch.common.tree import (tree_flatten, tree_leaves,
+from repro_torch.common.tree import (tree_flatten, tree_leaves, weak_scalar,
                                      tree_unflatten)
 from repro_torch.core.buffer import UpdateBuffer
 from repro_torch.core.hidden_state import HiddenState
@@ -189,6 +189,38 @@ def local_sgd(loss_fn: Callable, lr: float, layout: TreeLayout, y0_flat,
     return (tree, losses) if with_loss else tree
 
 
+def local_sgd_scan(loss_fn: Callable, lr: float, y0, batches, keys, *,
+                   with_loss: bool = False):
+    """The reference's ``local_sgd_scan`` on a parameter tree ``y0``:
+    ``local_sgd`` in the tree's own coordinates. Returns ``(y_final,
+    losses-or-None)``, the (P,) step losses with ``with_loss``."""
+    y0_flat, layout = flatten_tree(y0)
+    out = local_sgd(loss_fn, lr, layout, y0_flat, batches, keys,
+                    with_loss=with_loss)
+    return out if with_loss else (out, None)
+
+
+def server_apply(qcfg: "QAFeLConfig", x, momentum, delta_bar):
+    """The FedBuff server update on trees (the reference's
+    ``server_apply``, called eagerly): ``m = beta * m + delta_bar`` and
+    ``x = lr * m + x`` leaf by leaf, each product and sum rounded on its
+    own in the leaves' dtypes (a Python float meets a leaf in its dtype,
+    ``common.tree.weak_scalar``). Returns ``(x_new, momentum_new)``."""
+    beta = qcfg.server_momentum if qcfg.server_momentum else None
+    lr = qcfg.server_lr
+
+    def step(xi, mi, di):
+        m = di if beta is None else (weak_scalar(beta, mi) * mi + di).to(
+            di.dtype)
+        return (weak_scalar(lr, m) * m + xi).to(xi.dtype), m
+
+    out = [step(xi, mi, di) for xi, mi, di in zip(
+        tree_leaves(x), tree_leaves(momentum), tree_leaves(delta_bar))]
+    treedef = tree_flatten(x)[1]
+    return (tree_unflatten(treedef, [o[0] for o in out]),
+            tree_unflatten(treedef, [o[1] for o in out]))
+
+
 class DeltaRows:
     """A client's delta ``y_P - y_0`` in the flat wire coordinates, formed
     on request one element range at a time (``rows(a, b)``): each leaf's
@@ -244,7 +276,7 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        taps: bool = False, residual=None,
                        basis_seed=None, with_loss: bool = False,
                        chunk_rows: Optional[int] = None,
-                       remat: bool = False):
+                       remat: bool = False, new_residual: bool = True):
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
@@ -262,7 +294,8 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
     bit for bit the unchunked codes; a qsgd upload at b = 1 forms its
     delta chunk by chunk too (``kernels.ops.cohort_train_encode_step``).
     ``remat`` takes local SGD's gradient through ``torch.autograd``
-    (``local_sgd``), at b = 1 only.
+    (``local_sgd``), at b = 1 only. ``new_residual=False``: a lowrank
+    caller that never reads the new residual, which is then not formed.
     """
     lowrank = spec.kind == "lowrank"
     if lowrank and basis_seed is None:
@@ -279,7 +312,7 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
         bits=spec.bits if spec.kind in ("qsgd", "lowrank") else None,
         member_chunk=member_chunk, taps=taps,
         group=spec.group if lowrank else None, basis_seed=basis_seed,
-        residual=residual, chunk_rows=chunk_rows)
+        residual=residual, chunk_rows=chunk_rows, new_residual=new_residual)
 
 
 # ---------------------------------------------------------------------------

@@ -264,13 +264,18 @@ def _bucket_sq_sums(xp: torch.Tensor) -> torch.Tensor:
 
 
 def _qsgd_qdq_flat(x: torch.Tensor, key, bits: int,
-                   bucket: int = LANES) -> torch.Tensor:
+                   bucket: int = LANES, *,
+                   reciprocal: bool = False) -> torch.Tensor:
     """The reference's in-math qsgd quantize-dequantize of a flat vector
     (``repro.core.quantizers._qsgd_qdq_flat``) with its rounding on
     XLA:CPU: buckets of ``bucket`` elements (the last zero-padded), their
     norms in ``_bucket_sq_sums``' order, ``level = |x| * (s / safe)`` and
     ``recon = (sign * xi) * (safe / s)`` with both quotients true
-    divisions, the dither ``uniform(key, (rows, bucket))``."""
+    divisions, the dither ``uniform(key, (rows, bucket))``.
+    ``reciprocal`` takes ``safe * fl32(1/s)`` for ``safe / s``, as XLA
+    rewrites the division by the constant s where it compiles the
+    function into a larger program (the distributed round's x-hat
+    apply)."""
     n = x.numel()
     xf = x.to(torch.float32)
     pad = (-n) % bucket
@@ -284,7 +289,9 @@ def _qsgd_qdq_flat(x: torch.Tensor, key, bits: int,
     low = torch.floor(level)
     u = prng.uniform(key, tuple(xp.shape), device=xp.device)
     xi = torch.clamp(low + (u < level - low).to(torch.float32), max=s)
-    recon = torch.sign(xp) * xi * (safe / s)
+    recon = torch.sign(xp) * xi * (
+        safe * float(np.float32(1.0 / float(s[0, 0]))) if reciprocal
+        else safe / s)
     recon = torch.where(norm > 0, recon, torch.zeros_like(xp))
     return recon.reshape(-1)[:n].to(x.dtype)
 

@@ -8,9 +8,27 @@ updates by 1/sqrt(1+tau) (``QAFeL.receive``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.ref import sqrt_f32
+
+
+def staleness_weight(tau, enabled: bool = True) -> torch.Tensor:
+    """1/sqrt(1+tau) in f32 (ones when disabled), on scalars or tensors:
+    ``1 + tau`` in f32, a correctly rounded root (``ref.sqrt_f32``) and
+    one division, as the reference computes it called eagerly (the
+    launcher's call); bit for bit with it for every tau in 0..10^6. (XLA
+    rewrites the quotient into a reciprocal square root when the call is
+    jitted, which differs in the last bit.) A tensor ``tau`` keeps its
+    device."""
+    t = torch.as_tensor(tau).to(torch.float32)
+    if not enabled:
+        return torch.ones_like(t)
+    return 1.0 / sqrt_f32(1.0 + t)
 
 
 @dataclasses.dataclass
@@ -88,3 +106,8 @@ class StalenessMonitor:
                 "stale_dropped": len(self.dropped),
                 "tau_max_dropped": max(self.dropped, default=0),
                 "tau_hist": self.histogram()}
+
+
+def tau_max_for_buffer(tau_max_1: int, k: int) -> int:
+    """Appendix A of FedBuff: tau_max,K <= ceil(tau_max,1 / K)."""
+    return math.ceil(tau_max_1 / max(k, 1))

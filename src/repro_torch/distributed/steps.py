@@ -61,12 +61,35 @@ one f32 (5, ceil(d/32)) buffer that lives for the round, and one more
 launch (``kernels.taps.round_taps``) finishes the law. Taps on change no
 bit of the round and add that one launch.
 
+**The other quantizers** follow the reference's ``round_fn``
+(``repro/distributed/steps.py:114-132,147-191``), each sum rounded where
+its jitted round rounds on XLA:CPU (read from its optimised HLO; XLA
+folds a constant factor into the weight and contracts the last product
+into the add):
+
+* clients: identity sends its raw rows and top_k its kept values,
+  ``buf = fma(v, w_k, buf)``; rand_k's server takes the raw kept values,
+  ``buf = fma(v, fl32(w_k * fl32(d/k)), buf)`` (scaled); lowrank
+  quantize-packs its rank coordinates (K1) under ``basis_seeds(0, t)``
+  with a zero residual, and the server decodes them (K3) and expands,
+  ``buf = fma(repeat(y) * sign, fl32(w_k * fl32(1/sqrt(g))), buf)`` (at
+  a d that the expand fills exactly; ``accumulate_upload``);
+* the server: the same update kernel, then q = diff (identity), the kept
+  values (top_k, rand_k) or the lowrank in-math quantize-dequantize
+  (``Quantizer.qdq_flat``), and x-hat + q with a scaled q's last product
+  fused into the add (``fma(v, fl32(d/k), x-hat)``, ``fma(repeat(yq) *
+  sign, fl32(1/sqrt(g)), x-hat)``); its taps' err^2 and q^2 window sums
+  come from a plain pass over diff and q (``_apply_broadcast``), err
+  ``diff - q`` with the same contraction.
+
+The sums are plain PyTorch (``ref.fma_f32``, float64-exact, in chunks of
+``_CHUNK`` elements); only qsgd messages go through K1 and K3.
+
 ``make_prefill_step`` and ``make_decode_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` (the serving side, ``launch.serve``).
 
-Not ported here: quantizers other than qsgd and the pod-quantized round
-(ROADMAP queue A item 14d); each raises ``NotImplementedError`` naming its
-item.
+Not ported here: the pod-quantized round (ROADMAP queue A item 14d); it
+raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -81,8 +104,16 @@ from repro_torch.common.device import to_device
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.core.qafel import QAFeLConfig, client_update_flat
 from repro_torch.core.protocol import payload_wire_bytes
-from repro_torch.core.quantizers import (TreeLayout, flatten_tree,
-                                         make_quantizer, packed_qsgd_payload)
+from repro_torch.core.quantizers import (QuantizerSpec, TreeLayout,
+                                         _qsgd_qdq_flat, _top_k_indices,
+                                         flatten_tree,
+                                         lowrank_expand_flat2d,
+                                         lowrank_project_flat2d,
+                                         make_quantizer,
+                                         packed_identity_payload,
+                                         packed_lowrank_payload,
+                                         packed_qsgd_payload, seed_pair,
+                                         sparse_k, sparse_payload)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import qsgd as _kq
 from repro_torch.kernels import ref as _ref
@@ -149,6 +180,43 @@ def init_round_state(cfg: ModelConfig, seed: int = 0,
                                  tree_map(torch.zeros_like, params))
 
 
+def abstract_round_state(cfg: ModelConfig) -> RoundState:
+    """``init_round_state``'s shapes and dtypes without memory (``meta``
+    tensors): x, x-hat and m as ``transformer.abstract_params``."""
+    params = T.abstract_params(cfg)
+    return RoundState(x=params, hidden=tree_map(torch.empty_like, params),
+                      momentum=tree_map(torch.empty_like, params))
+
+
+_CHUNK = 1 << 24  # elements per float64 chunk of the plain sums
+
+
+def _fma_into(out, v, scale, c) -> None:
+    """``out = fma(v, scale, c)`` single rounded (``ref.fma_f32``), or
+    ``c + v`` where ``scale`` is None, in f32 and then rounded to
+    ``out``'s dtype, ``_CHUNK`` elements at a time; ``out`` may be ``c``.
+    ``scale`` is a Python float of f32 value or a one-element f32
+    tensor."""
+    for a in range(0, out.numel(), _CHUNK):
+        e = min(out.numel(), a + _CHUNK)
+        cf = c[a:e].to(torch.float32)
+        out[a:e] = (cf + v[a:e] if scale is None
+                    else _ref.fma_f32(v[a:e], scale, cf))
+
+
+def _f32_product(a, b: float) -> torch.Tensor:
+    """fl32(a * b) of a one-element f32 tensor and an f32 value."""
+    return a.to(torch.float32) * float(torch.tensor(b, dtype=torch.float32))
+
+
+def _kept(flat, idx) -> torch.Tensor:
+    """The sparse kinds' kept vector: ``flat`` at ``idx``, zero elsewhere
+    (the reference's ``where(mask, x, 0)``)."""
+    out = torch.zeros_like(flat)
+    out[idx] = flat[idx]
+    return out
+
+
 def accumulate(buf, packed, norms, weight, *, bits: int, d: int):
     """One client's message into the weighted sum, in place: ``buf + w_k *
     dec`` with ``dec`` the decode of the packed qsgd codes, rounded, and
@@ -163,8 +231,170 @@ def accumulate(buf, packed, norms, weight, *, bits: int, d: int):
                                       weight=weight.reshape(1))
 
 
+def upload(spec: QuantizerSpec, out: dict, k_enc, layout: TreeLayout,
+           seeds=None) -> dict:
+    """A client step's output (``core.qafel.client_update_flat`` at
+    b = 1) as its wire payload: the packed qsgd or lowrank codes (lowrank
+    under the round's basis ``seeds``), identity's raw rows, top_k's and
+    rand_k's index / value pairs (``Quantizer.encode_flat`` with
+    ``k_enc``; the flat delta rides along as ``"flat"``, which the
+    reference's server reads)."""
+    d = layout.total_size
+    if spec.kind == "qsgd":
+        return packed_qsgd_payload(out["packed"][0], out["norms"][0],
+                                   spec.bits, d, layout)
+    if spec.kind == "lowrank":
+        return packed_lowrank_payload(out["packed"][0], out["norms"][0],
+                                      spec.bits, d, layout, spec.rank(d),
+                                      spec.group, seed_pair(seeds))
+    flat = out["flat"][0]
+    if spec.kind == "identity":
+        return packed_identity_payload(flat, d, layout)
+    return dict(make_quantizer(spec).encode_flat(flat, layout, k_enc),
+                flat=flat)
+
+
+def accumulate_upload(buf, payload: dict, weight, spec: QuantizerSpec):
+    """``buf + w_k * decode(payload)`` in place, as the reference's jitted
+    round rounds it for the payload's kind (module docstring): K3 for
+    qsgd (``accumulate``); identity and top_k ``fma(v, w_k, buf)``;
+    rand_k ``fma(v, fl32(w_k * fl32(d/k)), buf)`` on the raw kept values
+    when ``spec`` (the client quantizer) is scaled; lowrank the K3 decode
+    of the rank coordinates, expanded, ``fma(repeat(y) * sign,
+    fl32(w_k * fl32(1/sqrt(g))), buf)`` where the expand fills d exactly
+    (d = rank * g, every config of ``configs``), else ``fma(fl32(repeat(y)
+    * sign * fl32(1/sqrt(g))), w_k, buf)``. ``weight`` is a one-element
+    f32 tensor on ``buf``'s device. Returns ``buf``."""
+    kind, d = payload["kind"], payload["n"]
+    if kind == "qsgd":
+        return accumulate(buf, payload["packed"], payload["norms"], weight,
+                          bits=payload["bits"], d=d)
+    if buf.numel() != d:
+        raise ValueError(f"buf: {buf.numel()} values, expected {d}")
+    if kind == "lowrank":
+        y = kops.qsgd_dequantize(payload["packed"], payload["norms"],
+                                 payload["bits"], payload["rank"])
+        # XLA folds the expand's scale into the weight only where the
+        # expand fills d exactly; a sliced expand keeps its rounded product
+        whole = payload["rank"] * payload["group"] == d
+        v = lowrank_expand_flat2d(y[None], payload["seed"], payload["group"],
+                                  d, scaled=not whole)[0]
+        scale = (_f32_product(weight, _kq.sketch_scale(payload["group"]))
+                 if whole else weight)
+    elif kind == "identity":
+        v, scale = payload["payload"], weight
+    else:
+        v, scale = _kept(payload["flat"], payload["idx"].long()), weight
+        if kind == "rand_k" and spec.scaled:
+            scale = _f32_product(weight, d / payload["idx"].numel())
+    _fma_into(buf, v, scale.reshape(()), buf)
+    return buf
+
+
+def _broadcast_qdq(spec: QuantizerSpec, diff, key, taps: bool):
+    """A non-qsgd server quantizer's q = Q_s(diff), as the reference's
+    jitted round computes it on XLA:CPU (read from its optimised HLO), in
+    the terms ``_apply_broadcast`` takes: ``(apply, tap, msg)``.
+
+    ``apply = (v, scale, fused)`` adds q to x-hat: q = v * scale
+    (``scale`` None: q = v), the product fused into the add where
+    ``fused``. ``tap = (v, scale)`` is the q of the taps (None without
+    ``taps``), whose err ``diff - q`` always fuses the product. ``msg``
+    is the pair of tensors the broadcast stands for: identity ``(diff,
+    None)``; top_k and rand_k their wire index / value pair; lowrank the
+    quantize-dequantized subspace vector ``(yq, None)``.
+
+    rand_k keeps its kept values' product rounded before the add. A
+    lowrank server is the reference's in-math ``qdq_flat`` (the sketch
+    projection, the bucketed qsgd with ``key``'s dither, the expand),
+    and XLA computes it twice: the x-hat apply projects in the fused
+    group order and multiplies by fl32(1/s) where the eager ``qdq_flat``
+    divides by s, and fuses the expand's scale into the add; the taps
+    take the eager order and the division."""
+    d = diff.numel()
+    if spec.kind == "identity":
+        return (diff, None, False), ((diff, None) if taps else None), (
+            diff, None)
+    if spec.kind == "lowrank":
+        seeds, scale = seed_pair(key), _kq.sketch_scale(spec.group)
+
+        def q(fused: bool):
+            y = lowrank_project_flat2d(diff[None], seeds, spec.group,
+                                       fused=fused)
+            yq = _qsgd_qdq_flat(y[0], key, spec.bits, spec.bucket_size,
+                                reciprocal=fused)
+            return yq, lowrank_expand_flat2d(yq[None], seeds, spec.group, d,
+                                             scaled=False)[0]
+
+        yq, v = q(True)
+        tap = (q(False)[1], scale) if taps else None
+        return (v, scale, True), tap, (yq, None)
+    k = sparse_k(spec.fraction, d)
+    if spec.kind == "top_k":
+        idx = _top_k_indices(diff, k)
+    else:
+        idx = prng.choice(key, d, k, device=diff.device)
+    v = _kept(diff, idx)
+    scale = (float(torch.tensor(d / k, dtype=torch.float32))
+             if spec.kind == "rand_k" and spec.scaled else None)
+    vals = v[idx] if scale is None else v[idx] * scale
+    return (v, scale, False), ((v, scale) if taps else None), (idx, vals)
+
+
+def _apply_broadcast(hidden_flat, diff, apply, tap=None, taps=None) -> None:
+    """x-hat + q over x-hat in place, rounded to x-hat's dtype, with q
+    and the taps' q as ``_broadcast_qdq`` gives them; with ``taps``, an
+    f32 (2, ``ref.tap_windows(d)``) view, the level-1 window sums of
+    err^2 and q^2, err = ``diff - q`` with q's product fused into the
+    subtraction and q the rounded product (the reference's
+    ``flush_tap_vector`` on XLA:CPU)."""
+    v, scale, fused = apply
+    if scale is not None and not fused:
+        v, scale = v * scale, None
+    _fma_into(hidden_flat, v, scale, hidden_flat)
+    if taps is None:
+        return
+    v, scale = tap
+    d = diff.numel()
+    for w0, w1, a, b, lo, hi in _ref.window_chunks(d, _CHUNK // 32):
+        q = v[a:b] if scale is None else v[a:b] * scale
+        err = (diff[a:b] - v[a:b] if scale is None
+               else _ref.fma_f32(-v[a:b], scale, diff[a:b]))
+        taps[0, w0:w1] = _ref.window_sums(err * err, lo, hi)
+        taps[1, w0:w1] = _ref.window_sums(q * q, lo, hi)
+
+
+def message_tensors(payload: dict) -> Tuple[torch.Tensor, Any]:
+    """The pair of tensors ``on_message`` sees for a wire payload: the
+    codes and norms (qsgd, lowrank), the raw rows and None (identity),
+    the indices and values (top_k, rand_k)."""
+    if payload["kind"] in ("qsgd", "lowrank"):
+        return payload["packed"], payload["norms"]
+    if payload["kind"] == "identity":
+        return payload["payload"], None
+    return payload["idx"], payload["vals"]
+
+
+def broadcast_payload(spec: QuantizerSpec, msg, layout: TreeLayout) -> dict:
+    """The broadcast of ``server_half`` as the wire payload it meters:
+    qsgd's codes, identity's rows, top_k's and rand_k's pairs; a lowrank
+    server's in-math quantize-dequantize has no codes, so it stands for
+    the rank-length qsgd message of its subspace vector."""
+    d = layout.total_size
+    a, b = msg
+    if spec.kind == "qsgd":
+        return packed_qsgd_payload(a, b, spec.bits, d, layout)
+    if spec.kind == "identity":
+        return packed_identity_payload(a, d, layout)
+    if spec.kind == "lowrank":
+        return {"format": "packed", "kind": "lowrank", "bits": spec.bits,
+                "n": d, "layout": layout, "rank": spec.rank(d),
+                "group": spec.group}
+    return sparse_payload(spec.kind, a, b, d, layout)
+
+
 def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
-                qcfg: QAFeLConfig, sbits: int, d: int,
+                qcfg: QAFeLConfig, d: int,
                 chunk_rows: Optional[int] = None,
                 taps: Optional[torch.Tensor] = None):
     """The server half of the round on the flat state (x, x-hat and m:
@@ -179,20 +409,26 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
        drops the product by a server lr of 1, else ``fma(m_new, lr, x)``);
        ``diff = x_new - x-hat`` into ``buf``; m and x rounded to the
        state's dtype;
-    2. the broadcast K1 of the diff (threefry dither keyed by
-       ``k_server``, ``sbits``-bit qsgd), ``chunk_rows`` rows at a time
-       when given;
+    2. a qsgd server (``qcfg.server_quantizer``): the broadcast K1 of the
+       diff (threefry dither keyed by ``k_server``), ``chunk_rows`` rows
+       at a time when given;
     3. ``x-hat + q`` with the decode's last product fused into the add,
        ``fma(sign*mag, norm * fl32(1/s), x-hat)``, written over x-hat and
        rounded to its dtype: one K3 launch.
+
+    Any other server quantizer takes q = Q_s(diff) in plain PyTorch
+    instead of steps 2-3 (``_broadcast_qdq``, ``_apply_broadcast``;
+    module docstring).
 
     With ``taps``, an f32 (5, ``ref.tap_windows(d)``) buffer, step 1
     writes rows 0-2 and step 3 rows 3-4 of the taps' level-1 window sums
     (``kernels.taps.round_taps`` finishes them); the launches and every
     other output are the same.
 
-    Returns the broadcast ``(packed, norms)``; ``buf`` ends holding the
+    Returns the broadcast as a pair of tensors: ``(packed, norms)`` for
+    qsgd, else ``_broadcast_qdq``'s ``msg``; ``buf`` ends holding the
     diff."""
+    spec = make_quantizer(qcfg.server_quantizer).spec
     with record_function("server"):
         server_update_(buf, momentum_flat, x_flat, hidden_flat,
                        k=qcfg.buffer_size,
@@ -200,6 +436,13 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
                              else None), lr=qcfg.server_lr,
                        taps=None if taps is None else taps[:3])
     with record_function("broadcast"):
+        if spec.kind != "qsgd":
+            apply, tap, msg = _broadcast_qdq(spec, buf[:d], k_server,
+                                             taps is not None)
+            _apply_broadcast(hidden_flat, buf[:d], apply, tap,
+                             None if taps is None else taps[3:])
+            return msg
+        sbits = spec.bits
         if chunk_rows is None:
             packed, norms = kops.qsgd_quantize(buf, k_server, sbits)
         else:
@@ -228,17 +471,20 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     key (``common.prng``). ``metrics["loss"]`` is the mean over the
     clients of their mean step loss (a 0-dim f32 tensor);
     ``"upload_bytes"`` and ``"broadcast_bytes"`` the metered bytes of one
-    upload and of the broadcast (``protocol.payload_wire_bytes``); with
-    ``taps``, ``"taps"`` the f32 (7,) tap vector on the state's device
-    (module docstring), equal to the reference's bit for bit on equal
-    messages. Both
-    quantizers are qsgd. ``chunk_rows`` and ``remat`` as in the module
-    docstring: neither changes a bit of the round. The state is updated in
-    place (module docstring). ``on_message(kind, index, packed, norms)``,
-    when given, sees each message of the round as it is made:
-    ``("upload", k, ...)`` for client k's upload and ``("broadcast", K,
-    ...)``; the tensors are the round's own and are freed or overwritten
-    after the call, so a caller that keeps them clones them."""
+    upload and of the broadcast (``protocol.payload_wire_bytes`` of the
+    real payload: ``upload``, ``broadcast_payload``); with ``taps``,
+    ``"taps"`` the f32 (7,) tap vector on the state's device (module
+    docstring), equal to the reference's bit for bit on equal messages.
+    Every quantizer kind runs, on either side (module docstring).
+    ``chunk_rows`` and ``remat`` as in the module docstring: neither
+    changes a bit of the round. The state is updated in place (module
+    docstring). ``on_message(kind, index, a, b)``, when given, sees each
+    message of the round as it is made: ``("upload", k, ...)`` for client
+    k's upload and ``("broadcast", K, ...)``, ``(a, b)`` the message's
+    tensors (``message_tensors``; a non-qsgd broadcast as
+    ``_broadcast_qdq`` makes it); the tensors are the round's own and are
+    freed or overwritten after the call, so a caller that keeps them
+    clones them."""
     if pod_quantized or mesh is not None:
         raise NotImplementedError("the pod-quantized round is ROADMAP queue "
                                   "A item 14d")
@@ -247,11 +493,6 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     del podq_bits
     cq = make_quantizer(qcfg.client_quantizer).spec
     sq = make_quantizer(qcfg.server_quantizer).spec
-    for name, spec in (("client", cq), ("server", sq)):
-        if spec.kind != "qsgd":
-            raise NotImplementedError(
-                f"a {spec.kind} {name} quantizer in the round is ROADMAP "
-                "queue A item 14d")
 
     def loss(params, batch, key):
         del key
@@ -272,6 +513,10 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
         dev = hidden_flat.device
         w = to_device(torch.as_tensor(weights, dtype=torch.float32), dev)
         ckeys = prng.split(k_clients, qcfg.buffer_size)
+        # lowrank: fresh clients each round (zero residual, the new one
+        # never formed, as the reference's compiled round drops it), the
+        # basis rotating with the server step, as in the reference's round
+        seeds = _kq.basis_seeds(0, state.t) if cq.kind == "lowrank" else None
         buf = torch.zeros(d, dtype=torch.float32, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for k in range(qcfg.buffer_size):
@@ -281,30 +526,31 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
                 out, losses = client_update_flat(
                     loss, qcfg, cq, layout, hidden_flat, batches_k, k_train,
                     k_enc, b=1, with_loss=True, chunk_rows=chunk_rows,
-                    remat=remat)
-            if k == 0:
-                upload_bytes = _wire_bytes(out["packed"][0],
-                                           out["norms"][0], cq.bits, layout)
-            if on_message is not None:
-                on_message("upload", k, out["packed"][0], out["norms"][0])
-            with record_function("accumulate"):
-                accumulate(buf, out["packed"][0], out["norms"][0],
-                           w[k:k + 1], bits=cq.bits, d=d)
+                    remat=remat, basis_seed=seeds, new_residual=False)
+                payload = upload(cq, out, k_enc, layout, seeds)
             del out
+            if k == 0:
+                upload_bytes = payload_wire_bytes(payload)
+            if on_message is not None:
+                on_message("upload", k, *message_tensors(payload))
+            with record_function("accumulate"):
+                accumulate_upload(buf, payload, w[k:k + 1], cq)
+            del payload
             loss_sum = loss_sum + losses.mean()
         partials = (torch.empty((_ref.ROUND_TAP_SUMS, _ref.tap_windows(d)),
                                 dtype=torch.float32, device=dev)
                     if taps else None)
-        packed, norms = server_half(x_flat, hidden_flat, m_flat, buf,
-                                    k_server, qcfg=qcfg, sbits=sq.bits, d=d,
-                                    chunk_rows=chunk_rows, taps=partials)
+        msg = server_half(x_flat, hidden_flat, m_flat, buf, k_server,
+                          qcfg=qcfg, d=d, chunk_rows=chunk_rows,
+                          taps=partials)
         del buf
         if on_message is not None:
-            on_message("broadcast", qcfg.buffer_size, packed, norms)
+            on_message("broadcast", qcfg.buffer_size, *msg)
         metrics = {"loss": loss_sum / qcfg.buffer_size,
                    "upload_bytes": upload_bytes,
-                   "broadcast_bytes": _wire_bytes(packed, norms, sq.bits,
-                                                  layout)}
+                   "broadcast_bytes": payload_wire_bytes(
+                       broadcast_payload(sq, msg, layout))}
+        del msg
         if partials is not None:
             with record_function("server"):
                 metrics["taps"] = round_taps(partials, w)
@@ -318,13 +564,6 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
         return state, metrics
 
     return round_fn
-
-
-def _wire_bytes(packed, norms, bits: int, layout) -> float:
-    """Metered bytes of one qsgd message of the round (``protocol
-    .payload_wire_bytes`` of its payload)."""
-    return payload_wire_bytes(packed_qsgd_payload(
-        packed, norms, bits, layout.total_size, layout))
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: Optional[int] = None,

@@ -21,11 +21,11 @@ import torch
 
 from repro_torch import configs as config_registry
 from repro_torch.common import prng
-from repro_torch.common.device import resolve_device, to_device
+from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.qafel import QAFeLConfig
-from repro_torch.data.synthetic import synthetic_batch_for_config
 from repro_torch.distributed.steps import init_round_state, make_qafel_round
+from repro_torch.launch.train import round_batch
 
 LOCAL_BATCH = 2
 
@@ -42,17 +42,6 @@ def model_drift(x, hidden) -> torch.Tensor:
     scalar."""
     return sum((a.to(torch.float32) - b.to(torch.float32)).abs().sum()
                for a, b in zip(tree_leaves(x), tree_leaves(hidden)))
-
-
-def round_batch(cfg, qcfg: QAFeLConfig, rng: np.random.Generator, seq: int,
-                device) -> dict:
-    """One round's (K, P, local_batch, seq) token batch on ``device``, from
-    the reference's numpy stream."""
-    raw = synthetic_batch_for_config(
-        cfg, rng, qcfg.buffer_size * qcfg.local_steps * LOCAL_BATCH, seq)
-    return {k: to_device(torch.from_numpy(v).reshape(
-        (qcfg.buffer_size, qcfg.local_steps, LOCAL_BATCH) + v.shape[1:]),
-        device) for k, v in raw.items()}
 
 
 def main(argv=None):
@@ -76,7 +65,7 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     out = []
     for step in range(args.rounds):
-        batch = round_batch(cfg, qcfg, rng, args.seq, dev)
+        batch = round_batch(cfg, qcfg, rng, LOCAL_BATCH, args.seq, dev)
         state, metrics = round_fn(state, batch, weights, prng.PRNGKey(step))
         # one host sync per round: loss and the device-reduced drift
         loss, drift = torch.stack([metrics["loss"],

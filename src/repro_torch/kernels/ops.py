@@ -206,7 +206,7 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              member_chunk=None, taps: bool = False,
                              group=None, basis_seed=None,
                              residual=None, with_loss: bool = False,
-                             chunk_rows=None):
+                             chunk_rows=None, new_residual: bool = True):
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -236,7 +236,10 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
     expanded, and ``residual = c - expand(decode)`` is each member's new
     residual, the expand's scale product fused into the subtraction
     (``fma(-(repeat(y) * sign), fl32(1/sqrt(group)), c)``, as XLA:CPU
-    contracts the reference's jitted step).
+    contracts the reference's jitted step). ``new_residual=False`` is a
+    caller that never reads the new residual (the distributed round's
+    fresh clients): its decode and expand are not formed unless ``taps``
+    needs them, and ``"residual"`` is left out.
 
     Returns ``{"packed": (b, rows, 16*bits), "norms": (b, rows)}`` for
     qsgd (lowrank: over the rank coordinates, plus ``"residual"`` (b, d)),
@@ -280,7 +283,7 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
         n = flat2d.shape[1]
     if group is not None:
         out = _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
-                              residual, taps, chunk_rows)
+                              residual, taps, chunk_rows, new_residual)
     elif bits is None:
         out = _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
     else:
@@ -312,7 +315,8 @@ def _encode_stack(rows_fn, n: int, b: int, k_enc, bits: int, chunk_rows,
 
 
 def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
-                    residual, taps: bool, chunk_rows=None) -> dict:
+                    residual, taps: bool, chunk_rows=None,
+                    new_residual: bool = True) -> dict:
     """The lowrank half of ``cohort_train_encode_step``."""
     from repro_torch.core.quantizers import (lowrank_expand_flat2d,
                                              lowrank_project_flat2d)
@@ -326,15 +330,19 @@ def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
     packed, norms = _encode_stack(lambda a, e: y2d[:, a:e], y2d.shape[1],
                                   y2d.shape[0], k_enc, bits, chunk_rows,
                                   y2d.device)
+    out = {"packed": packed, "norms": norms}
+    if not (new_residual or taps):
+        return out
     qy2d = qsgd_dequantize_stack(packed, norms, bits, y2d.shape[1])
     # the expand's last product fused into the subtraction, as XLA:CPU
     # contracts it in the reference's jitted step: fma(-x, scale, c)
     x2d = lowrank_expand_flat2d(qy2d, basis_seed, group, d, scaled=False)
-    out = {"packed": packed, "norms": norms,
-           "residual": fma_f32(-x2d, _qsgd.sketch_scale(group), c2d)}
+    res = fma_f32(-x2d, _qsgd.sketch_scale(group), c2d)
+    if new_residual:
+        out["residual"] = res
     if taps:
         out["taps"] = _taps.lowrank_upload_taps(
-            c2d, out["residual"], y2d.contiguous(), packed, norms, bits)
+            c2d, res, y2d.contiguous(), packed, norms, bits)
     return out
 
 

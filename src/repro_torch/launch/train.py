@@ -1,0 +1,146 @@
+"""Training launcher: QAFeL rounds for an architecture on one device.
+
+The port of ``repro/launch/train.py``, with its flags and ``--device``
+(None: the card). The reference builds a host mesh, which on one card is
+one device, so the port builds none. Each round is one call of
+``distributed.steps.make_qafel_round(cfg, qcfg, remat=False)`` on
+``global_batch // (K * local_steps)`` sequences per client and local
+step, the tokens from the reference's numpy stream
+(``synthetic_batch_for_config`` with ``np.random.default_rng(seed)``),
+the staleness weights ``staleness_weight(zeros(K))`` and the round key
+jax's ``PRNGKey(seed * 100003 + step)``, whose seed jax keeps modulo 2^32
+(``round_key``). The progress line prints about ten times a run and is
+the loop's only wait on the device. At the end, with
+``--checkpoint-dir``, x is saved as the reference saves it
+(``checkpoint.save_checkpoint(dir, steps, {"x": x}, {"arch": arch})``).
+The round encodes its messages ``CHUNK_ROWS`` wire rows at a time, which
+changes no bit (tests/test_torch_llm_round.py) and keeps the full-size
+round's peak under one f32 copy of the model.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+        --reduced --steps 50 --seq 128 --global-batch 32 [--device cpu] \\
+        [--checkpoint-dir build/ckpt]
+
+Architectures other than the port's (gemma2-2b) raise, naming ROADMAP
+queue A item 14c.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs as config_registry
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.common import prng
+from repro_torch.common.device import resolve_device, to_device
+from repro_torch.core.qafel import QAFeLConfig
+from repro_torch.core.staleness import staleness_weight
+from repro_torch.data.synthetic import synthetic_batch_for_config
+from repro_torch.distributed.steps import (RoundState, init_round_state,
+                                           make_qafel_round)
+
+CHUNK_ROWS = 1 << 20  # wire rows per encode chunk (bit-invisible)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=32)
+    ap.add_argument("--buffer-k", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=1)
+    ap.add_argument("--client-lr", type=float, default=3e-2)
+    ap.add_argument("--server-lr", type=float, default=1.0)
+    ap.add_argument("--client-quantizer", default="qsgd4")
+    ap.add_argument("--server-quantizer", default="qsgd4")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cpu to run on the CPU (default: the card)")
+    return ap.parse_args(argv)
+
+
+def round_key(seed: int, step: int) -> torch.Tensor:
+    """jax's ``PRNGKey(seed * 100003 + step)`` with 64-bit values off:
+    the seed modulo 2^32 as the key's second word."""
+    return prng.PRNGKey((int(seed) * 100_003 + int(step)) % (1 << 32))
+
+
+def qafel_config(args: argparse.Namespace) -> QAFeLConfig:
+    """The launcher's QAFeL settings (the reference's)."""
+    return QAFeLConfig(
+        client_lr=args.client_lr, server_lr=args.server_lr,
+        server_momentum=0.3, buffer_size=args.buffer_k,
+        local_steps=args.local_steps,
+        client_quantizer=args.client_quantizer,
+        server_quantizer=args.server_quantizer)
+
+
+def round_batch(cfg, qcfg: QAFeLConfig, rng: np.random.Generator,
+                local: int, seq: int, device) -> dict:
+    """One round's (K, P, local, seq) token batch on ``device``, from the
+    reference's numpy stream (the launcher's and the federated example's,
+    which passes its ``LOCAL_BATCH``)."""
+    k, p = qcfg.buffer_size, qcfg.local_steps
+    b = synthetic_batch_for_config(cfg, rng, k * p * local, seq)
+    return {name: to_device(torch.from_numpy(v).reshape(
+        (k, p, local) + v.shape[1:]), device) for name, v in b.items()}
+
+
+def run(args: argparse.Namespace,
+        state: Optional[RoundState] = None) -> dict:
+    """The launcher's loop. ``state`` (e.g. the reference's, carried
+    across with ``convert.round_state_from_jax``) replaces the random
+    initial state. Returns ``state``, ``losses`` (the rounds' losses, an f32 tensor on
+    the device), the last round's ``metrics``, the ``checkpoint`` path
+    (or None) and ``seconds`` (the loop's host clock, the checkpoint
+    excluded)."""
+    dev = resolve_device(args.device)
+    cfg = (config_registry.get_reduced(args.arch) if args.reduced
+           else config_registry.get_config(args.arch))
+    qcfg = qafel_config(args)
+    local = args.global_batch // (qcfg.buffer_size * qcfg.local_steps)
+    if local < 1:
+        raise ValueError(f"--global-batch {args.global_batch} is below K * "
+                         f"local steps = "
+                         f"{qcfg.buffer_size * qcfg.local_steps}")
+    round_fn = make_qafel_round(cfg, qcfg, remat=False,
+                                chunk_rows=CHUNK_ROWS)
+    rng = np.random.default_rng(args.seed)
+    if state is None:
+        state = init_round_state(cfg, args.seed, dev)
+    weights = to_device(staleness_weight(torch.zeros(qcfg.buffer_size)), dev)
+    losses, metrics = [], {}
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = round_batch(cfg, qcfg, rng, local, args.seq, dev)
+        state, metrics = round_fn(state, batch, weights,
+                                  round_key(args.seed, step))
+        losses.append(metrics["loss"])
+        if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
+            # gated progress sync: about ten per run, deliberate
+            print(f"round {step:4d} loss={float(metrics['loss']):.4f} "
+                  f"t={time.time() - t0:.1f}s", flush=True)
+    seconds = time.time() - t0
+    path = None
+    if args.checkpoint_dir:
+        path = save_checkpoint(args.checkpoint_dir, args.steps,
+                               {"x": state.x}, {"arch": args.arch})
+        print("checkpoint:", path)
+    return {"state": state, "losses": torch.stack(losses) if losses else
+            torch.zeros(0), "metrics": metrics, "checkpoint": path,
+            "seconds": seconds}
+
+
+def main(argv=None) -> dict:
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

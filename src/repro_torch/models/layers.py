@@ -23,17 +23,20 @@ def dense_init(gen: torch.Generator, shape, fan_in: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init (cut at +-2 std), like the reference's;
     the draws come from ``gen`` (on its device) and are not the
-    reference's numbers."""
+    reference's numbers; on the ``meta`` device nothing is drawn."""
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not w.is_meta:
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Normal(0, 0.02) embeddings, drawn from ``gen`` on its device."""
+    """Normal(0, 0.02) embeddings, drawn from ``gen`` on its device
+    (nothing drawn on ``meta``)."""
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    w.normal_(0.0, 1.0, generator=gen)
+    if not w.is_meta:
+        w.normal_(0.0, 1.0, generator=gen)
     return (w * 0.02).to(dtype)
 
 

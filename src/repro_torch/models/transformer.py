@@ -92,7 +92,25 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     not the reference's (carry those across with ``convert``)."""
     _check_dense(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _params(cfg, torch.Generator(device=dev).manual_seed(int(seed)))
+
+
+class _MetaDraws:
+    """Stands in for a generator on the ``meta`` device: the init
+    functions then allocate and draw nothing."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``' tree of shapes and dtypes without memory (``meta``
+    tensors)."""
+    _check_dense(cfg)
+    return _params(cfg, _MetaDraws())
+
+
+def _params(cfg: ModelConfig, gen) -> Dict[str, Any]:
+    """The parameter tree, drawn from ``gen`` on its device."""
+    dev = gen.device
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.p_dtype)}
     reps = cfg.n_super_blocks

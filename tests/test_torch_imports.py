@@ -1,8 +1,11 @@
 """The port stands alone: no module of src/repro_torch, and neither
-chip_smoke.py nor chip_compare.py, imports jax or the JAX package; everything imports with jax
-blocked; the quantizer family's entry points are there under the
-reference's names; and an entry point left to its default device (CUDA)
-raises when there is no CUDA instead of falling back to the CPU."""
+chip_smoke.py nor chip_compare.py, imports jax, the JAX package or
+msgpack; everything imports with them blocked; every name that the
+reference's package ``__init__`` files export is importable from the
+port's counterpart, and the quantizer family's entry points are there
+under the reference's names; and an entry point left to its default
+device (CUDA) raises when there is no CUDA instead of falling back to the
+CPU."""
 import ast
 import os
 import subprocess
@@ -41,13 +44,13 @@ def _imported_names(path: Path):
 def test_no_jax_or_reference_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), (path, name)
 
 
 def test_everything_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "for m in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r}:\n"
@@ -286,12 +289,13 @@ def test_serve_slice_entry_points(module, name):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.launch",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.train"])
 def test_launch_imports_without_jax(module):
     """The launchers import, with jax and the JAX package blocked, and
     bring neither in."""
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
             "    sys.modules[m] = None\n"
             f"import {module}\n"
             "assert not any(m.startswith(('jax', 'repro.')) for m in "
@@ -302,3 +306,60 @@ def test_launch_imports_without_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# every name the reference's package __init__ files export
+REFERENCE_PACKAGES = ["core", "common", "models", "data", "distributed",
+                      "sim", "optim", "checkpoint"]
+
+
+def _exported(package: str):
+    init = ROOT / "src" / "repro" / package / "__init__.py"
+    tree = ast.parse(init.read_text(), filename=str(init))
+    return sorted(alias.asname or alias.name for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom)
+                  for alias in node.names)
+
+
+@pytest.mark.parametrize("package", REFERENCE_PACKAGES)
+def test_reference_package_names_are_exported(package):
+    import importlib
+    names = _exported(package)
+    assert names, package
+    port = importlib.import_module(f"repro_torch.{package}")
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (package, missing)
+
+
+# the launcher, checkpoints, optimizers and the names of this slice
+TRAIN_NAMES = [
+    ("repro_torch.launch.train", "main"),
+    ("repro_torch.launch.train", "run"),
+    ("repro_torch.launch.train", "round_key"),
+    ("repro_torch.checkpoint.ckpt", "save_checkpoint"),
+    ("repro_torch.checkpoint.ckpt", "load_checkpoint"),
+    ("repro_torch.checkpoint.ckpt", "latest_step"),
+    ("repro_torch.checkpoint.mpack", "pack"),
+    ("repro_torch.checkpoint.mpack", "unpack"),
+    ("repro_torch.optim.optimizers", "make_optimizer"),
+    ("repro_torch.models.transformer", "abstract_params"),
+    ("repro_torch.distributed.steps", "abstract_round_state"),
+    ("repro_torch.distributed.steps", "upload"),
+    ("repro_torch.distributed.steps", "accumulate_upload"),
+    ("repro_torch.core.protocol", "encode_message"),
+    ("repro_torch.core.protocol", "decode_message"),
+    ("repro_torch.core.staleness", "staleness_weight"),
+]
+
+
+@pytest.mark.parametrize("module,name", TRAIN_NAMES,
+                         ids=lambda v: v.split(".")[-1])
+def test_train_slice_entry_points(module, name):
+    import importlib
+    assert callable(getattr(importlib.import_module(module), name))
+
+
+def test_celeba_cnn_config_module():
+    from repro_torch.configs import celeba_cnn
+    assert celeba_cnn.CONFIG is None and celeba_cnn.REDUCED is None
+    assert celeba_cnn.BUFFER_K == 10

@@ -601,3 +601,74 @@ def test_round_tap_outputs_match_plain_on_card(dtype, bits, n):
                                            norms, bits, w))
     _assert_bits_equal(got.cpu(), round_taps(parts.cpu(), w.cpu()))
     assert torch.isfinite(got).all()
+
+
+# the round under the other quantizers: gemma2-2b at 2 layers, narrowed,
+# on the card against the same on the CPU
+_QUANT_KINDS = ("identity", "top_k0.1", "rand_k0.1", "lowrank4g32")
+
+
+def _two_layer_cfg():
+    from repro_torch import configs
+    return configs.get_config("gemma2-2b").replace(
+        n_layers=2, d_model=64, vocab=512, n_heads=2, n_kv_heads=1,
+        head_dim=32, d_ff=128, param_dtype="float32", dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", _QUANT_KINDS)
+def test_round_quantizers_card_vs_plain(kind):
+    """One client's upload under ``kind`` into the weighted sum
+    (``steps.upload`` + ``accumulate_upload``: K1 and K3 where lowrank's
+    codes travel, the plain sums otherwise) and the server half under
+    ``kind`` with its taps, on the card and on the CPU from the same
+    delta, state and keys: the sum, x, x-hat, m, the broadcast and the
+    taps bit for bit."""
+    import dataclasses
+
+    from repro_torch.core.quantizers import TreeLayout, make_quantizer
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels.taps import round_taps
+
+    dev = _card()
+    cfg = _two_layer_cfg()
+    state = steps.init_round_state(cfg, 1, "cpu")
+    d = state.flat[0].numel()
+    layout = TreeLayout.of(state.x)
+    g = torch.Generator().manual_seed(3)
+    delta = 3e-3 * torch.randn(d, generator=g)
+    hidden = state.flat[0] + 2e-3 * torch.randn(d, generator=g)
+    m = 1e-3 * torch.randn(d, generator=g)
+    spec = make_quantizer(kind).spec
+    seeds = tkernels.qsgd.basis_seeds(0, 2) if spec.kind == "lowrank" else None
+    qcfg = dataclasses.replace(fl.qafel_config(4), server_quantizer=kind)
+    out = {}
+    for where in ("cpu", dev):
+        flat = delta.to(where)[None]
+        if spec.kind == "lowrank":
+            msg = tkernels.ops._lowrank_encode(
+                flat, prng.PRNGKey(5), spec.bits, spec.group, seeds, None,
+                False, 7, new_residual=False)
+        else:
+            msg = {"flat": flat}
+        payload = steps.upload(spec, msg, prng.PRNGKey(5), layout, seeds)
+        buf = torch.zeros(d, device=where)
+        steps.accumulate_upload(buf, payload, torch.tensor([0.7],
+                                                           device=where),
+                                spec)
+        summed = buf.clone()
+        xs, hs, ms = (t.clone().to(where) for t in (state.flat[0], hidden,
+                                                    m))
+        parts = torch.empty((ref.ROUND_TAP_SUMS, ref.tap_windows(d)),
+                            device=where)
+        bmsg = steps.server_half(xs, hs, ms, buf, prng.PRNGKey(9), qcfg=qcfg,
+                                 d=d, taps=parts)
+        taps = round_taps(parts, torch.ones(4, device=where))
+        out[str(where)] = [t.cpu() for t in (summed, xs, hs, ms, taps,
+                                             bmsg[0])]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)

@@ -56,6 +56,7 @@ from repro_torch.core.quantizers import (TreeLayout, flatten_tree,
                                          make_quantizer)
 from repro_torch.distributed import steps as TS
 from repro_torch.examples import federated_llm
+from repro_torch.launch.train import round_batch
 from repro_torch.kernels import ops as tops
 
 LOSS_RTOL = 1e-5            # round losses (measured 2.9e-7)
@@ -303,7 +304,7 @@ def test_server_half_bit_for_bit(dtype, chunk_rows):
         TS.accumulate(buf, packed[k], norms[k], torch.from_numpy(w[k:k + 1]),
                       bits=bits, d=d)
     bp, bn = TS.server_half(*state.flat, buf, prng.PRNGKey(9),
-                            qcfg=QAFeLConfig(**QCFG), sbits=bits, d=d,
+                            qcfg=QAFeLConfig(**QCFG), d=d,
                             chunk_rows=chunk_rows)
     assert _same(bp, want[3]) and _same(bn, want[4])
     for got, ref_tree in ((state.x, want[0]), (state.hidden, want[1]),
@@ -355,7 +356,8 @@ def _rounds():
         jstate, jmet = jround(jstate, jb, jnp.asarray(weights),
                               jax.random.PRNGKey(step))
         jm.append(float(jmet["loss"]))
-        tb = federated_llm.round_batch(tc, tq, rng_t, 64, "cpu")
+        tb = round_batch(tc, tq, rng_t, federated_llm.LOCAL_BATCH, 64,
+                         "cpu")
         assert all(np.array_equal(tb[k].numpy(), np.asarray(jb[k]))
                    for k in jb)
         tstate, tmet = tround(tstate, tb, torch.from_numpy(weights),
@@ -395,13 +397,15 @@ def test_round_refuses_what_it_does_not_port():
     cfg, q = TC.get_reduced("gemma2-2b"), QAFeLConfig(**QCFG)
     with pytest.raises(NotImplementedError, match="14d"):
         TS.make_qafel_round(cfg, q, pod_quantized=True)
-    with pytest.raises(NotImplementedError, match="14d"):
-        TS.make_qafel_round(cfg, QAFeLConfig(client_quantizer="top_k0.1"))
     with pytest.raises(ValueError, match="chunk_rows"):
         TS.make_qafel_round(cfg, q, chunk_rows=0)
-    # remat, chunk_rows, the taps (tests/test_torch_round_taps.py) and the
+    # remat, chunk_rows, the taps (tests/test_torch_round_taps.py), every
+    # quantizer kind (tests/test_torch_round_quantizers.py) and the
     # serving steps (tests/test_torch_serve.py) are ported: no refusal
     TS.make_qafel_round(cfg, q, remat=True, chunk_rows=8, taps=True)
+    for kind in ("identity", "top_k0.1", "rand_k0.1", "lowrank4g32"):
+        TS.make_qafel_round(cfg, QAFeLConfig(client_quantizer=kind,
+                                             server_quantizer=kind))
     TS.make_prefill_step(cfg)
     TS.make_decode_step(cfg)
     # remat under the vmapped cohort step stays refused
@@ -458,7 +462,8 @@ def _tiny_rounds(chunk_rows, remat, dtype="float32"):
         rng = np.random.default_rng(1)
         mets = []
         for step in range(2):
-            batch = federated_llm.round_batch(cfg, qcfg, rng, 16, "cpu")
+            batch = round_batch(cfg, qcfg, rng, federated_llm.LOCAL_BATCH,
+                                16, "cpu")
             state, met = rf(state, batch, torch.tensor([0.9, 1, 0.7, 0.5]),
                             prng.PRNGKey(step))
             mets.append(met)
@@ -500,8 +505,8 @@ def test_round_updates_the_state_in_place():
     before = state.clone()
     ptrs = [f.data_ptr() for f in state.flat]
     rf = TS.make_qafel_round(cfg, qcfg, chunk_rows=7)
-    batch = federated_llm.round_batch(cfg, qcfg, np.random.default_rng(1),
-                                      16, "cpu")
+    batch = round_batch(cfg, qcfg, np.random.default_rng(1),
+                        federated_llm.LOCAL_BATCH, 16, "cpu")
     out, _ = rf(state, batch, torch.ones(4), prng.PRNGKey(0))
     assert out is state and state.t == 1 and before.t == 0
     assert [f.data_ptr() for f in state.flat] == ptrs
@@ -527,8 +532,8 @@ def test_mixed_dtype_round_keeps_a_new_state():
           for tr in (base.x, base.hidden, base.momentum)))
     assert mixed.flat is None
     rf = TS.make_qafel_round(cfg, qcfg, remat=False)
-    batch = federated_llm.round_batch(cfg, qcfg, np.random.default_rng(1),
-                                      16, "cpu")
+    batch = round_batch(cfg, qcfg, np.random.default_rng(1),
+                        federated_llm.LOCAL_BATCH, 16, "cpu")
     new, met = rf(mixed, batch, torch.ones(4), prng.PRNGKey(0))
     assert new is not mixed and new.t == 1 and mixed.t == 0
     assert new.x["final_norm"].dtype == torch.bfloat16

@@ -49,6 +49,7 @@ from repro_torch.convert import params_from_jax, round_state_from_jax
 from repro_torch.core.qafel import QAFeLConfig
 from repro_torch.distributed import steps as TS
 from repro_torch.examples import federated_llm
+from repro_torch.launch.train import round_batch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qsgd as tq
 from repro_torch.kernels import ref
@@ -145,7 +146,7 @@ def test_taps_on_equal_messages_bit_for_bit(dtype):
                           d=d)
         partials = torch.empty((5, ref.tap_windows(d)))
         bp, bn = TS.server_half(*state.flat, buf, prng.PRNGKey(9 + step),
-                                qcfg=tqc, sbits=bits, d=d, taps=partials)
+                                qcfg=tqc, d=d, taps=partials)
         got = ttaps.round_taps(partials, w)
         assert _same(got, want[5]), (step, got, np.asarray(want[5]))
         assert _same(bp, want[3]) and _same(bn, want[4])
@@ -180,7 +181,8 @@ def test_whole_rounds_taps_match_reference():
               for k, v in raw.items()}
         jstate, jm = jround(jstate, jb, jnp.asarray(WEIGHTS),
                             jax.random.PRNGKey(step))
-        tb = federated_llm.round_batch(tc, tqc, rt, 64, "cpu")
+        tb = round_batch(tc, tqc, rt, federated_llm.LOCAL_BATCH, 64,
+                         "cpu")
         tstate, tm = tround(tstate, tb, torch.from_numpy(WEIGHTS),
                             prng.PRNGKey(step))
         a = np.asarray(jm["taps"], np.float64)
@@ -217,7 +219,8 @@ def test_port_taps_change_no_bit(dtype):
             msgs.append((kind, i, p.clone(), nm.clone())))
         state, rng, mets = base.clone(), np.random.default_rng(1), []
         for step in range(2):
-            batch = federated_llm.round_batch(tc, qcfg, rng, 16, "cpu")
+            batch = round_batch(tc, qcfg, rng, federated_llm.LOCAL_BATCH,
+                                16, "cpu")
             state, met = rf(state, batch, torch.from_numpy(WEIGHTS),
                             prng.PRNGKey(step))
             mets.append(met)
