@@ -151,7 +151,29 @@ Phases, each printing one JSON line:
     ms, peak, metered bytes, launches by kernel), and the reduced config's
     server half under each
     non-qsgd server kind bit for bit card vs CPU
-    (``llm_quantizers_card_vs_cpu``);
+    (``llm_quantizers_card_vs_cpu``); then the rest of the attention-only
+    pool (ROADMAP queue A items 14c.1, 14c.2): ``musicgen_round`` and
+    ``internvl2_round``, musicgen-large (48 layers, four codebooks, d =
+    3,254,978,560, past 2^31) and internvl2-1b (24 layers, 256 patch
+    embeddings + 64 tokens) as published through the same round and
+    settings, one warm-up and 2 rounds timed by CUDA events with the
+    launch counters set to 0 just before and read just after (K1, K3 and
+    server-update launches by name, peak against the reckoning plus 15%
+    and under 60 GB, bytes per upload), a profiled round's device busy ms
+    and launches; each trained x served (``serve_musicgen``: B = 4,
+    prompt 64 of (B, 64, 4) codebook tokens, 32 greedy (B, 4) steps;
+    ``serve_internvl2``: prompt 320 counting the patch embeddings, 32
+    steps); K1, K3 (plain, weighted add, bf16 apply) and the server update
+    at musicgen-large's d, bit for bit against their plain versions on the
+    2^18 rows across element 2^31 and on the last 2^18 rows (``llm_kernel``
+    lines named ``*_musicgen``); ``serve_dense_siblings``: codeqwen1.5-7b
+    and qwen3-14b at full size and granite-34b at full width cut to 40 of
+    its 88 layers (its 94.5 GB of bf16 weights exceed the card), B = 4,
+    prompt 64, 32 greedy steps, and the granite cut one step with
+    ``window_override = 16``: prefill and step ms, the caches' bytes and
+    ``slot_pos`` laws, decode against forward; then
+    ``llm_reduced_card_vs_cpu`` (one round) and
+    ``serve_reduced_card_vs_cpu`` over the five reduced configs;
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
@@ -159,7 +181,8 @@ Phases, each printing one JSON line:
     launches per streamed upload (``streamed_uplink``);
 14. one line listing every kernel with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
-    launcher's rounds and the quantizer rounds, times
+    launcher's rounds, the quantizer rounds and the musicgen-large and
+    internvl2-1b rounds, times
     and bound (the tap kernels' launches from the taps-on runs; the
     server update's from the LLM round, the only path that runs it; the
     round's finishing pass from its taps-on round);
@@ -2607,17 +2630,19 @@ def phase_device_ms(prof, path: Path) -> dict:
 
 
 def kernel_table(prof) -> dict:
-    """{kernel name: (launches, device ms)} of a profile's CUDA kernels
-    (the profiler's own spin kernel left out)."""
+    """{kernel name: (launches, device ms)} of a profile's CUDA activities
+    (the profiler's own spin kernel and the ranges left out), read from
+    its raw events (``kineto_results.events()``) without building the
+    profiler's event tree, which takes minutes for a 48-layer round's
+    ~130,000 kernels."""
     from torch.autograd import DeviceType
 
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation \
-                and "spin_kernel" not in e.key:
-            c, t = by_name.get(e.key, (0, 0.0))
-            by_name[e.key] = (c + e.count,
-                              t + e.self_device_time_total / 1e3)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation() \
+                and "spin_kernel" not in e.name():
+            c, t = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (c + 1, t + e.duration_ns() / 1e6)
     return by_name
 
 
@@ -2883,8 +2908,8 @@ def _det_values(a: int, b: int, scale: float, salt: int, dtype, dev):
     return ((h.to(torch.float32) * 2.0 ** -24 - 0.5) * scale).to(dtype)
 
 
-def llm_kernels(dev, d: int, dither_int32: dict,
-                int32_ops_per_s: float) -> dict:
+def llm_kernels(dev, d: int, dither_int32: dict, int32_ops_per_s: float,
+                suffix: str = "llm", check=None, taps: bool = True) -> dict:
     """The round's kernels at its d, against their plain versions taken in
     row chunks, bit for bit, with kernel times (CUDA events), plain times
     and bounds: K1 (the threefry upload and broadcast encode) over the
@@ -2896,7 +2921,10 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     with the taps; the taps' finishing pass over the tap rows the two
     wrote. The in-place kernels' inputs are made from their indices
     (``_det_values``), so each chunk's plain version runs on the inputs
-    remade."""
+    remade. ``check``: the (r0, r1) row ranges where each kernel is held
+    to its plain version and the plain version timed (None: every chunk,
+    the whole vector); ``taps=False`` leaves out the taps' variants; each
+    case is named with ``suffix``."""
     import numpy as np
     import torch
 
@@ -2906,8 +2934,8 @@ def llm_kernels(dev, d: int, dither_int32: dict,
 
     rows = ref.rows_for(d)
     windows = ref.tap_windows(d)
-    parts = torch.empty((ref.ROUND_TAP_SUMS, windows), device=dev)
-    chunk = LLM_PLAIN_CHUNK_ROWS
+    parts = (torch.empty((ref.ROUND_TAP_SUMS, windows), device=dev)
+             if taps else None)
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(d, generator=gen, device=dev) * 1e-3
     x[:1000] = 0.0  # an all-zero bucket
@@ -2932,6 +2960,8 @@ def llm_kernels(dev, d: int, dither_int32: dict,
                    bound_by="bytes" if bytes_s >= ops_s else "operations",
                    bytes=nbytes, bytes_formula=formula, d=d, rows=rows)
         rec["bound_share"] = rec["bound_ms"] / ms
+        rec["plain_rows"] = sum(r1 - r0 for r0, r1 in checked)
+        name = f"{name}_{suffix}"
         emit({"phase": "llm_kernel", "name": name, **rec})
         if not equal:
             raise AssertionError(f"{name} at d={d}: kernel and plain differ "
@@ -2941,19 +2971,22 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     def chunks_of(step):
         return [(r0, min(rows, r0 + step)) for r0 in range(0, rows, step)]
 
+    fill = chunks_of(LLM_PLAIN_CHUNK_ROWS)
+    checked = fill if check is None else check
+
     packed, norms = qsgd.qsgd_quantize_pack_threefry(x, key, BITS)
     torch.cuda.synchronize()
     equal, err = True, 0.0
-    for r0, r1 in chunks_of(chunk):
+    for r0, r1 in checked:
         p, n = _plain_threefry_rows(x, key, BITS, r0, r1)
         equal &= bits_equal(p, packed[r0:r1]) and bits_equal(n, norms[r0:r1])
         err = max(err, float((n - norms[r0:r1]).abs().max()))
     k1_bytes = d * 4 + rows * (code_b + 4)
-    finish("K1_threefry_llm", equal, err,
+    finish("K1_threefry", equal, err,
            device_ms(lambda: qsgd.qsgd_quantize_pack_threefry(x, key, BITS),
                      5),
            timed(lambda: [_plain_threefry_rows(x, key, BITS, r0, r1)
-                          for r0, r1 in chunks_of(chunk)]),
+                          for r0, r1 in checked]),
            k1_bytes, d * dither_int32["bound"], int32_ops_per_s,
            "d*4 x + rows*(128*bits/8 + 4)")
 
@@ -2969,9 +3002,9 @@ def llm_kernels(dev, d: int, dither_int32: dict,
         want_p, want_n = ref.quantize_pack_threefry(
             x[r0 * 128:r0 * 128 + 128 * min(2, r1 - r0)], key, BITS, row0=r0)
         equal &= bits_equal(want_p, p[:2]) and bits_equal(want_n, n[:2])
-    finish("K1_row_offset_llm", equal, err, device_ms(k1_chunked, 5),
+    finish("K1_row_offset", equal, err, device_ms(k1_chunked, 5),
            timed(lambda: [_plain_threefry_rows(x, key, BITS, r0, r1)
-                          for r0, r1 in chunks_of(chunk)]),
+                          for r0, r1 in checked]),
            k1_bytes, d * dither_int32["bound"], int32_ops_per_s,
            "d*4 x + rows*(128*bits/8 + 4), in chunks of "
            f"{LLM_CHUNK_ROWS} rows")
@@ -2981,33 +3014,32 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     got = qsgd.qsgd_unpack_dequantize(packed, norms, BITS)
     torch.cuda.synchronize()
     equal, err = True, 0.0
-    for r0, r1 in chunks_of(chunk):
+    for r0, r1 in checked:
         want = ref.unpack_dequantize(packed[r0:r1], norms[r0:r1], BITS)
         equal &= bits_equal(want, got[r0:r1])
         err = max(err, float((want - got[r0:r1]).abs().max()))
     del got
-    finish("K3_llm", equal, err,
+    finish("K3", equal, err,
            device_ms(lambda: qsgd.qsgd_unpack_dequantize(packed, norms,
                                                          BITS), 5),
            timed(lambda: [ref.unpack_dequantize(packed[r0:r1], norms[r0:r1],
                                                 BITS)
-                          for r0, r1 in chunks_of(chunk)]),
+                          for r0, r1 in checked]),
            rows * (code_b + 4) + rows * 128 * 4, rows * 128 * 4,
            F32_OPS_PER_S, "rows*(128*bits/8 + 4) + rows*128*4 out")
 
     weight = torch.tensor([0.7], device=dev)
-    for name, dtype, w in (("K3_accum_inplace_llm", torch.float32, weight),
-                           ("K3_apply_inplace_bf16_llm", torch.bfloat16,
-                            None)):
+    for name, dtype, w in (("K3_accum_inplace", torch.float32, weight),
+                           ("K3_apply_inplace_bf16", torch.bfloat16, None)):
         make = lambda a, b: _det_values(a, b, 2e-2, 5, dtype, dev)
         acc = torch.empty(d, dtype=dtype, device=dev)
-        for r0, r1 in chunks_of(chunk):
+        for r0, r1 in fill:
             acc[r0 * 128:min(d, r1 * 128)] = make(r0 * 128,
                                                   min(d, r1 * 128))
         qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=acc, weight=w)
         torch.cuda.synchronize()
         equal, err, plain_ms = True, 0.0, 0.0
-        for r0, r1 in chunks_of(chunk):
+        for r0, r1 in checked:
             a = make(r0 * 128, min(d, r1 * 128))
             start = time.perf_counter()
             want = ref.unpack_dequantize(
@@ -3029,39 +3061,44 @@ def llm_kernels(dev, d: int, dither_int32: dict,
         del acc
 
     # K3's x-hat apply with the round's taps: a bf16 x-hat, an f32 diff
-    make_acc = lambda a, b: _det_values(a, b, 2e-2, 5, torch.bfloat16, dev)
-    make_diff = lambda a, b: _det_values(a, b, 4e-3, 6, torch.float32, dev)
-    acc = torch.empty(d, dtype=torch.bfloat16, device=dev)
-    diff = torch.empty(d, device=dev)
-    for r0, r1 in chunks_of(chunk):
-        a, b = r0 * 128, min(d, r1 * 128)
-        acc[a:b], diff[a:b] = make_acc(a, b), make_diff(a, b)
-    qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=acc, tap_diff=diff,
-                                taps=parts[3:])
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    want = ref.dequantize_taps(packed, norms, BITS, diff)
-    equal = bits_equal(want, parts[3:])
-    err = float((want - parts[3:]).abs().max())
-    for r0, r1 in chunks_of(chunk):
-        a, b = r0 * 128, min(d, r1 * 128)
-        w_acc = ref.unpack_dequantize(
-            packed[r0:r1], norms[r0:r1], BITS,
-            acc=make_acc(a, b).to(torch.float32)).reshape(-1)[:b - a].to(
-                torch.bfloat16)
-        equal &= bits_equal(w_acc, acc[a:b])
-        err = max(err, float((w_acc.float() - acc[a:b].float()).abs().max()))
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - start)
-    finish("K3_apply_taps_bf16_llm", equal, err,
-           device_ms(lambda: qsgd.qsgd_unpack_dequantize(
-               packed, norms, BITS, acc=acc, tap_diff=diff, taps=parts[3:]),
-               5),
-           plain_ms, rows * (code_b + 4) + 2 * 2 * d + 4 * d + 8 * windows,
-           8 * d, F32_OPS_PER_S,
-           "rows*(128*bits/8 + 4) + d*2 acc read + d*2 written + d*4 diff "
-           "+ ceil(d/32)*2*4 tap rows")
-    del acc, diff, want
+    if taps:
+        make_acc = lambda a, b: _det_values(a, b, 2e-2, 5, torch.bfloat16,
+                                            dev)
+        make_diff = lambda a, b: _det_values(a, b, 4e-3, 6, torch.float32,
+                                             dev)
+        acc = torch.empty(d, dtype=torch.bfloat16, device=dev)
+        diff = torch.empty(d, device=dev)
+        for r0, r1 in fill:
+            a, b = r0 * 128, min(d, r1 * 128)
+            acc[a:b], diff[a:b] = make_acc(a, b), make_diff(a, b)
+        qsgd.qsgd_unpack_dequantize(packed, norms, BITS, acc=acc,
+                                    tap_diff=diff, taps=parts[3:])
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        want = ref.dequantize_taps(packed, norms, BITS, diff)
+        equal = bits_equal(want, parts[3:])
+        err = float((want - parts[3:]).abs().max())
+        for r0, r1 in checked:
+            a, b = r0 * 128, min(d, r1 * 128)
+            w_acc = ref.unpack_dequantize(
+                packed[r0:r1], norms[r0:r1], BITS,
+                acc=make_acc(a, b).to(torch.float32)).reshape(-1)[
+                    :b - a].to(torch.bfloat16)
+            equal &= bits_equal(w_acc, acc[a:b])
+            err = max(err, float((w_acc.float() - acc[a:b].float())
+                                 .abs().max()))
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        finish("K3_apply_taps_bf16", equal, err,
+               device_ms(lambda: qsgd.qsgd_unpack_dequantize(
+                   packed, norms, BITS, acc=acc, tap_diff=diff,
+                   taps=parts[3:]), 5),
+               plain_ms,
+               rows * (code_b + 4) + 2 * 2 * d + 4 * d + 8 * windows,
+               8 * d, F32_OPS_PER_S,
+               "rows*(128*bits/8 + 4) + d*2 acc read + d*2 written + d*4 "
+               "diff + ceil(d/32)*2*4 tap rows")
+        del acc, diff, want
     del packed, norms
     torch.cuda.empty_cache()
 
@@ -3071,7 +3108,7 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     state = {}
     for name, dtype, scale, salt in specs:
         t = torch.empty(d, dtype=dtype, device=dev)
-        for r0, r1 in chunks_of(chunk):
+        for r0, r1 in fill:
             a, b = r0 * 128, min(d, r1 * 128)
             t[a:b] = _det_values(a, b, scale, salt, dtype, dev)
         state[name] = t
@@ -3079,7 +3116,7 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     server_update_(state["buf"], state["m"], state["x"], state["xhat"], **kw)
     torch.cuda.synchronize()
     equal, err, plain_ms = True, 0.0, 0.0
-    for r0, r1 in chunks_of(chunk):
+    for r0, r1 in checked:
         a, b = r0 * 128, min(d, r1 * 128)
         fresh = [_det_values(a, b, scale, salt, dtype, dev)
                  for _, dtype, scale, salt in specs]
@@ -3092,15 +3129,20 @@ def llm_kernels(dev, d: int, dither_int32: dict,
             equal &= bits_equal(want, state[name][a:b])
             err = max(err, float((want.float() - state[name][a:b].float())
                                  .abs().max()))
-    finish("server_update_llm", equal, err,
+    finish("server_update", equal, err,
            device_ms(lambda: server_update_(
                state["buf"], state["m"], state["x"], state["xhat"], **kw), 5),
            plain_ms, 18 * d, 7 * d, F32_OPS_PER_S,
            "d*(4 buf + 3*2 m, x, x-hat read + 4 buf + 2*2 m, x written)")
 
+    if not taps:
+        del state
+        torch.cuda.empty_cache()
+        return out
+
     # the same with the round's taps: three rows of level-1 window sums
     for name, dtype, scale, salt in specs:
-        for r0, r1 in chunks_of(chunk):
+        for r0, r1 in fill:
             a, b = r0 * 128, min(d, r1 * 128)
             state[name][a:b] = _det_values(a, b, scale, salt, dtype, dev)
     server_update_(state["buf"], state["m"], state["x"], state["xhat"],
@@ -3108,7 +3150,7 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     torch.cuda.synchronize()
     want = torch.empty((3, windows), device=dev)
     equal, err, plain_ms = True, 0.0, 0.0
-    for r0, r1 in chunks_of(chunk):
+    for r0, r1 in checked:
         a, b = r0 * 128, min(d, r1 * 128)
         fresh = [_det_values(a, b, scale, salt, dtype, dev)
                  for _, dtype, scale, salt in specs]
@@ -3123,7 +3165,7 @@ def llm_kernels(dev, d: int, dither_int32: dict,
                                  .abs().max()))
     equal &= bits_equal(want, parts[:3])
     err = max(err, float((want - parts[:3]).abs().max()))
-    finish("server_update_taps_llm", equal, err,
+    finish("server_update_taps", equal, err,
            device_ms(lambda: server_update_(
                state["buf"], state["m"], state["x"], state["xhat"],
                taps=parts[:3], **kw), 5),
@@ -3140,7 +3182,7 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     want = ref.round_taps_finish(parts, weights)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - start)
-    finish("round_taps_llm", bits_equal(got, want),
+    finish("round_taps", bits_equal(got, want),
            float((got - want).abs().max()),
            device_ms(lambda: round_taps(parts, weights), 5), plain_ms,
            4 * ref.ROUND_TAP_SUMS * windows, ref.ROUND_TAP_SUMS * windows,
@@ -3150,10 +3192,11 @@ def llm_kernels(dev, d: int, dither_int32: dict,
     return out
 
 
-def llm_reduced_card_vs_cpu(dev) -> dict:
-    """The reduced gemma2-2b round (f32) on the card and the CPU from the
+def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
+                            rounds: int = 2) -> dict:
+    """The reduced ``arch``'s round (f32) on the card and the CPU from the
     same state, batches and keys, every message in row chunks of
-    ``LLM_REDUCED_CHUNK_ROWS``: 2 rounds, losses within
+    ``LLM_REDUCED_CHUNK_ROWS``: ``rounds`` rounds, losses within
     ``LLM_REDUCED_LOSS_RTOL`` (the model math's orders differ) and the
     share of x-hat bit-equal; and the server half bit for bit: the same K
     packed client messages and weights through the round's weighted
@@ -3172,7 +3215,7 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
     from repro_torch.launch.train import round_batch
     from repro_torch.kernels import ops
 
-    cfg = configs.get_reduced(LLM_ARCH)
+    cfg = configs.get_reduced(arch)
     qcfg = fl.qafel_config(4)
     base = steps.init_round_state(cfg, 0, "cpu")
     runs = {}
@@ -3184,7 +3227,7 @@ def llm_reduced_card_vs_cpu(dev) -> dict:
             cfg, qcfg, chunk_rows=LLM_REDUCED_CHUNK_ROWS)
         rng = np.random.default_rng(0)
         losses = []
-        for step in range(2):
+        for step in range(rounds):
             batch = round_batch(cfg, qcfg, rng, fl.LOCAL_BATCH, LLM_SEQ,
                                 where)
             st, met = round_fn(st, batch, torch.ones(4), prng.PRNGKey(step))
@@ -3418,18 +3461,22 @@ def _kv_bytes(cache) -> int:
                for n, t in lc.items() if n in ("k", "v"))
 
 
-def _decode_vs_forward(cfg, params, prompt, out, block: int) -> dict:
-    """The served tokens through the full-sequence forward: the logits at
-    the last position against the last decode step's, and the greedy
-    token there."""
+def _decode_vs_forward(cfg, params, prompt: dict, out, block: int,
+                       window=None) -> dict:
+    """The served tokens through the full-sequence forward (``prompt``
+    the served inputs: a VLM's patch embeddings in front, audio's
+    codebooks), under the serving's ``window``: the logits at the last
+    position against the last decode step's, and the greedy token(s)
+    there."""
     import torch
 
     from repro_torch.models import transformer as T
 
-    seq = torch.cat([prompt, out["tokens"][:, :-1]], dim=1)
+    seq = dict(prompt, tokens=torch.cat([prompt["tokens"],
+                                         out["tokens"][:, :-1]], dim=1))
     with torch.no_grad():
-        h, _ = T.forward(cfg, params, {"tokens": seq}, remat=False,
-                         q_block=block, kv_block=block)
+        h, _ = T.forward(cfg, params, seq, remat=False, q_block=block,
+                         kv_block=block, window_override=window)
         want = T.logits_fn(cfg, params, h[:, -1:]).float()
     got = out["last_logits"].float()
     return {"max_abs_err": float((got - want).abs().max()),
@@ -3458,7 +3505,7 @@ def serve_gemma2(dev, cfg, params) -> dict:
 
     batch = synthetic_batch_for_config(cfg, np.random.default_rng(0),
                                        SERVE_BATCH, SERVE_PROMPT)
-    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    tokens = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
     serve(cfg, params, tokens, decode_steps=2)  # warm-up
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -3525,7 +3572,7 @@ def serve_gemma2_long(dev, cfg, params) -> dict:
 
     batch = synthetic_batch_for_config(cfg, np.random.default_rng(1), 1,
                                        SERVE_LONG_PROMPT)
-    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    tokens = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
     torch.cuda.reset_peak_memory_stats()
     out = serve(cfg, params, tokens, decode_steps=SERVE_LONG_STEPS,
                 q_block=SERVE_LONG_BLOCK, kv_block=SERVE_LONG_BLOCK)
@@ -3568,10 +3615,11 @@ def serve_gemma2_long(dev, cfg, params) -> dict:
     return record
 
 
-def serve_reduced_card_vs_cpu(dev) -> dict:
-    """The reduced gemma2-2b (f32) served on the card and the CPU from the
-    same weights and prompts (B = 2, 32 tokens, 8 greedy steps, without and
-    with ``window_override=16``), deterministic algorithms on the card:
+def serve_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH) -> dict:
+    """The reduced ``arch`` (f32) served on the card and the CPU from the
+    same weights and prompts (B = 2, 32 positions: a VLM's 16 patch
+    embeddings and 16 tokens; 8 greedy steps, without and with
+    ``window_override=16``), deterministic algorithms on the card:
     the prefill's and the last step's logits within ``SERVE_REDUCED_RTOL``
     of the CPU's largest value, the tokens and every ``slot_pos`` equal."""
     import numpy as np
@@ -3583,11 +3631,11 @@ def serve_reduced_card_vs_cpu(dev) -> dict:
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
 
-    cfg = configs.get_reduced(LLM_ARCH)
+    cfg = configs.get_reduced(arch)
     params = T.init_params(cfg, 0, "cpu")
     card_params = tree_map(lambda t: t.to(dev), params)
-    tokens = torch.from_numpy(synthetic_batch_for_config(
-        cfg, np.random.default_rng(2), 2, 32)["tokens"])
+    inputs = {k: torch.from_numpy(v) for k, v in synthetic_batch_for_config(
+        cfg, np.random.default_rng(2), 2, 32).items() if k != "labels"}
     det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     record = {"phase": "serve_reduced_card_vs_cpu", "arch": cfg.arch_id,
@@ -3596,9 +3644,10 @@ def serve_reduced_card_vs_cpu(dev) -> dict:
     ok = True
     try:
         for window in (None, 16):
-            cpu = serve(cfg, params, tokens,
+            cpu = serve(cfg, params, inputs,
                         decode_steps=SERVE_REDUCED_STEPS, window=window)
-            card = serve(cfg, card_params, tokens.to(dev),
+            card = serve(cfg, card_params,
+                         {k: v.to(dev) for k, v in inputs.items()},
                          decode_steps=SERVE_REDUCED_STEPS, window=window)
             rel = {n: float((card[n].cpu() - cpu[n]).abs().max()
                             / cpu[n].abs().max())
@@ -3896,11 +3945,302 @@ def llm_round_quantizers(dev) -> dict:
     return {"rounds": rows, "card_vs_cpu": record}
 
 
+# the rest of the attention-only pool (queue A items 14c.1, 14c.2):
+# musicgen-large and internvl2-1b as published (no cut) through llm_round's
+# QAFeL round and settings, each then served; the dense siblings served
+POOL_ROUNDS = 2  # timed by CUDA events, after one warm-up round
+# the rounds' sequence lengths and the served prompts: internvl2-1b's 256
+# patch embeddings and 64 text tokens
+POOL_SEQ = {"musicgen-large": LLM_SEQ, "internvl2-1b": 320}
+# element 2**31 starts wire row 2**24: musicgen-large's kernels are held to
+# their plain versions on the plain chunk around it and on the last one
+ROW_2_31 = 1 << 24
+# (arch, layers kept): granite-34b's 94.5 GB of bf16 weights exceed the
+# card, so it serves at full width cut to 40 of its 88 layers (43.6 GB)
+SIBLINGS = (("codeqwen1.5-7b", None), ("qwen3-14b", None),
+            ("granite-34b", 40))
+SIBLING_WINDOW = 16  # the reference's windowed decode test's override
+POOL_REDUCED = ("codeqwen1.5-7b", "qwen3-14b", "granite-34b",
+                "internvl2-1b", "musicgen-large")
+# decode against the full forward at the last position, bf16, relative to
+# the largest logit there (gemma2-2b's 0.25 of 7.56 is 3.3%)
+SERVE_POOL_DECODE_VS_FORWARD = 0.05
+
+
+def pool_round(dev, arch: str) -> tuple:
+    """``llm_round``'s QAFeL round on ``arch`` as published (bf16, every
+    layer, row chunks of ``LLM_CHUNK_ROWS``, remat, qsgd4 both ways, K =
+    4, P = 2, local batch 2, ``POOL_SEQ[arch]`` positions): one warm-up
+    round, ``POOL_ROUNDS`` rounds timed by CUDA events with the launch
+    counters set to 0 just before and read just after (K1, K3 and the
+    server update by name; peak memory against the reckoning), one round
+    profiled on the device alone (device busy ms, device activities, the
+    busiest kernels). Hidden and momentum are then
+    freed and the trained x kept for serving. Returns (record, launches,
+    d, x tree)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed.steps import (init_round_state,
+                                               make_qafel_round)
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.train import round_batch
+
+    cfg = configs.get_config(arch)
+    qcfg = fl.qafel_config(4)
+    k, seq = qcfg.buffer_size, POOL_SEQ[arch]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    holder = [init_round_state(cfg, 0, dev)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d = sum(t.numel() for t in tree_leaves(holder[0].x))
+    rows = -(-d // 128)
+    chunks = -(-rows // LLM_CHUNK_ROWS)
+    round_fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS)
+    weights = torch.ones(k)
+    rng = np.random.default_rng(0)
+    batch_shapes = {}
+
+    def one(step: int) -> dict:
+        batch = round_batch(cfg, qcfg, rng, fl.LOCAL_BATCH, seq, dev)
+        batch_shapes.update({n: list(v.shape) for n, v in batch.items()})
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        new, met = round_fn(holder[0], batch, weights, prng.PRNGKey(step))
+        end.record()
+        holder[0] = new
+        del batch
+        drift = fl.model_drift(new.x, new.hidden)
+        torch.cuda.synchronize()
+        row = {"round": step, "loss": float(met["loss"]),
+               "drift_l1": float(drift), "ms": start.elapsed_time(end),
+               "upload_bytes": met["upload_bytes"],
+               "broadcast_bytes": met["broadcast_bytes"]}
+        emit({"phase": "pool_round_step", "arch": arch, **row})
+        return row
+
+    warm = one(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows_out = [one(step) for step in range(1, 1 + POOL_ROUNDS)]
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = one(1 + POOL_ROUNDS)
+    by_name = kernel_table(prof)
+    read_s = time.perf_counter() - t0 - profiled["ms"] / 1e3
+    busiest = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    want = {"qsgd_quantize_pack_threefry": (k + 1) * chunks,
+            "qsgd_unpack_dequantize": k + 1, "server_update": 1}
+    per_round = lambda name: launches[name] / POOL_ROUNDS
+    reckoning = llm_peak_reckoning(d)
+    upload_want = (4 * d + 32 * rows) / 8
+    ms = [r["ms"] for r in rows_out]
+    record = {
+        "phase": f"{arch.split('-')[0]}_round", "arch": cfg.arch_id,
+        "n_layers": cfg.n_layers, "cut": "none", "d": d,
+        "d_over_2_31": d / 2 ** 31, "param_count": cfg.param_count(),
+        "dtype": cfg.param_dtype, "seq": seq, "batch_shapes": batch_shapes,
+        "local_batch": fl.LOCAL_BATCH, "K": k, "P": qcfg.local_steps,
+        "chunk_rows": LLM_CHUNK_ROWS, "row_chunks": chunks, "remat": True,
+        "init_s": init_s, "warmup_round": warm, "rounds": rows_out,
+        "ms_median": statistics.median(ms), "ms_rounds": ms,
+        "profiled_round": {
+            "ms": profiled["ms"],
+            "device_busy_ms": sum(t for _, t in by_name.values()),
+            "device_launches": sum(c for c, _ in by_name.values()),
+            "busiest": [{"name": n[:90], "launches": c, "device_ms": t}
+                        for n, (c, t) in busiest],
+            "profile_overhead_s": read_s},
+        "peak_bytes": peak, "peak_gb": peak / 1e9,
+        "peak_reckoning_gb": reckoning / 1e9,
+        "peak_limit_gb": min(LLM_PEAK_SLACK * reckoning / 1e9,
+                             LLM_PEAK_CAP_GB),
+        "launches_per_round": {n: per_round(n) for n in want},
+        "upload_bytes": rows_out[0]["upload_bytes"]}
+    checks = {
+        "losses_finite": all(math.isfinite(r["loss"])
+                             for r in rows_out + [warm, profiled]),
+        "drift_positive": all(r["drift_l1"] > 0 for r in rows_out),
+        **{f"{n}_per_round": per_round(n) == v for n, v in want.items()},
+        "other_kernels_idle": all(v == 0 for n, v in launches.items()
+                                  if n not in want),
+        "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
+        and peak < LLM_PEAK_CAP_GB * 1e9,
+        "upload_bytes_exact": all(r["upload_bytes"] == upload_want
+                                  for r in rows_out)}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"{record['phase']}: {checks}")
+    x_tree = holder.pop().x
+    del round_fn
+    torch.cuda.empty_cache()
+    return record, launches, d, x_tree
+
+
+def serve_pool(dev, phase: str, cfg, params, prompt: int, steps: int,
+               window=None, **note) -> dict:
+    """``launch.serve.serve`` on ``params`` (bf16): B = ``SERVE_BATCH``,
+    ``prompt`` positions from the reference's numpy stream (a VLM's
+    patch embeddings among them), ``steps`` greedy steps under
+    ``window``, after a warm-up call: prefill ms, each decode step by CUDA
+    events, tokens/s, peak memory, the cache's k and v bytes against
+    layers * 2 * B * slots * KV heads * head_dim * 2, every ``slot_pos``
+    on the ring law, decode against forward at the last position
+    (``SERVE_POOL_DECODE_VS_FORWARD`` of the largest logit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+
+    batch = synthetic_batch_for_config(cfg, np.random.default_rng(0),
+                                       SERVE_BATCH, prompt)
+    inputs = {n: torch.from_numpy(v).to(dev) for n, v in batch.items()
+              if n != "labels"}
+    serve(cfg, params, inputs, decode_steps=min(2, steps), window=window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, params, inputs, decode_steps=steps, window=window)
+    peak = torch.cuda.max_memory_allocated()
+    total = prompt + steps
+    w = total if window is None else min(window, total)
+    kv_want = cfg.n_layers * 2 * SERVE_BATCH * w * cfg.n_kv_heads * cfg.hd * 2
+    kv = _kv_bytes(out["cache"])
+    last = total - 1  # the last decode step's position
+    slots = torch.arange(w, device=dev)
+    law = (last - ((last - slots) % w) if window is not None
+           else slots).to(torch.int32)
+    law_ok = all(bool((lc["slot_pos"] == law).all())
+                 for lc in out["cache"]["layers"].values())
+    check = _decode_vs_forward(cfg, params, inputs, out, total, window)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    audio = cfg.modality == "audio"
+    record = {
+        "phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "dtype": cfg.param_dtype, **note, "batch": SERVE_BATCH,
+        "prompt": prompt, "inputs": {n: list(v.shape)
+                                     for n, v in inputs.items()},
+        "decode_steps": steps, "window": window,
+        "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_step_ms_median": statistics.median(out["step_ms"]),
+        "decode_step_ms": out["step_ms"], "decode_s": out["decode_s"],
+        "tokens_per_s": SERVE_BATCH * steps / out["decode_s"],
+        "decode_step_bound_ms": 1e3 * (weight_bytes + kv) / HBM_BYTES_PER_S,
+        "bound_formula": "(weights + k and v of the cache) / 3.35 TB/s",
+        "weight_bytes": weight_bytes, "kv_bytes": kv,
+        "kv_bytes_reckoning": kv_want, "peak_gb": peak / 1e9,
+        "decode_vs_forward": check,
+        "decode_vs_forward_bound": SERVE_POOL_DECODE_VS_FORWARD
+        * check["max_abs_logit"],
+        "sample_tokens": out["tokens"][0].cpu().tolist()[:8]}
+    checks = {"kv_bytes_exact": kv == kv_want, "slot_pos_law": law_ok,
+              "tokens_shape": tuple(out["tokens"].shape)
+              == (SERVE_BATCH, steps + 1) + ((cfg.audio_codebooks,)
+                                             if audio else ()),
+              "finite": check["finite"],
+              "decode_vs_forward": check["max_abs_err"]
+              <= record["decode_vs_forward_bound"]}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} {cfg.arch_id}: {checks}")
+    return record
+
+
+def serve_dense_siblings(dev) -> list:
+    """codeqwen1.5-7b and qwen3-14b at full size and granite-34b at full
+    width cut to 40 of its 88 layers, each with random bf16 weights from
+    seed 0, served at the reference launcher's load (``serve_pool``: B =
+    4, prompt 64, 32 greedy steps); granite's cut also one step with
+    ``window_override = 16`` (a 16-slot ring in every layer). Each model
+    is freed before the next is made."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    out = []
+    for arch, layers in SIBLINGS:
+        cfg = configs.get_config(arch)
+        note = {"cut": "none"}
+        if layers is not None:
+            note = {"cut": f"{layers} of {cfg.n_layers} layers: the "
+                    f"{cfg.param_count() * 2 / 1e9:.1f} GB of bf16 weights "
+                    "exceed the card"}
+            cfg = cfg.replace(n_layers=layers)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, 0, dev)
+        torch.cuda.synchronize()
+        note["init_s"] = time.perf_counter() - t0
+        out.append(serve_pool(dev, "serve_dense_siblings", cfg, params,
+                              SERVE_PROMPT, SERVE_STEPS, **note))
+        if layers is not None:
+            out.append(serve_pool(dev, "serve_dense_siblings", cfg, params,
+                                  SERVE_PROMPT, 1, window=SIBLING_WINDOW,
+                                  **note))
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_pool(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
+    """The rest of the attention-only pool: musicgen-large's round, its
+    serving and K1, K3 and the server update at its d past 2**31 (against
+    their plain versions on the chunk across element 2**31 and the last
+    one); internvl2-1b's round and its serving; the dense siblings
+    served; the five reduced configs card vs CPU (one round, its server
+    half, and serving).
+    Returns ({path: launches by kernel}, the kernel cases at musicgen's
+    d)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+
+    paths = {}
+    for arch in ("musicgen-large", "internvl2-1b"):
+        _, paths[f"{arch.split('-')[0]}_round"], d, x_tree = pool_round(
+            dev, arch)
+        serve_pool(dev, f"serve_{arch.split('-')[0]}",
+                   configs.get_config(arch), x_tree, POOL_SEQ[arch],
+                   SERVE_STEPS, weights="x of the full-depth QAFeL round")
+        del x_tree
+        torch.cuda.empty_cache()
+        if arch == "musicgen-large":
+            rows = ref.rows_for(d)
+            half = LLM_PLAIN_CHUNK_ROWS // 2
+            cases = llm_kernels(
+                dev, d, dither_int32, int32_ops_per_s, suffix="musicgen",
+                check=[(ROW_2_31 - half, ROW_2_31 + half),
+                       (rows - LLM_PLAIN_CHUNK_ROWS, rows)], taps=False)
+    serve_dense_siblings(dev)
+    for arch in POOL_REDUCED:
+        llm_reduced_card_vs_cpu(dev, arch, rounds=1)
+        serve_reduced_card_vs_cpu(dev, arch)
+    return paths, cases
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     """The LLM round phase, serving the model it trained, then the
-    kernels at its d, the training launcher and the round under the other
-    quantizers; returns (round record, its launches, the kernel cases at
-    its d, the launcher's and the quantizer rounds' launches by kernel)."""
+    kernels at its d, the training launcher, the round under the other
+    quantizers and the rest of the attention-only pool (``run_pool``);
+    returns (round record, its launches, the kernel cases at gemma2-2b's
+    and musicgen-large's d, the launches by kernel of the launcher, the
+    quantizer rounds and the musicgen-large and internvl2-1b rounds)."""
     from repro_torch import configs
 
     record, launches, d, x_tree, _ = llm_round(dev)
@@ -3924,7 +4264,9 @@ def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
         for name, v in row["launches"].items():
             extra["llm_quantizers"][name] = extra["llm_quantizers"].get(
                 name, 0) + v
-    return record, launches, cases, extra
+    pool_paths, pool_cases = run_pool(dev, dither_int32, int32_ops_per_s)
+    extra.update(pool_paths)
+    return record, launches, {**cases, **pool_cases}, extra
 
 
 # the streamed uplink: uploads, bytes per upload (quad, CNN) and the chunk
@@ -4117,6 +4459,8 @@ def main() -> int:
                                                      int32_ops_per_s)
     streamed_uplink(dev)
 
+    case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_share", "equal", "max_abs_err", "bytes_formula")
     kernels_line = []
     for name, m in cnn.items():
         b = big[name]
@@ -4145,10 +4489,13 @@ def main() -> int:
                                           "K3_apply_taps_bf16_llm")}
         if name in llm:
             kernels_line[-1]["llm_cases"] = {
-                case: {key: llm_cases[case][key] for key in (
-                    "d", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "bound_share", "equal", "max_abs_err", "bytes_formula")}
+                case: {key: llm_cases[case][key] for key in case_keys}
                 for case in llm[name]}
+            kernels_line[-1]["musicgen_cases"] = {
+                case: {key: llm_cases[case][key] for key in case_keys
+                       + ("plain_rows",)}
+                for case in (c.replace("_llm", "_musicgen")
+                             for c in llm[name] if "taps" not in c)}
         prefix = {"qsgd_quantize_pack_threefry": "K1_",
                   "qsgd_quantize_pack_batch": "K2_",
                   "qsgd_unpack_dequantize": "K3_"}.get(name)
@@ -4179,8 +4526,6 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                 "equal", "max_abs_err", "bytes")}
                 for case, c in taps.items() if case.startswith(name)}})
-    case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "bound_share", "equal", "max_abs_err", "bytes_formula")
     m = llm_cases["server_update_llm"]
     kernels_line.append({
         "name": "server_update", "route": "cuda",
@@ -4198,7 +4543,10 @@ def main() -> int:
            for path, counts in new_paths.items()},
         "llm_cases": {case: {key: llm_cases[case][key] for key in case_keys}
                       for case in ("server_update_llm",
-                                   "server_update_taps_llm")}})
+                                   "server_update_taps_llm")},
+        "musicgen_cases": {"server_update_musicgen": {
+            key: llm_cases["server_update_musicgen"][key]
+            for key in case_keys + ("plain_rows",)}}})
     m = llm_cases["round_taps_llm"]
     kernels_line.append({
         "name": "round_taps", "route": "cuda",

@@ -3,9 +3,12 @@
 Counterpart of ``repro/configs/__init__.py``: ``get_config(arch_id)`` (the
 published full-size config), ``get_reduced(arch_id)`` (a 1-2 super-block,
 narrow variant of the same family for CPU tests) and ``list_archs()``. The
-port carries gemma2-2b (``configs.gemma2_2b``); every other architecture
-of the reference's pool is ROADMAP queue A item 14c and raises
-``NotImplementedError`` saying so, never a silent substitute.
+port carries the attention-only part of the pool: gemma2-2b,
+codeqwen1.5-7b, qwen3-14b, granite-34b, internvl2-1b and musicgen-large,
+and the paper's CNN (``celeba-cnn``, whose ``CONFIG`` and ``REDUCED`` are
+None, as in the reference). Mamba2 and the hybrid (ROADMAP queue A item
+14c.3) and MoE and MLA (item 14c.4) raise ``NotImplementedError`` naming
+their item, never a silent substitute.
 """
 from __future__ import annotations
 
@@ -14,11 +17,22 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-# the reference's ids in its order; only gemma2-2b is ported
+# the reference's ids in its order
 _ARCHS = ("qwen3-moe-235b-a22b", "granite-34b", "codeqwen1.5-7b",
           "musicgen-large", "qwen3-14b", "gemma2-2b", "internvl2-1b",
           "mamba2-1.3b", "deepseek-v3-671b", "zamba2-7b", "celeba-cnn")
-_MODULES = {"gemma2-2b": "repro_torch.configs.gemma2_2b"}
+_MODULES = {
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "celeba-cnn": "repro_torch.configs.celeba_cnn",
+}
+# the ROADMAP queue A item that ports each of the others
+_UNPORTED = {"mamba2-1.3b": "14c.3", "zamba2-7b": "14c.3",
+             "qwen3-moe-235b-a22b": "14c.4", "deepseek-v3-671b": "14c.4"}
 
 
 def list_archs(include_cnn: bool = False) -> List[str]:
@@ -32,8 +46,8 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCHS)}")
     if arch_id not in _MODULES:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet (ROADMAP queue A item 14c); the "
-            f"port has {sorted(_MODULES)}")
+            f"{arch_id!r} is not ported yet (ROADMAP queue A item "
+            f"{_UNPORTED[arch_id]}); the port has {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id])
 
 

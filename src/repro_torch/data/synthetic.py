@@ -69,10 +69,23 @@ def synthetic_lm_batch(rng: np.random.Generator, batch: int, seq: int,
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def check_seq(cfg, seq: int) -> None:
+    """Raise ``ValueError`` unless ``seq`` exceeds a VLM's prefix: its
+    sequence is ``n_prefix_embeddings`` patch embeddings and then seq -
+    prefix text tokens (the reference fails there inside numpy)."""
+    if cfg.modality == "vlm" and seq <= cfg.n_prefix_embeddings:
+        raise ValueError(
+            f"{cfg.arch_id}: sequence length {seq} must exceed its "
+            f"{cfg.n_prefix_embeddings} prefix patch embeddings "
+            "(n_prefix_embeddings): the text span is seq - prefix")
+
+
 def synthetic_batch_for_config(cfg, rng: np.random.Generator, batch: int,
                                seq: int) -> Dict[str, np.ndarray]:
     """A training batch matching the arch's input contract (frontends
-    stubbed); ``cfg`` is a ``models.config.ModelConfig``."""
+    stubbed); ``cfg`` is a ``models.config.ModelConfig``. A VLM's ``seq``
+    counts its prefix (``check_seq``)."""
+    check_seq(cfg, seq)
     if cfg.modality == "audio":
         return synthetic_lm_batch(rng, batch, seq, cfg.vocab, cfg.audio_codebooks)
     if cfg.modality == "vlm":

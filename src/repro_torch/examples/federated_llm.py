@@ -1,7 +1,9 @@
 """QAFeL rounds on a decoder architecture (reduced config).
 
 The port of ``examples/federated_llm.py``: the same Algorithm 1-3 round
-math drives a transformer from the pool (gemma2-2b by default), K clients
+math drives a transformer from the pool (gemma2-2b by default; any
+attention-only one: internvl2-1b's batches carry patch embeddings,
+musicgen-large's codebook tokens), K clients
 in turn, per-client qsgd4 uploads (K1 encode, K3 decode), the server
 update and the qsgd4 hidden-state broadcast. The tokens come from the
 same numpy stream as the reference's, the keys from the port's threefry,

@@ -3,9 +3,11 @@
 The port of ``examples/serve_model.py``: a reduced config with random
 weights, the prompts from the reference's numpy stream, prefill and then
 token by token through the KV caches (``--window`` gives the global
-layers a ring buffer too, the long-context serving mode). The default
-architecture is gemma2-2b, where the reference's is mamba2-1.3b: the port
-serves dense decoders only until ROADMAP queue A item 14c ports Mamba2.
+layers a ring buffer too, the long-context serving mode). Any
+attention-only architecture of the pool serves (internvl2-1b's prompt
+counts its 16 reduced patch embeddings, musicgen-large decodes its four
+codebooks a step). The default architecture is gemma2-2b, where the
+reference's is mamba2-1.3b: Mamba2 is ROADMAP queue A item 14c.3.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_model \\
         [--arch gemma2-2b] [--window 32] [--device cpu]
@@ -42,8 +44,9 @@ def main(argv=None) -> dict:
     params = T.init_params(cfg, 0, dev)
     rng = np.random.default_rng(0)
     batch = synthetic_batch_for_config(cfg, rng, args.batch, args.prompt_len)
-    tokens = to_device(torch.from_numpy(batch["tokens"]), dev)
-    out = serve(cfg, params, tokens, decode_steps=args.decode_steps,
+    inputs = {k: to_device(torch.from_numpy(v), dev)
+              for k, v in batch.items() if k != "labels"}
+    out = serve(cfg, params, inputs, decode_steps=args.decode_steps,
                 window=args.window)
     print(f"{cfg.arch_id}: prefill {args.batch}x{args.prompt_len} -> "
           f"logits {tuple(out['logits'].shape)}  ({out['prefill_s']:.2f}s)")

@@ -4,8 +4,12 @@ model.
 The port of ``repro/launch/serve.py``: prefill a batch of prompts, then
 decode greedily through the per-layer KV caches (ring buffers for the
 windowed layers). The tokens stay on the device until the loop ends: no
-decode step waits on the host. Dense decoders only (gemma2-2b); the other
-architectures are ROADMAP queue A item 14c and raise saying so.
+decode step waits on the host. Every attention-only architecture of the
+pool: a VLM's prompt is its patch embeddings and then its text tokens
+(``--prompt-len`` counts both, as in the reference, so it must exceed the
+prefix), audio decodes (B, CB) codebook tokens a step. Mamba2 and the
+hybrid (ROADMAP queue A item 14c.3), MoE and MLA (14c.4) raise naming
+their item.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --reduced --batch 4 --prompt-len 64 --decode-steps 32 [--device cpu]
@@ -24,7 +28,7 @@ from torch.profiler import record_function
 
 from repro_torch import configs as config_registry
 from repro_torch.common.device import resolve_device, to_device
-from repro_torch.data.synthetic import synthetic_batch_for_config
+from repro_torch.data.synthetic import check_seq, synthetic_batch_for_config
 from repro_torch.distributed.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as T
 
@@ -34,21 +38,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(cfg, params, tokens: torch.Tensor, *, decode_steps: int,
+def serve(cfg, params, inputs: dict, *, decode_steps: int,
           window: Optional[int] = None, q_block: int = 512,
           kv_block: int = 512) -> dict:
-    """Prefill the (B, S) int32 prompt ``tokens`` (on the parameters'
-    device), then decode ``decode_steps`` tokens greedily, the caches sized
-    for S + ``decode_steps`` positions. Returns ``logits`` (the prefill's,
-    (B, 1, V)), ``cache``, ``tokens`` ((B, 1 + decode_steps) int32 on the
-    device: the prefill's argmax, then each step's), ``last_logits`` (the
+    """Prefill the prompt ``inputs`` (on the parameters' device:
+    ``tokens`` (B, S) int32, or (B, S, CB) for audio, and a VLM's
+    ``patch_embeddings`` (B, P, D)), then decode ``decode_steps`` tokens
+    greedily from position S' = P + S (the embedded length), the caches
+    sized for S' + ``decode_steps`` positions. Returns ``logits`` (the
+    prefill's, (B, 1, V) or (B, 1, CB, V)), ``cache``, ``tokens`` ((B, 1 +
+    decode_steps) int32 on the device, or (B, 1 + decode_steps, CB): the
+    prefill's argmax, then each step's), ``last_logits`` (the
     last step's), ``prefill_s`` and ``decode_s`` (host clock around
     synchronized work) and, on the card, ``step_ms`` (each decode step by
     CUDA events). The two phases run under
     ``torch.profiler.record_function`` ranges ``"prefill"`` and
     ``"decode"``, so a profiled call reads its device time by phase."""
+    tokens = inputs["tokens"]
     dev = tokens.device
-    b, s = tokens.shape
+    s = tokens.shape[1]
+    if "patch_embeddings" in inputs:
+        s += inputs["patch_embeddings"].shape[1]
     prefill = make_prefill_step(cfg, max_len=s + decode_steps,
                                 window_override=window, q_block=q_block,
                                 kv_block=kv_block)
@@ -56,7 +66,7 @@ def serve(cfg, params, tokens: torch.Tensor, *, decode_steps: int,
     _sync(dev)
     t0 = time.perf_counter()
     with record_function("prefill"):
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, inputs)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -72,7 +82,7 @@ def serve(cfg, params, tokens: torch.Tensor, *, decode_steps: int,
                                torch.cuda.Event(enable_timing=True)))
                 events[-1][0].record()
             last, cache = decode(params, cache, {"tokens": tok[:, None]},
-                                 s + t)
+                                 s + t)  # (B, 1) or audio's (B, 1, CB)
             tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
             if on_card:
                 events[-1][1].record()
@@ -102,13 +112,15 @@ def main(argv=None) -> dict:
 
     cfg = (config_registry.get_reduced(args.arch) if args.reduced
            else config_registry.get_config(args.arch))
+    check_seq(cfg, args.prompt_len)
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     params = T.init_params(cfg, args.seed, dev)
     batch = synthetic_batch_for_config(cfg, rng, args.batch, args.prompt_len)
-    tokens = to_device(torch.from_numpy(batch["tokens"]), dev)
+    inputs = {k: to_device(torch.from_numpy(v), dev)
+              for k, v in batch.items() if k != "labels"}
 
-    out = serve(cfg, params, tokens, decode_steps=args.decode_steps,
+    out = serve(cfg, params, inputs, decode_steps=args.decode_steps,
                 window=args.window)
     print(f"prefill[{args.batch}x{args.prompt_len}] "
           f"logits={tuple(out['logits'].shape)} t={out['prefill_s']:.2f}s")

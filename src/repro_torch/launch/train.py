@@ -21,8 +21,11 @@ round's peak under one f32 copy of the model.
         --reduced --steps 50 --seq 128 --global-batch 32 [--device cpu] \\
         [--checkpoint-dir build/ckpt]
 
-Architectures other than the port's (gemma2-2b) raise, naming ROADMAP
-queue A item 14c.
+Every attention-only architecture of the pool runs: a VLM's ``--seq``
+counts its patch embeddings and must exceed them (internvl2-1b: 256,
+its reduced config 16), audio's batches carry (..., seq, CB) codebook
+tokens. Mamba2 and the hybrid (ROADMAP queue A item 14c.3), MoE and MLA
+(14c.4) raise naming their item.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.common import prng
 from repro_torch.common.device import resolve_device, to_device
 from repro_torch.core.qafel import QAFeLConfig
 from repro_torch.core.staleness import staleness_weight
-from repro_torch.data.synthetic import synthetic_batch_for_config
+from repro_torch.data.synthetic import check_seq, synthetic_batch_for_config
 from repro_torch.distributed.steps import (RoundState, init_round_state,
                                            make_qafel_round)
 
@@ -84,9 +87,11 @@ def qafel_config(args: argparse.Namespace) -> QAFeLConfig:
 
 def round_batch(cfg, qcfg: QAFeLConfig, rng: np.random.Generator,
                 local: int, seq: int, device) -> dict:
-    """One round's (K, P, local, seq) token batch on ``device``, from the
-    reference's numpy stream (the launcher's and the federated example's,
-    which passes its ``LOCAL_BATCH``)."""
+    """One round's batch on ``device``, each leaf (K, P, local, ...): the
+    (..., seq) tokens and labels ((..., seq, CB) for audio; a VLM's text
+    span seq - n_prefix and its (..., n_prefix, D) patch embeddings), from
+    the reference's numpy stream (the launcher's and the federated
+    example's, which passes its ``LOCAL_BATCH``)."""
     k, p = qcfg.buffer_size, qcfg.local_steps
     b = synthetic_batch_for_config(cfg, rng, k * p * local, seq)
     return {name: to_device(torch.from_numpy(v).reshape(
@@ -104,6 +109,7 @@ def run(args: argparse.Namespace,
     dev = resolve_device(args.device)
     cfg = (config_registry.get_reduced(args.arch) if args.reduced
            else config_registry.get_config(args.arch))
+    check_seq(cfg, args.seq)
     qcfg = qafel_config(args)
     local = args.global_batch // (qcfg.buffer_size * qcfg.local_steps)
     if local < 1:

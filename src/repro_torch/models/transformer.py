@@ -1,16 +1,23 @@
-"""The config-driven decoder, dense family.
+"""The config-driven decoder, attention-only architectures.
 
-Counterpart of the dense path of ``repro/models/transformer.py``. Layer
-stacks are grouped into repeating super-blocks (``cfg.layer_pattern``):
-pattern ("attn",) for llama/qwen-style decoders, ("local", "global") for
-gemma2 (alternating sliding-window and full attention, (1+s) norms,
-post-norms, sqrt(d) embedding scale, logit softcaps). The parameter tree
-is the reference's, leaf for leaf: ``embed``, ``layers/pos{i}_{kind}``
-with each leaf stacked over the super-blocks, ``final_norm``, and
-``head`` only when embeddings are untied; it flattens in JAX's order
-(sorted keys), so flat vectors of the two packages compare coordinate by
-coordinate. The reference scans the super-blocks; here ``forward`` loops
-over them, under ``torch.utils.checkpoint`` with ``remat``.
+Counterpart of the attention-only path of ``repro/models/transformer.py``.
+Layer stacks are grouped into repeating super-blocks
+(``cfg.layer_pattern``): pattern ("attn",) for llama/qwen-style decoders
+(qkv bias, qk-norm, GQA down to a single KV head), ("local", "global")
+for gemma2 (alternating sliding-window and full attention, (1+s) norms,
+post-norms, sqrt(d) embedding scale, logit softcaps). Two stubbed
+frontends, as in the reference: a VLM (internvl2-1b) takes
+``patch_embeddings`` (B, n_prefix, D) prepended to the text's embeddings
+and scores only the text span; audio (musicgen-large) takes (B, S, CB)
+codebook tokens, sums their CB embeddings and has one head per codebook,
+its loss the mean over the codebooks. The parameter tree is the
+reference's, leaf for leaf: ``embed`` ((CB, V, D) for audio),
+``layers/pos{i}_{kind}`` with each leaf stacked over the super-blocks,
+``final_norm``, ``audio_heads`` (CB, D, V) for audio, else ``head`` only
+when embeddings are untied; it flattens in JAX's order (sorted keys), so
+flat vectors of the two packages compare coordinate by coordinate. The
+reference scans the super-blocks; here ``forward`` loops over them, under
+``torch.utils.checkpoint`` with ``remat``.
 
 Serving (the reference's ``transformer.py:328-528``): ``init_cache`` (one
 cache per pattern position, stacked over the super-blocks; local layers a
@@ -20,8 +27,9 @@ and values written into its ring, the last position's logits only) and
 ``decode_step`` (one token through every layer, the caches written in
 place).
 
-MoE, MLA, Mamba2, the hybrid and the VLM/audio frontends are ROADMAP
-queue A item 14c and raise ``NotImplementedError`` naming it.
+Mamba2 and the hybrid (ROADMAP queue A item 14c.3), MoE, MLA, MTP and
+the dense-FFN prefix layers (item 14c.4) raise ``NotImplementedError``
+naming their item.
 """
 from __future__ import annotations
 
@@ -40,15 +48,24 @@ from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
 ATTN_KINDS = ("attn", "local", "global")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense text decoder (what the port runs)."""
-    if (cfg.family != "dense" or cfg.modality != "text" or cfg.n_experts
-            or cfg.use_mla or cfg.use_mtp or cfg.n_dense_layers
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is an attention-only decoder (text, a VLM
+    prefix or audio codebooks): what the port runs."""
+    if (cfg.family in ("ssm", "hybrid")
             or any(k not in ATTN_KINDS for k in cfg.layer_pattern)):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the port runs dense text decoders; MoE, MLA, "
-            "MTP, Mamba2, hybrid and VLM/audio models are ROADMAP queue A "
-            "item 14c")
+        what, item = "Mamba2 and the hybrid", "14c.3"
+    elif (cfg.family == "moe" or cfg.n_experts or cfg.use_mla
+          or cfg.use_mtp or cfg.n_dense_layers):
+        what, item = "MoE, MLA, MTP and dense-FFN prefix layers", "14c.4"
+    elif (cfg.family not in ("dense", "vlm", "audio")
+          or cfg.modality not in ("text", "vlm", "audio")):
+        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r} "
+                         f"or modality {cfg.modality!r}")
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.arch_id}: the port runs attention-only decoders; {what} "
+        f"are ROADMAP queue A item {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -76,21 +93,12 @@ def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _init_position(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                   reps: int) -> Dict[str, Any]:
-    """Pattern position ``kind``'s block, stacked over ``reps``."""
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"{kind!r} blocks are ROADMAP queue A "
-                                  "item 14c")
-    return _init_attn_block(gen, cfg, lead=(reps,))
-
-
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device=None) -> Dict[str, Any]:
     """Random parameters in the reference's tree, drawn on ``device``
     (None: the card) from a generator seeded with ``seed``; the values are
     not the reference's (carry those across with ``convert``)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     return _params(cfg, torch.Generator(device=dev).manual_seed(int(seed)))
 
@@ -104,23 +112,29 @@ class _MetaDraws:
 def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_params``' tree of shapes and dtypes without memory (``meta``
     tensors)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     return _params(cfg, _MetaDraws())
 
 
 def _params(cfg: ModelConfig, gen) -> Dict[str, Any]:
     """The parameter tree, drawn from ``gen`` on its device."""
     dev = gen.device
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.p_dtype)}
+    audio = cfg.modality == "audio"
+    params: Dict[str, Any] = {"embed": embed_init(
+        gen, (cfg.audio_codebooks or 1, cfg.vocab, cfg.d_model) if audio
+        else (cfg.vocab, cfg.d_model), cfg.p_dtype)}
     reps = cfg.n_super_blocks
-    params["layers"] = {f"pos{i}_{kind}": _init_position(gen, cfg, kind,
-                                                         reps)
+    params["layers"] = {f"pos{i}_{kind}": _init_attn_block(gen, cfg,
+                                                           lead=(reps,))
                         for i, kind in enumerate(cfg.layer_pattern)}
     params["final_norm"] = (torch.zeros if cfg.norm_scale_plus_one
                             else torch.ones)((cfg.d_model,),
                                              dtype=cfg.p_dtype, device=dev)
-    if not cfg.tie_embeddings:
+    if audio:
+        params["audio_heads"] = dense_init(
+            gen, (cfg.audio_codebooks, cfg.d_model, cfg.vocab), cfg.d_model,
+            cfg.p_dtype)
+    elif not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                     cfg.d_model, cfg.p_dtype)
     return params
@@ -160,7 +174,19 @@ def _window_for(cfg: ModelConfig, kind: str,
 
 
 def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
-    h = params["embed"][inputs["tokens"].long()]
+    """The token embeddings: audio sums the codebooks' (B, S, D)
+    embeddings with Python's ``sum``, as the reference does: ((0 + e0) +
+    e1) + ..., each add rounded to the parameters' dtype (as the eager
+    and the jitted reference round it); a VLM puts ``patch_embeddings``,
+    cast to that dtype, in front of the text's."""
+    tok = inputs["tokens"].long()
+    if cfg.modality == "audio":  # tok (B, S, CB), embed (CB, V, D)
+        h = sum(params["embed"][c][tok[:, :, c]]
+                for c in range(cfg.audio_codebooks))
+    else:
+        h = params["embed"][tok]
+        if cfg.modality == "vlm" and "patch_embeddings" in inputs:
+            h = torch.cat([inputs["patch_embeddings"].to(h.dtype), h], dim=1)
     if cfg.norm_scale_plus_one:  # gemma: scale embeddings by sqrt(d)
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)
@@ -175,7 +201,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
     ``remat`` recomputes each super-block in the backward pass
     (``torch.utils.checkpoint``); it runs under ``torch.autograd``, not
     under ``torch.func.grad``, so the round's local SGD takes it off."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     h = _embed_inputs(cfg, params, inputs)
     s = h.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h.device)
@@ -189,8 +215,12 @@ def forward(cfg: ModelConfig, params, inputs, *,
                 q_block=q_block, kv_block=kv_block)
         return h, aux
 
+    # one unbind a leaf: its backward stacks the super-blocks' gradients
+    # once, where a slice per super-block would add a zero-filled gradient
+    # of the whole stack per super-block (quadratic in the depth)
+    slices = tree_map(lambda a: a.unbind(0), params["layers"])
     for sb in range(cfg.n_super_blocks):
-        layer_slice = tree_map(lambda a: a[sb], params["layers"])
+        layer_slice = tree_map(lambda a: a[sb], slices)
         if remat:
             h, aux = torch.utils.checkpoint.checkpoint(
                 super_block, h, aux, layer_slice, use_reentrant=False)
@@ -200,8 +230,11 @@ def forward(cfg: ModelConfig, params, inputs, *,
 
 
 def logits_fn(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    """Full logits of a (B, S, D) hidden, softcapped."""
-    if cfg.tie_embeddings:
+    """Full logits of a (B, S, D) hidden, softcapped: (B, S, V), or (B, S,
+    CB, V) for audio."""
+    if cfg.modality == "audio":
+        lg = torch.einsum("bsd,cdv->bscv", h, params["audio_heads"])
+    elif cfg.tie_embeddings:
         lg = torch.einsum("bsd,vd->bsv", h, params["embed"])
     else:
         lg = torch.einsum("bsd,dv->bsv", h, params["head"])
@@ -212,7 +245,9 @@ def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor,
                   chunk: int) -> torch.Tensor:
     """Next-token cross-entropy over sequence chunks (the largest divisor
-    of S not above ``chunk``), so (B, S, V) logits never exist at once."""
+    of S not above ``chunk``), so (B, S, V) logits never exist at once.
+    Audio's labels are (B, S, CB): a position's loss is the mean over its
+    codebooks, taken before the mask."""
     s = h.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
@@ -222,9 +257,13 @@ def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
     for c0 in range(0, s, chunk):
         lg = logits_fn(cfg, params, h[:, c0:c0 + chunk]).to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[:, c0:c0 + chunk, None].long())
+        gold = torch.gather(lg, -1, labels[:, c0:c0 + chunk, ..., None]
+                            .long())[..., 0]
+        nll = lse - gold
+        if cfg.modality == "audio":
+            nll = nll.mean(-1)  # over the codebooks
         m_c = mask[:, c0:c0 + chunk]
-        tot = tot + torch.sum((lse - gold[..., 0]) * m_c)
+        tot = tot + torch.sum(nll * m_c)
         cnt = cnt + torch.sum(m_c)
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -232,14 +271,18 @@ def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params, batch, *,
             window_override: Optional[int] = None, remat: bool = True,
             loss_chunk: int = 1024):
-    """Causal-LM loss. batch: {"tokens", "labels"} (+ optional
-    "loss_mask"). Returns (loss, {"xent", "aux"})."""
+    """Causal-LM loss. batch: the inputs ({"tokens"}, + "patch_embeddings"
+    for a VLM), "labels" (+ optional "loss_mask", (B, S)). A VLM scores
+    only the text span, the last ``labels.shape[1]`` positions. Returns
+    (loss, {"xent", "aux"})."""
     h, aux = forward(cfg, params, batch, window_override=window_override,
                      remat=remat)
     labels = batch["labels"]
+    if cfg.modality == "vlm":  # the prefix positions carry no labels
+        h = h[:, -labels.shape[1]:]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
+        mask = torch.ones(labels.shape[:2], dtype=torch.float32,
                           device=h.device)
     loss = _chunked_xent(cfg, params, h, labels, mask, loss_chunk)
     return loss + cfg.router_aux_coef * aux, {"xent": loss, "aux": aux}
@@ -295,12 +338,13 @@ def prefill(cfg: ModelConfig, params, inputs, *,
             max_len: Optional[int] = None,
             window_override: Optional[int] = None, q_block: int = 512,
             kv_block: int = 512):
-    """Process a full prompt: returns (the last position's logits (B, 1,
-    V), the filled cache). ``max_len`` (default the prompt's length) sizes
-    the caches of the layers without a window; a prompt longer than a
-    layer's ring leaves its last w positions there. ``q_block`` and
+    """Process a full prompt (a VLM's ``patch_embeddings`` included, in
+    front): returns (the last position's logits (B, 1, V), or (B, 1, CB,
+    V) for audio, the filled cache). ``max_len`` (default the prompt's
+    length) sizes the caches of the layers without a window; a prompt
+    longer than a layer's ring leaves its last w positions there. ``q_block`` and
     ``kv_block`` must divide the prompt's length, as in ``forward``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     h = _embed_inputs(cfg, params, inputs)
     b, s, _ = h.shape
     max_len = max_len if max_len is not None else s
@@ -332,7 +376,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Empty caches, one entry per pattern position, each leaf stacked over
     the super-blocks (leading dim ``n_super_blocks``), on ``device``
     (None: the card)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     return {"layers": {
         f"pos{i}_{kind}": _position_cache(cfg, kind, batch, max_len,
@@ -369,9 +413,11 @@ def _decode_sublayer(cfg: ModelConfig, kind: str, p, h: torch.Tensor,
 def decode_step(cfg: ModelConfig, params, cache, inputs, pos: int, *,
                 window_override: Optional[int] = None):
     """One-token decode through the whole stack. inputs: {"tokens": (B,
-    1)}; ``pos`` the token's absolute position (a Python int). Returns
-    (logits (B, 1, V), ``cache``, written in place)."""
-    _check_dense(cfg)
+    1)}, or (B, 1, CB) for audio (a VLM decodes text only, its prefix in
+    the cache); ``pos`` the token's absolute position (a Python int,
+    counting a VLM's prefix). Returns (logits (B, 1, V), or (B, 1, CB, V)
+    for audio, ``cache``, written in place)."""
+    _check_ported(cfg)
     pos = int(pos)
     h = _embed_inputs(cfg, params, inputs)
     for sb in range(cfg.n_super_blocks):

@@ -672,3 +672,82 @@ def test_round_quantizers_card_vs_plain(kind):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
+
+
+# a message past element 2**31 (wire row 2**24), as musicgen-large's d =
+# 3.25e9 gives the round: every per-element index past the int32 range
+_BIG_N = 2 ** 31 + 3 * 2 ** 20 + 77
+
+
+def _big_rows():
+    """Row ranges around element 2**31 and at the end of ``_BIG_N``."""
+    rows = ref.rows_for(_BIG_N)
+    return ((2 ** 24 - 1000, 2 ** 24 + 1000), (rows - 1000, rows))
+
+
+@pytest.mark.gpu
+def test_kernels_past_element_2_31():
+    """K1 (the threefry encode whole and at a row offset past row 2**24),
+    K3's weighted add and its bf16 x-hat apply in place, and the server
+    update, over a vector of 2**31 + 3,145,805 elements: each bit-equal
+    to its plain version on the rows across element 2**31 and on the last
+    rows; one launch per call."""
+    from repro_torch.kernels.server_update import server_update_
+
+    dev = _card()
+    n, bits = _BIG_N, 4
+    key = torch.tensor(KEYS[1])
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(n, generator=gen, device=dev) * 1e-2
+    before = tkernels.launches()["qsgd_quantize_pack_threefry"]
+    packed, norms = tkernels.qsgd.qsgd_quantize_pack_threefry(x, key, bits)
+    torch.cuda.synchronize()
+    assert tkernels.launches()["qsgd_quantize_pack_threefry"] == before + 1
+    rows = norms.numel()
+    for r0, r1 in _big_rows():
+        seg = x[r0 * 128:min(n, r1 * 128)]
+        want = ref.quantize_pack_threefry(seg, key, bits, row0=r0)
+        _assert_bits_equal((packed[r0:r1], norms[r0:r1]), want)
+        _assert_bits_equal(tkernels.qsgd.qsgd_quantize_pack_threefry(
+            seg, key, bits, row0=r0, total_rows=rows), want)
+    del x
+    torch.cuda.empty_cache()
+
+    w = torch.tensor([0.7], device=dev)
+    for dtype, weight in ((torch.float32, w), (torch.bfloat16, None)):
+        acc = (torch.randn(n, generator=gen, device=dev) * 1e-2).to(dtype)
+        old = [acc[r0 * 128:min(n, r1 * 128)].clone()
+               for r0, r1 in _big_rows()]
+        before = tkernels.launches()["qsgd_unpack_dequantize"]
+        tkernels.qsgd.qsgd_unpack_dequantize(packed, norms, bits, acc=acc,
+                                             weight=weight)
+        torch.cuda.synchronize()
+        assert tkernels.launches()["qsgd_unpack_dequantize"] == before + 1
+        for (r0, r1), a in zip(_big_rows(), old):
+            want = ref.unpack_dequantize(
+                packed[r0:r1], norms[r0:r1], bits, acc=a.float(),
+                weight=weight).reshape(-1)[:a.numel()].to(dtype)
+            got = acc[r0 * 128:min(n, r1 * 128)]
+            if dtype == torch.bfloat16:
+                got, want = got.view(torch.int16), want.view(torch.int16)
+            _assert_bits_equal(got, want)
+        del acc
+        torch.cuda.empty_cache()
+    del packed, norms
+
+    buf = torch.randn(n, generator=gen, device=dev) * 1e-2
+    m, xs, xhat = ((torch.randn(n, generator=gen, device=dev) * s).to(
+        torch.bfloat16) for s in (1e-3, 1.0, 1.0))
+    spans = [slice(r0 * 128, min(n, r1 * 128)) for r0, r1 in _big_rows()]
+    old = [[t[sp].clone() for t in (buf, m, xs, xhat)] for sp in spans]
+    before = tkernels.launches()["server_update"]
+    server_update_(buf, m, xs, xhat, k=4, beta=0.3, lr=1.0)
+    torch.cuda.synchronize()
+    assert tkernels.launches()["server_update"] == before + 1
+    for sp, (b0, m0, x0, h0) in zip(spans, old):
+        ref.server_update_(b0, m0, x0, h0, inv_k=0.25,
+                           beta=float(np.float32(0.3)), lr=1.0)
+        for got, want in ((buf[sp], b0), (m[sp], m0), (xs[sp], x0)):
+            if got.dtype == torch.bfloat16:
+                got, want = got.view(torch.int16), want.view(torch.int16)
+            _assert_bits_equal(got, want)

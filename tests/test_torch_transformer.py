@@ -157,10 +157,11 @@ def test_configs_match_reference():
     assert TC.get_config("gemma2-2b").act_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b",
-                                  "mamba2-1.3b", "celeba-cnn"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "deepseek-v3-671b",
+                                  "mamba2-1.3b", "qwen3-moe-235b-a22b"])
 def test_unported_archs_raise_naming_the_item(arch):
-    with pytest.raises(NotImplementedError, match="14c"):
+    item = "14c.3" if arch in ("zamba2-7b", "mamba2-1.3b") else "14c.4"
+    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         TC.get_config(arch)
     with pytest.raises(KeyError):
         TC.get_config("no-such-arch")
@@ -427,16 +428,21 @@ def test_loss_and_gradients_bf16_match_eager_and_jitted(model_bf16):
 
 
 def test_serving_paths_raise_naming_the_item():
-    """Serving is ported on the dense path (tests/test_torch_serve.py); a
-    model the port does not run raises naming its item there too."""
+    """Serving is ported on the attention-only path (tests/
+    test_torch_serve.py, test_torch_archs_serve.py); a model the port does
+    not run raises naming its item there too."""
     moe = TC.get_reduced("gemma2-2b").replace(n_experts=4)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         TT.init_params(moe, device="cpu")
     tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         TT.prefill(moe, {}, tokens)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         TT.decode_step(moe, {}, {}, tokens, 0)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         TT.init_cache(moe.replace(use_mla=True, n_experts=0), 1, 8,
                       device="cpu")
+    ssm = TC.get_reduced("gemma2-2b").replace(layer_pattern=("mamba",),
+                                              family="ssm")
+    with pytest.raises(NotImplementedError, match=r"14c\.3"):
+        TT.init_cache(ssm, 1, 8, device="cpu")
