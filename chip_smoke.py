@@ -50,7 +50,7 @@ Phases, each printing one JSON line:
    no tracer in this process (state bit-identical, trace valid under
    ``build/telemetry/``, one more launch per flush and per tier group by
    the counters and the profiler, uploads/s and flush median taps off and
-   on in turns); the main path with taps on for 12 uploads (one more
+   on in turns); the main path with taps on for 10 uploads (one more
    launch per client step and per flush); the quad's traced cohort run on
    the card and the CPU, event streams bit for bit;
 10. the quantizer family: K1, K2 and K3 at the lowrank uplink's shapes
@@ -95,7 +95,7 @@ Phases, each printing one JSON line:
     (26 layers, d = 2,614,341,888) in bf16, every message encoded in row
     chunks of 2^20 rows, remat on, the federated example's settings (qsgd4
     both ways, K = 4, P = 2, local batch 2, sequence 64): one warm-up and
-    3 measured rounds with the launch counters set to 0 just before and
+    2 measured rounds with the launch counters set to 0 just before and
     read just after (``llm_round_step`` lines: loss, |x - x_hat|_1, ms by
     CUDA events; ``llm_round``: peak ``max_memory_allocated`` against the
     reckoning of the round's buffers plus 15% and under 60 GB, K1, K3 and
@@ -156,7 +156,7 @@ Phases, each printing one JSON line:
     ``internvl2_round``, musicgen-large (48 layers, four codebooks, d =
     3,254,978,560, past 2^31) and internvl2-1b (24 layers, 256 patch
     embeddings + 64 tokens) as published through the same round and
-    settings, one warm-up and 2 rounds timed by CUDA events with the
+    settings, one warm-up and 1 round timed by CUDA events with the
     launch counters set to 0 just before and read just after (K1, K3 and
     server-update launches by name, peak against the reckoning plus 15%
     and under 60 GB, bytes per upload), a profiled round's device busy ms
@@ -167,13 +167,25 @@ Phases, each printing one JSON line:
     at musicgen-large's d, bit for bit against their plain versions on the
     2^18 rows across element 2^31 and on the last 2^18 rows (``llm_kernel``
     lines named ``*_musicgen``); ``serve_dense_siblings``: codeqwen1.5-7b
-    and qwen3-14b at full size and granite-34b at full width cut to 40 of
+    and qwen3-14b at full size and granite-34b at full width cut to 24 of
     its 88 layers (its 94.5 GB of bf16 weights exceed the card), B = 4,
     prompt 64, 32 greedy steps, and the granite cut one step with
     ``window_override = 16``: prefill and step ms, the caches' bytes and
     ``slot_pos`` laws, decode against forward; then
     ``llm_reduced_card_vs_cpu`` (one round) and
-    ``serve_reduced_card_vs_cpu`` over the five reduced configs;
+    ``serve_reduced_card_vs_cpu`` over the five reduced configs; then
+    Mamba2 and the hybrid (``run_mamba``): ``mamba2_round``, the same
+    round on mamba2-1.3b as published (48 layers, its mixed bf16/f32 state
+    in place: ``A_log``, ``D`` and ``dt_bias`` f32 beside the bf16
+    buffers), ``serve_mamba2`` (its trained x: B = 4, prompt 64, 32 steps;
+    B = 1, a prompt of 4,160 that pads the SSD's last chunk; the recurrent
+    cache's bytes by count and constant in the prompt, launches a step),
+    K1, K3 and the server update at its d (``*_mamba2``),
+    ``zamba2_round`` (zamba2-7b cut to 20 of its 27 super-blocks, d past
+    2^31), K1, K3 and the server update at its d (``*_zamba2``),
+    ``serve_zamba2`` (all 81 layers, fresh weights), and both reduced
+    configs card against CPU (a round, the server half in f32 and on the
+    mixed bf16/f32 tree bit for bit, serving);
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
@@ -181,12 +193,14 @@ Phases, each printing one JSON line:
     launches per streamed upload (``streamed_uplink``);
 14. one line listing every kernel with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
-    launcher's rounds, the quantizer rounds and the musicgen-large and
-    internvl2-1b rounds, times
+    launcher's rounds, the quantizer rounds and the musicgen-large,
+    internvl2-1b, mamba2-1.3b and zamba2-7b rounds, times
     and bound (the tap kernels' launches from the taps-on runs; the
     server update's from the LLM round, the only path that runs it; the
     round's finishing pass from its taps-on round);
-15. last, ``{"ok": true, "device": {...}}``.
+15. each phase's wall seconds (``phase_seconds`` lines), then the card's
+    name and power limit, the kernels line and last ``{"ok": true,
+    "device": {...}}``.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. Every record is also written
@@ -255,6 +269,17 @@ def emit(obj) -> None:
     for log in _LOG:
         log.write(line + "\n")
         log.flush()
+
+
+_PHASE_SECONDS = []  # (phase, wall seconds), printed before the kernels
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    _PHASE_SECONDS.append((name, time.perf_counter() - t0))
+    return out
 
 
 def device_ms(fn, reps: int) -> float:
@@ -1436,13 +1461,19 @@ def same_state(a, b) -> bool:
                for name in ("x_flat", "hidden_flat", "momentum_flat"))
 
 
+# the profiled pairs of the telemetry phase: their trace processing is
+# most of the phase's time, so they run shorter than the paths they check
+TELEMETRY_PROFILED_UPLOADS = 100
+
+
 def telemetry_cohort(dev, out_dir: Path) -> dict:
     """The cohort path (the CNN, ``tiered_bits``, cohorts of 32, 200
     uploads) with a ``RunTracer(taps=True)`` and with no tracer, in this
     one process: the state bit-identical (cuDNN's deterministic
     algorithms for this pair, so that only the taps could move a bit), the
     trace valid and its counts adding up, taps on one more launch per
-    flush and per tier group (counters and profiler), the other launches
+    flush and per tier group (counters; the profiler over runs of
+    ``TELEMETRY_PROFILED_UPLOADS``), the other launches
     as pinned; then uploads/s and the flush median with taps off, on, on,
     off."""
     import statistics as st
@@ -1456,8 +1487,9 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     flushes, groups = on["res"].server_steps, on["client_steps"]
     trace = check_trace(on, out_dir / "telemetry_cohort.jsonl")
     lo, ln = off["launches"], on["launches"]
-    diff = tap_launch_diff(profiled_counts(dev, "cohort", COHORT_UPLOADS),
-                           flushes, groups)
+    runs = profiled_counts(dev, "cohort", TELEMETRY_PROFILED_UPLOADS)
+    diff = tap_launch_diff(runs, runs[True][0]["res"].server_steps,
+                           runs[True][0]["client_steps"])
     timed = {"off": [], "on": []}
     for t in (None, True, True, None):
         r = traced_cnn_run(dev, t, engine="cohort", uploads=COHORT_UPLOADS)
@@ -1501,7 +1533,7 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     return record
 
 
-def telemetry_main_path(dev, out_dir: Path, uploads: int = 12) -> dict:
+def telemetry_main_path(dev, out_dir: Path, uploads: int = 10) -> dict:
     """The sequential main path (the CNN, concurrency 16) for ``uploads``
     uploads with taps on, profiled beside the same run with no tracer:
     the state bit-identical, the trace valid, one more launch per client
@@ -2556,8 +2588,8 @@ def run_population(dev, hash_int32: dict) -> tuple:
 # at its published depth (26 layers), the federated example's QAFeL
 # settings (qsgd4 both ways, K = 4, P = 2, local batch 2, sequence 64),
 # every message encoded in row chunks of LLM_CHUNK_ROWS, remat on (the
-# round's default); one warm-up round, 3 measured, 1 profiled
-LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 26, 64, 3
+# round's default); one warm-up round, 2 measured, 1 profiled
+LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 26, 64, 2
 LLM_CHUNK_ROWS = 1 << 20
 # the round's peak by count of its buffers (PERF.md section 5): x, x-hat
 # and m in bf16 (6 B an element), the f32 sum buf (4 B), a client's y and
@@ -3192,18 +3224,62 @@ def llm_kernels(dev, d: int, dither_int32: dict, int32_ops_per_s: float,
     return out
 
 
+def _server_half_card_vs_cpu(dev, cfg) -> bool:
+    """The server half of ``cfg``'s round on both devices from the same
+    trees (its initial x, x-hat and m moved by seeded noise, each leaf in
+    its dtype: a mixed tree's other leaves beside its buffers), the same
+    K packed client messages and weights, through the round's weighted
+    accumulation (``steps.accumulate``: K3's weighted mode in place) and
+    ``steps.server_half`` (the server-update kernel, the chunked K1, K3
+    into x-hat in place, the side leaves' plain recompute): every leaf
+    of x, x-hat and m and the broadcast bit for bit."""
+    import torch
+
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core.quantizers import TreeLayout
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import ops
+
+    base = steps.init_round_state(cfg, 0, "cpu")
+    g = torch.Generator().manual_seed(5)
+    noisy = lambda tr, s: tree_map(lambda t: (t.float() + s * torch.randn(
+        t.shape, generator=g)).to(t.dtype), tr)
+    trees = (base.x, noisy(base.x, 2e-3), noisy(base.momentum, 1e-3))
+    d = sum(t.numel() for t in tree_leaves(base.x))
+    packed, norms = ops.qsgd_quantize_batch(
+        3e-3 * torch.randn((4, d), generator=g),
+        torch.randint(0, 2 ** 32, (4, 2), generator=g), BITS)
+    w = torch.tensor([0.9, 1.0, 0.7, 0.5])
+    out = {}
+    for where in ("cpu", dev):
+        st = steps.RoundState.from_trees(
+            *(tree_map(lambda t: t.to(where), tr) for tr in trees))
+        buf = torch.zeros(d, device=where)
+        for kk in range(4):
+            steps.accumulate(buf, packed[kk].to(where), norms[kk].to(where),
+                             w[kk:kk + 1].to(where), bits=BITS, d=d)
+        bp, bn = steps.server_half(
+            *st.flat, buf, prng.PRNGKey(9), qcfg=fl.qafel_config(4), d=d,
+            chunk_rows=LLM_REDUCED_CHUNK_ROWS,
+            sides=steps._sides(st, TreeLayout.of(st.x)))
+        out[str(where)] = [t.cpu() for tr in (st.x, st.hidden, st.momentum)
+                           for t in tree_leaves(tr)] + [bp.cpu(), bn.cpu()]
+    return all(bits_equal(a, b) for a, b in zip(out["cpu"],
+                                                 out[str(dev)]))
+
+
 def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
                             rounds: int = 2) -> dict:
     """The reduced ``arch``'s round (f32) on the card and the CPU from the
     same state, batches and keys, every message in row chunks of
     ``LLM_REDUCED_CHUNK_ROWS``: ``rounds`` rounds, losses within
     ``LLM_REDUCED_LOSS_RTOL`` (the model math's orders differ) and the
-    share of x-hat bit-equal; and the server half bit for bit: the same K
-    packed client messages and weights through the round's weighted
-    accumulation (``steps.accumulate``: K3's weighted mode in place) and
-    ``steps.server_half`` (the server-update kernel, the chunked K1, K3
-    into x-hat in place) on both devices, equal x, x-hat, m and
-    broadcast."""
+    share of x-hat bit-equal; and the server half bit for bit
+    (``_server_half_card_vs_cpu``), for a Mamba2 config also on its
+    mixed bf16/f32 tree (the config in bf16: ``A_log``, ``D`` and
+    ``dt_bias`` f32 beside the bf16 buffers)."""
     import numpy as np
     import torch
 
@@ -3213,7 +3289,6 @@ def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
     from repro_torch.distributed import steps
     from repro_torch.examples import federated_llm as fl
     from repro_torch.launch.train import round_batch
-    from repro_torch.kernels import ops
 
     cfg = configs.get_reduced(arch)
     qcfg = fl.qafel_config(4)
@@ -3239,37 +3314,19 @@ def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
                       .mean())
     loss_ok = all(abs(a - b) <= LLM_REDUCED_LOSS_RTOL * abs(a)
                   for a, b in zip(cpu_l, card_l))
-
-    # the server half on identical inputs
-    x = base.flat[0]
-    d = x.numel()
-    g = torch.Generator().manual_seed(5)
-    hidden = x + 2e-3 * torch.randn(d, generator=g)
-    m = 1e-3 * torch.randn(d, generator=g)
-    deltas = 3e-3 * torch.randn((4, d), generator=g)
-    packed, norms = ops.qsgd_quantize_batch(
-        deltas, torch.randint(0, 2 ** 32, (4, 2), generator=g), BITS)
-    w = torch.tensor([0.9, 1.0, 0.7, 0.5])
-    halves = {}
-    for where in ("cpu", dev):
-        xs, hs, ms = (t.clone().to(where) for t in (x, hidden, m))
-        buf = torch.zeros(d, device=where)
-        for kk in range(4):
-            steps.accumulate(buf, packed[kk].to(where), norms[kk].to(where),
-                             w[kk:kk + 1].to(where), bits=BITS, d=d)
-        bp, bn = steps.server_half(
-            xs, hs, ms, buf, prng.PRNGKey(9), qcfg=qcfg, d=d,
-            chunk_rows=LLM_REDUCED_CHUNK_ROWS)
-        halves[str(where)] = [t.cpu() for t in (xs, hs, ms, bp, bn)]
-    half_equal = all(bits_equal(a, b) for a, b in
-                     zip(halves["cpu"], halves[str(dev)]))
+    half_equal = _server_half_card_vs_cpu(dev, cfg)
     record = {"phase": "llm_reduced_card_vs_cpu", "arch": cfg.arch_id,
-              "d": d, "chunk_rows": LLM_REDUCED_CHUNK_ROWS,
+              "d": base.flat[0].numel(),
+              "chunk_rows": LLM_REDUCED_CHUNK_ROWS,
               "cpu_losses": cpu_l, "card_losses": card_l,
               "losses_within_rtol": loss_ok,
               "loss_rtol": LLM_REDUCED_LOSS_RTOL,
               "hidden_bit_equal_share": hid_equal,
               "server_half_bit_equal": half_equal}
+    if cfg.has_mamba():
+        half_equal &= _server_half_card_vs_cpu(dev, cfg.replace(
+            param_dtype="bfloat16", dtype="bfloat16"))
+        record["mixed_server_half_bit_equal"] = half_equal
     emit(record)
     if not (loss_ok and half_equal):
         raise AssertionError(f"llm_reduced_card_vs_cpu: {record}")
@@ -3654,7 +3711,17 @@ def serve_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH) -> dict:
                    for n in ("logits", "last_logits")}
             slots = all(torch.equal(lc["slot_pos"].cpu(),
                                     cpu["cache"]["layers"][k]["slot_pos"])
-                        for k, lc in card["cache"]["layers"].items())
+                        for k, lc in card["cache"]["layers"].items()
+                        if "slot_pos" in lc)
+            # a mamba position's recurrent state, the f32 SSM state and
+            # the conv tail
+            for k, lc in card["cache"]["layers"].items():
+                for n in ("ssm", "conv"):
+                    if n in lc:
+                        want = cpu["cache"]["layers"][k][n]
+                        rel[f"{k}/{n}"] = float(
+                            (lc[n].cpu() - want).abs().max()
+                            / want.abs().max())
             case = {"rel_err": rel, "tokens_equal": torch.equal(
                 card["tokens"].cpu(), cpu["tokens"]),
                 "slot_pos_equal": slots}
@@ -3672,7 +3739,7 @@ def serve_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH) -> dict:
 
 # the training launcher at its defaults (``launch.train``), and the round
 # under the other quantizers at full width and 2 layers
-TRAIN_STEPS = 4
+TRAIN_STEPS = 2
 TRAIN_TIMED = 3  # rounds timed by CUDA events after the launcher's run
 TRAIN_ARGV = ["--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--seq", "128",
               "--global-batch", "32", "--checkpoint-dir",
@@ -3948,17 +4015,18 @@ def llm_round_quantizers(dev) -> dict:
 # the rest of the attention-only pool (queue A items 14c.1, 14c.2):
 # musicgen-large and internvl2-1b as published (no cut) through llm_round's
 # QAFeL round and settings, each then served; the dense siblings served
-POOL_ROUNDS = 2  # timed by CUDA events, after one warm-up round
+POOL_ROUNDS = 1  # timed by CUDA events, after one warm-up round
 # the rounds' sequence lengths and the served prompts: internvl2-1b's 256
 # patch embeddings and 64 text tokens
-POOL_SEQ = {"musicgen-large": LLM_SEQ, "internvl2-1b": 320}
+POOL_SEQ = {"musicgen-large": LLM_SEQ, "internvl2-1b": 320,
+            "mamba2-1.3b": LLM_SEQ, "zamba2-7b": LLM_SEQ}
 # element 2**31 starts wire row 2**24: musicgen-large's kernels are held to
 # their plain versions on the plain chunk around it and on the last one
 ROW_2_31 = 1 << 24
 # (arch, layers kept): granite-34b's 94.5 GB of bf16 weights exceed the
-# card, so it serves at full width cut to 40 of its 88 layers (43.6 GB)
+# card, so it serves at full width cut to 24 of its 88 layers (26.5 GB)
 SIBLINGS = (("codeqwen1.5-7b", None), ("qwen3-14b", None),
-            ("granite-34b", 40))
+            ("granite-34b", 24))
 SIBLING_WINDOW = 16  # the reference's windowed decode test's override
 POOL_REDUCED = ("codeqwen1.5-7b", "qwen3-14b", "granite-34b",
                 "internvl2-1b", "musicgen-large")
@@ -3967,8 +4035,9 @@ POOL_REDUCED = ("codeqwen1.5-7b", "qwen3-14b", "granite-34b",
 SERVE_POOL_DECODE_VS_FORWARD = 0.05
 
 
-def pool_round(dev, arch: str) -> tuple:
-    """``llm_round``'s QAFeL round on ``arch`` as published (bf16, every
+def pool_round(dev, arch: str, layers=None) -> tuple:
+    """``llm_round``'s QAFeL round on ``arch`` as published (``layers``:
+    cut to that depth) (bf16, every
     layer, row chunks of ``LLM_CHUNK_ROWS``, remat, qsgd4 both ways, K =
     4, P = 2, local batch 2, ``POOL_SEQ[arch]`` positions): one warm-up
     round, ``POOL_ROUNDS`` rounds timed by CUDA events with the launch
@@ -3976,8 +4045,10 @@ def pool_round(dev, arch: str) -> tuple:
     server update by name; peak memory against the reckoning), one round
     profiled on the device alone (device busy ms, device activities, the
     busiest kernels). Hidden and momentum are then
-    freed and the trained x kept for serving. Returns (record, launches,
-    d, x tree)."""
+    freed and the trained x kept for serving. A mixed tree (mamba2's f32
+    leaves in a bf16 model) keeps its state in place too: the record
+    counts its f32 side coordinates. Returns (record, launches, d, x
+    tree)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3993,6 +4064,11 @@ def pool_round(dev, arch: str) -> tuple:
     from repro_torch.launch.train import round_batch
 
     cfg = configs.get_config(arch)
+    cut = "none"
+    if layers is not None:
+        cut = (f"{layers} of {cfg.n_layers} layers: the full round's "
+               f"reckoning exceeds {LLM_PEAK_CAP_GB:.0f} GB")
+        cfg = cfg.replace(n_layers=layers)
     qcfg = fl.qafel_config(4)
     k, seq = qcfg.buffer_size, POOL_SEQ[arch]
     torch.cuda.empty_cache()
@@ -4001,6 +4077,8 @@ def pool_round(dev, arch: str) -> tuple:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     d = sum(t.numel() for t in tree_leaves(holder[0].x))
+    side = sum(t.numel() for t in tree_leaves(holder[0].x)
+               if t.dtype != holder[0].flat[0].dtype)
     rows = -(-d // 128)
     chunks = -(-rows // LLM_CHUNK_ROWS)
     round_fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS)
@@ -4047,7 +4125,8 @@ def pool_round(dev, arch: str) -> tuple:
     ms = [r["ms"] for r in rows_out]
     record = {
         "phase": f"{arch.split('-')[0]}_round", "arch": cfg.arch_id,
-        "n_layers": cfg.n_layers, "cut": "none", "d": d,
+        "n_layers": cfg.n_layers, "cut": cut, "d": d,
+        "side_f32_coordinates": side,
         "d_over_2_31": d / 2 ** 31, "param_count": cfg.param_count(),
         "dtype": cfg.param_dtype, "seq": seq, "batch_shapes": batch_shapes,
         "local_batch": fl.LOCAL_BATCH, "K": k, "P": qcfg.local_steps,
@@ -4077,7 +4156,8 @@ def pool_round(dev, arch: str) -> tuple:
         "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
         and peak < LLM_PEAK_CAP_GB * 1e9,
         "upload_bytes_exact": all(r["upload_bytes"] == upload_want
-                                  for r in rows_out)}
+                                  for r in rows_out),
+        "state_in_place": holder[0].flat is not None}
     record["checks"] = checks
     emit(record)
     if not all(checks.values()):
@@ -4162,7 +4242,7 @@ def serve_pool(dev, phase: str, cfg, params, prompt: int, steps: int,
 
 def serve_dense_siblings(dev) -> list:
     """codeqwen1.5-7b and qwen3-14b at full size and granite-34b at full
-    width cut to 40 of its 88 layers, each with random bf16 weights from
+    width cut to 24 of its 88 layers, each with random bf16 weights from
     seed 0, served at the reference launcher's load (``serve_pool``: B =
     4, prompt 64, 32 greedy steps); granite's cut also one step with
     ``window_override = 16`` (a 16-slot ring in every layer). Each model
@@ -4234,29 +4314,208 @@ def run_pool(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     return paths, cases
 
 
+# Mamba2 and the hybrid (queue A item 14c.3): mamba2-1.3b's round as
+# published, zamba2-7b's cut to the largest whole number of super-blocks
+# whose reckoning stays under ~56 GB (20 of 27: d = 3,554,030,208, 55.79
+# GB; the full 81 layers reckon 71.66 GB), each served
+ZAMBA_LAYERS = 60
+MAMBA_LONG_PROMPT, MAMBA_LONG_STEPS = 4160, 32  # 16 chunks of 256 + 64
+# decode against the full forward at the last position, bf16, relative to
+# the largest logit: decode's one-step recurrence and prefill's chunked
+# scan round the bf16 activations at other points in each of 48 layers
+# (measured 3.8-5.2% for mamba2-1.3b, 2.9% for zamba2-7b at 81 layers;
+# the attention-only pool's 5% was set at 1.4-2.1%)
+SERVE_RECURRENT_DECODE_VS_FORWARD = 0.08
+
+
+def _recurrent_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for lc in cache["layers"].values()
+               for n, t in lc.items() if n in ("ssm", "conv"))
+
+
+def recurrent_cache_count(cfg, batch: int) -> int:
+    """The mamba positions' cache bytes by count: per layer and sequence
+    an f32 (H, P, N) state and the (W - 1, C) conv tail in the activation
+    dtype; no term in the prompt's length."""
+    conv = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    per = (cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4
+           + (cfg.ssm_conv - 1) * conv * 2)
+    mamba = cfg.n_super_blocks * sum(k == "mamba" for k in cfg.layer_pattern)
+    return mamba * batch * per
+
+
+def serve_recurrent(dev, phase: str, cfg, params, batch: int, prompt: int,
+                    steps: int, seed: int = 0, **note) -> dict:
+    """``launch.serve.serve`` of a Mamba2 or hybrid model (bf16) after a
+    warm-up call: prefill ms, each decode step by CUDA events, tokens/s,
+    peak memory; the recurrent cache's bytes against their count
+    (``recurrent_cache_count``: no term in the prompt) and the shared
+    block's k and v against layers * 2 * B * slots * heads * head_dim * 2;
+    a profiled call of 4 steps: device launches and device ms per decode
+    step; decode against forward at the last position
+    (``SERVE_RECURRENT_DECODE_VS_FORWARD`` of the largest logit)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+
+    raw = synthetic_batch_for_config(cfg, np.random.default_rng(seed),
+                                     batch, prompt)
+    tokens = {"tokens": torch.from_numpy(raw["tokens"]).to(dev)}
+    serve(cfg, params, tokens, decode_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, params, tokens, decode_steps=steps)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(cfg, params, tokens, decode_steps=4)
+    act = phase_activity(prof, ROOT / "build" / f"{phase}_trace.json",
+                         SERVE_PHASES)
+    total = prompt + steps
+    rec_bytes = _recurrent_bytes(out["cache"])
+    rec_want = recurrent_cache_count(cfg, batch)
+    attn = cfg.n_super_blocks * sum(k != "mamba" for k in cfg.layer_pattern)
+    kv = _kv_bytes(out["cache"])
+    kv_want = attn * 2 * batch * total * cfg.n_kv_heads * cfg.hd * 2
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    check = _decode_vs_forward(cfg, params, tokens, out, total)
+    dec = act["decode"]
+    record = {
+        "phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "dtype": cfg.param_dtype, **note, "batch": batch, "prompt": prompt,
+        "ssm_chunks": -(-prompt // cfg.ssm_chunk),
+        "padded_tail": prompt % cfg.ssm_chunk != 0 and prompt > cfg.ssm_chunk,
+        "decode_steps": steps, "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_step_ms_median": statistics.median(out["step_ms"]),
+        "decode_step_ms": out["step_ms"], "decode_s": out["decode_s"],
+        "tokens_per_s": batch * steps / out["decode_s"],
+        "device_launches_per_decode_step": dec["launches"] / 4,
+        "decode_device_ms_per_step": dec["ms"] / 4,
+        "decode_idle_share": 1 - dec["ms"] / dec["wall_ms"],
+        "decode_step_bound_ms": 1e3 * (weight_bytes + kv + rec_bytes)
+        / HBM_BYTES_PER_S,
+        "bound_formula": "(weights + the caches) / 3.35 TB/s",
+        "weight_bytes": weight_bytes, "recurrent_cache_bytes": rec_bytes,
+        "recurrent_cache_count": rec_want, "kv_bytes": kv,
+        "kv_bytes_reckoning": kv_want, "peak_gb": peak / 1e9,
+        "decode_vs_forward": check,
+        "decode_vs_forward_bound": SERVE_RECURRENT_DECODE_VS_FORWARD
+        * check["max_abs_logit"],
+        "sample_tokens": out["tokens"][0].cpu().tolist()[:8]}
+    checks = {"recurrent_bytes_exact": rec_bytes == rec_want,
+              "kv_bytes_exact": kv == kv_want,
+              "tokens_shape": tuple(out["tokens"].shape)
+              == (batch, steps + 1),
+              "finite": check["finite"],
+              "decode_vs_forward": check["max_abs_err"]
+              <= record["decode_vs_forward_bound"]}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} {cfg.arch_id}: {checks}")
+    return record
+
+
+def run_mamba(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
+    """Mamba2 and the hybrid: mamba2-1.3b's round at 48 layers and its x
+    served (B = 4 at prompt 64, B = 1 at 4,160), K1, K3 and the server
+    update at its d against their plain versions on the first and the
+    last plain chunk; zamba2-7b's round at ``ZAMBA_LAYERS`` layers and
+    the three kernels at its d on the chunk across element 2^31 and on
+    the last one; zamba2-7b served at its 81 layers from fresh weights;
+    both reduced configs card against CPU (a round, the server half in f32
+    and on the mixed tree, serving). Returns ({path: launches by kernel},
+    the kernel cases at mamba2's and zamba2's d)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+
+    paths = {}
+    cfg = configs.get_config("mamba2-1.3b")
+    _, paths["mamba2_round"], dm, x_tree = timed(
+        "mamba2_round", pool_round, dev, "mamba2-1.3b")
+    note = {"weights": "x of the full-depth QAFeL round"}
+    short = timed("serve_mamba2", serve_recurrent, dev, "serve_mamba2", cfg,
+                  x_tree, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, **note)
+    long = timed("serve_mamba2_long", serve_recurrent, dev,
+                 "serve_mamba2_long", cfg, x_tree, 1, MAMBA_LONG_PROMPT,
+                 MAMBA_LONG_STEPS, seed=1, **note)
+    per_row = (short["recurrent_cache_bytes"] / SERVE_BATCH,
+               long["recurrent_cache_bytes"])
+    emit({"phase": "serve_mamba2_cache", "bytes_per_sequence": per_row,
+          "prompts": [SERVE_PROMPT, MAMBA_LONG_PROMPT],
+          "constant_in_prompt": per_row[0] == per_row[1]})
+    if per_row[0] != per_row[1]:
+        raise AssertionError(f"serve_mamba2: cache bytes {per_row}")
+    del x_tree
+    torch.cuda.empty_cache()
+    rows = ref.rows_for(dm)
+    cases = timed("mamba2_kernels", llm_kernels, dev, dm, dither_int32,
+                  int32_ops_per_s, suffix="mamba2",
+                  check=[(0, LLM_PLAIN_CHUNK_ROWS),
+                         (rows - LLM_PLAIN_CHUNK_ROWS, rows)], taps=False)
+    torch.cuda.empty_cache()
+    _, paths["zamba2_round"], d, x_tree = timed(
+        "zamba2_round", pool_round, dev, "zamba2-7b", ZAMBA_LAYERS)
+    del x_tree
+    torch.cuda.empty_cache()
+    rows = ref.rows_for(d)
+    half = LLM_PLAIN_CHUNK_ROWS // 2
+    cases.update(timed("zamba2_kernels", llm_kernels, dev, d, dither_int32,
+                       int32_ops_per_s, suffix="zamba2",
+                       check=[(ROW_2_31 - half, ROW_2_31 + half),
+                              (rows - LLM_PLAIN_CHUNK_ROWS, rows)],
+                       taps=False))
+    torch.cuda.empty_cache()
+    zcfg = configs.get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    params = T.init_params(zcfg, 0, dev)
+    torch.cuda.synchronize()
+    timed("serve_zamba2", serve_recurrent, dev, "serve_zamba2", zcfg,
+          params, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, cut="none",
+          init_s=time.perf_counter() - t0, weights="fresh, seed 0")
+    del params
+    torch.cuda.empty_cache()
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        timed(f"reduced_{arch}", llm_reduced_card_vs_cpu, dev, arch,
+              rounds=1)
+        timed(f"serve_reduced_{arch}", serve_reduced_card_vs_cpu, dev, arch)
+    return paths, cases
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     """The LLM round phase, serving the model it trained, then the
     kernels at its d, the training launcher, the round under the other
-    quantizers and the rest of the attention-only pool (``run_pool``);
-    returns (round record, its launches, the kernel cases at gemma2-2b's
-    and musicgen-large's d, the launches by kernel of the launcher, the
-    quantizer rounds and the musicgen-large and internvl2-1b rounds)."""
+    quantizers, the rest of the attention-only pool (``run_pool``) and
+    Mamba2 and the hybrid (``run_mamba``); returns (round record, its
+    launches, the kernel cases at gemma2-2b's, musicgen-large's and
+    zamba2-7b's d, the launches by kernel of the launcher, the quantizer
+    rounds and the musicgen-large, internvl2-1b, mamba2-1.3b and
+    zamba2-7b rounds)."""
     from repro_torch import configs
 
-    record, launches, d, x_tree, _ = llm_round(dev)
+    record, launches, d, x_tree, _ = timed("llm_round", llm_round, dev)
     cfg = configs.get_config(LLM_ARCH)
-    serve_gemma2(dev, cfg, x_tree)
-    serve_gemma2_long(dev, cfg, x_tree)
+    timed("serve_gemma2", serve_gemma2, dev, cfg, x_tree)
+    timed("serve_gemma2_long", serve_gemma2_long, dev, cfg, x_tree)
     del x_tree
     import torch
     torch.cuda.empty_cache()
-    cases = llm_kernels(dev, d, dither_int32, int32_ops_per_s)
-    llm_round_taps_2layer(dev)
-    llm_streamed_vs_whole(dev)
-    llm_reduced_card_vs_cpu(dev)
-    serve_reduced_card_vs_cpu(dev)
-    train = train_launcher(dev)
-    quant = llm_round_quantizers(dev)
+    cases = timed("llm_kernels", llm_kernels, dev, d, dither_int32,
+                  int32_ops_per_s)
+    timed("llm_round_taps_2layer", llm_round_taps_2layer, dev)
+    timed("llm_streamed_vs_whole", llm_streamed_vs_whole, dev)
+    timed("llm_reduced_card_vs_cpu", llm_reduced_card_vs_cpu, dev)
+    timed("serve_reduced_card_vs_cpu", serve_reduced_card_vs_cpu, dev)
+    train = timed("train_launcher", train_launcher, dev)
+    quant = timed("llm_quantizers", llm_round_quantizers, dev)
     # the two new paths' launches of the round's kernels
     extra = {"train_launcher": train["launches"],
              "llm_quantizers": {}}
@@ -4264,9 +4523,12 @@ def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
         for name, v in row["launches"].items():
             extra["llm_quantizers"][name] = extra["llm_quantizers"].get(
                 name, 0) + v
-    pool_paths, pool_cases = run_pool(dev, dither_int32, int32_ops_per_s)
+    pool_paths, pool_cases = timed("pool", run_pool, dev, dither_int32,
+                                   int32_ops_per_s)
     extra.update(pool_paths)
-    return record, launches, {**cases, **pool_cases}, extra
+    mamba_paths, mamba_cases = run_mamba(dev, dither_int32, int32_ops_per_s)
+    extra.update(mamba_paths)
+    return record, launches, {**cases, **pool_cases, **mamba_cases}, extra
 
 
 # the streamed uplink: uploads, bytes per upload (quad, CNN) and the chunk
@@ -4435,29 +4697,34 @@ def main() -> int:
     dither_int32 = dither_ops(build_dir)
     hash_int32 = batch_encode_ops(build_dir)
 
-    cnn = check_kernels(CNN_ROWS, CNN_K, dev, 50, 10, dither_int32,
-                        hash_int32, int32_ops_per_s)
-    big = check_kernels(BIG_ROWS, CNN_K, dev, 10, 3, dither_int32,
-                        hash_int32, int32_ops_per_s)
+    cnn = timed("kernels_cnn", check_kernels, CNN_ROWS, CNN_K, dev, 50, 10,
+                dither_int32, hash_int32, int32_ops_per_s)
+    big = timed("kernels_d1e8", check_kernels, BIG_ROWS, CNN_K, dev, 10, 3,
+                dither_int32, hash_int32, int32_ops_per_s)
     torch.cuda.empty_cache()
-    upload_before_after(dev)
+    timed("upload_before_after", upload_before_after, dev)
 
-    cohort_cases = check_cohort_kernels(dev, hash_int32, int32_ops_per_s)
+    cohort_cases = timed("cohort_kernels", check_cohort_kernels, dev,
+                         hash_int32, int32_ops_per_s)
 
     steps = upload_launches(dev)
     broadcast_encode_launches(dev)
-    record, launches = run_main_path(dev, steps["client_step_device_launches"])
+    record, launches = timed("main_path", run_main_path, dev,
+                             steps["client_step_device_launches"])
     main_profile = profile_window(dev)
-    _, cohort_launches = run_cohort_path(
-        dev, main_profile, steps["client_step_device_launches"])
+    _, cohort_launches = timed(
+        "cohort_path", run_cohort_path, dev, main_profile,
+        steps["client_step_device_launches"])
     profile_window(dev, uploads=COHORT_UPLOADS, cohort_size=COHORT_SIZE)
-    check_against_cpu(dev)
-    taps, taps_main, taps_cohort = run_telemetry(dev)
-    family_cases, family_launches, _ = run_quantizer_family(dev)
-    _, population_launches = run_population(dev, hash_int32)
+    timed("check_against_cpu", check_against_cpu, dev)
+    taps, taps_main, taps_cohort = timed("telemetry", run_telemetry, dev)
+    family_cases, family_launches, _ = timed("quantizer_family",
+                                             run_quantizer_family, dev)
+    _, population_launches = timed("population", run_population, dev,
+                                   hash_int32)
     _, llm_launches, llm_cases, new_paths = run_llm(dev, dither_int32,
                                                      int32_ops_per_s)
-    streamed_uplink(dev)
+    timed("streamed_uplink", streamed_uplink, dev)
 
     case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
                  "bound_share", "equal", "max_abs_err", "bytes_formula")
@@ -4491,11 +4758,12 @@ def main() -> int:
             kernels_line[-1]["llm_cases"] = {
                 case: {key: llm_cases[case][key] for key in case_keys}
                 for case in llm[name]}
-            kernels_line[-1]["musicgen_cases"] = {
-                case: {key: llm_cases[case][key] for key in case_keys
-                       + ("plain_rows",)}
-                for case in (c.replace("_llm", "_musicgen")
-                             for c in llm[name] if "taps" not in c)}
+            for model in ("musicgen", "mamba2", "zamba2"):
+                kernels_line[-1][f"{model}_cases"] = {
+                    case: {key: llm_cases[case][key] for key in case_keys
+                           + ("plain_rows",)}
+                    for case in (c.replace("_llm", f"_{model}")
+                                 for c in llm[name] if "taps" not in c)}
         prefix = {"qsgd_quantize_pack_threefry": "K1_",
                   "qsgd_quantize_pack_batch": "K2_",
                   "qsgd_unpack_dequantize": "K3_"}.get(name)
@@ -4536,7 +4804,7 @@ def main() -> int:
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None, "equal": m["equal"],
         "bytes_formula": m["bytes_formula"], "d": m["d"],
-        "launches_note": "the LLM round's 3 measured rounds (one a round); "
+        "launches_note": "the LLM round's 2 measured rounds (one a round); "
                          "the launcher's rounds and the quantizer rounds "
                          "below",
         **{f"{path}_launches": counts.get("server_update", 0)
@@ -4544,9 +4812,10 @@ def main() -> int:
         "llm_cases": {case: {key: llm_cases[case][key] for key in case_keys}
                       for case in ("server_update_llm",
                                    "server_update_taps_llm")},
-        "musicgen_cases": {"server_update_musicgen": {
-            key: llm_cases["server_update_musicgen"][key]
-            for key in case_keys + ("plain_rows",)}}})
+        **{f"{model}_cases": {f"server_update_{model}": {
+            key: llm_cases[f"server_update_{model}"][key]
+            for key in case_keys + ("plain_rows",)}}
+           for model in ("musicgen", "mamba2", "zamba2")}})
     m = llm_cases["round_taps_llm"]
     kernels_line.append({
         "name": "round_taps", "route": "cuda",
@@ -4559,6 +4828,8 @@ def main() -> int:
         "bytes_formula": m["bytes_formula"], "d": m["d"],
         "launches_note": "the full-depth round with the taps on (one a "
                          "round); every other path runs with taps off"})
+    for name, seconds in _PHASE_SECONDS:
+        emit({"phase_seconds": name, "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,12 @@
 Counterpart of ``repro/configs/__init__.py``: ``get_config(arch_id)`` (the
 published full-size config), ``get_reduced(arch_id)`` (a 1-2 super-block,
 narrow variant of the same family for CPU tests) and ``list_archs()``. The
-port carries the attention-only part of the pool: gemma2-2b,
-codeqwen1.5-7b, qwen3-14b, granite-34b, internvl2-1b and musicgen-large,
-and the paper's CNN (``celeba-cnn``, whose ``CONFIG`` and ``REDUCED`` are
-None, as in the reference). Mamba2 and the hybrid (ROADMAP queue A item
-14c.3) and MoE and MLA (item 14c.4) raise ``NotImplementedError`` naming
-their item, never a silent substitute.
+port carries the pool without MoE and MLA: gemma2-2b, codeqwen1.5-7b,
+qwen3-14b, granite-34b, internvl2-1b, musicgen-large, mamba2-1.3b and
+zamba2-7b, and the paper's CNN (``celeba-cnn``, whose ``CONFIG`` and
+``REDUCED`` are None, as in the reference). MoE and MLA (ROADMAP queue A
+item 14c.4) raise ``NotImplementedError`` naming their item, never a
+silent substitute.
 """
 from __future__ import annotations
 
@@ -28,11 +28,12 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_13",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "celeba-cnn": "repro_torch.configs.celeba_cnn",
 }
 # the ROADMAP queue A item that ports each of the others
-_UNPORTED = {"mamba2-1.3b": "14c.3", "zamba2-7b": "14c.3",
-             "qwen3-moe-235b-a22b": "14c.4", "deepseek-v3-671b": "14c.4"}
+_UNPORTED = {"qwen3-moe-235b-a22b": "14c.4", "deepseek-v3-671b": "14c.4"}
 
 
 def list_archs(include_cnn: bool = False) -> List[str]:

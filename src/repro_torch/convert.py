@@ -45,8 +45,10 @@ def round_state_from_jax(state, device=None):
     """The reference's ``distributed.steps.RoundState`` (its trees as
     numpy, e.g. ``jax.device_get(state)``) -> the port's
     ``distributed.steps.RoundState`` on ``device``, each leaf in its own
-    dtype: for a tree of one dtype, x, x-hat and m in one flat buffer each
-    with the trees as views (``RoundState.from_trees``)."""
+    dtype: x, x-hat and m in one flat buffer each in the tree's main
+    dtype with the trees as views, the leaves of another dtype (mamba2's
+    f32 ``A_log``, ``D``, ``dt_bias``) beside them
+    (``RoundState.from_trees``)."""
     from repro_torch.distributed.steps import RoundState
 
     return RoundState.from_trees(params_from_jax(state.x, device),
@@ -58,8 +60,10 @@ def round_state_from_jax(state, device=None):
 def cache_from_jax(cache, device=None):
     """The reference's serving cache (``transformer.prefill`` /
     ``init_cache``: ``{"layers": {pos: {"k", "v", "slot_pos"}}}``, k and v
-    in the activation dtype, ``slot_pos`` int32; as numpy, e.g.
-    ``jax.device_get(cache)``) -> the port's, each leaf in its own dtype on
-    ``device`` (None: the card), so the port's ``decode_step`` continues
-    from the reference's own prefill."""
+    in the activation dtype, ``slot_pos`` int32; a mamba position's
+    ``{"ssm", "conv"}``, ``ssm`` f32 (B, H, P, N) and ``conv`` (B, W - 1,
+    C) in the activation dtype; each leaf stacked over the super-blocks;
+    as numpy, e.g. ``jax.device_get(cache)``) -> the port's, each leaf in
+    its own dtype on ``device`` (None: the card), so the port's
+    ``decode_step`` continues from the reference's own prefill."""
     return params_from_jax(cache, device)

@@ -153,14 +153,48 @@ class TreeLayout:
             sizes=tuple(int(x.numel()) for x in leaves))
 
     def unflatten(self, flat: torch.Tensor):
-        """Split a flat vector back into the tree (views where the dtype
-        already matches)."""
+        """Split a flat vector (a tensor or a ``SplitFlat``) back into the
+        tree (views where the dtype already matches)."""
         leaves, off = [], 0
         for shape, dtype, size in zip(self.shapes, self.dtypes, self.sizes):
             leaves.append(flat[off:off + size].reshape(shape).to(
                 getattr(torch, dtype)))
             off += size
         return tree_unflatten(self.treedef, leaves)
+
+
+class SplitFlat:
+    """A flat vector in a ``TreeLayout``'s coordinates held in two parts:
+    ``base``, every coordinate in the tree's main dtype, and each leaf of
+    another dtype as a flat tensor of its own (``sides``: {offset:
+    tensor}), whose slots in ``base`` only shadow it. A slice lies in one
+    leaf and reads it in that leaf's dtype, which is all that
+    ``TreeLayout.unflatten`` and ``core.qafel.DeltaRows`` take of it: the
+    x-hat a mixed-dtype round state hands its clients
+    (``distributed.steps``)."""
+
+    def __init__(self, base: torch.Tensor, sides: dict):
+        self.base = base
+        self.sides = sorted((off, off + t.numel(), t)
+                            for off, t in sides.items())
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    def numel(self) -> int:
+        return self.base.numel()
+
+    def __getitem__(self, sl: slice) -> torch.Tensor:
+        a = 0 if sl.start is None else sl.start
+        b = self.base.numel() if sl.stop is None else sl.stop
+        for off, end, t in self.sides:
+            if off <= a < end and b <= end:
+                return t[a - off:b - off]
+            if a < end and off < b:
+                raise ValueError(f"elements [{a}, {b}) cross the side leaf "
+                                 f"[{off}, {end})")
+        return self.base[a:b]
 
 
 def flatten_tree(tree, device=None):

@@ -26,16 +26,21 @@ Counterpart of the baseline round of ``repro/distributed/steps.py``
   ``remat=False``, which takes ``torch.func.grad``.
 
 **The state is updated in place**, unlike the reference's functional
-round: where every leaf has one dtype (every config of ``configs``),
-``RoundState`` holds x, x-hat and m as one flat buffer each in that dtype
-(``RoundState.flat``), its trees are views of them, and ``round_fn``
-updates the buffers and returns the same state with ``t + 1``. A caller
-that keeps the state from before a round clones it
-(``RoundState.clone``). The memory it saves is what lets gemma2-2b run
-at its published depth on one card. A mixed-dtype tree goes through f32
-copies of the three vectors and leaves as a new state. x, x-hat and m are
+round: ``RoundState`` holds x, x-hat and m as one flat buffer each in the
+tree's main dtype (``RoundState.flat``), its trees are views of them, and
+``round_fn`` updates the buffers and returns the same state with ``t +
+1``. A caller that keeps the state from before a round clones it
+(``RoundState.clone``). The memory it saves is what lets gemma2-2b and
+mamba2-1.3b run at their published depth on one card. x, x-hat and m are
 rounded to the leaves' dtype, nearest even, as the reference's
-``layout.unflatten`` rounds them every round.
+``layout.unflatten`` rounds them every round. A mixed-dtype tree (mamba2's
+f32 ``A_log``, ``D`` and ``dt_bias`` in a bf16 model: 9,216 of 1.34e9
+coordinates in mamba2-1.3b) keeps its other leaves as tensors of their own
+beside the bf16 buffers, whose slots only shadow them: the kernels run
+over the whole buffers as for one dtype, and those few coordinates are
+recomputed in their own dtype in plain PyTorch where the round reads or
+writes them (the clients read them through ``core.quantizers.SplitFlat``;
+``server_half``), bit for bit the reference's, with no launch added.
 
 Per round, with R = ceil(d/128) wire rows in ``ceil(R / chunk_rows)``
 chunks (1 without ``chunk_rows``): K1 (K + 1) x chunks launches, K3 K + 1
@@ -96,17 +101,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.common import prng
 from repro_torch.common.device import to_device
-from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.qafel import QAFeLConfig, client_update_flat
 from repro_torch.core.protocol import payload_wire_bytes
-from repro_torch.core.quantizers import (QuantizerSpec, TreeLayout,
-                                         _qsgd_qdq_flat, _top_k_indices,
-                                         flatten_tree,
+from repro_torch.core.quantizers import (QuantizerSpec, SplitFlat,
+                                         TreeLayout, _qsgd_qdq_flat,
+                                         _top_k_indices,
                                          lowrank_expand_flat2d,
                                          lowrank_project_flat2d,
                                          make_quantizer,
@@ -128,8 +134,11 @@ class RoundState:
     """The round's state: the full-precision server model ``x``, the
     shared hidden state x-hat (``hidden``), the server momentum (trees in
     the leaves' dtypes) and the server step ``t``. ``flat`` is the
-    ``(x, hidden, momentum)`` triple of flat buffers whose views the trees
-    are (a tree of one dtype; ``from_trees``), or None."""
+    ``(x, hidden, momentum)`` triple of flat buffers in the tree's main
+    dtype (``from_trees``): its leaves of that dtype view them, a leaf of
+    another dtype (mamba2's f32 ``A_log``, ``D`` and ``dt_bias`` in a
+    bf16 model) is a tensor of its own, which its slots in the buffers
+    shadow. None until the first round or ``from_trees``."""
 
     x: Any
     hidden: Any
@@ -139,24 +148,22 @@ class RoundState:
 
     @staticmethod
     def from_trees(x, hidden, momentum, t: int = 0) -> "RoundState":
-        """A state of the three trees: copied into one flat buffer each
-        where every leaf has one dtype (the trees then view them), else
-        kept as they are."""
+        """A state of copies of the three trees: one flat buffer each in
+        the dtype that holds most coordinates, the other leaves cloned
+        (their buffer slots hold them rounded to the buffer's dtype)."""
         layout = TreeLayout.of(x)
-        if len(set(layout.dtypes)) != 1:
-            return RoundState(x=x, hidden=hidden, momentum=momentum, t=t)
-        dtype = getattr(torch, layout.dtypes[0])
-        flats = []
+        base = _base_dtype(layout)
+        flats, trees = [], []
         for tree in (x, hidden, momentum):
             leaves = tree_leaves(tree)
-            buf = torch.empty(layout.total_size, dtype=dtype,
+            buf = torch.empty(layout.total_size, dtype=getattr(torch, base),
                               device=leaves[0].device)
             off = 0
             for leaf, size in zip(leaves, layout.sizes):
                 buf[off:off + size].copy_(leaf.reshape(-1))
                 off += size
             flats.append(buf)
-        trees = [layout.unflatten(f) for f in flats]
+            trees.append(_trees_over(layout, base, buf, leaves))
         return RoundState(*trees, t=t, flat=tuple(flats))
 
     def clone(self) -> "RoundState":
@@ -165,10 +172,62 @@ class RoundState:
             return RoundState(*(tree_map(torch.clone, tr) for tr in
                                 (self.x, self.hidden, self.momentum)),
                               t=self.t)
-        flats = tuple(f.clone() for f in self.flat)
         layout = TreeLayout.of(self.x)
-        return RoundState(*(layout.unflatten(f) for f in flats), t=self.t,
-                          flat=flats)
+        base = str(self.flat[0].dtype).replace("torch.", "")
+        flats = tuple(f.clone() for f in self.flat)
+        trees = [_trees_over(layout, base, f, tree_leaves(tr))
+                 for f, tr in zip(flats, (self.x, self.hidden,
+                                          self.momentum))]
+        return RoundState(*trees, t=self.t, flat=flats)
+
+
+def _base_dtype(layout: TreeLayout) -> str:
+    """The dtype name that holds most of a layout's coordinates."""
+    size: Dict[str, int] = {}
+    for dt, n in zip(layout.dtypes, layout.sizes):
+        size[dt] = size.get(dt, 0) + n
+    return max(size, key=size.get)
+
+
+def _trees_over(layout: TreeLayout, base: str, buf: torch.Tensor, leaves):
+    """The tree whose ``base``-dtype leaves view ``buf`` and whose other
+    leaves are clones of ``leaves``' (contiguous, so their flat views
+    write them)."""
+    out, off = [], 0
+    for leaf, shape, dt, size in zip(leaves, layout.shapes, layout.dtypes,
+                                     layout.sizes):
+        out.append(buf[off:off + size].view(shape) if dt == base
+                   else leaf.detach().clone(
+                       memory_format=torch.contiguous_format))
+        off += size
+    return tree_unflatten(layout.treedef, out)
+
+
+@dataclasses.dataclass
+class _Side:
+    """A leaf of a mixed state outside its buffers: its offset in the
+    flat coordinates and flat views of its x, x-hat and m tensors."""
+    off: int
+    x: torch.Tensor
+    hidden: torch.Tensor
+    m: torch.Tensor
+
+    @property
+    def end(self) -> int:
+        return self.off + self.x.numel()
+
+
+def _sides(state: RoundState, layout: TreeLayout) -> list:
+    """The state's leaves of another dtype than its buffers' (none for a
+    tree of one dtype)."""
+    base = str(state.flat[0].dtype).replace("torch.", "")
+    out, off = [], 0
+    for i, (dt, size) in enumerate(zip(layout.dtypes, layout.sizes)):
+        if dt != base:
+            out.append(_Side(off, *(tree_leaves(tr)[i].view(-1) for tr in (
+                state.x, state.hidden, state.momentum))))
+        off += size
+    return out
 
 
 def init_round_state(cfg: ModelConfig, seed: int = 0,
@@ -341,9 +400,11 @@ def _broadcast_qdq(spec: QuantizerSpec, diff, key, taps: bool):
     return (v, scale, False), ((v, scale) if taps else None), (idx, vals)
 
 
-def _apply_broadcast(hidden_flat, diff, apply, tap=None, taps=None) -> None:
+def _apply_broadcast(hidden_flat, diff, apply, tap=None, taps=None,
+                     sides=()) -> None:
     """x-hat + q over x-hat in place, rounded to x-hat's dtype, with q
-    and the taps' q as ``_broadcast_qdq`` gives them; with ``taps``, an
+    and the taps' q as ``_broadcast_qdq`` gives them (a mixed state's
+    ``sides`` each in its own dtype); with ``taps``, an
     f32 (2, ``ref.tap_windows(d)``) view, the level-1 window sums of
     err^2 and q^2, err = ``diff - q`` with q's product fused into the
     subtraction and q the rounded product (the reference's
@@ -352,6 +413,8 @@ def _apply_broadcast(hidden_flat, diff, apply, tap=None, taps=None) -> None:
     if scale is not None and not fused:
         v, scale = v * scale, None
     _fma_into(hidden_flat, v, scale, hidden_flat)
+    for sd in sides:
+        _fma_into(sd.hidden, v[sd.off:sd.end], scale, sd.hidden)
     if taps is None:
         return
     v, scale = tap
@@ -393,10 +456,81 @@ def broadcast_payload(spec: QuantizerSpec, msg, layout: TreeLayout) -> dict:
     return sparse_payload(spec.kind, a, b, d, layout)
 
 
+def _side_regions(sides, d: int, taps: bool) -> list:
+    """The element ranges ``[a, b, sides]`` a mixed state's server update
+    recomputes: each side leaf's range, widened to whole level-1 tap
+    windows (``ref.window_chunks``) with ``taps``, overlapping ones
+    merged."""
+    f, w = _ref.tap_front(d), _ref.XLA_WINDOW
+    out = []
+    for sd in sides:
+        a, b = sd.off, sd.end
+        if taps:
+            a = max(w * ((a + f) // w) - f, 0)
+            b = min(w * -(-(b + f) // w) - f, d)
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+            out[-1][2].append(sd)
+        else:
+            out.append([a, b, [sd]])
+    return out
+
+
+def _region_values(region, buf, x_flat, hidden_flat, m_flat) -> tuple:
+    """A region's buf, x, x-hat and m before the server update, f32
+    copies, each side leaf's coordinates from its own tensor."""
+    a, b, sides = region
+    out = [buf[a:b].clone()]
+    for flat, name in ((x_flat, "x"), (hidden_flat, "hidden"),
+                       (m_flat, "m")):
+        v = flat[a:b].to(torch.float32, copy=True)
+        for sd in sides:
+            v[sd.off - a:sd.end - a] = getattr(sd, name)
+        out.append(v)
+    return tuple(out)
+
+
+def _fix_server_update(regions, saved, buf, taps, d: int, **law) -> None:
+    """After the server-update kernel: each side leaf's m and x and its
+    diff in ``buf`` from its own values (the kernel read their shadows),
+    and with ``taps`` the regions' window sums of the three squares
+    (``ref.server_update_values``, the kernel's law)."""
+    f, w = _ref.tap_front(d), _ref.XLA_WINDOW
+    for (a, b, sides), (bv, xv, hv, mv) in zip(regions, saved):
+        delta_bar, m_new, x_new, diff = _ref.server_update_values(
+            bv, mv, xv, hv, **law)
+        for sd in sides:
+            i, j = sd.off - a, sd.end - a
+            sd.m.copy_(m_new[i:j])
+            sd.x.copy_(x_new[i:j])
+            buf[sd.off:sd.end] = diff[i:j]
+        if taps is not None:
+            w0, w1 = (a + f) // w, -(-(b + f) // w)
+            lo, hi = a - (w * w0 - f), (w * w1 - f) - b
+            for row, v in enumerate((delta_bar, x_new - xv, diff)):
+                taps[row, w0:w1] = _ref.window_sums(v * v, lo, hi)
+
+
+def _fix_apply(sides, packed, norms, bits: int) -> None:
+    """After K3's x-hat apply: each side leaf's x-hat + q from its own
+    values, ``fma(sign*mag, norm * fl32(1/s), x-hat)`` on the wire rows
+    that hold it (the kernel's law, ``ref.unpack_dequantize``)."""
+    lanes = _ref.LANES
+    for sd in sides:
+        r0, r1 = sd.off // lanes, -(-sd.end // lanes)
+        acc = torch.zeros((r1 - r0) * lanes, dtype=torch.float32,
+                          device=sd.hidden.device)
+        i, j = sd.off - r0 * lanes, sd.end - r0 * lanes
+        acc[i:j] = sd.hidden
+        out = _ref.unpack_dequantize(packed[r0:r1], norms[r0:r1], bits,
+                                     acc=acc)
+        sd.hidden.copy_(out.reshape(-1)[i:j])
+
+
 def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
                 qcfg: QAFeLConfig, d: int,
                 chunk_rows: Optional[int] = None,
-                taps: Optional[torch.Tensor] = None):
+                taps: Optional[torch.Tensor] = None, sides=()):
     """The server half of the round on the flat state (x, x-hat and m:
     d values each in one dtype, f32 or bf16), in place, from the clients'
     weighted sum ``buf`` (``accumulate``), rounded where the reference's
@@ -425,22 +559,40 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
     (``kernels.taps.round_taps`` finishes them); the launches and every
     other output are the same.
 
+    ``sides`` (``_Side``: a mixed state's leaves of another dtype, whose
+    slots in the buffers only shadow them) are recomputed from their own
+    values by the same laws in plain PyTorch, each on its own range: the
+    update after the kernel (from the sums saved before it; with taps,
+    whole windows), so the broadcast encodes their true diff, and the
+    x-hat apply after K3; then the shadows are rewritten. No launch is
+    added, and every bit is the reference's, which rounds each leaf to
+    its own dtype only when it splits its f32 vector into the tree.
+
     Returns the broadcast as a pair of tensors: ``(packed, norms)`` for
     qsgd, else ``_broadcast_qdq``'s ``msg``; ``buf`` ends holding the
     diff."""
     spec = make_quantizer(qcfg.server_quantizer).spec
+    beta = qcfg.server_momentum if qcfg.server_momentum else None
     with record_function("server"):
+        regions = _side_regions(sides, d, taps is not None)
+        saved = [_region_values(r, buf, x_flat, hidden_flat, momentum_flat)
+                 for r in regions]
         server_update_(buf, momentum_flat, x_flat, hidden_flat,
-                       k=qcfg.buffer_size,
-                       beta=(qcfg.server_momentum if qcfg.server_momentum
-                             else None), lr=qcfg.server_lr,
+                       k=qcfg.buffer_size, beta=beta, lr=qcfg.server_lr,
                        taps=None if taps is None else taps[:3])
+        f32 = lambda v: None if v is None else float(np.float32(v))
+        _fix_server_update(regions, saved, buf,
+                           None if taps is None else taps[:3], d,
+                           inv_k=f32(1.0 / qcfg.buffer_size), beta=f32(beta),
+                           lr=f32(qcfg.server_lr))
+        del saved
     with record_function("broadcast"):
         if spec.kind != "qsgd":
             apply, tap, msg = _broadcast_qdq(spec, buf[:d], k_server,
                                              taps is not None)
             _apply_broadcast(hidden_flat, buf[:d], apply, tap,
-                             None if taps is None else taps[3:])
+                             None if taps is None else taps[3:], sides)
+            _shadow(sides, x_flat, hidden_flat, momentum_flat)
             return msg
         sbits = spec.bits
         if chunk_rows is None:
@@ -453,7 +605,17 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
             packed, norms, sbits, acc=hidden_flat,
             tap_diff=None if taps is None else buf[:d],
             taps=None if taps is None else taps[3:])
+        _fix_apply(sides, packed, norms, sbits)
+        _shadow(sides, x_flat, hidden_flat, momentum_flat)
     return packed, norms
+
+
+def _shadow(sides, x_flat, hidden_flat, m_flat) -> None:
+    """Each side leaf's x, x-hat and m rounded into its buffer slots."""
+    for sd in sides:
+        for flat, t in ((x_flat, sd.x), (hidden_flat, sd.hidden),
+                        (m_flat, sd.m)):
+            flat[sd.off:sd.end] = t
 
 
 def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
@@ -502,14 +664,17 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     def round_fn(state: RoundState, batch: Dict[str, torch.Tensor],
                  weights, key):
         k_clients, k_server = prng.split(key)
+        if state.flat is None:
+            state = RoundState.from_trees(state.x, state.hidden,
+                                          state.momentum, state.t)
         layout = TreeLayout.of(state.x)
         d = layout.total_size
-        if state.flat is not None:
-            x_flat, hidden_flat, m_flat = state.flat
-        else:  # a mixed-dtype tree: f32 copies, a new state at the end
-            x_flat, hidden_flat, m_flat = (
-                flatten_tree(tr)[0]
-                for tr in (state.x, state.hidden, state.momentum))
+        x_flat, hidden_flat, m_flat = state.flat
+        sides = _sides(state, layout)
+        # the clients read each side leaf of x-hat in its own dtype
+        client_hidden = (SplitFlat(hidden_flat,
+                                   {sd.off: sd.hidden for sd in sides})
+                         if sides else hidden_flat)
         dev = hidden_flat.device
         w = to_device(torch.as_tensor(weights, dtype=torch.float32), dev)
         ckeys = prng.split(k_clients, qcfg.buffer_size)
@@ -524,9 +689,10 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
             batches_k = {name: v[k] for name, v in batch.items()}
             with record_function("client"):
                 out, losses = client_update_flat(
-                    loss, qcfg, cq, layout, hidden_flat, batches_k, k_train,
-                    k_enc, b=1, with_loss=True, chunk_rows=chunk_rows,
-                    remat=remat, basis_seed=seeds, new_residual=False)
+                    loss, qcfg, cq, layout, client_hidden, batches_k,
+                    k_train, k_enc, b=1, with_loss=True,
+                    chunk_rows=chunk_rows, remat=remat, basis_seed=seeds,
+                    new_residual=False)
                 payload = upload(cq, out, k_enc, layout, seeds)
             del out
             if k == 0:
@@ -542,7 +708,7 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
                     if taps else None)
         msg = server_half(x_flat, hidden_flat, m_flat, buf, k_server,
                           qcfg=qcfg, d=d, chunk_rows=chunk_rows,
-                          taps=partials)
+                          taps=partials, sides=sides)
         del buf
         if on_message is not None:
             on_message("broadcast", qcfg.buffer_size, *msg)
@@ -555,11 +721,6 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
             with record_function("server"):
                 metrics["taps"] = round_taps(partials, w)
             del partials
-        if state.flat is None:
-            return RoundState(x=layout.unflatten(x_flat),
-                              hidden=layout.unflatten(hidden_flat),
-                              momentum=layout.unflatten(m_flat),
-                              t=state.t + 1), metrics
         state.t += 1
         return state, metrics
 

@@ -2,15 +2,16 @@
 
 The port of ``examples/serve_model.py``: a reduced config with random
 weights, the prompts from the reference's numpy stream, prefill and then
-token by token through the KV caches (``--window`` gives the global
-layers a ring buffer too, the long-context serving mode). Any
-attention-only architecture of the pool serves (internvl2-1b's prompt
-counts its 16 reduced patch embeddings, musicgen-large decodes its four
-codebooks a step). The default architecture is gemma2-2b, where the
-reference's is mamba2-1.3b: Mamba2 is ROADMAP queue A item 14c.3.
+token by token through the caches: KV rings (``--window`` gives the
+global layers a ring buffer too, the long-context serving mode) and
+Mamba2's constant-size recurrent state. The default architecture is the
+reference's, mamba2-1.3b; every architecture of the pool but MoE and MLA
+serves (internvl2-1b's prompt counts its 16 reduced patch embeddings,
+musicgen-large decodes its four codebooks a step, zamba2-7b's shared
+attention block keeps a KV cache per use).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_model \\
-        [--arch gemma2-2b] [--window 32] [--device cpu]
+        [--arch mamba2-1.3b] [--window 32] [--device cpu]
 
 Without ``--device`` it runs on the card and raises without CUDA.
 """
@@ -30,7 +31,7 @@ from repro_torch.models import transformer as T
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="mamba2-1.3b")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=48)
     ap.add_argument("--decode-steps", type=int, default=24)

@@ -275,20 +275,30 @@ def server_update_(buf: torch.Tensor, m: torch.Tensor, x: torch.Tensor,
     n = x.numel()
     for w0, w1, a, b, lo, hi in window_chunks(n, max(1, chunk // 32)):
         sl = slice(a, b)
-        delta_bar = buf[sl] * inv_k
-        m_new = (delta_bar if beta is None else
-                 fma_f32(m[sl].to(torch.float32), beta, delta_bar))
-        x32 = x[sl].to(torch.float32)
-        x_new = m_new + x32 if lr == 1.0 else fma_f32(m_new, lr, x32)
-        diff = x_new - xhat[sl].to(torch.float32)
+        delta_bar, m_new, x_new, diff = server_update_values(
+            buf[sl], m[sl], x[sl], xhat[sl], inv_k=inv_k, beta=beta, lr=lr)
         if taps is not None:
-            upd = x_new - x32
+            upd = x_new - x[sl].to(torch.float32)
             for row, v in enumerate((delta_bar, upd, diff)):
                 taps[row, w0:w1] = window_sums(v * v, lo, hi)
         buf[sl] = diff
         m[sl] = m_new.to(m.dtype)
         x[sl] = x_new.to(x.dtype)
     return buf
+
+
+def server_update_values(buf, m, x, xhat, *, inv_k: float, beta,
+                         lr: float):
+    """``server_update_``'s values on one range, in f32 and not written
+    anywhere: ``(delta_bar, m_new, x_new, diff)``; m, x and xhat of any
+    float dtype (each coordinate rounded as ``server_update_`` rounds
+    it)."""
+    delta_bar = buf * inv_k
+    m_new = (delta_bar if beta is None else
+             fma_f32(m.to(torch.float32), beta, delta_bar))
+    x32 = x.to(torch.float32)
+    x_new = m_new + x32 if lr == 1.0 else fma_f32(m_new, lr, x32)
+    return delta_bar, m_new, x_new, x_new - xhat.to(torch.float32)
 
 
 def buffer_aggregate(stack: torch.Tensor, norms: torch.Tensor,

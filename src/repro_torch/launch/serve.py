@@ -2,14 +2,16 @@
 model.
 
 The port of ``repro/launch/serve.py``: prefill a batch of prompts, then
-decode greedily through the per-layer KV caches (ring buffers for the
-windowed layers). The tokens stay on the device until the loop ends: no
-decode step waits on the host. Every attention-only architecture of the
-pool: a VLM's prompt is its patch embeddings and then its text tokens
+decode greedily through the per-layer caches (KV ring buffers for the
+windowed layers; Mamba2's f32 SSM state and conv tail, whose size does
+not grow with the prompt). The tokens stay on the device until the loop
+ends: no decode step waits on the host. Every architecture of the pool
+but MoE and MLA (ROADMAP queue A item 14c.4, which raise naming it): a
+VLM's prompt is its patch embeddings and then its text tokens
 (``--prompt-len`` counts both, as in the reference, so it must exceed the
-prefix), audio decodes (B, CB) codebook tokens a step. Mamba2 and the
-hybrid (ROADMAP queue A item 14c.3), MoE and MLA (14c.4) raise naming
-their item.
+prefix), audio decodes (B, CB) codebook tokens a step, mamba2-1.3b and
+zamba2-7b (whose one shared attention block keeps a KV cache per use)
+carry their recurrent caches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --reduced --batch 4 --prompt-len 64 --decode-steps 32 [--device cpu]

@@ -1,18 +1,25 @@
-"""The config-driven decoder, attention-only architectures.
+"""The config-driven decoder: attention, Mamba2 and the hybrid.
 
-Counterpart of the attention-only path of ``repro/models/transformer.py``.
-Layer stacks are grouped into repeating super-blocks
-(``cfg.layer_pattern``): pattern ("attn",) for llama/qwen-style decoders
-(qkv bias, qk-norm, GQA down to a single KV head), ("local", "global")
-for gemma2 (alternating sliding-window and full attention, (1+s) norms,
-post-norms, sqrt(d) embedding scale, logit softcaps). Two stubbed
-frontends, as in the reference: a VLM (internvl2-1b) takes
+Counterpart of ``repro/models/transformer.py`` without MoE, MLA, MTP and
+the dense-FFN prefix layers. Layer stacks are grouped into repeating
+super-blocks (``cfg.layer_pattern``): pattern ("attn",) for
+llama/qwen-style decoders (qkv bias, qk-norm, GQA down to a single KV
+head), ("local", "global") for gemma2 (alternating sliding-window and
+full attention, (1+s) norms, post-norms, sqrt(d) embedding scale, logit
+softcaps), ("mamba",) for mamba2 (``models.mamba2``: a pre-norm SSD
+block, no MLP) and ("mamba", "mamba", "attn_shared") for zamba2, whose
+one attention block (``shared_block``, drawn once outside the stack, a
+top-level leaf) serves every ``attn_shared`` position: each super-block
+reads the same tensors, so their gradient is the sum over the uses, and
+each use keeps its own KV cache. Two stubbed frontends, as in the
+reference: a VLM (internvl2-1b) takes
 ``patch_embeddings`` (B, n_prefix, D) prepended to the text's embeddings
 and scores only the text span; audio (musicgen-large) takes (B, S, CB)
 codebook tokens, sums their CB embeddings and has one head per codebook,
 its loss the mean over the codebooks. The parameter tree is the
 reference's, leaf for leaf: ``embed`` ((CB, V, D) for audio),
-``layers/pos{i}_{kind}`` with each leaf stacked over the super-blocks,
+``layers/pos{i}_{kind}`` with each leaf stacked over the super-blocks
+(no entry for ``attn_shared``), ``shared_block`` (the hybrid),
 ``final_norm``, ``audio_heads`` (CB, D, V) for audio, else ``head`` only
 when embeddings are untied; it flattens in JAX's order (sorted keys), so
 flat vectors of the two packages compare coordinate by coordinate. The
@@ -22,14 +29,15 @@ reference scans the super-blocks; here ``forward`` loops over them, under
 Serving (the reference's ``transformer.py:328-528``): ``init_cache`` (one
 cache per pattern position, stacked over the super-blocks; local layers a
 ring of ``sliding_window`` slots, global ones ``window_override`` or the
-whole ``max_len``), ``prefill`` (the prompt's forward, each layer's keys
-and values written into its ring, the last position's logits only) and
+whole ``max_len``; a mamba position its f32 SSM state and its conv tail,
+of a size that does not grow with the sequence), ``prefill`` (the
+prompt's forward, each layer's keys and values written into its ring or
+its recurrent state into its cache, the last position's logits only) and
 ``decode_step`` (one token through every layer, the caches written in
 place).
 
-Mamba2 and the hybrid (ROADMAP queue A item 14c.3), MoE, MLA, MTP and
-the dense-FFN prefix layers (item 14c.4) raise ``NotImplementedError``
-naming their item.
+MoE, MLA, MTP and the dense-FFN prefix layers (ROADMAP queue A item
+14c.4) raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -41,31 +49,30 @@ import torch.utils.checkpoint
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
                                        init_gated_mlp, rms_norm, softcap)
 
-ATTN_KINDS = ("attn", "local", "global")
+ATTN_KINDS = ("attn", "local", "global", "attn_shared")
+KINDS = ATTN_KINDS + ("mamba",)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an attention-only decoder (text, a VLM
-    prefix or audio codebooks): what the port runs."""
-    if (cfg.family in ("ssm", "hybrid")
-            or any(k not in ATTN_KINDS for k in cfg.layer_pattern)):
-        what, item = "Mamba2 and the hybrid", "14c.3"
-    elif (cfg.family == "moe" or cfg.n_experts or cfg.use_mla
-          or cfg.use_mtp or cfg.n_dense_layers):
-        what, item = "MoE, MLA, MTP and dense-FFN prefix layers", "14c.4"
-    elif (cfg.family not in ("dense", "vlm", "audio")
-          or cfg.modality not in ("text", "vlm", "audio")):
-        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r} "
-                         f"or modality {cfg.modality!r}")
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.arch_id}: the port runs attention-only decoders; {what} "
-        f"are ROADMAP queue A item {item}")
+    """Raise unless ``cfg`` is a decoder the port runs: attention (text, a
+    VLM prefix or audio codebooks), Mamba2 or the hybrid."""
+    if (cfg.family == "moe" or cfg.n_experts or cfg.use_mla
+            or cfg.use_mtp or cfg.n_dense_layers):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the port runs attention, Mamba2 and the "
+            "hybrid; MoE, MLA, MTP and dense-FFN prefix layers are ROADMAP "
+            "queue A item 14c.4")
+    if (cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid")
+            or cfg.modality not in ("text", "vlm", "audio")
+            or any(k not in KINDS for k in cfg.layer_pattern)):
+        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}, "
+                         f"modality {cfg.modality!r} or layer pattern "
+                         f"{cfg.layer_pattern}")
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +98,15 @@ def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
     p["attn"] = attn_lib.init_attention(gen, cfg, lead=lead)
     p["mlp"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead)
     return p
+
+
+def _init_mamba_block(gen, cfg: ModelConfig, lead=()) -> Dict[str, Any]:
+    """A pre-norm Mamba2 block: ``ln1`` (ones, in every convention) and
+    the SSD block's parameters (``mamba2.init_mamba``)."""
+    lead = tuple(lead)
+    return {"ln1": torch.ones(lead + (cfg.d_model,), dtype=cfg.p_dtype,
+                              device=gen.device),
+            "mamba": mamba_lib.init_mamba(gen, cfg, lead=lead)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -124,9 +140,13 @@ def _params(cfg: ModelConfig, gen) -> Dict[str, Any]:
         gen, (cfg.audio_codebooks or 1, cfg.vocab, cfg.d_model) if audio
         else (cfg.vocab, cfg.d_model), cfg.p_dtype)}
     reps = cfg.n_super_blocks
-    params["layers"] = {f"pos{i}_{kind}": _init_attn_block(gen, cfg,
+    init = {"mamba": _init_mamba_block}
+    params["layers"] = {
+        f"pos{i}_{kind}": init.get(kind, _init_attn_block)(gen, cfg,
                                                            lead=(reps,))
-                        for i, kind in enumerate(cfg.layer_pattern)}
+        for i, kind in enumerate(cfg.layer_pattern) if kind != "attn_shared"}
+    if "attn_shared" in cfg.layer_pattern:  # one block for every use
+        params["shared_block"] = _init_attn_block(gen, cfg)
     params["final_norm"] = (torch.zeros if cfg.norm_scale_plus_one
                             else torch.ones)((cfg.d_model,),
                                              dtype=cfg.p_dtype, device=dev)
@@ -207,25 +227,34 @@ def forward(cfg: ModelConfig, params, inputs, *,
     positions = torch.arange(s, dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def super_block(h, aux, layer_slice):
+    def super_block(h, aux, layer_slice, shared):
         for i, kind in enumerate(cfg.layer_pattern):
+            if kind == "mamba":
+                p = layer_slice[f"pos{i}_{kind}"]
+                h = h + mamba_lib.mamba_train(cfg, p["mamba"],
+                                              _norm(cfg, h, p["ln1"]))
+                continue
             h, aux = _attn_sublayer(
-                cfg, layer_slice[f"pos{i}_{kind}"], h, positions,
+                cfg, shared if kind == "attn_shared"
+                else layer_slice[f"pos{i}_{kind}"], h, positions,
                 window=_window_for(cfg, kind, window_override), aux=aux,
                 q_block=q_block, kv_block=kv_block)
         return h, aux
 
     # one unbind a leaf: its backward stacks the super-blocks' gradients
     # once, where a slice per super-block would add a zero-filled gradient
-    # of the whole stack per super-block (quadratic in the depth)
+    # of the whole stack per super-block (quadratic in the depth); the
+    # shared block's leaves go whole to every super-block
     slices = tree_map(lambda a: a.unbind(0), params["layers"])
+    shared = params.get("shared_block")
     for sb in range(cfg.n_super_blocks):
         layer_slice = tree_map(lambda a: a[sb], slices)
         if remat:
             h, aux = torch.utils.checkpoint.checkpoint(
-                super_block, h, aux, layer_slice, use_reentrant=False)
+                super_block, h, aux, layer_slice, shared,
+                use_reentrant=False)
         else:
-            h, aux = super_block(h, aux, layer_slice)
+            h, aux = super_block(h, aux, layer_slice, shared)
     return _norm(cfg, h, params["final_norm"]), aux
 
 
@@ -342,8 +371,10 @@ def prefill(cfg: ModelConfig, params, inputs, *,
     front): returns (the last position's logits (B, 1, V), or (B, 1, CB,
     V) for audio, the filled cache). ``max_len`` (default the prompt's
     length) sizes the caches of the layers without a window; a prompt
-    longer than a layer's ring leaves its last w positions there. ``q_block`` and
-    ``kv_block`` must divide the prompt's length, as in ``forward``."""
+    longer than a layer's ring leaves its last w positions there; a mamba
+    layer leaves its final SSM state and its last W - 1 raw conv inputs.
+    ``q_block`` and ``kv_block`` must divide the prompt's length, as in
+    ``forward``."""
     _check_ported(cfg)
     h = _embed_inputs(cfg, params, inputs)
     b, s, _ = h.shape
@@ -353,20 +384,42 @@ def prefill(cfg: ModelConfig, params, inputs, *,
     for sb in range(cfg.n_super_blocks):
         for i, kind in enumerate(cfg.layer_pattern):
             key = f"pos{i}_{kind}"
+            layer_cache = _layer_cache(cache, key, sb)
+            if kind == "mamba":
+                p = tree_map(lambda a: a[sb], params["layers"][key])
+                out, filled = mamba_lib.mamba_train(
+                    cfg, p["mamba"], _norm(cfg, h, p["ln1"]),
+                    return_cache=True)
+                for name, t in filled.items():
+                    layer_cache[name].copy_(t)
+                h = h + out
+                continue
             h = _attn_sublayer_prefill(
-                cfg, tree_map(lambda a: a[sb], params["layers"][key]), h,
-                positions, window=_window_for(cfg, kind, window_override),
-                layer_cache=_layer_cache(cache, key, sb), q_block=q_block,
+                cfg, _block_params(params, key, kind, sb), h, positions,
+                window=_window_for(cfg, kind, window_override),
+                layer_cache=layer_cache, q_block=q_block,
                 kv_block=kv_block)
     h = _norm(cfg, h[:, -1:], params["final_norm"])
     return logits_fn(cfg, params, h), cache
 
 
+def _block_params(params, key: str, kind: str, sb: int):
+    """An attention position's parameters in super-block ``sb``: the
+    shared block itself for ``attn_shared``, else its slice of the
+    stack."""
+    if kind == "attn_shared":
+        return params["shared_block"]
+    return tree_map(lambda a: a[sb], params["layers"][key])
+
+
 def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     window_override: Optional[int], reps: int, device):
-    window = _window_for(cfg, kind, window_override)
-    one = attn_lib.init_attn_cache(cfg, batch, max_len, window,
-                                   device=device)
+    if kind == "mamba":
+        one = mamba_lib.init_mamba_cache(cfg, batch, device)
+    else:
+        one = attn_lib.init_attn_cache(
+            cfg, batch, max_len, _window_for(cfg, kind, window_override),
+            device=device)
     return {name: t[None].expand((reps,) + t.shape).clone()
             for name, t in one.items()}
 
@@ -396,6 +449,10 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _decode_sublayer(cfg: ModelConfig, kind: str, p, h: torch.Tensor,
                      layer_cache: dict, pos: int,
                      window_override: Optional[int]) -> torch.Tensor:
+    if kind == "mamba":
+        out, _ = mamba_lib.mamba_decode(cfg, p["mamba"],
+                                        _norm(cfg, h, p["ln1"]), layer_cache)
+        return h + out
     a_in = _norm(cfg, h, p["ln1"])
     a, _ = attn_lib.attention_decode(
         cfg, p["attn"], a_in, layer_cache, pos,
@@ -424,7 +481,7 @@ def decode_step(cfg: ModelConfig, params, cache, inputs, pos: int, *,
         for i, kind in enumerate(cfg.layer_pattern):
             key = f"pos{i}_{kind}"
             h = _decode_sublayer(
-                cfg, kind, tree_map(lambda a: a[sb], params["layers"][key]),
-                h, _layer_cache(cache, key, sb), pos, window_override)
+                cfg, kind, _block_params(params, key, kind, sb), h,
+                _layer_cache(cache, key, sb), pos, window_override)
     h = _norm(cfg, h, params["final_norm"])
     return logits_fn(cfg, params, h), cache

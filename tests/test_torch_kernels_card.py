@@ -751,3 +751,59 @@ def test_kernels_past_element_2_31():
             if got.dtype == torch.bfloat16:
                 got, want = got.view(torch.int16), want.view(torch.int16)
             _assert_bits_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_mixed_state_server_half_card_vs_cpu(arch):
+    """The server half on a mixed bf16/f32 tree (the reduced ``arch`` in
+    bf16: its f32 ``A_log``, ``D`` and ``dt_bias`` beside the bf16
+    buffers), with the taps and the broadcast in row chunks, on the card
+    and on the CPU from the same trees and messages: every leaf, the
+    broadcast and the taps bit for bit; the f32 leaves stay f32."""
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core.quantizers import TreeLayout
+    from repro_torch.distributed import steps
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels.taps import round_taps
+
+    dev = _card()
+    cfg = configs.get_reduced(arch).replace(param_dtype="bfloat16",
+                                            dtype="bfloat16")
+    base = steps.init_round_state(cfg, 0, "cpu")
+    g = torch.Generator().manual_seed(5)
+    noisy = lambda tr, s: tree_map(lambda t: (t.float() + s * torch.randn(
+        t.shape, generator=g)).to(t.dtype), tr)
+    trees = (base.x, noisy(base.x, 2e-3), noisy(base.momentum, 1e-3))
+    d = sum(t.numel() for t in tree_leaves(base.x))
+    packed, norms = tkernels.ops.qsgd_quantize_batch(
+        3e-3 * torch.randn((4, d), generator=g),
+        torch.randint(0, 2 ** 32, (4, 2), generator=g), 4)
+    w = torch.tensor([0.9, 1.0, 0.7, 0.5])
+    out = {}
+    for where in ("cpu", dev):
+        st = steps.RoundState.from_trees(
+            *(tree_map(lambda t: t.to(where), tr) for tr in trees))
+        sides = steps._sides(st, TreeLayout.of(st.x))
+        assert sides and all(sd.x.dtype == torch.float32 for sd in sides)
+        buf = torch.zeros(d, device=where)
+        for k in range(4):
+            steps.accumulate(buf, packed[k].to(where), norms[k].to(where),
+                             w[k:k + 1].to(where), bits=4, d=d)
+        parts = torch.empty((ref.ROUND_TAP_SUMS, ref.tap_windows(d)),
+                            device=where)
+        bp, bn = steps.server_half(*st.flat, buf, prng.PRNGKey(9),
+                                   qcfg=fl.qafel_config(4), d=d,
+                                   chunk_rows=1000, taps=parts, sides=sides)
+        taps = round_taps(parts, w.to(where))
+        out[str(where)] = [t.cpu() for tr in (st.x, st.hidden, st.momentum)
+                           for t in tree_leaves(tr)] + [
+            bp.cpu(), bn.cpu(), taps.cpu()]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype in (torch.float32, torch.bfloat16):
+            a, b = a.view(torch.int16 if a.dtype == torch.bfloat16
+                          else torch.int32), b.view(
+                torch.int16 if b.dtype == torch.bfloat16 else torch.int32)
+        assert torch.equal(a, b)

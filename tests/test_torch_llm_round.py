@@ -521,25 +521,29 @@ def test_round_updates_the_state_in_place():
 
 
 def test_mixed_dtype_round_keeps_a_new_state():
-    """A tree of two dtypes (here the final norm in bf16) keeps its trees:
-    the round runs on f32 copies of x, x-hat and m and returns a new state
-    in the leaves' dtypes, leaving the old one as it was."""
+    """A tree of two dtypes (here the final norm in bf16 in an f32 model)
+    is kept in place too: its f32 leaves view one f32 buffer each, the
+    bf16 final norm is a tensor of its own beside them, which its slots
+    shadow; the round updates that state and returns it, and a clone
+    taken before the round keeps the old state as it was."""
     cfg = _tiny_cfg()
     qcfg = QAFeLConfig(**QCFG)
     base = TS.init_round_state(cfg, 3, "cpu")
     mixed = TS.RoundState.from_trees(
         *(dict(tr, final_norm=tr["final_norm"].to(torch.bfloat16))
           for tr in (base.x, base.hidden, base.momentum)))
-    assert mixed.flat is None
+    assert mixed.flat is not None and mixed.flat[0].dtype == torch.float32
+    kept = mixed.clone()
     rf = TS.make_qafel_round(cfg, qcfg, remat=False)
     batch = round_batch(cfg, qcfg, np.random.default_rng(1),
                         federated_llm.LOCAL_BATCH, 16, "cpu")
     new, met = rf(mixed, batch, torch.ones(4), prng.PRNGKey(0))
-    assert new is not mixed and new.t == 1 and mixed.t == 0
+    assert new is mixed and new.t == 1 and kept.t == 0
     assert new.x["final_norm"].dtype == torch.bfloat16
     assert torch.isfinite(met["loss"])
-    assert torch.equal(mixed.x["embed"], base.x["embed"])
+    assert torch.equal(kept.x["embed"], base.x["embed"])
     assert not torch.equal(new.x["embed"], base.x["embed"])
+    assert not torch.equal(new.x["final_norm"], kept.x["final_norm"])
 
 
 @pytest.mark.parametrize("dtype,beta,lr", [

@@ -340,8 +340,15 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_serve_model_example_runs_on_cpu(capsys):
-    out = serve_model.main(["--device", "cpu", "--decode-steps", "4",
-                            "--window", "16"])
+    """The example at its default architecture, the reference's
+    (mamba2-1.3b), and gemma2-2b with a windowed cache."""
+    out = serve_model.main(["--device", "cpu", "--decode-steps", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and out["tokens"].shape == (2, 5)
+    assert lines[0].startswith("mamba2-1.3b-reduced: prefill 2x48 -> "
+                               "logits (2, 1, 512)")
+    out = serve_model.main(["--arch", "gemma2-2b", "--device", "cpu",
+                            "--decode-steps", "4", "--window", "16"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 3
     assert lines[0].startswith("gemma2-2b-reduced: prefill 2x48 -> logits "
@@ -354,10 +361,20 @@ def test_serve_model_example_runs_on_cpu(capsys):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-235b-a22b",
                                   "deepseek-v3-671b"])
 def test_serving_other_architectures_raises_naming_the_item(arch):
-    item = r"14c\.3" if arch.startswith("mamba") else r"14c\.4"
-    with pytest.raises(NotImplementedError, match=item):
+    """MoE and MLA raise naming their item; mamba2-1.3b (item 14c.3,
+    ported) serves its reduced config through both entry points."""
+    if arch.startswith("mamba"):
+        out = launch_serve.main(["--arch", arch, "--reduced", "--device",
+                                 "cpu", "--decode-steps", "2"])
+        assert out["tokens"].shape == (4, 3)
+        assert set(out["cache"]["layers"]["pos0_mamba"]) == {"ssm", "conv"}
+        out = serve_model.main(["--arch", arch, "--device", "cpu",
+                                "--decode-steps", "2"])
+        assert out["tokens"].shape == (2, 3)
+        return
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
         serve_model.main(["--arch", arch, "--device", "cpu"])
     moe = TC.get_reduced("gemma2-2b").replace(n_experts=4)
     with pytest.raises(NotImplementedError, match=r"14c\.4"):

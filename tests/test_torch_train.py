@@ -173,9 +173,9 @@ def test_launcher_command_line_on_cpu(tmp_path, capsys):
 
 
 def test_launcher_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"14c\.3"):
-        train.main(["--arch", "zamba2-7b", "--steps", "1", "--device",
-                    "cpu"])
+    with pytest.raises(NotImplementedError, match=r"14c\.4"):
+        train.main(["--arch", "qwen3-moe-235b-a22b", "--steps", "1",
+                    "--device", "cpu"])
     with pytest.raises(ValueError, match="global-batch"):
         train.main(ARGV + ["--global-batch", "3"])
     with pytest.raises(SystemExit):

@@ -160,9 +160,19 @@ def test_configs_match_reference():
 @pytest.mark.parametrize("arch", ["zamba2-7b", "deepseek-v3-671b",
                                   "mamba2-1.3b", "qwen3-moe-235b-a22b"])
 def test_unported_archs_raise_naming_the_item(arch):
-    item = "14c.3" if arch in ("zamba2-7b", "mamba2-1.3b") else "14c.4"
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        TC.get_config(arch)
+    """MoE and MLA raise naming item 14c.4; mamba2-1.3b and zamba2-7b
+    (item 14c.3, ported) load and run a reduced step."""
+    if arch in ("zamba2-7b", "mamba2-1.3b"):
+        cfg = TC.get_reduced(arch)
+        assert TC.get_config(arch).family in ("ssm", "hybrid")
+        params = TT.init_params(cfg, 0, device="cpu")
+        tokens = torch.zeros((1, 8), dtype=torch.int32)
+        loss, _ = TT.loss_fn(cfg, params, {"tokens": tokens,
+                                           "labels": tokens})
+        assert torch.isfinite(loss)
+    else:
+        with pytest.raises(NotImplementedError, match=r"14c\.4"):
+            TC.get_config(arch)
     with pytest.raises(KeyError):
         TC.get_config("no-such-arch")
 
@@ -442,7 +452,8 @@ def test_serving_paths_raise_naming_the_item():
     with pytest.raises(NotImplementedError, match=r"14c\.4"):
         TT.init_cache(moe.replace(use_mla=True, n_experts=0), 1, 8,
                       device="cpu")
-    ssm = TC.get_reduced("gemma2-2b").replace(layer_pattern=("mamba",),
-                                              family="ssm")
-    with pytest.raises(NotImplementedError, match=r"14c\.3"):
-        TT.init_cache(ssm, 1, 8, device="cpu")
+    # Mamba2 (item 14c.3) is ported: its cache is the recurrent state
+    ssm = TC.get_reduced("mamba2-1.3b")
+    cache = TT.init_cache(ssm, 1, 8, device="cpu")["layers"]["pos0_mamba"]
+    assert cache["ssm"].shape == (ssm.n_super_blocks, 1, ssm.ssm_nheads,
+                                  ssm.ssm_headdim, ssm.ssm_state)
