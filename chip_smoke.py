@@ -185,7 +185,21 @@ Phases, each printing one JSON line:
     2^31), K1, K3 and the server update at its d (``*_zamba2``),
     ``serve_zamba2`` (all 81 layers, fresh weights), and both reduced
     configs card against CPU (a round, the server half in f32 and on the
-    mixed bf16/f32 tree bit for bit, serving);
+    mixed bf16/f32 tree bit for bit, serving); then MoE and MLA
+    (``run_moe``): ``qwen3_moe_round``, the same round on
+    qwen3-moe-235b-a22b at full width cut to 1 of its 94 layers (128
+    experts of 1,536, top-8; d = 3,732,418,816, past 2^31; the share of
+    token copies dropped at capacity factor 1.25, capacity 10 an expert),
+    ``serve_qwen3_moe`` (its x: B = 4, prompt 64, 32 steps: the decode's
+    drop share at the published factor 2.0, one slot an expert), K1, K3
+    and the server update at its d (``*_qwen3moe``),
+    ``serve_deepseek`` and ``serve_deepseek_long`` (deepseek-v3-671b at
+    full width, fresh weights, 1 routed layer and its 3 dense prefix
+    layers: B = 4 at prompt 64, B = 1 at 4,160; the MLA latent caches'
+    bytes against (512 + 64) * 2 B a token and layer), each served model
+    also on its no-drop ``replace`` with decode against forward, and both
+    reduced configs card against CPU (a round with MLA, the prefix and the
+    MTP term, the server half, the routing ids, serving);
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
@@ -194,7 +208,8 @@ Phases, each printing one JSON line:
 14. one line listing every kernel with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
     launcher's rounds, the quantizer rounds and the musicgen-large,
-    internvl2-1b, mamba2-1.3b and zamba2-7b rounds, times
+    internvl2-1b, mamba2-1.3b, zamba2-7b and qwen3-moe-235b-a22b rounds,
+    times
     and bound (the tap kernels' launches from the taps-on runs; the
     server update's from the LLM round, the only path that runs it; the
     round's finishing pass from its taps-on round);
@@ -218,6 +233,7 @@ larger count bounds; at the card's SM count and maximum SM clock
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1278,13 +1294,16 @@ def check_tap_kernels(dev) -> dict:
 
 def kernel_counts(prof) -> dict:
     """Launches per device kernel name in a ``torch.profiler`` window, and
-    the copies and sets apart (``Memcpy``/``Memset`` activities)."""
+    the copies and sets apart (``Memcpy``/``Memset`` activities), read
+    from its raw events (``kineto_results.events()``) as ``kernel_table``
+    reads them: ``key_averages`` builds the profiler's event tree first,
+    which took most of the telemetry phase's time."""
     from torch.autograd import DeviceType
 
     counts = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            counts[e.key] = counts.get(e.key, 0) + e.count
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            counts[e.name()] = counts.get(e.name(), 0) + 1
     return counts
 
 
@@ -1406,9 +1425,8 @@ def traced_cnn_run(dev, taps, *, engine: str, uploads: int,
         kernels.reset_launches()
         prof = None
         t0 = time.perf_counter()
-        if profiled:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+        if profiled:  # device activity only: the counts read nothing else
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 res = sim.run()
                 torch.cuda.synchronize()
         else:
@@ -3270,6 +3288,32 @@ def _server_half_card_vs_cpu(dev, cfg) -> bool:
                                                  out[str(dev)]))
 
 
+def _route_card_vs_cpu(dev, cfg, params) -> dict:
+    """The first MoE layer's router of ``params`` (CPU) over 512 seeded
+    tokens on the CPU and the card: the expert ids equal wherever the k-th
+    and (k+1)-th probability differ by more than 1e-6 (the gates and
+    probs are sums in other orders)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    router = params["layers"]["pos0_attn"]["moe"]["router"][0]
+    x = torch.randn((512, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    g, ids, probs = moe._route(cfg, router, x)
+    cg, cids, cprobs = (t.cpu() for t in moe._route(cfg, router.to(dev),
+                                                    x.to(dev)))
+    k = cfg.experts_per_token
+    top = torch.sort(probs, dim=-1, descending=True).values
+    decided = top[:, k - 1] - top[:, k] > 1e-6
+    return {"tokens": 512, "decided": int(decided.sum()),
+            "decided_ids_equal": bool(torch.equal(ids[decided],
+                                                  cids[decided])),
+            "ids_equal_share": float((ids == cids).double().mean()),
+            "gates_max_abs_err": float((g - cg).abs().max()),
+            "probs_max_abs_err": float((probs - cprobs).abs().max())}
+
+
 def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
                             rounds: int = 2) -> dict:
     """The reduced ``arch``'s round (f32) on the card and the CPU from the
@@ -3279,7 +3323,8 @@ def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
     share of x-hat bit-equal; and the server half bit for bit
     (``_server_half_card_vs_cpu``), for a Mamba2 config also on its
     mixed bf16/f32 tree (the config in bf16: ``A_log``, ``D`` and
-    ``dt_bias`` f32 beside the bf16 buffers)."""
+    ``dt_bias`` f32 beside the bf16 buffers); for an MoE config its
+    routing ids on both devices (``_route_card_vs_cpu``)."""
     import numpy as np
     import torch
 
@@ -3327,6 +3372,9 @@ def llm_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH,
         half_equal &= _server_half_card_vs_cpu(dev, cfg.replace(
             param_dtype="bfloat16", dtype="bfloat16"))
         record["mixed_server_half_bit_equal"] = half_equal
+    if cfg.n_experts:
+        record["routing"] = _route_card_vs_cpu(dev, cfg, base.x)
+        half_equal &= record["routing"]["decided_ids_equal"]
     emit(record)
     if not (loss_ok and half_equal):
         raise AssertionError(f"llm_reduced_card_vs_cpu: {record}")
@@ -3537,6 +3585,8 @@ def _decode_vs_forward(cfg, params, prompt: dict, out, block: int,
         want = T.logits_fn(cfg, params, h[:, -1:]).float()
     got = out["last_logits"].float()
     return {"max_abs_err": float((got - want).abs().max()),
+            "row_max_abs_err": [float((g - w).abs().max())
+                                for g, w in zip(got, want)],
             "max_abs_logit": float(want.abs().max()),
             "greedy_equal_share": float(
                 (want[:, -1].argmax(-1) == got[:, -1].argmax(-1))
@@ -3709,19 +3759,24 @@ def serve_reduced_card_vs_cpu(dev, arch: str = LLM_ARCH) -> dict:
             rel = {n: float((card[n].cpu() - cpu[n]).abs().max()
                             / cpu[n].abs().max())
                    for n in ("logits", "last_logits")}
-            slots = all(torch.equal(lc["slot_pos"].cpu(),
-                                    cpu["cache"]["layers"][k]["slot_pos"])
-                        for k, lc in card["cache"]["layers"].items()
+            entries = {(e, k): (lc, cpu["cache"][e][k] if e == "layers"
+                                else cpu["cache"][e])
+                       for e in card["cache"]
+                       for k, lc in (card["cache"][e].items()
+                                     if e == "layers"
+                                     else (("", card["cache"][e]),))}
+            slots = all(torch.equal(lc["slot_pos"].cpu(), want["slot_pos"])
+                        for lc, want in entries.values()
                         if "slot_pos" in lc)
-            # a mamba position's recurrent state, the f32 SSM state and
-            # the conv tail
-            for k, lc in card["cache"]["layers"].items():
-                for n in ("ssm", "conv"):
+            # a mamba position's recurrent state (the f32 SSM state and
+            # the conv tail), an MLA layer's latents (deepseek's prefix
+            # layers too)
+            for (e, k), (lc, want) in entries.items():
+                for n in ("ssm", "conv", "ckv", "k_rope"):
                     if n in lc:
-                        want = cpu["cache"]["layers"][k][n]
-                        rel[f"{k}/{n}"] = float(
-                            (lc[n].cpu() - want).abs().max()
-                            / want.abs().max())
+                        rel[f"{e}/{k}/{n}"] = float(
+                            (lc[n].cpu() - want[n]).abs().max()
+                            / want[n].abs().max())
             case = {"rel_err": rel, "tokens_equal": torch.equal(
                 card["tokens"].cpu(), cpu["tokens"]),
                 "slot_pos_equal": slots}
@@ -4019,7 +4074,8 @@ POOL_ROUNDS = 1  # timed by CUDA events, after one warm-up round
 # the rounds' sequence lengths and the served prompts: internvl2-1b's 256
 # patch embeddings and 64 text tokens
 POOL_SEQ = {"musicgen-large": LLM_SEQ, "internvl2-1b": 320,
-            "mamba2-1.3b": LLM_SEQ, "zamba2-7b": LLM_SEQ}
+            "mamba2-1.3b": LLM_SEQ, "zamba2-7b": LLM_SEQ,
+            "qwen3-moe-235b-a22b": LLM_SEQ}
 # element 2**31 starts wire row 2**24: musicgen-large's kernels are held to
 # their plain versions on the plain chunk around it and on the last one
 ROW_2_31 = 1 << 24
@@ -4035,7 +4091,7 @@ POOL_REDUCED = ("codeqwen1.5-7b", "qwen3-14b", "granite-34b",
 SERVE_POOL_DECODE_VS_FORWARD = 0.05
 
 
-def pool_round(dev, arch: str, layers=None) -> tuple:
+def pool_round(dev, arch: str, layers=None, phase=None) -> tuple:
     """``llm_round``'s QAFeL round on ``arch`` as published (``layers``:
     cut to that depth) (bf16, every
     layer, row chunks of ``LLM_CHUNK_ROWS``, remat, qsgd4 both ways, K =
@@ -4048,7 +4104,9 @@ def pool_round(dev, arch: str, layers=None) -> tuple:
     freed and the trained x kept for serving. A mixed tree (mamba2's f32
     leaves in a bf16 model) keeps its state in place too: the record
     counts its f32 side coordinates. Returns (record, launches, d, x
-    tree)."""
+    tree); ``phase`` names the record (default ``<arch's first word>_round``);
+    an MoE config's record adds the share of token copies dropped at its
+    capacity over the measured rounds."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4062,6 +4120,7 @@ def pool_round(dev, arch: str, layers=None) -> tuple:
     from repro_torch.kernels import launches as kernel_launches
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.train import round_batch
+    from repro_torch.models import moe
 
     cfg = configs.get_config(arch)
     cut = "none"
@@ -4108,7 +4167,8 @@ def pool_round(dev, arch: str, layers=None) -> tuple:
     warm = one(0)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    rows_out = [one(step) for step in range(1, 1 + POOL_ROUNDS)]
+    with _routes() as routes:
+        rows_out = [one(step) for step in range(1, 1 + POOL_ROUNDS)]
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -4124,7 +4184,7 @@ def pool_round(dev, arch: str, layers=None) -> tuple:
     upload_want = (4 * d + 32 * rows) / 8
     ms = [r["ms"] for r in rows_out]
     record = {
-        "phase": f"{arch.split('-')[0]}_round", "arch": cfg.arch_id,
+        "phase": phase or f"{arch.split('-')[0]}_round", "arch": cfg.arch_id,
         "n_layers": cfg.n_layers, "cut": cut, "d": d,
         "side_f32_coordinates": side,
         "d_over_2_31": d / 2 ** 31, "param_count": cfg.param_count(),
@@ -4146,6 +4206,14 @@ def pool_round(dev, arch: str, layers=None) -> tuple:
                              LLM_PEAK_CAP_GB),
         "launches_per_round": {n: per_round(n) for n in want},
         "upload_bytes": rows_out[0]["upload_bytes"]}
+    if cfg.n_experts:  # each MoE call routes a client's local batch
+        t = fl.LOCAL_BATCH * seq
+        record["moe"] = {
+            "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+            "capacity_factor": cfg.capacity_factor, "tokens_per_call": t,
+            "capacity": moe.capacity(cfg, t, cfg.capacity_factor),
+            "calls": len(routes),
+            "drop_share": _drop_share(cfg, routes, cfg.capacity_factor)}
     checks = {
         "losses_finite": all(math.isfinite(r["loss"])
                              for r in rows_out + [warm, profiled]),
@@ -4490,15 +4558,389 @@ def run_mamba(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     return paths, cases
 
 
+# MoE and MLA (queue A item 14c.4): qwen3-moe-235b-a22b's round at full
+# width cut to 1 of its 94 layers (2 layers reckon 94.54 GB, the whole
+# model 3.4 TB), its x served; deepseek-v3-671b served at full width from
+# fresh weights with n_layers = 1: its 3 dense-FFN prefix layers and 1
+# routed layer (31.39 GB of bf16 weights; its round reckons 232 GB even so)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 1
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 1
+MLA_LONG_STEPS = 32
+
+
+def _block_for(n: int, most: int = 600) -> int:
+    """The largest divisor of n not above ``most``: the attention blocks
+    of a forward over n positions."""
+    return max(b for b in range(1, min(n, most) + 1) if n % b == 0)
+
+
+def _cache_entries(cache) -> list:
+    """Every layer cache of a serving cache: the stack's positions and
+    deepseek's ``"prefix"``."""
+    return list(cache["layers"].values()) + (
+        [cache["prefix"]] if "prefix" in cache else [])
+
+
+def _drop_share(cfg, routes: list, capacity_factor: float) -> float:
+    """The share of routed token copies that the capacity at
+    ``capacity_factor`` drops, over recorded routings (``_routes``)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    kept = routed = 0
+    for ids, _ in routes:
+        cap = moe.capacity(cfg, ids.shape[0], capacity_factor)
+        disp = moe.dispatch(torch.sort(ids, dim=-1).values, cfg.n_experts,
+                            cap)
+        kept += int(disp["keep"].sum())
+        routed += ids.numel()
+    return 1.0 - kept / routed if routed else 0.0
+
+
+@contextlib.contextmanager
+def _routes():
+    """Inside it, every MoE call's routing (``moe._route``: the (T, k)
+    expert ids and the (T, E) probs) is appended to the yielded list."""
+    from repro_torch.models import moe
+
+    log, route = [], moe._route
+
+    def recorded(cfg, router_w, x2d):
+        out = route(cfg, router_w, x2d)
+        log.append((out[1], out[2].detach()))
+        return out
+
+    moe._route = recorded
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def _moe_decode_vs_forward(cfg, params, tokens: dict, out, block: int,
+                           decode_routes: list, bound: float) -> dict:
+    """``_decode_vs_forward`` of an MoE model, row by row with the routing
+    of the last decode step (``decode_routes``, one (ids, probs) per MoE
+    layer) against the forward's at the last position: a row routed alike
+    in every MoE layer holds its logits within ``bound`` of the forward's;
+    a row that bf16 rounding routes elsewhere (an expert near the top-k
+    boundary: the forward's k-th and (k+1)-th probability closer than
+    twice the largest probability difference between the two paths) is
+    counted and its error reported; any other routing difference fails."""
+    import torch
+
+    n = len(decode_routes)
+    k = cfg.experts_per_token
+    with _routes() as fw:
+        check = _decode_vs_forward(cfg, params, tokens, out, block)
+    b = tokens["tokens"].shape[0]
+    rows = []
+    for r in range(b):
+        row = {"max_abs_err": check["row_max_abs_err"][r], "layers": []}
+        for (d_ids, d_p), (f_ids, f_p) in zip(decode_routes, fw[-n:]):
+            f_ids, f_p = (t.reshape(b, -1, t.shape[-1])[r, -1]
+                          for t in (f_ids, f_p))
+            top = torch.sort(f_p, descending=True).values
+            diff = float((d_p[r] - f_p).abs().max())
+            row["layers"].append({
+                "alike": bool(torch.equal(torch.sort(d_ids[r]).values,
+                                          torch.sort(f_ids).values)),
+                "margin": float(top[k - 1] - top[k]), "probs_diff": diff})
+        row["alike"] = all(lay["alike"] for lay in row["layers"])
+        row["ok"] = (row["max_abs_err"] <= bound if row["alike"] else all(
+            lay["alike"] or lay["margin"] <= 2 * lay["probs_diff"]
+            for lay in row["layers"]))
+        rows.append(row)
+    check["rows"] = rows
+    check["rows_routed_alike"] = sum(r["alike"] for r in rows)
+    check["alike_max_abs_err"] = max(
+        [r["max_abs_err"] for r in rows if r["alike"]], default=None)
+    check["ok"] = all(r["ok"] for r in rows)
+    return check
+
+
+def serve_moe(dev, phase: str, cfg, params, batch: int, prompt: int,
+              steps: int, block=None, seed: int = 0, **note) -> dict:
+    """``launch.serve.serve`` of an MoE model (bf16) after a warm-up call,
+    at its published capacity factors (training 1.25, decode 2.0: at B = 4
+    one slot an expert, so a token copy drops where two tokens pick one
+    expert, the reference's own semantics): prefill ms, each decode step
+    by CUDA events, tokens/s, peak memory, the share of token copies
+    dropped in the decode steps (``_drop_share``); a profiled call of
+    4 steps: device launches and device ms a decode step, the idle share;
+    the cache's bytes against their count (MLA: (kv_lora_rank + rope) * 2
+    B a token and layer, the prefix layers included; else k and v) and
+    every ``slot_pos`` on its law; then the same served on the no-drop
+    ``replace`` (both factors ``n_experts / experts_per_token``) and its
+    decode against the forward at the last position, row by row
+    (``_moe_decode_vs_forward``, ``SERVE_POOL_DECODE_VS_FORWARD`` of the
+    largest logit)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe
+
+    raw = synthetic_batch_for_config(cfg, np.random.default_rng(seed),
+                                     batch, prompt)
+    tokens = {"tokens": torch.from_numpy(raw["tokens"]).to(dev)}
+    blk = {"q_block": block or 512, "kv_block": block or 512}
+    serve(cfg, params, tokens, decode_steps=2, **blk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _routes() as routes:
+        out = serve(cfg, params, tokens, decode_steps=steps, **blk)
+    peak = torch.cuda.max_memory_allocated()
+    k, e = cfg.experts_per_token, cfg.n_experts
+    decode = [r for r in routes if r[0].shape[0] == batch]
+    prefill = [r for r in routes if r[0].shape[0] == batch * prompt]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(cfg, params, tokens, decode_steps=4, **blk)
+    act = phase_activity(prof, ROOT / "build" / f"{phase}_trace.json",
+                         SERVE_PHASES)
+    total = prompt + steps
+    layers = cfg.n_layers + cfg.n_dense_layers
+    names = ("ckv", "k_rope") if cfg.use_mla else ("k", "v")
+    per_token = ((cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+                 if cfg.use_mla else 2 * cfg.n_kv_heads * cfg.hd * 2)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for lc in _cache_entries(out["cache"])
+                      for n, t in lc.items() if n in names)
+    cache_want = layers * batch * total * per_token
+    slots = torch.arange(total, dtype=torch.int32, device=dev)
+    law_ok = all(bool((lc["slot_pos"] == slots).all())
+                 for lc in _cache_entries(out["cache"]))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff_expert * 2
+    read_bytes = weight_bytes - cfg.n_layers * max(
+        0, e - batch * k) * expert_bytes
+    nd = cfg.replace(capacity_factor=e / k, decode_capacity_factor=e / k)
+    with _routes() as nd_routes:
+        nd_out = serve(nd, params, tokens, decode_steps=steps, **blk)
+    nd_drops = _drop_share(nd, nd_routes, e / k)
+    bound = SERVE_POOL_DECODE_VS_FORWARD * float(
+        nd_out["last_logits"].float().abs().max())
+    check = _moe_decode_vs_forward(nd, params, tokens, nd_out,
+                                   _block_for(total),
+                                   nd_routes[-cfg.n_layers:], bound)
+    dec = act["decode"]
+    record = {
+        "phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "prefix_layers": cfg.n_dense_layers, "dtype": cfg.param_dtype,
+        **note, "batch": batch, "prompt": prompt, "decode_steps": steps,
+        "attention_blocks": blk["q_block"],
+        "prefill_ms": 1e3 * out["prefill_s"],
+        "decode_step_ms_median": statistics.median(out["step_ms"]),
+        "decode_step_ms": out["step_ms"], "decode_s": out["decode_s"],
+        "tokens_per_s": batch * steps / out["decode_s"],
+        "device_launches_per_decode_step": dec["launches"] / 4,
+        "decode_device_ms_per_step": dec["ms"] / 4,
+        "decode_idle_share": 1 - dec["ms"] / dec["wall_ms"],
+        "decode_capacity": moe.capacity(cfg, batch,
+                                        cfg.decode_capacity_factor),
+        "decode_drop_share": _drop_share(cfg, decode,
+                                         cfg.decode_capacity_factor),
+        "prefill_capacity": moe.capacity(cfg, batch * prompt,
+                                         cfg.capacity_factor),
+        "prefill_drop_share": _drop_share(cfg, prefill,
+                                          cfg.capacity_factor),
+        "decode_step_bound_ms": 1e3 * (read_bytes + cache_bytes)
+        / HBM_BYTES_PER_S,
+        "bound_formula": "(the weights less the experts no token of the "
+                         "step routes to + the cache) / 3.35 TB/s",
+        "weight_bytes": weight_bytes, "cache_names": names,
+        "cache_bytes": cache_bytes, "cache_bytes_count": cache_want,
+        "cache_bytes_per_token_layer": per_token,
+        "expanded_kv_bytes_per_token_layer": (
+            cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                           + cfg.v_head_dim) * 2 if cfg.use_mla else None),
+        "peak_gb": peak / 1e9,
+        "no_drop": {"capacity_factor": e / k,
+                    "drop_share": nd_drops,
+                    "decode_step_ms_median": statistics.median(
+                        nd_out["step_ms"]),
+                    "prefill_ms": 1e3 * nd_out["prefill_s"]},
+        "decode_vs_forward": check,
+        "decode_vs_forward_note": "on the no-drop replace (at the "
+                                  "published decode factor the decode "
+                                  "drops copies that the forward keeps), "
+                                  "row by row: a row whose last token "
+                                  "bf16 routes to another expert near the "
+                                  "top-k boundary is reported, not held",
+        "decode_vs_forward_bound": bound,
+        "sample_tokens": out["tokens"][0].cpu().tolist()[:8]}
+    checks = {"cache_bytes_exact": cache_bytes == cache_want,
+              "slot_pos_law": law_ok,
+              "tokens_shape": tuple(out["tokens"].shape)
+              == (batch, steps + 1),
+              "finite": check["finite"] and bool(
+                  torch.isfinite(out["last_logits"]).all()),
+              "no_drop_drops_nothing": nd_drops == 0.0,
+              "decode_vs_forward": check["ok"]}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} {cfg.arch_id}: {checks}")
+    return record
+
+
+def moe_layer_split(dev, name: str, cfg, params, tokens: int,
+                    capacity_factor: float, grad: bool,
+                    reps: int = 5) -> dict:
+    """Where one MoE layer's time goes at one shape: ``moe_forward`` on
+    (1, ``tokens``, D) bf16 inputs (with ``grad`` and its backward to the
+    input and every weight, as local SGD takes it) by CUDA events, median
+    of ``reps``, against the expert FFN alone on its (E, capacity, D)
+    buffer (``moe._expert_ffn``: the three batched products over every
+    expert) and the shared expert's MLP; the rest (router, top-k,
+    dispatch, gathers, combine, aux) by difference; device launches of one
+    call; the byte bounds of reading every expert's weights and the routed
+    experts' alone."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.models import moe
+    from repro_torch.models.layers import gated_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = tree_map(lambda t: t.detach().requires_grad_(grad), params)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(grad)
+    cap = moe.capacity(cfg, tokens, capacity_factor)
+    xe = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen,
+                     device=dev, dtype=torch.bfloat16).requires_grad_(grad)
+    experts = [p[n] for n in ("w_gate", "w_up", "w_down")]
+    parts = {"moe_forward": (lambda: moe.moe_forward(
+        cfg, p, x, capacity_factor=capacity_factor)[0],
+        [x] + tree_leaves(p)),
+        "expert_ffn": (lambda: moe._expert_ffn(p, xe, 0, cfg.n_experts),
+                       [xe] + experts)}
+    if cfg.n_shared_experts:
+        parts["shared_mlp"] = (lambda: gated_mlp(p["shared"], x, cfg.mlp_act),
+                               [x] + tree_leaves(p["shared"]))
+
+    def call(fn, inputs):
+        with torch.set_grad_enabled(grad):
+            out = fn()
+            if grad:
+                torch.autograd.grad(out.float().sum(), inputs,
+                                    allow_unused=True)
+
+    ms = {}
+    for part, (fn, inputs) in parts.items():
+        call(fn, inputs)
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call(fn, inputs)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[part] = statistics.median(times)
+    launches = _profiled_launches(lambda: call(*parts["moe_forward"]))
+    expert = 3 * cfg.d_model * cfg.d_ff_expert * 2
+    routed = min(cfg.n_experts, tokens * cfg.experts_per_token)
+    record = {"phase": "moe_layer", "name": name, "arch": cfg.arch_id,
+              "tokens": tokens, "capacity_factor": capacity_factor,
+              "capacity": cap, "backward": grad, "ms": ms,
+              "rest_ms": ms["moe_forward"] - ms["expert_ffn"]
+              - ms.get("shared_mlp", 0.0),
+              "device_launches": launches,
+              "expert_bytes_bound_ms": 1e3 * cfg.n_experts * expert
+              / HBM_BYTES_PER_S,
+              "routed_expert_bytes_bound_ms": 1e3 * routed * expert
+              / HBM_BYTES_PER_S,
+              "note": "rest = router, top-k, dispatch, gathers, combine, "
+                      "aux (moe_forward - expert FFN - shared MLP)"}
+    emit(record)
+    return record
+
+
+def run_moe(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
+    """MoE and MLA: qwen3-moe-235b-a22b's round at full width and
+    ``MOE_LAYERS`` layer (d past 2^31), its x served, K1, K3 and the
+    server update at its d against their plain versions on the chunk
+    across element 2^31 and on the last one; deepseek-v3-671b at full
+    width with ``MLA_LAYERS`` routed layer and its 3 prefix layers,
+    served at B = 4 (prompt 64) and B = 1 (prompt 4,160); both reduced
+    configs card against CPU (a round with MLA, the prefix and the MTP
+    term for deepseek, the server half, the routing, serving). Returns
+    ({path: launches by kernel}, the kernel cases at qwen3-moe's d)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_map
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+
+    paths = {}
+    cfg = configs.get_config(MOE_ARCH)
+    note = {"cut": f"{MOE_LAYERS} of {cfg.n_layers} layers (the round at 2 "
+            "reckons 94.54 GB)"}
+    _, paths["qwen3_moe_round"], d, x_tree = timed(
+        "qwen3_moe_round", pool_round, dev, MOE_ARCH, MOE_LAYERS,
+        phase="qwen3_moe_round")
+    layer = tree_map(lambda t: t[0], x_tree["layers"]["pos0_attn"]["moe"])
+    moe_layer_split(dev, "qwen3_moe_round_client", cfg, layer,
+                    2 * POOL_SEQ[MOE_ARCH], cfg.capacity_factor, grad=True)
+    moe_layer_split(dev, "qwen3_moe_decode", cfg, layer, SERVE_BATCH,
+                    cfg.decode_capacity_factor, grad=False)
+    del layer
+    timed("serve_qwen3_moe", serve_moe, dev, "serve_qwen3_moe",
+          cfg.replace(n_layers=MOE_LAYERS), x_tree, SERVE_BATCH,
+          SERVE_PROMPT, SERVE_STEPS, weights="x of the QAFeL round", **note)
+    del x_tree
+    torch.cuda.empty_cache()
+    rows = ref.rows_for(d)
+    half = LLM_PLAIN_CHUNK_ROWS // 2
+    cases = timed("qwen3_moe_kernels", llm_kernels, dev, d, dither_int32,
+                  int32_ops_per_s, suffix="qwen3moe",
+                  check=[(ROW_2_31 - half, ROW_2_31 + half),
+                         (rows - LLM_PLAIN_CHUNK_ROWS, rows)], taps=False)
+    torch.cuda.empty_cache()
+    dcfg = configs.get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(dcfg, 0, dev)
+    torch.cuda.synchronize()
+    note = {"cut": f"{MLA_LAYERS} routed layer of 61 and the 3 dense "
+            "prefix layers", "init_s": time.perf_counter() - t0,
+            "weights": "fresh, seed 0"}
+    timed("serve_deepseek", serve_moe, dev, "serve_deepseek", dcfg, params,
+          SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, **note)
+    timed("serve_deepseek_long", serve_moe, dev, "serve_deepseek_long",
+          dcfg, params, 1, SERVE_LONG_PROMPT, MLA_LONG_STEPS,
+          block=SERVE_LONG_BLOCK, seed=1, **note)
+    layer = tree_map(lambda t: t[0], params["layers"]["pos0_attn"]["moe"])
+    moe_layer_split(dev, "deepseek_decode", dcfg, layer, SERVE_BATCH,
+                    dcfg.decode_capacity_factor, grad=False)
+    del layer
+    del params
+    torch.cuda.empty_cache()
+    for arch in (MOE_ARCH, MLA_ARCH):
+        timed(f"reduced_{arch}", llm_reduced_card_vs_cpu, dev, arch,
+              rounds=1)
+        timed(f"serve_reduced_{arch}", serve_reduced_card_vs_cpu, dev, arch)
+    return paths, cases
+
+
 def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     """The LLM round phase, serving the model it trained, then the
     kernels at its d, the training launcher, the round under the other
-    quantizers, the rest of the attention-only pool (``run_pool``) and
-    Mamba2 and the hybrid (``run_mamba``); returns (round record, its
-    launches, the kernel cases at gemma2-2b's, musicgen-large's and
-    zamba2-7b's d, the launches by kernel of the launcher, the quantizer
-    rounds and the musicgen-large, internvl2-1b, mamba2-1.3b and
-    zamba2-7b rounds)."""
+    quantizers, the rest of the attention-only pool (``run_pool``),
+    Mamba2 and the hybrid (``run_mamba``) and MoE and MLA (``run_moe``);
+    returns (round record, its launches, the kernel cases at gemma2-2b's,
+    musicgen-large's, mamba2-1.3b's, zamba2-7b's and qwen3-moe's d, the
+    launches by kernel of the launcher, the quantizer rounds and the
+    musicgen-large, internvl2-1b, mamba2-1.3b, zamba2-7b and
+    qwen3-moe-235b-a22b rounds)."""
     from repro_torch import configs
 
     record, launches, d, x_tree, _ = timed("llm_round", llm_round, dev)
@@ -4528,7 +4970,10 @@ def run_llm(dev, dither_int32: dict, int32_ops_per_s: float) -> tuple:
     extra.update(pool_paths)
     mamba_paths, mamba_cases = run_mamba(dev, dither_int32, int32_ops_per_s)
     extra.update(mamba_paths)
-    return record, launches, {**cases, **pool_cases, **mamba_cases}, extra
+    moe_paths, moe_cases = run_moe(dev, dither_int32, int32_ops_per_s)
+    extra.update(moe_paths)
+    return record, launches, {**cases, **pool_cases, **mamba_cases,
+                              **moe_cases}, extra
 
 
 # the streamed uplink: uploads, bytes per upload (quad, CNN) and the chunk
@@ -4758,7 +5203,7 @@ def main() -> int:
             kernels_line[-1]["llm_cases"] = {
                 case: {key: llm_cases[case][key] for key in case_keys}
                 for case in llm[name]}
-            for model in ("musicgen", "mamba2", "zamba2"):
+            for model in ("musicgen", "mamba2", "zamba2", "qwen3moe"):
                 kernels_line[-1][f"{model}_cases"] = {
                     case: {key: llm_cases[case][key] for key in case_keys
                            + ("plain_rows",)}
@@ -4815,7 +5260,7 @@ def main() -> int:
         **{f"{model}_cases": {f"server_update_{model}": {
             key: llm_cases[f"server_update_{model}"][key]
             for key in case_keys + ("plain_rows",)}}
-           for model in ("musicgen", "mamba2", "zamba2")}})
+           for model in ("musicgen", "mamba2", "zamba2", "qwen3moe")}})
     m = llm_cases["round_taps_llm"]
     kernels_line.append({
         "name": "round_taps", "route": "cuda",

@@ -50,25 +50,25 @@ def key_words(key) -> tuple:
     return int(words[0]) & MASK32, int(words[1]) & MASK32
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & MASK32) | (x >> (32 - r))
-
-
 def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     """The threefry-2x32 block cipher (20 rounds) of counter words
     ``(x0, x1)`` under ``key``; int64 tensors of uint32 values in and out.
-    ``key[..., 0]`` and ``key[..., 1]`` broadcast against the counters."""
+    ``key[..., 0]`` and ``key[..., 1]`` broadcast against the counters.
+    The rounds update two fresh tensors in place (the inputs are left as
+    they are), which on the CPU takes less than half the time of a new
+    tensor per operation."""
     key = torch.as_tensor(key)
     k0, k1 = key[..., 0] & MASK32, key[..., 1] & MASK32
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
+    x0, x1 = (t.contiguous() for t in torch.broadcast_tensors(
+        (x0 + ks[0]) & MASK32, (x1 + ks[1]) & MASK32))
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+            x0.add_(x1).bitwise_and_(MASK32)
+            left = (x1 << r).bitwise_and_(MASK32)  # rotl(x1, r) ^ x0
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(left).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(MASK32)
     return x0, x1
 
 

@@ -2,7 +2,9 @@
 
 The JAX package keeps parameters as nested dicts of arrays (HWIO conv
 kernels for the CNN, ``(in, out)`` matrices stacked over super-blocks for
-the decoders); the port keeps the same leaves, so the conversion is a copy
+the decoders, ``(E, in, out)`` expert banks, MLA's latent projections,
+deepseek's ``prefix_layers``, ``mtp_block`` and ``mtp_norm``); the port
+keeps the same leaves, so the conversion is a copy
 of every leaf onto the port's device in its own dtype. With it both
 packages compute the same function from the same weights, which is what
 the cross-package tests need. Only numpy arrays cross: the port imports
@@ -60,9 +62,12 @@ def round_state_from_jax(state, device=None):
 def cache_from_jax(cache, device=None):
     """The reference's serving cache (``transformer.prefill`` /
     ``init_cache``: ``{"layers": {pos: {"k", "v", "slot_pos"}}}``, k and v
-    in the activation dtype, ``slot_pos`` int32; a mamba position's
-    ``{"ssm", "conv"}``, ``ssm`` f32 (B, H, P, N) and ``conv`` (B, W - 1,
-    C) in the activation dtype; each leaf stacked over the super-blocks;
+    in the activation dtype, ``slot_pos`` int32; an MLA position's
+    ``{"ckv", "k_rope", "slot_pos"}``, the latents in the activation
+    dtype; a mamba position's ``{"ssm", "conv"}``, ``ssm`` f32 (B, H, P,
+    N) and ``conv`` (B, W - 1, C) in the activation dtype; each leaf
+    stacked over the super-blocks; deepseek's ``"prefix"`` entry the same,
+    stacked over its dense prefix layers;
     as numpy, e.g. ``jax.device_get(cache)``) -> the port's, each leaf in
     its own dtype on ``device`` (None: the card), so the port's
     ``decode_step`` continues from the reference's own prefill."""

@@ -23,7 +23,9 @@ Counterpart of the baseline round of ``repro/distributed/steps.py``
   super-block in local SGD's backward pass: the gradient is taken with
   ``torch.autograd.grad`` (``core.qafel.local_sgd``), under which the
   model's ``torch.utils.checkpoint`` runs; the values are those of
-  ``remat=False``, which takes ``torch.func.grad``.
+  ``remat=False``, which takes ``torch.func.grad``, for gelu models
+  (gemma2-2b); silu's backward differs in the last bit between the two
+  (ROADMAP queue C).
 
 **The state is updated in place**, unlike the reference's functional
 round: ``RoundState`` holds x, x-hat and m as one flat buffer each in the
@@ -89,6 +91,14 @@ into the add):
 
 The sums are plain PyTorch (``ref.fma_f32``, float64-exact, in chunks of
 ``_CHUNK`` elements); only qsgd messages go through K1 and K3.
+
+The round runs over any tree of the pool: the MoE configs' expert banks
+and routers, deepseek's MLA, ``prefix_layers``, ``mtp_block`` and
+``mtp_norm`` are leaves like any other, flattened in JAX's sorted-key
+order (``embed``, ``final_norm``, ``head``, ``layers``, ``mtp_block``,
+``mtp_norm``, ``prefix_layers``), so the server half stays bit for bit
+with the reference's on equal messages; the loss carries the routers'
+aux term and the MTP term (``transformer.loss_fn``).
 
 ``make_prefill_step`` and ``make_decode_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` (the serving side, ``launch.serve``).
@@ -639,7 +649,7 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     docstring), equal to the reference's bit for bit on equal messages.
     Every quantizer kind runs, on either side (module docstring).
     ``chunk_rows`` and ``remat`` as in the module docstring: neither
-    changes a bit of the round. The state is updated in place (module
+    changes a bit of the round (``remat``: on gelu models). The state is updated in place (module
     docstring). ``on_message(kind, index, a, b)``, when given, sees each
     message of the round as it is made: ``("upload", k, ...)`` for client
     k's upload and ``("broadcast", K, ...)``, ``(a, b)`` the message's

@@ -1,9 +1,11 @@
 """QAFeL rounds on a decoder architecture (reduced config).
 
 The port of ``examples/federated_llm.py``: the same Algorithm 1-3 round
-math drives a decoder from the pool (gemma2-2b by default; any but MoE
-and MLA: internvl2-1b's batches carry patch embeddings, musicgen-large's
-codebook tokens, mamba2-1.3b and zamba2-7b run Mamba2), K clients
+math drives a decoder from the pool (gemma2-2b by default; any of it:
+internvl2-1b's batches carry patch embeddings, musicgen-large's codebook
+tokens, mamba2-1.3b and zamba2-7b run Mamba2, qwen3-moe-235b-a22b and
+deepseek-v3-671b their experts, deepseek MLA, a dense prefix and the MTP
+loss), K clients
 in turn, per-client qsgd4 uploads (K1 encode, K3 decode), the server
 update and the qsgd4 hidden-state broadcast. The tokens come from the
 same numpy stream as the reference's, the keys from the port's threefry,

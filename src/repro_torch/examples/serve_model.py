@@ -5,10 +5,12 @@ weights, the prompts from the reference's numpy stream, prefill and then
 token by token through the caches: KV rings (``--window`` gives the
 global layers a ring buffer too, the long-context serving mode) and
 Mamba2's constant-size recurrent state. The default architecture is the
-reference's, mamba2-1.3b; every architecture of the pool but MoE and MLA
-serves (internvl2-1b's prompt counts its 16 reduced patch embeddings,
+reference's, mamba2-1.3b; every architecture of the pool serves
+(internvl2-1b's prompt counts its 16 reduced patch embeddings,
 musicgen-large decodes its four codebooks a step, zamba2-7b's shared
-attention block keeps a KV cache per use).
+attention block keeps a KV cache per use, qwen3-moe-235b-a22b and
+deepseek-v3-671b route through their experts, deepseek's MLA layers cache
+latents, its dense prefix layers included).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_model \\
         [--arch mamba2-1.3b] [--window 32] [--device cpu]

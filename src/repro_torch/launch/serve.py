@@ -4,14 +4,17 @@ model.
 The port of ``repro/launch/serve.py``: prefill a batch of prompts, then
 decode greedily through the per-layer caches (KV ring buffers for the
 windowed layers; Mamba2's f32 SSM state and conv tail, whose size does
-not grow with the prompt). The tokens stay on the device until the loop
-ends: no decode step waits on the host. Every architecture of the pool
-but MoE and MLA (ROADMAP queue A item 14c.4, which raise naming it): a
-VLM's prompt is its patch embeddings and then its text tokens
+not grow with the prompt; MLA's latents). The tokens stay on the device
+until the loop ends: no decode step waits on the host. Every
+architecture of the pool: a VLM's prompt is its patch embeddings and then its text tokens
 (``--prompt-len`` counts both, as in the reference, so it must exceed the
 prefix), audio decodes (B, CB) codebook tokens a step, mamba2-1.3b and
 zamba2-7b (whose one shared attention block keeps a KV cache per use)
-carry their recurrent caches.
+carry their recurrent caches, qwen3-moe-235b-a22b and deepseek-v3-671b
+decode through their experts at ``decode_capacity_factor`` (2.0 in the
+published configs: one slot an expert at a batch of 4, so copies drop
+where tokens share an expert, as in the reference), deepseek's prefix
+layers and MLA layers holding their latents.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --reduced --batch 4 --prompt-len 64 --decode-steps 32 [--device cpu]

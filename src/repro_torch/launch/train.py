@@ -21,12 +21,12 @@ round's peak under one f32 copy of the model.
         --reduced --steps 50 --seq 128 --global-batch 32 [--device cpu] \\
         [--checkpoint-dir build/ckpt]
 
-Every architecture of the pool but MoE and MLA (ROADMAP queue A item
-14c.4, which raise naming it) runs: a VLM's ``--seq`` counts its patch
+Every architecture of the pool runs: a VLM's ``--seq`` counts its patch
 embeddings and must exceed them (internvl2-1b: 256, its reduced config
 16), audio's batches carry (..., seq, CB) codebook tokens; mamba2-1.3b
 and zamba2-7b keep their f32 ``A_log``, ``D`` and ``dt_bias`` in a bf16
-state (``distributed.steps``), saved as f32 leaves.
+state (``distributed.steps``), saved as f32 leaves; the MoE configs add
+their routers' aux loss and deepseek-v3-671b its MTP term to the loss.
 """
 from __future__ import annotations
 

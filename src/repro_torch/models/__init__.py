@@ -1,5 +1,5 @@
 """Models of the port: the paper's 4-layer CNN and the decoders
-(attention, Mamba2 and the hybrid)."""
+(attention, MoE and MLA, Mamba2 and the hybrid)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (abstract_cache, abstract_params,
                                             decode_step, forward, init_cache,

@@ -4,9 +4,8 @@ Counterpart of ``repro/models/config.py``, field for field, so a config
 compares equal across the two packages. Families: dense (llama/qwen/
 gemma-style decoders), moe (routed experts, optionally MLA), ssm
 (Mamba2/SSD), hybrid (Mamba2 + shared attention blocks), vlm / audio (text
-backbone consuming stubbed frontend embeddings). The port runs dense,
-vlm, audio, ssm and hybrid (``models.transformer``); moe (and MLA) is
-ROADMAP queue A item 14c.4.
+backbone consuming stubbed frontend embeddings); the port runs every
+family (``models.transformer``).
 Dtypes are names here, as in the reference; ``act_dtype`` and ``p_dtype``
 give the torch dtypes.
 """

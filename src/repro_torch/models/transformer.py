@@ -1,7 +1,6 @@
 """The config-driven decoder: attention, Mamba2 and the hybrid.
 
-Counterpart of ``repro/models/transformer.py`` without MoE, MLA, MTP and
-the dense-FFN prefix layers. Layer stacks are grouped into repeating
+Counterpart of ``repro/models/transformer.py``. Layer stacks are grouped into repeating
 super-blocks (``cfg.layer_pattern``): pattern ("attn",) for
 llama/qwen-style decoders (qkv bias, qk-norm, GQA down to a single KV
 head), ("local", "global") for gemma2 (alternating sliding-window and
@@ -20,6 +19,7 @@ its loss the mean over the codebooks. The parameter tree is the
 reference's, leaf for leaf: ``embed`` ((CB, V, D) for audio),
 ``layers/pos{i}_{kind}`` with each leaf stacked over the super-blocks
 (no entry for ``attn_shared``), ``shared_block`` (the hybrid),
+``prefix_layers`` and ``mtp_block`` / ``mtp_norm`` (deepseek),
 ``final_norm``, ``audio_heads`` (CB, D, V) for audio, else ``head`` only
 when embeddings are untied; it flattens in JAX's order (sorted keys), so
 flat vectors of the two packages compare coordinate by coordinate. The
@@ -36,8 +36,20 @@ its recurrent state into its cache, the last position's logits only) and
 ``decode_step`` (one token through every layer, the caches written in
 place).
 
-MoE, MLA, MTP and the dense-FFN prefix layers (ROADMAP queue A item
-14c.4) raise ``NotImplementedError`` naming their item.
+MoE and MLA (qwen3-moe-235b-a22b, deepseek-v3-671b): a stacked layer
+holds ``moe`` (``models.moe``: the router, the experts, deepseek's shared
+expert) in place of ``mlp`` when the config has experts, its aux loss
+added up over the layers into ``loss_fn``'s ``router_aux_coef * aux``;
+``use_mla`` puts ``models.mla`` in every attention block. deepseek adds
+``prefix_layers`` (``n_dense_layers`` dense-FFN blocks of width
+``dense_d_ff``, stacked, run before the stack; their caches under
+``cache["prefix"]``) and the MTP head (``mtp_block``, ``mtp_norm``: one
+more block over the final hidden states, its cross-entropy on the labels
+shifted one more position, 0.1 of it added to the loss). As in the
+reference, the prefix layers come on top of the ``n_layers`` routed ones.
+Decode's MoE takes ``decode_capacity_factor`` (None: ``n_experts /
+experts_per_token``, no drops). ``moe_impl="ep"`` is ROADMAP queue A item
+13b and raises naming it.
 """
 from __future__ import annotations
 
@@ -50,6 +62,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
                                        init_gated_mlp, rms_norm, softcap)
@@ -58,16 +72,11 @@ ATTN_KINDS = ("attn", "local", "global", "attn_shared")
 KINDS = ATTN_KINDS + ("mamba",)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a decoder the port runs: attention (text, a
-    VLM prefix or audio codebooks), Mamba2 or the hybrid."""
-    if (cfg.family == "moe" or cfg.n_experts or cfg.use_mla
-            or cfg.use_mtp or cfg.n_dense_layers):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the port runs attention, Mamba2 and the "
-            "hybrid; MoE, MLA, MTP and dense-FFN prefix layers are ROADMAP "
-            "queue A item 14c.4")
-    if (cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid")
+def _check_config(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a decoder of the pool: attention (text, a
+    VLM prefix or audio codebooks; MoE, MLA, a dense prefix, MTP), Mamba2
+    or the hybrid."""
+    if (cfg.family not in ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
             or cfg.modality not in ("text", "vlm", "audio")
             or any(k not in KINDS for k in cfg.layer_pattern)):
         raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}, "
@@ -75,15 +84,28 @@ def _check_ported(cfg: ModelConfig) -> None:
                          f"{cfg.layer_pattern}")
 
 
+def _moe_apply(cfg: ModelConfig, moe_params, f_in: torch.Tensor,
+               capacity_factor: float):
+    """The MoE execution strategy (``ModelConfig.moe_impl``): "ep" is
+    ROADMAP queue A item 13b and raises."""
+    if cfg.moe_impl == "ep":
+        return moe_lib.moe_forward_ep(cfg, moe_params, f_in,
+                                      capacity_factor=capacity_factor)
+    return moe_lib.moe_forward(cfg, moe_params, f_in,
+                               capacity_factor=capacity_factor)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
-                     lead=()) -> Dict[str, Any]:
-    """One attention block (norms, attention, gated MLP); ``lead`` stacks
-    it over the super-blocks."""
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, lead=(), *,
+                     moe: bool = False,
+                     d_ff: Optional[int] = None) -> Dict[str, Any]:
+    """One attention block (norms, attention or MLA, a gated MLP of width
+    ``d_ff`` (default ``cfg.d_ff``) or with ``moe`` the experts);
+    ``lead`` stacks it over the super-blocks."""
     lead, dev, dt = tuple(lead), gen.device, cfg.p_dtype
     fill = torch.zeros if cfg.norm_scale_plus_one else torch.ones
     p: Dict[str, Any] = {"ln1": fill(lead + (cfg.d_model,), dtype=dt,
@@ -95,8 +117,16 @@ def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
                                     device=dev)
         p["post_ln2"] = torch.zeros(lead + (cfg.d_model,), dtype=dt,
                                     device=dev)
-    p["attn"] = attn_lib.init_attention(gen, cfg, lead=lead)
-    p["mlp"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead)
+    if cfg.use_mla:
+        p["attn"] = mla_lib.init_mla(gen, cfg, lead=lead)
+    else:
+        p["attn"] = attn_lib.init_attention(gen, cfg, lead=lead)
+    if moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, lead=lead)
+    else:
+        p["mlp"] = init_gated_mlp(gen, cfg.d_model,
+                                  d_ff if d_ff is not None else cfg.d_ff, dt,
+                                  lead=lead)
     return p
 
 
@@ -114,7 +144,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random parameters in the reference's tree, drawn on ``device``
     (None: the card) from a generator seeded with ``seed``; the values are
     not the reference's (carry those across with ``convert``)."""
-    _check_ported(cfg)
+    _check_config(cfg)
     dev = resolve_device(device)
     return _params(cfg, torch.Generator(device=dev).manual_seed(int(seed)))
 
@@ -128,7 +158,7 @@ class _MetaDraws:
 def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_params``' tree of shapes and dtypes without memory (``meta``
     tensors)."""
-    _check_ported(cfg)
+    _check_config(cfg)
     return _params(cfg, _MetaDraws())
 
 
@@ -140,13 +170,16 @@ def _params(cfg: ModelConfig, gen) -> Dict[str, Any]:
         gen, (cfg.audio_codebooks or 1, cfg.vocab, cfg.d_model) if audio
         else (cfg.vocab, cfg.d_model), cfg.p_dtype)}
     reps = cfg.n_super_blocks
-    init = {"mamba": _init_mamba_block}
     params["layers"] = {
-        f"pos{i}_{kind}": init.get(kind, _init_attn_block)(gen, cfg,
-                                                           lead=(reps,))
+        f"pos{i}_{kind}": _init_mamba_block(gen, cfg, lead=(reps,))
+        if kind == "mamba" else _init_attn_block(
+            gen, cfg, lead=(reps,), moe=cfg.n_experts > 0)
         for i, kind in enumerate(cfg.layer_pattern) if kind != "attn_shared"}
     if "attn_shared" in cfg.layer_pattern:  # one block for every use
         params["shared_block"] = _init_attn_block(gen, cfg)
+    if cfg.n_dense_layers:  # deepseek: dense-FFN prefix layers
+        params["prefix_layers"] = _init_attn_block(
+            gen, cfg, lead=(cfg.n_dense_layers,), d_ff=cfg.dense_d_ff)
     params["final_norm"] = (torch.zeros if cfg.norm_scale_plus_one
                             else torch.ones)((cfg.d_model,),
                                              dtype=cfg.p_dtype, device=dev)
@@ -157,6 +190,11 @@ def _params(cfg: ModelConfig, gen) -> Dict[str, Any]:
     elif not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                     cfg.d_model, cfg.p_dtype)
+    if cfg.use_mtp:
+        params["mtp_block"] = _init_attn_block(
+            gen, cfg, d_ff=cfg.dense_d_ff or cfg.d_ff)
+        params["mtp_norm"] = torch.ones((cfg.d_model,), dtype=cfg.p_dtype,
+                                        device=dev)
     return params
 
 
@@ -172,15 +210,30 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor):
 def _attn_sublayer(cfg: ModelConfig, p, h: torch.Tensor,
                    positions: torch.Tensor, *, window, aux,
                    q_block: int, kv_block: int):
-    """Pre-norm attention and MLP with residuals (gemma: post-norms too)."""
+    """Pre-norm attention (or MLA) and MLP (or MoE, its aux added to
+    ``aux``) with residuals (gemma: post-norms too)."""
     a_in = _norm(cfg, h, p["ln1"])
-    a = attn_lib.attention_train(cfg, p["attn"], a_in, positions,
-                                 window=window, q_block=q_block,
-                                 kv_block=kv_block)
+    attend = mla_lib.mla_train if cfg.use_mla else attn_lib.attention_train
+    a = attend(cfg, p["attn"], a_in, positions, window=window,
+               q_block=q_block, kv_block=kv_block)
+    return _ffn_sublayer(cfg, p, h, a, aux, cfg.capacity_factor)
+
+
+def _ffn_sublayer(cfg: ModelConfig, p, h: torch.Tensor, a: torch.Tensor,
+                  aux, capacity_factor: float):
+    """The block's second half after its attention output ``a``: the
+    residual, then the MLP or the MoE at ``capacity_factor`` (its aux
+    added to ``aux`` unless that is None, as in serving)."""
     if cfg.norm_scale_plus_one:
         a = _norm(cfg, a, p["post_ln1"])
     h = h + a
-    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
+    f_in = _norm(cfg, h, p["ln2"])
+    if "moe" in p:
+        f, moe_aux = _moe_apply(cfg, p["moe"], f_in, capacity_factor)
+        if aux is not None:
+            aux = aux + moe_aux
+    else:
+        f = gated_mlp(p["mlp"], f_in, cfg.mlp_act)
     if cfg.norm_scale_plus_one:
         f = _norm(cfg, f, p["post_ln2"])
     return h + f, aux
@@ -221,7 +274,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
     ``remat`` recomputes each super-block in the backward pass
     (``torch.utils.checkpoint``); it runs under ``torch.autograd``, not
     under ``torch.func.grad``, so the round's local SGD takes it off."""
-    _check_ported(cfg)
+    _check_config(cfg)
     h = _embed_inputs(cfg, params, inputs)
     s = h.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h.device)
@@ -241,10 +294,23 @@ def forward(cfg: ModelConfig, params, inputs, *,
                 q_block=q_block, kv_block=kv_block)
         return h, aux
 
+    def prefix_block(h, aux, p):
+        return _attn_sublayer(cfg, p, h, positions, window=window_override,
+                              aux=aux, q_block=q_block, kv_block=kv_block)
+
     # one unbind a leaf: its backward stacks the super-blocks' gradients
     # once, where a slice per super-block would add a zero-filled gradient
     # of the whole stack per super-block (quadratic in the depth); the
     # shared block's leaves go whole to every super-block
+    if cfg.n_dense_layers:  # deepseek's dense-FFN prefix, before the stack
+        pslices = tree_map(lambda a: a.unbind(0), params["prefix_layers"])
+        for i in range(cfg.n_dense_layers):
+            p = tree_map(lambda a: a[i], pslices)
+            if remat:
+                h, aux = torch.utils.checkpoint.checkpoint(
+                    prefix_block, h, aux, p, use_reentrant=False)
+            else:
+                h, aux = prefix_block(h, aux, p)
     slices = tree_map(lambda a: a.unbind(0), params["layers"])
     shared = params.get("shared_block")
     for sb in range(cfg.n_super_blocks):
@@ -302,18 +368,32 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
             loss_chunk: int = 1024):
     """Causal-LM loss. batch: the inputs ({"tokens"}, + "patch_embeddings"
     for a VLM), "labels" (+ optional "loss_mask", (B, S)). A VLM scores
-    only the text span, the last ``labels.shape[1]`` positions. Returns
-    (loss, {"xent", "aux"})."""
+    only the text span, the last ``labels.shape[1]`` positions. With MTP
+    (deepseek) 0.1 of the MTP head's cross-entropy on the labels shifted
+    one more position (the last repeated) is added. Returns (loss +
+    ``router_aux_coef`` * aux, {"xent", "aux"})."""
     h, aux = forward(cfg, params, batch, window_override=window_override,
                      remat=remat)
     labels = batch["labels"]
-    if cfg.modality == "vlm":  # the prefix positions carry no labels
-        h = h[:, -labels.shape[1]:]
+    # the prefix positions of a VLM carry no labels
+    h_text = h[:, -labels.shape[1]:] if cfg.modality == "vlm" else h
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape[:2], dtype=torch.float32,
                           device=h.device)
-    loss = _chunked_xent(cfg, params, h, labels, mask, loss_chunk)
+    loss = _chunked_xent(cfg, params, h_text, labels, mask, loss_chunk)
+    if cfg.use_mtp:  # one depth-1 block over h predicts a token further
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=h.device)
+        h2, _ = _attn_sublayer(
+            cfg, params["mtp_block"], h, positions, window=window_override,
+            aux=torch.zeros((), dtype=torch.float32, device=h.device),
+            q_block=512, kv_block=512)
+        h2 = _norm(cfg, h2, params["mtp_norm"])
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        loss = loss + 0.1 * _chunked_xent(
+            cfg, params, h2[:, -mtp_labels.shape[1]:], mtp_labels, mask,
+            loss_chunk)
     return loss + cfg.router_aux_coef * aux, {"xent": loss, "aux": aux}
 
 
@@ -341,25 +421,26 @@ def _ring_write(layer_cache: dict, arrays: Dict[str, torch.Tensor], s: int,
 def _attn_sublayer_prefill(cfg: ModelConfig, p, h: torch.Tensor,
                            positions: torch.Tensor, *, window, layer_cache,
                            q_block: int, kv_block: int) -> torch.Tensor:
-    """``_attn_sublayer`` that also fills the layer's cache (in place)."""
+    """``_attn_sublayer`` that also fills the layer's cache (in place):
+    keys and values, or MLA's latents ``ckv`` and ``k_rope``."""
     s = h.shape[1]
     a_in = _norm(cfg, h, p["ln1"])
-    a, (k, v) = attn_lib.attention_train(
-        cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
-        kv_block=kv_block, return_kv=True)
-    _ring_write(layer_cache, {"k": k, "v": v}, s, window)
-    if cfg.norm_scale_plus_one:
-        a = _norm(cfg, a, p["post_ln1"])
-    h = h + a
-    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
-    if cfg.norm_scale_plus_one:
-        f = _norm(cfg, f, p["post_ln2"])
-    return h + f
+    if cfg.use_mla:
+        a, (ckv, k_rope) = mla_lib.mla_train(
+            cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
+            kv_block=kv_block, return_latents=True)
+        _ring_write(layer_cache, {"ckv": ckv, "k_rope": k_rope}, s, window)
+    else:
+        a, (k, v) = attn_lib.attention_train(
+            cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
+            kv_block=kv_block, return_kv=True)
+        _ring_write(layer_cache, {"k": k, "v": v}, s, window)
+    return _ffn_sublayer(cfg, p, h, a, None, cfg.capacity_factor)[0]
 
 
-def _layer_cache(cache, key: str, sb: int) -> dict:
-    """Super-block ``sb``'s slice of a stacked cache entry (views)."""
-    return {name: t[sb] for name, t in cache["layers"][key].items()}
+def _layer_cache(entry: dict, i: int) -> dict:
+    """Layer ``i``'s slice of a stacked cache entry (views)."""
+    return {name: t[i] for name, t in entry.items()}
 
 
 @torch.no_grad()
@@ -375,16 +456,22 @@ def prefill(cfg: ModelConfig, params, inputs, *,
     layer leaves its final SSM state and its last W - 1 raw conv inputs.
     ``q_block`` and ``kv_block`` must divide the prompt's length, as in
     ``forward``."""
-    _check_ported(cfg)
+    _check_config(cfg)
     h = _embed_inputs(cfg, params, inputs)
     b, s, _ = h.shape
     max_len = max_len if max_len is not None else s
     positions = torch.arange(s, dtype=torch.int32, device=h.device)
     cache = init_cache(cfg, b, max_len, window_override, device=h.device)
+    for i in range(cfg.n_dense_layers):  # deepseek's prefix, before the stack
+        h = _attn_sublayer_prefill(
+            cfg, tree_map(lambda a: a[i], params["prefix_layers"]), h,
+            positions, window=window_override,
+            layer_cache=_layer_cache(cache["prefix"], i), q_block=q_block,
+            kv_block=kv_block)
     for sb in range(cfg.n_super_blocks):
         for i, kind in enumerate(cfg.layer_pattern):
             key = f"pos{i}_{kind}"
-            layer_cache = _layer_cache(cache, key, sb)
+            layer_cache = _layer_cache(cache["layers"][key], sb)
             if kind == "mamba":
                 p = tree_map(lambda a: a[sb], params["layers"][key])
                 out, filled = mamba_lib.mamba_train(
@@ -416,6 +503,10 @@ def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     window_override: Optional[int], reps: int, device):
     if kind == "mamba":
         one = mamba_lib.init_mamba_cache(cfg, batch, device)
+    elif cfg.use_mla:
+        one = mla_lib.init_mla_cache(
+            cfg, batch, max_len, _window_for(cfg, kind, window_override),
+            device=device)
     else:
         one = attn_lib.init_attn_cache(
             cfg, batch, max_len, _window_for(cfg, kind, window_override),
@@ -427,15 +518,21 @@ def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window_override: Optional[int] = None, device=None):
     """Empty caches, one entry per pattern position, each leaf stacked over
-    the super-blocks (leading dim ``n_super_blocks``), on ``device``
-    (None: the card)."""
-    _check_ported(cfg)
+    the super-blocks (leading dim ``n_super_blocks``), and with a dense
+    prefix ``"prefix"`` stacked over its layers, on ``device`` (None: the
+    card). An MLA layer holds its latents (``mla.init_mla_cache``)."""
+    _check_config(cfg)
     dev = resolve_device(device)
-    return {"layers": {
+    cache = {"layers": {
         f"pos{i}_{kind}": _position_cache(cfg, kind, batch, max_len,
                                           window_override,
                                           cfg.n_super_blocks, dev)
         for i, kind in enumerate(cfg.layer_pattern)}}
+    if cfg.n_dense_layers:
+        cache["prefix"] = _position_cache(cfg, "attn", batch, max_len,
+                                          window_override,
+                                          cfg.n_dense_layers, dev)
+    return cache
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -454,16 +551,15 @@ def _decode_sublayer(cfg: ModelConfig, kind: str, p, h: torch.Tensor,
                                         _norm(cfg, h, p["ln1"]), layer_cache)
         return h + out
     a_in = _norm(cfg, h, p["ln1"])
-    a, _ = attn_lib.attention_decode(
-        cfg, p["attn"], a_in, layer_cache, pos,
-        window=_window_for(cfg, kind, window_override))
-    if cfg.norm_scale_plus_one:
-        a = _norm(cfg, a, p["post_ln1"])
-    h = h + a
-    f = gated_mlp(p["mlp"], _norm(cfg, h, p["ln2"]), cfg.mlp_act)
-    if cfg.norm_scale_plus_one:
-        f = _norm(cfg, f, p["post_ln2"])
-    return h + f
+    decode = mla_lib.mla_decode if cfg.use_mla else attn_lib.attention_decode
+    a, _ = decode(cfg, p["attn"], a_in, layer_cache, pos,
+                  window=_window_for(cfg, kind, window_override))
+    # decode capacity: no drops (n_experts / top_k) unless the config sets
+    # a serving factor
+    dcf = (cfg.decode_capacity_factor
+           if cfg.decode_capacity_factor is not None
+           else cfg.n_experts / max(cfg.experts_per_token, 1))
+    return _ffn_sublayer(cfg, p, h, a, None, dcf)[0]
 
 
 @torch.no_grad()
@@ -474,14 +570,18 @@ def decode_step(cfg: ModelConfig, params, cache, inputs, pos: int, *,
     the cache); ``pos`` the token's absolute position (a Python int,
     counting a VLM's prefix). Returns (logits (B, 1, V), or (B, 1, CB, V)
     for audio, ``cache``, written in place)."""
-    _check_ported(cfg)
+    _check_config(cfg)
     pos = int(pos)
     h = _embed_inputs(cfg, params, inputs)
+    for i in range(cfg.n_dense_layers):  # deepseek's prefix, before the stack
+        h = _decode_sublayer(
+            cfg, "attn", tree_map(lambda a: a[i], params["prefix_layers"]),
+            h, _layer_cache(cache["prefix"], i), pos, window_override)
     for sb in range(cfg.n_super_blocks):
         for i, kind in enumerate(cfg.layer_pattern):
             key = f"pos{i}_{kind}"
             h = _decode_sublayer(
                 cfg, kind, _block_params(params, key, kind, sb), h,
-                _layer_cache(cache, key, sb), pos, window_override)
+                _layer_cache(cache["layers"][key], sb), pos, window_override)
     h = _norm(cfg, h, params["final_norm"])
     return logits_fn(cfg, params, h), cache

@@ -12,8 +12,9 @@ ones, where a missing bias add or qk-norm changes nothing; ``model``
 moves each of those leaves off its init with seeded numpy values first.
 
 Exact: the registry (every id of ``list_archs(include_cnn=True)``: the
-same config or None (mamba2-1.3b and zamba2-7b among them), or a refusal
-naming the ROADMAP item), the published
+same config or None (mamba2-1.3b, zamba2-7b and the MoE configs among
+them; the MoE configs also run a reduced step, and their expert-parallel
+``moe_impl="ep"`` is refused naming ROADMAP item 13b), the published
 configs' ``param_count`` and parameter layouts (leaf order, shapes,
 dtypes; ``meta`` tensors against ``jax.eval_shape``); in bf16,
 musicgen's codebook sum against the reference op by op and jitted.
@@ -48,7 +49,8 @@ PARAM_COUNT = {"codeqwen1.5-7b": 8_189_378_560,
                "granite-34b": 47_248_834_560,
                "internvl2-1b": 493_709_440,
                "musicgen-large": 3_242_196_992}
-UNPORTED = {"qwen3-moe-235b-a22b": "14c.4", "deepseek-v3-671b": "14c.4"}
+# once refused naming 14c.4; their expert-parallel path is item 13b
+UNPORTED = {"qwen3-moe-235b-a22b": "13b", "deepseek-v3-671b": "13b"}
 # the bounds of tests/test_torch_transformer.py, relative to the largest
 # magnitude of the reference's values (the loss absolute)
 FWD_RTOL = 1e-5
@@ -109,14 +111,18 @@ def model(arch: str, dtype: str = "float32", seed: int = 0) -> dict:
 
 @pytest.mark.parametrize("arch", JC.list_archs(include_cnn=True))
 def test_registry_matches_reference(arch):
-    """Each id: the same config and reduced config (None for the CNN), or
-    a refusal naming the ROADMAP item that ports it."""
+    """Each id: the same config and reduced config (None for the CNN);
+    the MoE configs' reduced step runs and their ``moe_impl="ep"`` raises
+    naming the ROADMAP item that ports it."""
     if arch in UNPORTED:
-        for get in (TC.get_config, TC.get_reduced):
-            with pytest.raises(NotImplementedError,
-                               match=UNPORTED[arch].replace(".", r"\.")):
-                get(arch)
-        return
+        cfg = TC.get_reduced(arch)
+        params = TT.init_params(cfg, 0, device="cpu")
+        tokens = torch.zeros((1, 8), dtype=torch.int32)
+        batch = {"tokens": tokens, "labels": tokens}
+        assert torch.isfinite(TT.loss_fn(cfg, params, batch)[0])
+        with pytest.raises(NotImplementedError,
+                           match=UNPORTED[arch].replace(".", r"\.")):
+            TT.loss_fn(cfg.replace(moe_impl="ep"), params, batch)
     for get in ("get_config", "get_reduced"):
         j, t = getattr(JC, get)(arch), getattr(TC, get)(arch)
         if j is None:

@@ -361,24 +361,29 @@ def test_serve_model_example_runs_on_cpu(capsys):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-235b-a22b",
                                   "deepseek-v3-671b"])
 def test_serving_other_architectures_raises_naming_the_item(arch):
-    """MoE and MLA raise naming their item; mamba2-1.3b (item 14c.3,
-    ported) serves its reduced config through both entry points."""
+    """Once refused, now ported: mamba2-1.3b (item 14c.3) and the MoE
+    configs (item 14c.4; deepseek's MLA latents and prefix cache) serve
+    their reduced configs through both entry points; the expert-parallel
+    MoE (``moe_impl="ep"``) raises naming item 13b."""
+    out = launch_serve.main(["--arch", arch, "--reduced", "--device",
+                             "cpu", "--decode-steps", "2"])
+    assert out["tokens"].shape == (4, 3)
+    names = set(out["cache"]["layers"]["pos0_" + (
+        "mamba" if arch.startswith("mamba") else "attn")])
+    assert names == ({"ssm", "conv"} if arch.startswith("mamba") else
+                     {"ckv", "k_rope", "slot_pos"} if arch.startswith("deep")
+                     else {"k", "v", "slot_pos"})
+    assert ("prefix" in out["cache"]) == arch.startswith("deep")
+    out = serve_model.main(["--arch", arch, "--device", "cpu",
+                            "--decode-steps", "2"])
+    assert out["tokens"].shape == (2, 3)
     if arch.startswith("mamba"):
-        out = launch_serve.main(["--arch", arch, "--reduced", "--device",
-                                 "cpu", "--decode-steps", "2"])
-        assert out["tokens"].shape == (4, 3)
-        assert set(out["cache"]["layers"]["pos0_mamba"]) == {"ssm", "conv"}
-        out = serve_model.main(["--arch", arch, "--device", "cpu",
-                                "--decode-steps", "2"])
-        assert out["tokens"].shape == (2, 3)
         return
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        serve_model.main(["--arch", arch, "--device", "cpu"])
-    moe = TC.get_reduced("gemma2-2b").replace(n_experts=4)
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        TT.init_cache(moe, 1, 8, device="cpu")
+    cfg = TC.get_reduced(arch).replace(moe_impl="ep")
+    params = TT.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"13b"):
+        TT.prefill(cfg, params, {"tokens": torch.zeros((1, 4),
+                                                       dtype=torch.int32)})
 
 
 def test_serving_entry_points_default_to_cuda(monkeypatch):

@@ -160,19 +160,21 @@ def test_configs_match_reference():
 @pytest.mark.parametrize("arch", ["zamba2-7b", "deepseek-v3-671b",
                                   "mamba2-1.3b", "qwen3-moe-235b-a22b"])
 def test_unported_archs_raise_naming_the_item(arch):
-    """MoE and MLA raise naming item 14c.4; mamba2-1.3b and zamba2-7b
-    (item 14c.3, ported) load and run a reduced step."""
-    if arch in ("zamba2-7b", "mamba2-1.3b"):
-        cfg = TC.get_reduced(arch)
-        assert TC.get_config(arch).family in ("ssm", "hybrid")
-        params = TT.init_params(cfg, 0, device="cpu")
-        tokens = torch.zeros((1, 8), dtype=torch.int32)
-        loss, _ = TT.loss_fn(cfg, params, {"tokens": tokens,
-                                           "labels": tokens})
-        assert torch.isfinite(loss)
-    else:
-        with pytest.raises(NotImplementedError, match=r"14c\.4"):
-            TC.get_config(arch)
+    """Once refused, now ported: mamba2-1.3b and zamba2-7b (item 14c.3)
+    and the MoE configs (item 14c.4) load and run a reduced step; the
+    MoE configs' expert-parallel ``moe_impl="ep"`` raises naming item
+    13b."""
+    cfg = TC.get_reduced(arch)
+    assert TC.get_config(arch).family in ("ssm", "hybrid", "moe")
+    params = TT.init_params(cfg, 0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    loss, metrics = TT.loss_fn(cfg, params, batch)
+    assert torch.isfinite(loss)
+    if cfg.family == "moe":
+        assert float(metrics["aux"]) > 0
+        with pytest.raises(NotImplementedError, match=r"13b"):
+            TT.loss_fn(cfg.replace(moe_impl="ep"), params, batch)
     with pytest.raises(KeyError):
         TC.get_config("no-such-arch")
 
@@ -438,20 +440,25 @@ def test_loss_and_gradients_bf16_match_eager_and_jitted(model_bf16):
 
 
 def test_serving_paths_raise_naming_the_item():
-    """Serving is ported on the attention-only path (tests/
-    test_torch_serve.py, test_torch_archs_serve.py); a model the port does
-    not run raises naming its item there too."""
-    moe = TC.get_reduced("gemma2-2b").replace(n_experts=4)
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        TT.init_params(moe, device="cpu")
+    """Serving is ported on every path of the pool (tests/
+    test_torch_serve.py, test_torch_archs_serve.py, test_torch_mla.py); a
+    path the port does not run, the expert-parallel MoE, raises naming its
+    item (13b) in the forward, prefill and decode; an MLA config's cache
+    holds latents, with deepseek's prefix beside the stack."""
+    moe = TC.get_reduced("qwen3-moe-235b-a22b").replace(moe_impl="ep")
+    params = TT.init_params(moe, device="cpu")
     tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        TT.prefill(moe, {}, tokens)
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        TT.decode_step(moe, {}, {}, tokens, 0)
-    with pytest.raises(NotImplementedError, match=r"14c\.4"):
-        TT.init_cache(moe.replace(use_mla=True, n_experts=0), 1, 8,
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match=r"13b"):
+        TT.forward(moe, params, tokens)
+    with pytest.raises(NotImplementedError, match=r"13b"):
+        TT.prefill(moe, params, tokens)
+    with pytest.raises(NotImplementedError, match=r"13b"):
+        TT.decode_step(moe, params, TT.init_cache(moe, 1, 8, device="cpu"),
+                       {"tokens": tokens["tokens"][:, :1]}, 0)
+    mla = TT.init_cache(TC.get_reduced("deepseek-v3-671b"), 1, 8,
+                        device="cpu")
+    assert set(mla) == {"layers", "prefix"}
+    assert set(mla["prefix"]) == {"ckv", "k_rope", "slot_pos"}
     # Mamba2 (item 14c.3) is ported: its cache is the recurrent state
     ssm = TC.get_reduced("mamba2-1.3b")
     cache = TT.init_cache(ssm, 1, 8, device="cpu")["layers"]["pos0_mamba"]
