@@ -27,6 +27,14 @@ and prints one JSON line:
   (admissions plus deliveries) per second of ``advance_to`` (host clock,
   ending in a device sync).
 
+With ``--only taps`` each measurement is the metric-tap kernels alone
+(``kernels.taps``): ``flush_taps`` and ``upload_taps`` at
+``chip_smoke.tap_kernel_cases``' timed shapes and ``round_taps`` over
+gemma2-2b's window sums (d = 2,614,341,888): median device ms, the byte
+bound's share and the achieved GB/s of each; the launch floor
+(``chip_smoke.launch_floor_ms``); and each tap kernel's registers, shared
+bytes and blocks an SM (``chip_smoke.tap_resources``).
+
 The last lines are the card's name and power limit and one JSON object
 with each metric's median per checkout. Uses only entry points that both
 checkouts have; imports no JAX.
@@ -149,11 +157,52 @@ def measure(tree: Path) -> dict:
     return out
 
 
+LLM_D = 2_614_341_888  # gemma2-2b's d: round_taps over its window sums
+
+
+def measure_taps(tree: Path) -> dict:
+    """The metric-tap kernels of one checkout, on the card."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    from chip_smoke import (HBM_BYTES_PER_S, device_ms, launch_floor_ms,
+                            tap_kernel_cases, tap_resources)
+    from repro_torch.common.device import resolve_device
+    from repro_torch.kernels import _build, taps
+
+    dev = resolve_device("cuda")
+    out = {"tree": str(tree)}
+    for name, res in tap_resources(_build.build_all()).items():
+        out.update({f"{name}_{k}": v for k, v in res.items()})
+    out["launch_floor_ms"] = launch_floor_ms(dev)
+
+    def record(name, fn, nbytes, reps):
+        ms = device_ms(fn, reps)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_bound_share"] = 1e3 * nbytes / HBM_BYTES_PER_S / ms
+        out[f"{name}_GB_per_s"] = nbytes / ms / 1e6
+
+    for name, case in tap_kernel_cases(dev).items():
+        if case["timed"]:
+            record(name, lambda: case["fn"](*case["args"]), case["bytes"],
+                   10 if "d1e8" in name else 50)
+        case.clear()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    windows = -(-LLM_D // 32)
+    parts = torch.rand((5, windows), generator=gen, device=dev)
+    w = torch.rand(4, generator=gen, device=dev)
+    record("round_taps_llm", lambda: taps.round_taps(parts, w),
+           5 * 4 * windows + 4 * 4 + 7 * 4, 10)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="*", type=Path)
     ap.add_argument("--measure", type=Path)
     ap.add_argument("--pairs", type=int, default=2)
+    ap.add_argument("--only", choices=("taps",))
     args = ap.parse_args(argv)
     import torch
 
@@ -161,7 +210,8 @@ def main(argv=None) -> int:
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 2
     if args.measure is not None:
-        print(json.dumps(measure(args.measure.resolve())), flush=True)
+        fn = measure_taps if args.only == "taps" else measure
+        print(json.dumps(fn(args.measure.resolve())), flush=True)
         return 0
     before, after = (t.resolve() for t in args.trees)
     runs = {"before": [], "after": []}
@@ -170,8 +220,8 @@ def main(argv=None) -> int:
                            ("after", after), ("before", before)):
             proc = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--measure",
-                 str(tree)], cwd=ROOT, capture_output=True, text=True,
-                check=True)
+                 str(tree), *(["--only", args.only] if args.only else [])],
+                cwd=ROOT, capture_output=True, text=True, check=True)
             line = json.loads(proc.stdout.strip().splitlines()[-1])
             print(json.dumps({"run": name, **line}), flush=True)
             runs[name].append(line)
@@ -183,7 +233,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(json.dumps({"summary": summary,
-                      "in_sync": all(r["replicas_in_sync"]
+                      "in_sync": all(r.get("replicas_in_sync", True)
                                      for rs in runs.values() for r in rs)}))
     return 0
 

@@ -318,6 +318,68 @@ def device_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def launch_floor_ms(dev, reps: int = 200) -> float:
+    """``device_ms`` of a kernel that does no work to speak of (one float
+    set to 0): what a launch costs by that measure, the floor of every
+    small case."""
+    import torch
+
+    t = torch.empty(1, device=dev)
+    return device_ms(t.zero_, reps)
+
+
+# Hopper's per-SM limits (CUDA programming guide, compute capability 9.0)
+SM_REGS, SM_WARPS, SM_BLOCKS, SM_SMEM, BLOCK_SMEM_RESERVED = (
+    65_536, 64, 32, 233_472, 1_024)
+
+
+def kernel_resources(lib: Path, kernel: str, threads: int,
+                     dynamic_smem: int = 0) -> dict:
+    """Registers a thread and static shared bytes of the kernels whose
+    (mangled) name contains ``kernel`` in the built library ``lib``
+    (``cuobjdump -res-usage``; the largest over their instantiations), and
+    the blocks an SM holds at ``threads`` a block with ``dynamic_smem``
+    bytes more, by Hopper's limits: registers in units of 256 a warp,
+    shared memory in units of 128 B plus 1 KB a block, 64 warps, 32
+    blocks. ``occupancy`` is the resident warps' share of 64."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-res-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    regs = smem = 0
+    lines = text.splitlines()
+    for i, line in enumerate(lines[:-1]):
+        if "Function" in line and kernel in line:
+            m = re.search(r"REG:(\d+).*SHARED:(\d+)", lines[i + 1])
+            if m:
+                regs = max(regs, int(m.group(1)))
+                smem = max(smem, int(m.group(2)))
+    warps = threads // 32
+    by_regs = SM_REGS // (-(-regs * 32 // 256) * 256 * warps) if regs else 0
+    block_smem = -(-(smem + dynamic_smem) // 128) * 128 + BLOCK_SMEM_RESERVED
+    blocks = min(SM_BLOCKS, SM_WARPS // warps, by_regs,
+                 SM_SMEM // block_smem)
+    return {"registers": regs, "static_smem": smem,
+            "dynamic_smem": dynamic_smem, "blocks_per_sm": blocks,
+            "occupancy": blocks * warps / SM_WARPS}
+
+
+def tap_resources(build_dir: Path) -> dict:
+    """``kernel_resources`` of the three tap kernels (the wrappers' block
+    size and dynamic shared bytes, ``kernels.taps.THREADS`` and
+    ``SMEM_BYTES``, where the build has them; 128 threads and none
+    before)."""
+    from repro_torch.kernels import taps
+
+    threads = getattr(taps, "THREADS", 128)
+    smem = getattr(taps, "SMEM_BYTES", {})
+    return {name: kernel_resources(build_dir / f"lib{name}.so",
+                                   f"{name}_kernel", threads,
+                                   smem.get(name, 0))
+            for name in ("flush_taps", "upload_taps", "round_taps")}
+
+
 def bits_equal(a, b) -> bool:
     import torch
 
@@ -1201,15 +1263,29 @@ def cohort_quad_on_both(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# lengths where a level of the tap sums' padding changes (around 32, 1,024
+# and 32,768 values, past 2^20 and past 32 level-2 windows), held bit for
+# bit, not timed; at B = 8 the last two take the long plan
+# (``tap_reduce.cuh``), B = 1 the short one; the flush's long plan from
+# 8,192 level-1 windows
+TAP_LENGTHS = (1, 31, 33, 1_023, 1_025, 32_767, 32_768, 32_769, 79_842,
+               1_048_577, 32 * 32_768 + 5)
+TAP_FLUSH_LONG_N = 8_192 * 1_024 + 5
+
+
 def tap_kernel_cases(dev):
     """The two tap kernels at the telemetry phase's shapes: the flush at
     the CNN's n (K = 10 weights, and an identity broadcast, q = diff) and
     at d = 1e8; the upload at b = 1 qsgd4, B = 32 in qsgd4, qsgd2 and
-    identity over the CNN's n, and B = 8 qsgd4 at d = 1e8. Their bytes are
-    each input read once and the output written once; their f32 operations
-    (flush: 2 differences, 5 squares and 5 adds per element; upload: 1
-    square and add, and with codes 2 products, a difference, a square and
-    an add) bound nothing."""
+    identity over the CNN's n, and B = 8 qsgd4 at d = 1e8 (``timed``);
+    then, checked only, the flush and the upload at b = 1 and B = 8 (qsgd4)
+    at ``TAP_LENGTHS``, and the flush at ``TAP_FLUSH_LONG_N``. Their bytes
+    are each input read once and the output written once; their f32
+    operations (flush: 2 differences, 5 squares and 5 adds per element;
+    upload: 1 square and add, and with codes 2 products, a difference, a
+    square and an add) bound nothing. No single PyTorch call computes
+    either (an XLA-ordered sum of squares, the upload's fused decode
+    error): library time null."""
     import torch
 
     from repro_torch.common import prng
@@ -1220,7 +1296,7 @@ def tap_kernel_cases(dev):
     f32 = (F32_OPS_PER_S, "float32")
     cases = {}
 
-    def flush(n, identity):
+    def flush(n, identity, timed=True):
         v = [torch.randn(n, generator=gen, device=dev) * s
              for s in (1.0, 1e-3, 1e-3, 1e-2, 1e-2)]
         v[1] = v[0] + v[1]
@@ -1233,7 +1309,7 @@ def tap_kernel_cases(dev):
             args=(*v, w), bytes=5 * n * 4 + CNN_K * 4 + 7 * 4,
             bytes_formula="5*n*4 (x_old, x_new, delta, diff, q) + K*4 "
                           "weights + 7*4 out",
-            ops=n * 12, rate=f32)
+            ops=n * 12, rate=f32, timed=timed)
 
     def plain_by_message(f, p, nm, bits):
         return torch.cat([ref.upload_taps(
@@ -1241,7 +1317,7 @@ def tap_kernel_cases(dev):
             None if nm is None else nm[i:i + 1], bits)
             for i in range(f.shape[0])])
 
-    def upload(b, n, bits, plain=ref.upload_taps):
+    def upload(b, n, bits, plain=ref.upload_taps, timed=True):
         x = torch.randn((b, n), generator=gen, device=dev) * 0.01
         x[:, 128:256] = 0.0  # an all-zero bucket
         rows = ref.rows_for(n)
@@ -1258,7 +1334,7 @@ def tap_kernel_cases(dev):
             bytes=b * n * 4 + code_bytes + b * 2 * 4,
             bytes_formula="B*n*4 deltas + B*rows*(128*bits/8 + 4) codes and "
                           "norms + B*2*4 out",
-            ops=b * n * (2 if bits is None else 7), rate=f32)
+            ops=b * n * (2 if bits is None else 7), rate=f32, timed=timed)
 
     cases["flush_taps_cnn"] = flush(CNN_N, False)
     cases["flush_taps_identity_cnn"] = flush(CNN_N, True)
@@ -1270,20 +1346,54 @@ def tap_kernel_cases(dev):
     cases["flush_taps_d1e8"] = flush(BIG_ROWS * 128, False)
     cases[f"upload_taps_B{COHORT_BIG_B}_qsgd4_d1e8"] = upload(
         COHORT_BIG_B, BIG_ROWS * 128, 4, plain_by_message)
+    for n in TAP_LENGTHS:
+        cases[f"flush_taps_n{n}"] = flush(n, False, timed=False)
+        cases[f"upload_taps_b1_qsgd4_n{n}"] = upload(1, n, 4, timed=False)
+        cases[f"upload_taps_B{COHORT_BIG_B}_qsgd4_n{n}"] = upload(
+            COHORT_BIG_B, n, 4, plain_by_message, timed=False)
+    cases[f"flush_taps_n{TAP_FLUSH_LONG_N}"] = flush(TAP_FLUSH_LONG_N, False,
+                                                     timed=False)
     return cases
 
 
 def check_tap_kernels(dev) -> dict:
     """Each tap kernel case against its plain version on the card, bit for
-    bit, timed, with its byte bound and share."""
+    bit; the timed ones timed, with their byte bound and share, and the
+    launch floor's distance (``launch_floor_ms``, measured first); every
+    B > 1 upload case row by row against the kernel on each message alone
+    (a member's tap does not depend on its cohort)."""
     import torch
 
+    floor = launch_floor_ms(dev)
+    emit({"phase": "launch_floor", "ms": floor})
     out = {}
     for name, case in tap_kernel_cases(dev).items():
         big = "d1e8" in name
-        out[name] = measure_case(name, case, 10 if big else 50,
-                                 1 if big else 10)
-        out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
+        if case["timed"]:
+            out[name] = measure_case(name, case, 10 if big else 50,
+                                     1 if big else 10)
+            out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
+            out[name]["over_floor_ms"] = out[name]["ms"] - floor
+        else:
+            got = case["fn"](*case["args"])
+            want = case["plain"](*case["args"])
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                raise AssertionError(f"{name}: kernel and plain version "
+                                     "differ")
+            out[name] = {"equal": True}
+        flat, packed, norms, bits = (case["args"] if name.startswith(
+            "upload") else (None,) * 4)
+        if flat is not None and flat.shape[0] > 1:
+            whole = case["fn"](*case["args"])
+            alone = torch.cat([case["fn"](
+                flat[i:i + 1], None if packed is None else packed[i:i + 1],
+                None if norms is None else norms[i:i + 1], bits)
+                for i in range(flat.shape[0])])
+            out[name]["b_invariant"] = bits_equal(whole, alone)
+            if not out[name]["b_invariant"]:
+                raise AssertionError(f"{name}: a message's taps depend on "
+                                     "its cohort")
         emit({"phase": "tap_kernel", "name": name,
               **{key: v for key, v in out[name].items()
                  if key not in ("source", "replaces")}})
@@ -1629,8 +1739,11 @@ def telemetry_quad_on_both(dev) -> dict:
 def run_telemetry(dev):
     """The telemetry phase; returns the tap kernels' measurements and
     their launches on the traced main path and cohort path."""
+    from repro_torch.kernels import _build
+
     out_dir = ROOT / "build" / "telemetry"
     out_dir.mkdir(parents=True, exist_ok=True)
+    emit({"phase": "tap_resources", **tap_resources(_build.build_all())})
     cases = check_tap_kernels(dev)
     cohort = telemetry_cohort(dev, out_dir)
     main = telemetry_main_path(dev, out_dir)
@@ -5235,10 +5348,17 @@ def main() -> int:
             "family_launches": family_launches[name],
             "population_launches": population_launches[name],
             "llm_round_launches": llm_launches[name],
+            "library_note": "no single PyTorch call computes it: the sums "
+                            "of squares run in XLA:CPU's order, and the "
+                            "upload's error fuses the decode's product",
             "cases": {case: {key: c[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
-                "equal", "max_abs_err", "bytes")}
-                for case, c in taps.items() if case.startswith(name)}})
+                "over_floor_ms", "equal", "max_abs_err", "bytes")}
+                for case, c in taps.items()
+                if case.startswith(name) and "ms" in c},
+            "checked_lengths": sorted(
+                case for case, c in taps.items()
+                if case.startswith(name) and "ms" not in c)})
     m = llm_cases["server_update_llm"]
     kernels_line.append({
         "name": "server_update", "route": "cuda",

@@ -23,9 +23,9 @@ Counterpart of the baseline round of ``repro/distributed/steps.py``
   super-block in local SGD's backward pass: the gradient is taken with
   ``torch.autograd.grad`` (``core.qafel.local_sgd``), under which the
   model's ``torch.utils.checkpoint`` runs; the values are those of
-  ``remat=False``, which takes ``torch.func.grad``, for gelu models
-  (gemma2-2b); silu's backward differs in the last bit between the two
-  (ROADMAP queue C).
+  ``remat=False``, which takes ``torch.func.grad``, bit for bit (each
+  silu is one ``autograd.Function`` with one backward for both,
+  ``models.layers.silu`` and the MoE experts' ``silu_aten``).
 
 **The state is updated in place**, unlike the reference's functional
 round: ``RoundState`` holds x, x-hat and m as one flat buffer each in the

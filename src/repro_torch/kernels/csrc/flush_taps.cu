@@ -20,56 +20,75 @@
 //
 // Bound: bytes. It reads 5*n*4 B (the CNN's n = 79,842: 1.6 MB, 0.48 us at
 // 3.35 TB/s, so the launch floor sets its time; d = 1e8: 2.0 GB, 0.597 ms).
+// The earlier design (two passes of 16 level-0 windows a warp, half the
+// lanes summing the other half's windows, 4-byte loads that waited on
+// the sums, the levels from 2 up in one block) ran at 47% of it at
+// d = 1e8.
 //
-// Design: tap_reduce.cuh's law (XLA:CPU's reduce-windows of 32): a warp
-// reads its level-1 window of 1,024 values of each vector coalesced, stages
-// the five squares through shared memory so that a lane sums one window of
-// 32 in order, and adds the 32 window sums in order; a block of 4 warps
-// writes 4 level-1 sums, and the last block runs the levels above them.
+// Design: tap_reduce.cuh's plan. Each warp stages a span of 1,024 values
+// of the five vectors through shared memory with cp.async, two spans in
+// flight at a time, and every lane sums one window of 32 of the five
+// squares in order; at d = 1e8 a block owns whole level-2 windows
+// (32,768 values), so only 3,052 sums a vector reach the tail; at the
+// CNN's n the 78 level-1 windows spread over 20 blocks, one a warp.
 #include "tap_reduce.cuh"
 
 namespace {
 
-using taps::kThreads;
-constexpr int kSums = 5;
-
-// The five squares of value e: delta^2, (x_new - x_old)^2, diff^2,
-// (diff - q)^2, q^2; 0 outside [0, n).
-struct FlushSquares {
-  const float* x_old;
-  const float* x_new;
-  const float* delta;
-  const float* diff;
-  const float* q;
-  long long n;
-  __device__ __forceinline__ void operator()(long long e,
-                                             float v[kSums]) const {
-    const bool in = e >= 0 && e < n;
-    const float dl = in ? __ldg(delta + e) : 0.0f;
-    const float xo = in ? __ldg(x_old + e) : 0.0f;
-    const float xn = in ? __ldg(x_new + e) : 0.0f;
-    const float df = in ? __ldg(diff + e) : 0.0f;
-    const float qv = in ? __ldg(q + e) : 0.0f;
-    const float upd = __fsub_rn(xn, xo);
-    const float err = __fsub_rn(df, qv);
-    v[0] = __fmul_rn(dl, dl);
-    v[1] = __fmul_rn(upd, upd);
-    v[2] = __fmul_rn(df, df);
-    v[3] = __fmul_rn(err, err);
-    v[4] = __fmul_rn(qv, qv);
+// The five vectors staged a span, and their five squares a value: delta^2,
+// (x_new - x_old)^2, diff^2, (diff - q)^2, q^2 (0 outside [0, n), as the
+// staging fills 0 there).
+struct FlushSource {
+  static constexpr int kSums = 5;
+  static constexpr int kVectors = 5;  // delta, x_old, x_new, diff, q
+  static constexpr int kExtraWords = 0;
+  const float* v[kVectors];
+  const float* weights;
+  int k;
+  float* out;
+  __device__ __forceinline__ const float* vector(long long, int i) const {
+    return v[i];
+  }
+  __device__ __forceinline__ void stage_extra(float*, long long, long long,
+                                              int) const {}
+  __device__ __forceinline__ void lane_sums(const float* st, long long,
+                                            long long, int lane,
+                                            float acc[kSums]) const {
+    const float* row = st + lane * taps::kRowFloats;
+#pragma unroll 2
+    for (int q = 0; q < taps::kWindow / 4; ++q) {
+      float4 f[kVectors];
+#pragma unroll
+      for (int i = 0; i < kVectors; ++i) {
+        f[i] = *reinterpret_cast<const float4*>(row + i * taps::kSpanFloats +
+                                                4 * q);
+      }
+      const float* dl = &f[0].x;
+      const float* xo = &f[1].x;
+      const float* xn = &f[2].x;
+      const float* df = &f[3].x;
+      const float* qv = &f[4].x;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float upd = __fsub_rn(xn[c], xo[c]);
+        const float err = __fsub_rn(df[c], qv[c]);
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(dl[c], dl[c]));
+        acc[1] = __fadd_rn(acc[1], __fmul_rn(upd, upd));
+        acc[2] = __fadd_rn(acc[2], __fmul_rn(df[c], df[c]));
+        acc[3] = __fadd_rn(acc[3], __fmul_rn(err, err));
+        acc[4] = __fadd_rn(acc[4], __fmul_rn(qv[c], qv[c]));
+      }
+    }
+  }
+  __device__ __forceinline__ void finish(long long, const float* tot) const {
+    taps::tap_vector(tot, weights, k, out);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    flush_taps_kernel(FlushSquares squares, const float* weights, int k,
-                      taps::Law law, float* partials, unsigned* counter,
-                      float* __restrict__ out) {
-  taps::level1_sums<kSums>(squares, law, blockIdx.x * (long long)taps::kWarps,
-                           partials);
-  if (!taps::block_done(counter, law.blocks)) return;
-  float tot[kSums];
-  taps::row_totals<kSums>(partials, law.l1, counter, tot);
-  if (threadIdx.x == 0) taps::tap_vector(tot, weights, k, out);
+__global__ void __launch_bounds__(taps::kThreads)
+    flush_taps_kernel(FlushSource src, taps::Plan plan, float* partials,
+                      unsigned* counter) {
+  taps::run(src, plan, partials, counter);
 }
 
 }  // namespace
@@ -85,14 +104,11 @@ extern "C" int flush_taps(const void* x_old, const void* x_new,
   if (n <= 0 || k < 0 || (k > 0 && weights == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const taps::Law law = taps::law_of(n);
-  if (law.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const FlushSquares squares{(const float*)x_old, (const float*)x_new,
-                             (const float*)delta, (const float*)diff,
-                             (const float*)q, n};
-  flush_taps_kernel<<<(unsigned)law.blocks, kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      squares, (const float*)weights, k, law, (float*)partials,
-      (unsigned*)counter, (float*)out);
-  return (int)cudaGetLastError();
+  const FlushSource src{{(const float*)delta, (const float*)x_old,
+                         (const float*)x_new, (const float*)diff,
+                         (const float*)q},
+                        (const float*)weights, k, (float*)out};
+  return taps::launch(flush_taps_kernel, src, taps::plan_of(n, 1),
+                      (float*)partials, (unsigned*)counter,
+                      (cudaStream_t)stream);
 }

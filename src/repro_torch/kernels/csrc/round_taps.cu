@@ -19,41 +19,57 @@
 // Bound: bytes. It reads 5 * 4 * W B (gemma2-2b at d = 2.61e9: 1.63 GB,
 // 0.49 ms at 3.35 TB/s).
 //
-// Design: tap_reduce.cuh's two passes with the identity in place of the
-// square: a warp stages 1,024 window sums of each row through shared
-// memory, lane k sums one window of 32 in order, the warp adds the 32 sums
-// in order; the last block runs the levels above and writes the vector.
+// Design: tap_reduce.cuh's plan with the identity in place of the square:
+// a warp stages 1,024 window sums of each row through shared memory with
+// cp.async, every lane sums one window of 32 in order, the warp adds the
+// 32 sums in order; at gemma2-2b's W a block owns whole level-2 windows of
+// the rows and the last block runs the levels above and writes the
+// vector.
 #include "tap_reduce.cuh"
 
 namespace {
 
-using taps::kThreads;
-constexpr int kSums = 5;
-
-// Value e of each of the five rows as is (0 outside [0, W)).
+// The five rows staged a span; value e of each as is (0 outside [0, W)).
 struct PartialRows {
+  static constexpr int kSums = 5;
+  static constexpr int kVectors = 5;
+  static constexpr int kExtraWords = 0;
   const float* rows;
   long long windows;
-  __device__ __forceinline__ void operator()(long long e,
-                                             float v[kSums]) const {
-    const bool in = e >= 0 && e < windows;
+  const float* weights;
+  int k;
+  float* out;
+  __device__ __forceinline__ const float* vector(long long, int s) const {
+    return rows + s * windows;
+  }
+  __device__ __forceinline__ void stage_extra(float*, long long, long long,
+                                              int) const {}
+  __device__ __forceinline__ void lane_sums(const float* st, long long,
+                                            long long, int lane,
+                                            float acc[kSums]) const {
+    const float* row = st + lane * taps::kRowFloats;
+#pragma unroll 2
+    for (int q = 0; q < taps::kWindow / 4; ++q) {
 #pragma unroll
-    for (int s = 0; s < kSums; ++s) {
-      v[s] = in ? __ldg(rows + s * windows + e) : 0.0f;
+      for (int s = 0; s < kSums; ++s) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            row + s * taps::kSpanFloats + 4 * q);
+        acc[s] = __fadd_rn(acc[s], v.x);
+        acc[s] = __fadd_rn(acc[s], v.y);
+        acc[s] = __fadd_rn(acc[s], v.z);
+        acc[s] = __fadd_rn(acc[s], v.w);
+      }
     }
+  }
+  __device__ __forceinline__ void finish(long long, const float* tot) const {
+    taps::tap_vector(tot, weights, k, out);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    round_taps_kernel(PartialRows rows, const float* weights, int k,
-                      taps::Law law, float* scratch, unsigned* counter,
-                      float* __restrict__ out) {
-  taps::level1_sums<kSums>(rows, law, blockIdx.x * (long long)taps::kWarps,
-                           scratch);
-  if (!taps::block_done(counter, law.blocks)) return;
-  float tot[kSums];
-  taps::row_totals<kSums>(scratch, law.l1, counter, tot);
-  if (threadIdx.x == 0) taps::tap_vector(tot, weights, k, out);
+__global__ void __launch_bounds__(taps::kThreads)
+    round_taps_kernel(PartialRows src, taps::Plan plan, float* scratch,
+                      unsigned* counter) {
+  taps::run(src, plan, scratch, counter);
 }
 
 }  // namespace
@@ -67,11 +83,9 @@ extern "C" int round_taps(const void* partials, long long windows,
   if (windows <= 0 || k < 0 || (k > 0 && weights == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const taps::Law law = taps::law_of(windows);
-  if (law.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  round_taps_kernel<<<(unsigned)law.blocks, kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      PartialRows{(const float*)partials, windows}, (const float*)weights, k,
-      law, (float*)scratch, (unsigned*)counter, (float*)out);
-  return (int)cudaGetLastError();
+  const PartialRows src{(const float*)partials, windows,
+                        (const float*)weights, k, (float*)out};
+  return taps::launch(round_taps_kernel, src, taps::plan_of(windows, 1),
+                      (float*)scratch, (unsigned*)counter,
+                      (cudaStream_t)stream);
 }

@@ -36,6 +36,26 @@ LAUNCHES = {"flush_taps": 0, "upload_taps": 0, "round_taps": 0}
 FLUSH_SUMS, UPLOAD_SUMS = 5, 2  # partial sums a block writes
 _counters: Dict[torch.device, torch.Tensor] = {}
 
+THREADS = 128  # a block (``tap_reduce.cuh`` kThreads: 4 warps)
+
+
+def _smem_bytes(vectors: int, sums: int, bits: int = 0) -> int:
+    """Dynamic shared bytes of a tap kernel's block (``tap_reduce.cuh``
+    ``smem_bytes``): two stages a warp of ``vectors`` staged spans (32
+    rows of 36 floats) and, for codes of ``bits``, the span's code words
+    (32 * bits + 1, one pad a 32) and 9 norms, to 16 bytes; each warp's
+    window sums; two units' level-1 sums."""
+    words = 32 * bits + 1 if bits else 0
+    extra = words + words // 32 + 1 + 9 if bits else 0
+    stage = -(-(vectors * 32 * 36 + extra) // 4) * 4
+    return 4 * (4 * 2 * stage + 4 * sums * 36 + 2 * 32 * sums)
+
+
+# dynamic shared bytes of each kernel's block (the upload's at qsgd4)
+SMEM_BYTES = {"flush_taps": _smem_bytes(5, FLUSH_SUMS),
+              "upload_taps": _smem_bytes(1, UPLOAD_SUMS, 4),
+              "round_taps": _smem_bytes(5, _ref.ROUND_TAP_SUMS)}
+
 
 def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
     """At least ``rows`` per-row completion counters on ``device``: int32
@@ -140,6 +160,9 @@ def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
         check_tensor("packed", packed, torch.uint8,
                      (b, rows, LANES * bits // 8), dev)
         check_tensor("norms", norms, torch.float32, (b, rows), dev)
+        if packed.data_ptr() % 4:
+            raise ValueError("upload_taps reads the codes as 32-bit words: "
+                             "packed must be 4-byte aligned")
     if not on_card(flat2d):
         return _ref.upload_taps(flat2d, packed, norms, bits)
     partials = torch.empty(b * _scratch_slots(d) * UPLOAD_SUMS, dtype=torch.float32,

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, rms_norm, silu
 
 
 def _conv_channels(cfg: ModelConfig) -> int:
@@ -94,7 +94,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     for i in range(width):
         out = out + (pad[:, i:i + s].to(torch.float32)
                      * w[i].to(torch.float32))
-    return F.silu(out + b.to(torch.float32)).to(xbc.dtype)
+    return silu(out + b.to(torch.float32)).to(xbc.dtype)
 
 
 def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
@@ -164,7 +164,7 @@ def _gated_out(cfg: ModelConfig, params, y: torch.Tensor, x: torch.Tensor,
     d_skip = params["D"][:, None]
     y = y.to(torch.float32) + x.to(torch.float32) * d_skip
     y = y.reshape(shape).to(dtype)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), params["norm"],
+    y = rms_norm(y * silu(z.to(torch.float32)).to(y.dtype), params["norm"],
                  cfg.rms_eps)
     return torch.einsum("bse,ed->bsd", y, params["out_proj"])
 
@@ -230,7 +230,7 @@ def mamba_decode(cfg: ModelConfig, params, xin: torch.Tensor,
     conv_out = torch.einsum("bwc,wc->bc", conv_hist.to(torch.float32),
                             params["conv_w"].to(torch.float32)) \
         + params["conv_b"].to(torch.float32)
-    xbc = F.silu(conv_out)[:, None, :].to(xin.dtype)
+    xbc = silu(conv_out)[:, None, :].to(xin.dtype)
     cache["conv"].copy_(conv_hist[:, 1:])
     x, bmat, cmat = _split_xbc(cfg, xbc)
     x = x.reshape(b, h, p)

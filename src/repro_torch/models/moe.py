@@ -27,7 +27,12 @@ index, and the combine reads each kept copy's row back by its slot. The
 expert FFN's three products are batched matrix products over the experts
 (``torch.einsum``), run in groups of experts whose buffer stays under
 ``EXPERT_GROUP_BYTES`` (one group unless a no-drop capacity meets a long
-prompt); the groups change no value.
+prompt); the groups change no value. Their activation is silu by torch's
+law (``layers.silu_aten``, one backward for both gradient paths), not the
+reference's law that the dense MLPs take (``layers.silu``): with the
+reference's law qwen3-moe's reduced two-round x-hat share, which is set by
+where last-bit gradient noise flips a dithered code, fell under its floor
+in tests/test_torch_moe_round.py (ROADMAP queue C).
 
 ``moe_forward_ep`` (expert parallelism, shard_map + all_to_all in the
 reference) is ROADMAP queue A item 13b and raises naming it.
@@ -39,7 +44,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, gated_mlp, init_gated_mlp
+from repro_torch.models.layers import (dense_init, gated_mlp, init_gated_mlp,
+                                      silu_aten)
 
 # the largest (experts, capacity, max(D, F)) buffer of one expert group
 EXPERT_GROUP_BYTES = 1 << 30
@@ -126,7 +132,7 @@ def _expert_ffn(params, xe: torch.Tensor, e0: int, e1: int) -> torch.Tensor:
          for n in ("w_gate", "w_up", "w_down")}
     g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
     u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(xe.dtype) * u
+    h = silu_aten(g.to(torch.float32)).to(xe.dtype) * u
     return torch.einsum("ecf,efd->ecd", h, w["w_down"])
 
 

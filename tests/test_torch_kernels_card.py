@@ -406,6 +406,67 @@ def test_upload_taps_match_plain_on_card(b, d, bits):
         _assert_bits_equal(one, got[i:i + 1])
 
 
+# where a level of the tap sums' padding changes (around 32, 1,024 and
+# 32,768 values, the CNN's n, past 2^20 and past 32 level-2 windows); at
+# B = 8 the last two take tap_reduce.cuh's long plan, alone the short one
+TAP_LENGTHS = (1, 31, 33, 1_023, 1_025, 32_767, 32_768, 32_769, 79_842,
+               1_048_577, 32 * 32_768 + 5)
+TAP_LONG_N = 8_192 * 1_024 + 5  # one row in the long plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (*TAP_LENGTHS, TAP_LONG_N))
+def test_flush_taps_at_every_padding_change(n):
+    """The flush taps at the lengths where the sum law's padding changes,
+    and at a length whose one row takes the long plan, bit for bit with
+    the plain version on the card."""
+    dev = _card()
+    v = [t.to(dev) for t in _flush_vectors(n, n)]
+    w = torch.rand(10, device=dev)
+    got = tkernels.taps.flush_taps(*v, w)
+    _assert_bits_equal(got, ref.flush_taps(*v, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (4, None))
+@pytest.mark.parametrize("n", TAP_LENGTHS)
+def test_upload_taps_at_every_padding_change(n, bits):
+    """The upload taps of a stack of 8 at the lengths where the sum law's
+    padding changes (the longest two in the long plan) against the plain
+    version message by message, and each message alone (the short plan)
+    against its row of the stack, bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(n)
+    flat = torch.from_numpy((rng.standard_normal((8, n)) * 0.01)
+                            .astype(np.float32)).to(dev)
+    packed = norms = None
+    if bits is not None:
+        packed, norms = tkernels.qsgd.qsgd_quantize_pack_batch_flat(
+            flat, prng.split(prng.PRNGKey(n), 8), bits)
+    got = tkernels.taps.upload_taps(flat, packed, norms, bits)
+    for i in range(8):
+        one = [None if t is None else t[i:i + 1] for t in (packed, norms)]
+        _assert_bits_equal(got[i:i + 1],
+                           ref.upload_taps(flat[i:i + 1], *one, bits))
+        _assert_bits_equal(
+            got[i:i + 1],
+            tkernels.taps.upload_taps(flat[i:i + 1], *one, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows", (1, 33, 1_025, 79_842, TAP_LONG_N))
+def test_round_taps_both_plans(windows):
+    """The round's finishing pass over window sums at lengths of the short
+    plan and one of the long plan, bit for bit with the plain version."""
+    from repro_torch.kernels.taps import round_taps
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(windows)
+    parts = torch.rand((5, windows), generator=gen, device=dev)
+    w = torch.rand(4, generator=gen, device=dev)
+    _assert_bits_equal(round_taps(parts, w), ref.round_taps_finish(parts, w))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("chunk", (1, 7, 1000))
