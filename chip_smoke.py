@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the nine CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build of the ten CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
    per element of the in-kernel threefry dither and of the batched
    encode's counter hash, by pipe, and the decode kernels' int32
@@ -16,7 +16,15 @@ Phases, each printing one JSON line:
    CNN: 624 rows, K = 10, qsgd4) and at d = 1e8 (781,250 rows): median
    device time per launch, the plain version's time and the bound with its
    formula; then the b=1 upload at d = 1e8 before (``prng.uniform`` + the
-   given-uniforms kernel) and after (the fused entry), in one run;
+   given-uniforms kernel) and after (the fused entry), in one run; then
+   silu by the reference's law (``csrc/silu.cu``, one launch each way)
+   against its plain version (``xla_math.silu_fwd`` / ``silu_bwd``) bit for
+   bit (a nan as a nan) over 2^24 values on [-100, 100], 2^20 on the tail
+   [-88.8, -87.3] where XLA:CPU flushes the logistic to zero, and the
+   special values (zeros, subnormals, infinities, nan), the length not a
+   multiple of 4, from an aligned and a misaligned start: device ms
+   against the byte bound, the plain version's and ``F.silu`` /
+   ``aten.silu_backward`` as the library time (``silu_kernel``);
 4. the cohort path's kernel shapes the same way: K2 as the cohort upload
    at B = 32 over 624 rows in qsgd4 and qsgd2, at B = 512 (the population
    path) and at B = 8 over d = 1e8, K3 decoding a qsgd2 tier upload at
@@ -200,12 +208,34 @@ Phases, each printing one JSON line:
     also on its no-drop ``replace`` with decode against forward, and both
     reduced configs card against CPU (a round with MLA, the prefix and the
     MTP term, the server half, the routing ids, serving);
+12b. the assigned shapes (``launch/shapes.py``): ``shapes_reckoning``
+    (every arch of the registry x ``train_4k``, ``prefill_32k``,
+    ``decode_32k``, ``long_500k`` from ``input_specs`` on ``meta``: bytes of
+    the parameters, round state, cache and inputs, ``llm_peak_reckoning``
+    for the round, whether the pair fits under the 60 GB gate and the
+    largest global batch that does); then on gemma2-2b (26 layers) and
+    mamba2-1.3b (48 layers) at full width, each cell printing the
+    published shape, its cut, ms by CUDA events, tokens/s, peak against
+    the reckoning, device launches and idle share from a device profile,
+    finite logits or loss: ``shape_train_4k`` (``make_qafel_round`` at K =
+    8, P = 1, seq 4,096, qsgd4 both ways, remat, the local batch cut; K1,
+    K3 and the update launches by the counters), ``shape_prefill_32k``
+    (``transformer.prefill`` of 32,768-token prompts, B cut),
+    ``shape_decode_32k`` (a 32,768-position cache, row 0 the prefill's
+    first prompt and held against its logits, the other rows drawn from a
+    seed; gemma2-2b's B cut, mamba2-1.3b at B = 128) and
+    ``shape_long_500k`` (B = 1, the caches of the 8,192 window filled from
+    a seed, 32 greedy steps from 524,272 across the rings' wrap, one more
+    step against the same decode recomputed: the window's positions in a
+    linear cache, or mamba2 at position 0, bit for bit);
 13. the streamed uplink (``QAFeL.run_client_stream``, then ``receive``
     chunk by chunk) against ``run_client``: the quickstart's quad on the
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
     state and meters bit for bit, the quad card against the CPU, K1
     launches per streamed upload (``streamed_uplink``);
-14. one line listing every kernel with its launches on both paths, on
+14. one line listing every kernel (``silu_forward`` and ``silu_backward``
+    with ``F.silu`` / ``aten.silu_backward`` as the library time, their
+    launches on zamba2-7b's round) with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
     launcher's rounds, the quantizer rounds and the musicgen-large,
     internvl2-1b, mamba2-1.3b, zamba2-7b and qwen3-moe-235b-a22b rounds,
@@ -771,18 +801,14 @@ def device_launches(fn) -> list:
     the H100 machine: none of a 1 ms flush's), so a device sleep of about
     10 ms runs first and is left out of the counts."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(20_000_000)
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and "spin_kernel" not in e.key]
+    return [(name, c) for name, (c, _) in kernel_table(prof).items()]
 
 
 def upload_launches(dev, steps: int = 5):
@@ -952,27 +978,23 @@ def run_main_path(dev, client_step_launches: float):
 
 
 def profiled_run(sim, uploads: int, phase: str, cohort_size=None) -> dict:
-    """One simulator run under ``torch.profiler``: the device's busy and
-    idle share of the run, its launches per upload (and per client
-    trained: whole cohorts of ``cohort_size``) and the kernels that take
-    the most device time."""
+    """One simulator run under ``torch.profiler`` (device activities,
+    read raw by ``kernel_table``): the device's busy and idle share of the
+    run, its launches per upload (and per client trained: whole cohorts of
+    ``cohort_size``) and the kernels that take the most device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    launches = sum(e.count for e in kernels)
+    by_name = kernel_table(prof)
+    busy_s = 1e-3 * sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    launches = sum(c for c, _ in by_name.values())
     trained = (uploads if cohort_size is None
                else sim.cohorts * cohort_size)
     record = {"phase": phase, "uploads": uploads, "cohort_size": cohort_size,
@@ -981,9 +1003,8 @@ def profiled_run(sim, uploads: int, phase: str, cohort_size=None) -> dict:
               "device_launches": launches,
               "device_launches_per_upload": launches / uploads,
               "device_launches_per_client_trained": launches / trained,
-              "top_kernels": [{"name": e.key[:80],
-                               "ms": 1e-3 * e.self_device_time_total,
-                               "count": e.count} for e in top]}
+              "top_kernels": [{"name": n[:80], "ms": t, "count": c}
+                              for n, (c, t) in top]}
     emit(record)
     if busy_s <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -1419,10 +1440,12 @@ def kernel_counts(prof) -> dict:
 
 def profiled_counts(dev, engine: str, uploads: int) -> dict:
     """The run with no tracer (None) and with taps on (True), each profiled
-    twice in the order off, on, on, off, with cuDNN's deterministic
+    three times in the order off, on, on, off, off, on (a record the
+    profiler drops is then missing from one configuration's every run
+    only if it is dropped three times), with cuDNN's deterministic
     algorithms so that the two states can be compared bit for bit."""
     runs = {None: [], True: []}
-    for t in (None, True, True, None):
+    for t in (None, True, True, None, None, True):
         runs[t].append(traced_cnn_run(dev, t, engine=engine, uploads=uploads,
                                       profiled=True, deterministic=True))
     return runs
@@ -1433,11 +1456,12 @@ def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
     tracer: the tap kernels launched once per flush and once per client
     step with taps on and never without; every other kernel
     name as often with taps as without. The profiler drops a few activity
-    records under load (seen: 1 to 230 of ~30,000 per run) and never adds
-    one, so each name counts the larger of a configuration's two runs,
-    and a name passes within the record loss measured in this run (the
-    largest difference between two runs of one configuration); copies
-    (the taps' device-to-host reads) are counted apart."""
+    records under load (seen: 1 to 230 of ~30,000 per run; once the same
+    4 records from both of two taps-on runs) and never adds one, so each
+    name counts the largest of a configuration's runs, and a name passes
+    within the record loss measured in this run (the largest difference
+    between two runs of one configuration); copies (the taps'
+    device-to-host reads) are counted apart."""
     def split(counts):
         kern = {k: c for k, c in counts.items()
                 if not k.startswith(("Memcpy", "Memset"))}
@@ -1453,7 +1477,7 @@ def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
     k_off, k_on = merged[None], merged[True]
     totals = {t: [sum(kern.values()) for kern, _ in ps]
               for t, ps in per.items()}
-    loss = max(abs(a - b) for a, b in totals.values())
+    loss = max(max(v) - min(v) for v in totals.values())
     differing = sorted(
         (k[:60], k_off.get(k, 0), k_on.get(k, 0))
         for k in set(k_on) | set(k_off)
@@ -4310,6 +4334,8 @@ def pool_round(dev, arch: str, layers=None, phase=None) -> tuple:
             "ms": profiled["ms"],
             "device_busy_ms": sum(t for _, t in by_name.values()),
             "device_launches": sum(c for c, _ in by_name.values()),
+            "silu_device_launches": sum(c for n, (c, _) in by_name.items()
+                                        if "silu" in n.lower()),
             "busiest": [{"name": n[:90], "launches": c, "device_ms": t}
                         for n, (c, t) in busiest],
             "profile_overhead_s": read_s},
@@ -4318,6 +4344,8 @@ def pool_round(dev, arch: str, layers=None, phase=None) -> tuple:
         "peak_limit_gb": min(LLM_PEAK_SLACK * reckoning / 1e9,
                              LLM_PEAK_CAP_GB),
         "launches_per_round": {n: per_round(n) for n in want},
+        "silu_launches_per_round": {n: per_round(n) for n in launches
+                                    if n.startswith("silu")},
         "upload_bytes": rows_out[0]["upload_bytes"]}
     if cfg.n_experts:  # each MoE call routes a client's local batch
         t = fl.LOCAL_BATCH * seq
@@ -4333,7 +4361,8 @@ def pool_round(dev, arch: str, layers=None, phase=None) -> tuple:
         "drift_positive": all(r["drift_l1"] > 0 for r in rows_out),
         **{f"{n}_per_round": per_round(n) == v for n, v in want.items()},
         "other_kernels_idle": all(v == 0 for n, v in launches.items()
-                                  if n not in want),
+                                  if n not in want
+                                  and not n.startswith("silu")),
         "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
         and peak < LLM_PEAK_CAP_GB * 1e9,
         "upload_bytes_exact": all(r["upload_bytes"] == upload_want
@@ -5218,6 +5247,687 @@ def streamed_uplink(dev) -> dict:
     return record
 
 
+# silu by the reference's law (csrc/silu.cu): a sweep of 2^24 values over
+# [-100, 100], the tail [-88.8, -87.3] where XLA:CPU flushes s to zero in
+# 2^20 steps, and the special values; the length is not a multiple of 4,
+# and the same inputs run again from a start one float off the 16-byte
+# boundary
+SILU_SWEEP, SILU_TAIL = 1 << 24, 1 << 20
+SILU_SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45, 1.1e-38,
+                -1.1e-38, 1.2e-38, 2e-38, -2e-38, float("inf"),
+                float("-inf"), float("nan"), 87.5, 88.5, 89.0, -87.5,
+                -88.5, -89.0, 3.4e38, -3.4e38, 1e-30)
+SILU_FLOPS = {"silu_forward": 40, "silu_backward": 8}  # per value, bound
+SILU_BYTES = {"silu_forward": 12, "silu_backward": 16}  # per value
+
+
+def _same_or_nan(a, b) -> bool:
+    """The same bit patterns, a nan standing for any nan."""
+    import torch
+
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def silu_cases(dev) -> dict:
+    """``kernels.silu``'s two launches against the plain version
+    (``xla_math.silu_fwd`` / ``silu_bwd``) on the card, bit for bit (a
+    nan as a nan), over the sweep, the tail and the special values, from
+    an aligned and from a misaligned start; one launch each way by the
+    counters; median device ms of the kernel, the plain version, and
+    ``F.silu`` / ``aten.silu_backward`` on the same tensor as the library
+    time; the byte bound. Returns {"silu_forward": case,
+    "silu_backward": case}."""
+    import torch
+
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches, silu, xla_math
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sweep = torch.linspace(-100.0, 100.0, SILU_SWEEP, device=dev)
+    tail = torch.linspace(-88.8, -87.3, SILU_TAIL, device=dev)
+    special = torch.tensor(SILU_SPECIAL, device=dev)
+    x = torch.cat([sweep, tail, special, torch.zeros(1, device=dev)])
+    n = x.numel() - 1  # one spare float in front of the misaligned view
+    g = torch.randn(n + 1, generator=gen, device=dev)
+    g[::7] = 1e-40  # subnormal cotangents read as zero
+    g[3::11] = 1e-30  # tiny ones whose products flush
+    cases = {}
+    for start in (0, 1):
+        xs, gs = x[start:start + n], g[start:start + n]
+        reset_launches()
+        y, s = silu.silu_forward(xs)
+        gx = silu.silu_backward(gs, xs, s)
+        counts = kernel_launches()
+        py, ps = xla_math.silu_fwd(xs)
+        pg = xla_math.silu_bwd(gs, xs, ps)
+        torch.cuda.synchronize()
+        ok = {"y": _same_or_nan(y, py), "s": _same_or_nan(s, ps),
+              "gx": _same_or_nan(gx, pg),
+              "one_launch_each": counts["silu_forward"] == 1
+              and counts["silu_backward"] == 1}
+        if not all(ok.values()):
+            raise AssertionError(f"silu from offset {start}: {ok}")
+        cases[start] = {
+            "checks": ok, "max_abs_err": max(
+                float(torch.nan_to_num((a.double() - b.double()).abs(),
+                                       nan=0.0, posinf=0.0).max())
+                for a, b in ((y, py), (gx, pg)))}
+    del y, s, gx, py, ps, pg
+    xs, gs = x[:n], g[:n]
+    _, s = silu.silu_forward(xs)
+    out = {}
+    fns = {
+        "silu_forward": (lambda: silu.silu_forward(xs),
+                         lambda: xla_math.silu_fwd(xs),
+                         lambda: torch.nn.functional.silu(xs)),
+        "silu_backward": (lambda: silu.silu_backward(gs, xs, s),
+                          lambda: xla_math.silu_bwd(gs, xs, s),
+                          lambda: torch.ops.aten.silu_backward(gs, xs))}
+    for name, (kernel, plain, library) in fns.items():
+        bytes_s = SILU_BYTES[name] * n / HBM_BYTES_PER_S
+        ops_s = SILU_FLOPS[name] * n / F32_OPS_PER_S
+        out[name] = {
+            "source": "src/repro_torch/kernels/csrc/silu.cu",
+            "replaces": None, "n": n, "equal": True,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 3),
+            "library_ms": device_ms(library, 20),
+            "library_call": "torch.nn.functional.silu" if "forward" in name
+            else "torch.ops.aten.silu_backward",
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes_formula": f"{SILU_BYTES[name]} B a value / 3.35 TB/s",
+            "checked": {"sweep": [SILU_SWEEP, -100.0, 100.0],
+                        "tail": [SILU_TAIL, -88.8, -87.3],
+                        "special": list(map(str, SILU_SPECIAL)),
+                        "offsets_floats": [0, 1], "length": n}}
+        out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
+        emit({"phase": "silu_kernel", "name": name, **out[name],
+              "offset_checks": cases})
+    del x, g, s
+    torch.cuda.empty_cache()
+    return out
+
+
+# the assigned shapes (launch/shapes.py) on one card: gemma2-2b (26 layers,
+# local/global windows) and mamba2-1.3b (48 layers, recurrent cache) at full
+# width through make_qafel_round, transformer.prefill and decode_step
+SHAPE_ARCHS = ("gemma2-2b", "mamba2-1.3b")
+SHAPE_GATE_GB = LLM_PEAK_CAP_GB  # the card's 60 GB gate
+# cuts of the published global batch (train: the local batch of K = 8, P =
+# 1 clients), each the largest the reckoning and the phase's time allow
+SHAPE_TRAIN_LOCAL = {"gemma2-2b": 2, "mamba2-1.3b": 4}
+SHAPE_PREFILL_BATCH = {"gemma2-2b": 4, "mamba2-1.3b": 3}
+SHAPE_DECODE_BATCH = {"gemma2-2b": 22, "mamba2-1.3b": 128}
+SHAPE_DECODE_STEPS, SHAPE_LONG_STEPS = 8, 32
+SHAPE_LONG_START = 524_272  # 32 steps cross the rings' wrap at 524,288
+SHAPE_PROFILED_STEPS = 4
+# super-blocks of the prefill profiled apart (None: the whole prefill is
+# profiled): gemma2-2b's whole prefill makes ~855,000 device activities,
+# which take ~40 s to read back from the profiler
+SHAPE_PREFILL_PROFILE_BLOCKS = {"gemma2-2b": 1, "mamba2-1.3b": None}
+# decode at the prompt's last position against prefill's logits there (bf16)
+SHAPE_DECODE_VS_PREFILL = {"gemma2-2b": SERVE_BF16_DECODE_VS_FORWARD}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.common.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def shapes_reckoning() -> dict:
+    """Every arch of ``configs.list_archs()`` x the four assigned shapes,
+    from ``launch.shapes.input_specs`` on ``meta`` (nothing allocated): the
+    bytes of the parameters, the round state, the cache and the inputs;
+    for ``train_4k`` also ``llm_peak_reckoning`` of the round (its state,
+    sums, messages and a seq-64 transient; the seq-4,096 activations are
+    measured in the shape phases); whether the pair fits one card under
+    the 60 GB gate, and if not, the largest global batch that does (the
+    cache and inputs scale with the batch; a train state does not, so a
+    train state over the gate fits at no batch)."""
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.models import transformer as T
+
+    gate = SHAPE_GATE_GB * 1e9
+    rows = []
+    for arch in configs.list_archs():
+        cfg = configs.get_config(arch)
+        for name, shape in SHAPES.items():
+            spec = input_specs(cfg, name)
+            b = shape.global_batch
+            row = {"arch": arch, "shape": name, "seq": shape.seq,
+                   "global_batch": b,
+                   "window_override": spec["window_override"]}
+            if spec["kind"] == "train":
+                st = spec["state"]
+                d = sum(t.numel() for t in tree_leaves(st.x))
+                row.update(d=d, state_bytes=sum(
+                    _tree_bytes(getattr(st, n))
+                    for n in ("x", "hidden", "momentum")),
+                    input_bytes=_tree_bytes({n: spec[n] for n in (
+                        "batch", "weights", "key_data")}),
+                    llm_peak_reckoning=llm_peak_reckoning(d))
+                total = row["llm_peak_reckoning"] + row["input_bytes"]
+                row.update(bytes=total, fits=total <= gate,
+                           largest_global_batch=b if total <= gate else 0)
+            else:
+                params = _tree_bytes(spec["params"])
+                cache = (_tree_bytes(spec["cache"]) if "cache" in spec else
+                         _tree_bytes(T.abstract_cache(
+                             cfg, b, shape.seq, spec["window_override"])))
+                inputs = _tree_bytes(spec["inputs"])
+                total = params + cache + inputs
+                per_row = (cache + inputs) / b
+                row.update(param_bytes=params, cache_bytes=cache,
+                           input_bytes=inputs, bytes=total,
+                           fits=total <= gate,
+                           largest_global_batch=min(b, max(0, int(
+                               (gate - params) // per_row))))
+            rows.append(row)
+    record = {"phase": "shapes_reckoning", "gate_gb": SHAPE_GATE_GB,
+              "rows": rows,
+              "fit": sorted(f"{r['arch']}:{r['shape']}" for r in rows
+                            if r["fits"])}
+    emit(record)
+    return record
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler`` (device activities only), its
+    wall ms by CUDA events: returns (fn's result, {"wall_ms",
+    "device_busy_ms", "device_launches", "idle_share"})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    by_name = kernel_table(prof)
+    busy = sum(t for _, t in by_name.values())
+    return out, {"wall_ms": wall, "device_busy_ms": busy,
+                 "device_launches": sum(c for c, _ in by_name.values()),
+                 "idle_share": 1 - busy / wall,
+                 "silu_device_launches": sum(
+                     c for n, (c, _) in by_name.items()
+                     if "silu" in n.lower())}
+
+
+def shape_train(dev, arch: str) -> tuple:
+    """``train_4k`` on ``arch`` as published: ``make_qafel_round`` at
+    ``TRAIN_K`` clients of ``TRAIN_P`` step, sequence 4,096, qsgd4 both
+    ways, remat, row chunks of 2^20, the batch's shape from
+    ``input_specs`` with the local batch cut to ``SHAPE_TRAIN_LOCAL``; one
+    round, profiled on the device and timed by CUDA events, the launch
+    counters set to 0 just before and read just after. Returns (record,
+    launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.qafel import QAFeLConfig
+    from repro_torch.distributed.steps import (init_round_state,
+                                               make_qafel_round)
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.shapes import SHAPES, TRAIN_K, TRAIN_P, input_specs
+    from repro_torch.launch.train import round_batch
+
+    cfg = configs.get_config(arch)
+    shape = SHAPES["train_4k"]
+    base = fl.qafel_config(TRAIN_K)
+    qcfg = QAFeLConfig(client_lr=base.client_lr, server_lr=base.server_lr,
+                       server_momentum=base.server_momentum,
+                       buffer_size=TRAIN_K, local_steps=TRAIN_P,
+                       client_quantizer="qsgd4", server_quantizer="qsgd4")
+    spec = input_specs(cfg, "train_4k", qcfg)
+    k, p, local_pub = tuple(spec["batch"]["tokens"].shape)[:3]
+    local = SHAPE_TRAIN_LOCAL[arch]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    holder = [init_round_state(cfg, 0, dev)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d = sum(t.numel() for t in tree_leaves(holder[0].x))
+    chunks = -(-(-(-d // 128)) // LLM_CHUNK_ROWS)
+    round_fn = make_qafel_round(cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS,
+                                window_override=spec["window_override"])
+    batch = round_batch(cfg, qcfg, np.random.default_rng(0), local,
+                        shape.seq, dev)
+    weights = torch.ones(k)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (new, met), prof = _profiled(lambda: round_fn(
+        holder[0], batch, weights, prng.PRNGKey(0)))
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(met["loss"])
+    holder[0] = new
+    tokens = k * p * local * shape.seq
+    reckoning = llm_peak_reckoning(d)
+    want = {"qsgd_quantize_pack_threefry": (k + 1) * chunks,
+            "qsgd_unpack_dequantize": k + 1, "server_update": 1}
+    record = {
+        "phase": "shape_train_4k", "arch": arch, "n_layers": cfg.n_layers,
+        "published": {"seq": shape.seq, "global_batch": shape.global_batch,
+                      "K": k, "P": p, "local_batch": local_pub},
+        "cut": {"local_batch": local, "global_batch": k * p * local,
+                "why": "the activations of a client's local batch at "
+                       "4,096 positions beside the round's state under the "
+                       "60 GB gate"},
+        "d": d, "batch_shape": list(batch["tokens"].shape), "remat": True,
+        "init_s": init_s, "ms": prof["wall_ms"],
+        "tokens_per_s": tokens / (prof["wall_ms"] / 1e3), "loss": loss,
+        "peak_gb": peak / 1e9, "peak_reckoning_gb": reckoning / 1e9,
+        "activations_over_reckoning_gb": (peak - reckoning) / 1e9,
+        "device": prof, "launches": {n: v for n, v in launches.items()
+                                     if v},
+        "upload_bytes": met["upload_bytes"]}
+    checks = {"loss_finite": math.isfinite(loss),
+              **{f"{n}_launches": launches[n] == v for n, v in want.items()},
+              "peak_under_gate": peak < SHAPE_GATE_GB * 1e9}
+    record["checks"] = checks
+    emit(record)
+    del holder, new, batch, round_fn
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"shape_train_4k {arch}: {checks}")
+    return record, launches
+
+
+def _fill_(cache, gen, skip_rows: int = 0) -> None:
+    """Every k, v, SSM state and conv tail of ``cache`` from ``gen``
+    (N(0, 0.25)), in place, rows from ``skip_rows`` on (dim 1 is the
+    batch); ``slot_pos`` untouched."""
+    for lc in cache["layers"].values():
+        for name, t in lc.items():
+            if name != "slot_pos":
+                for sb in range(t.shape[0]):
+                    t[sb, skip_rows:].normal_(0.0, 0.5, generator=gen)
+
+
+def _ring_law_(cache, last: int) -> None:
+    """Each attention layer's ``slot_pos`` as after positions 0..``last``:
+    slot i of a ring of w holds last - ((last - i) mod w), a linear cache
+    (w > last) positions 0..last."""
+    import torch
+
+    for lc in cache["layers"].values():
+        if "slot_pos" in lc:
+            w = lc["slot_pos"].shape[-1]
+            i = torch.arange(w, device=lc["slot_pos"].device)
+            sp = last - torch.remainder(last - i, w)
+            lc["slot_pos"].copy_(torch.where(sp >= 0, sp, -1).to(
+                torch.int32).expand_as(lc["slot_pos"]))
+
+
+def _timed_steps(dev, steps):
+    """Run the callables ``steps`` in order, each timed by CUDA events;
+    returns (their results, ms each)."""
+    import torch
+
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in steps]
+    out = []
+    torch.cuda.synchronize()
+    for (a, b), fn in zip(ev, steps):
+        a.record()
+        out.append(fn())
+        b.record()
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in ev]
+
+
+def shape_prefill(dev, arch: str, params) -> tuple:
+    """``prefill_32k`` on ``arch``: ``transformer.prefill`` of B =
+    ``SHAPE_PREFILL_BATCH`` prompts of 32,768 tokens (the inputs' shape
+    from ``input_specs``, the caches sized for its ``max_len``), timed by
+    CUDA events, the launch counters set to 0 just before and read just
+    after; its device launches and idle share from a profile of the whole
+    prefill, or with ``SHAPE_PREFILL_PROFILE_BLOCKS`` of the same prefill
+    cut to that many super-blocks, run apart. Returns (record, prompt row
+    0, its last logits, row 0's cache as one sequence's cache,
+    launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_map
+    from repro_torch.data.synthetic import synthetic_batch_for_config
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import _masked_out
+
+    cfg = configs.get_config(arch)
+    shape = SHAPES["prefill_32k"]
+    spec = input_specs(cfg, "prefill_32k")
+    bsz = SHAPE_PREFILL_BATCH[arch]
+    raw = synthetic_batch_for_config(cfg, np.random.default_rng(2), bsz,
+                                     shape.seq)
+    inputs = {"tokens": torch.from_numpy(raw["tokens"]).to(dev)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    run = lambda c, p: T.prefill(c, p, inputs, max_len=spec["max_len"],
+                                 window_override=spec["window_override"])
+    blocks = SHAPE_PREFILL_PROFILE_BLOCKS[arch]
+    reset_launches()
+    if blocks is None:
+        (logits, cache), prof = _profiled(lambda: run(cfg, params))
+    else:
+        outs, ms = _timed_steps(dev, [lambda: run(cfg, params)])
+        logits, cache = outs[0]
+        del outs
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if blocks is not None:
+        cut = cfg.replace(n_layers=blocks * len(cfg.layer_pattern))
+        part = dict(params, layers=tree_map(lambda t: t[:blocks],
+                                            params["layers"]))
+        _, part_prof = _profiled(lambda: run(cut, part))
+        del part
+        prof = {"wall_ms": ms[0], "profiled_apart": dict(
+            part_prof, super_blocks=blocks, of=cfg.n_super_blocks),
+            "idle_share": part_prof["idle_share"],
+            "silu_device_launches": part_prof["silu_device_launches"]}
+    cache_bytes = _tree_bytes(cache)
+    reck = _tree_bytes(spec["params"]) + cache_bytes + 4 * bsz * shape.seq
+    nb = shape.seq // 512  # the attention layers' block pairs run
+    pairs = cfg.n_super_blocks * sum(
+        not _masked_out(i, j, 512, 512, T._window_for(cfg, kind, None))
+        for kind in cfg.layer_pattern if kind != "mamba"
+        for i in range(nb) for j in range(nb))
+    record = {
+        "phase": "shape_prefill_32k", "arch": arch,
+        "n_layers": cfg.n_layers,
+        "published": {"seq": shape.seq, "global_batch": shape.global_batch},
+        "cut": {"batch": bsz, "why": "the cache at 32,768 positions and the "
+                "prefill's activations beside the weights under the 60 GB "
+                "gate, and the phase's time"},
+        "ms": prof["wall_ms"],
+        "tokens_per_s": bsz * shape.seq / (prof["wall_ms"] / 1e3),
+        "attention_block_pairs": pairs, "device": prof,
+        "peak_gb": peak / 1e9, "reckoning_gb": reck / 1e9,
+        "resident_before_gb": resident / 1e9, "cache_bytes": cache_bytes,
+        "silu_launches": {n: v for n, v in launches.items()
+                          if n.startswith("silu")},
+        "logits_finite": bool(torch.isfinite(logits).all())}
+    checks = {"logits_finite": record["logits_finite"],
+              "logits_shape": tuple(logits.shape)[:2] == (bsz, 1),
+              "peak_under_gate": peak < SHAPE_GATE_GB * 1e9}
+    record["checks"] = checks
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"shape_prefill_32k {arch}: {checks}")
+    row_cache = tree_map(lambda t: t[:, :1].clone() if t.dim() > 2
+                         else t.clone(), cache)
+    last = logits[:1].float().clone()
+    del cache, logits
+    torch.cuda.empty_cache()
+    return record, inputs["tokens"][:1].clone(), last, row_cache, launches
+
+
+def _decode_record(dev, name, arch, cfg, params, cache, tokens, positions,
+                   window, **extra) -> dict:
+    """Decode ``tokens`` (one (B, 1) tensor per step, or None: greedy from
+    the last logits) at ``positions`` through ``transformer.decode_step``,
+    each step timed by CUDA events, then ``SHAPE_PROFILED_STEPS`` more at
+    the last position profiled on the device. Returns the record's
+    measurements and the logits of every step."""
+    import torch
+
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import transformer as T
+
+    state = {"tok": tokens[0]}
+    logits_all = []
+
+    def step(pos, tok):
+        def run():
+            t = state["tok"] if tok is None else tok
+            logits, _ = T.decode_step(cfg, params, cache, {"tokens": t}, pos,
+                                      window_override=window)
+            state["tok"] = torch.argmax(logits[:, -1], -1).to(
+                torch.int32)[:, None]
+            logits_all.append(logits)
+            return logits
+        return run
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [step(p, t) for p, t in zip(positions, tokens)]
+    _, ms = _timed_steps(dev, steps)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = _profiled(lambda: [step(positions[-1], tokens[-1])()
+                                 for _ in range(SHAPE_PROFILED_STEPS)])
+    bsz = tokens[0].shape[0]
+    cache_bytes = _tree_bytes(cache)
+    weights = _tree_bytes(params)
+    return {
+        "phase": name, "arch": arch, "n_layers": cfg.n_layers,
+        "batch": bsz, "positions": [positions[0], positions[-1]],
+        "steps": len(steps), "step_ms": ms,
+        "step_ms_median": statistics.median(ms),
+        "tokens_per_s": bsz * len(ms) / (sum(ms) / 1e3),
+        "device_launches_per_step": prof["device_launches"]
+        / SHAPE_PROFILED_STEPS,
+        "device_ms_per_step": prof["device_busy_ms"] / SHAPE_PROFILED_STEPS,
+        "idle_share": prof["idle_share"],
+        "step_bound_ms": 1e3 * (weights + cache_bytes) / HBM_BYTES_PER_S,
+        "bound_formula": "(weights + the cache) / 3.35 TB/s",
+        "cache_bytes": cache_bytes, "weight_bytes": weights,
+        "peak_gb": peak / 1e9, "reckoning_gb": (weights + cache_bytes) / 1e9,
+        "launches": launches,
+        "logits_finite": all(bool(torch.isfinite(x).all())
+                             for x in logits_all), **extra}, logits_all
+
+
+def shape_decode_32k(dev, arch: str, params, prompt, last_logits,
+                     row_cache) -> dict:
+    """``decode_32k`` on ``arch``: B = ``SHAPE_DECODE_BATCH`` rows against a
+    cache of 32,768 positions (``input_specs``' shapes, the batch cut);
+    row 0 holds the prefill phase's first prompt, the other rows values
+    drawn from a seed, and each step decodes position 32,767 again. Row 0
+    is held against the prefill's logits at that position: an attention
+    model re-decodes the prompt's last token over the cache prefill wrote
+    (its slot rewritten with the same token); mamba2 decodes it from the
+    state a prefill of the first 32,767 tokens left."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(arch)
+    shape = SHAPES["decode_32k"]
+    spec = input_specs(cfg, "decode_32k")
+    bsz = SHAPE_DECODE_BATCH[arch]
+    wo = spec["window_override"]
+    pos = shape.seq - 1
+    if cfg.family == "ssm":  # the state after the first 32,767 tokens
+        _, row_cache = T.prefill(cfg, params, {"tokens": prompt[:, :pos]},
+                                 max_len=shape.seq, window_override=wo)
+    torch.cuda.empty_cache()
+    cache = T.init_cache(cfg, bsz, shape.seq, wo, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _fill_(cache, gen, skip_rows=1)
+    for key, lc in cache["layers"].items():
+        for name, t in lc.items():
+            if name == "slot_pos":
+                t.copy_(row_cache["layers"][key][name])
+            else:
+                t[:, :1].copy_(row_cache["layers"][key][name])
+    del row_cache
+    torch.cuda.empty_cache()
+    toks = torch.randint(0, cfg.vocab, (bsz, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    toks[0, 0] = prompt[0, pos]
+    rec, logits = _decode_record(
+        dev, "shape_decode_32k", arch, cfg, params, cache,
+        [toks] * SHAPE_DECODE_STEPS, [pos] * SHAPE_DECODE_STEPS, wo,
+        published={"seq": shape.seq, "global_batch": shape.global_batch},
+        cut={"batch": bsz, "why": "none" if bsz == shape.global_batch else
+             "the cache of 32,768 positions a row beside the weights under "
+             "the 60 GB gate"})
+    got = logits[0][:1].float()
+    err = float((got - last_logits).abs().max())
+    scale = float(last_logits.abs().max())
+    bound = SHAPE_DECODE_VS_PREFILL.get(
+        arch, SERVE_RECURRENT_DECODE_VS_FORWARD * scale)
+    rec["row0_vs_prefill"] = {"max_abs_err": err, "max_abs_logit": scale,
+                              "bound": bound, "greedy_equal": bool(
+                                  got.argmax(-1).eq(
+                                      last_logits.argmax(-1)).all())}
+    checks = {"logits_finite": rec["logits_finite"],
+              "row0_vs_prefill": err <= bound,
+              "peak_under_gate": rec["peak_gb"] < SHAPE_GATE_GB}
+    rec["checks"] = checks
+    emit(rec)
+    del cache, logits
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"shape_decode_32k {arch}: {checks}")
+    return rec
+
+
+def shape_long_500k(dev, arch: str, params) -> dict:
+    """``long_500k`` on ``arch``: B = 1, the cache of ``input_specs`` (rings
+    of 8,192 slots on gemma2-2b's global layers, 4,096 on its local ones;
+    mamba2-1.3b's fixed state) filled from a seed with ``slot_pos`` on the
+    ring law, then ``SHAPE_LONG_STEPS`` greedy decode steps from position
+    524,272, across the rings' wrap at 524,288, each timed by CUDA events.
+    One more step, at 524,304, is held against the same decode recomputed
+    from a copy of the cache: an attention model over its window's 8,192
+    positions laid out in position order in a linear cache (no window,
+    the local rings as they are), mamba2 at position 0 (its recurrence
+    reads no position: bit for bit)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_map
+    from repro_torch.launch.shapes import LONG_WINDOW, SHAPES, input_specs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(arch)
+    shape = SHAPES["long_500k"]
+    spec = input_specs(cfg, "long_500k")
+    wo = spec["window_override"]
+    torch.cuda.empty_cache()
+    cache = T.init_cache(cfg, 1, shape.seq, wo, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    _fill_(cache, gen)
+    _ring_law_(cache, SHAPE_LONG_START - 1)
+    positions = list(range(SHAPE_LONG_START,
+                           SHAPE_LONG_START + SHAPE_LONG_STEPS))
+    first = torch.full((1, 1), 17, dtype=torch.int32, device=dev)
+    rec, logits = _decode_record(
+        dev, "shape_long_500k", arch, cfg, params, cache,
+        [first] + [None] * (SHAPE_LONG_STEPS - 1), positions, wo,
+        published={"seq": shape.seq, "global_batch": 1},
+        cut={"batch": 1, "why": "none; the cache filled from a seed instead "
+             "of a prefill of 524,288 tokens"})
+    tok = torch.argmax(logits[-1][:, -1], -1).to(torch.int32)[:, None]
+    pos = positions[-1] + 1
+    other = tree_map(torch.clone, cache)
+    if cfg.family == "ssm":
+        recompute, at, window = other, 0, wo
+    else:  # the global rings in position order, one free slot at the end
+        recompute, at, window = other, pos, None
+        for key, lc in other["layers"].items():
+            if T._window_for(cfg, key.split("_", 1)[1], wo) != LONG_WINDOW:
+                continue
+            w = lc["slot_pos"].shape[-1]
+            order = torch.arange(pos - w + 1, pos, device=dev)
+            idx = torch.remainder(order, w)
+            for name in ("k", "v"):
+                lin = torch.zeros_like(lc[name])
+                lin[:, :, :w - 1] = lc[name][:, :, idx]
+                lc[name] = lin
+            sp = torch.full_like(lc["slot_pos"], -1)
+            sp[:, :w - 1] = order.to(torch.int32)
+            lc["slot_pos"] = sp
+    got, _ = T.decode_step(cfg, params, cache, {"tokens": tok}, pos,
+                           window_override=wo)
+    want, _ = T.decode_step(cfg, params, recompute, {"tokens": tok}, at,
+                            window_override=window)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    wrapped = {}
+    for key, lc in cache["layers"].items():
+        if "slot_pos" in lc:
+            w = lc["slot_pos"].shape[-1]
+            i = torch.arange(w, device=dev)
+            law = pos - torch.remainder(pos - i, w)
+            wrapped[key] = {"slots": w, "law": bool(torch.equal(
+                lc["slot_pos"][0].long(), law)),
+                "slot0": int(lc["slot_pos"][0, 0])}
+    exact = cfg.family == "ssm"
+    bound = 0.0 if exact else SERVE_BF16_DECODE_VS_FORWARD
+    rec["vs_recomputed"] = {"position": pos, "max_abs_err": err,
+                            "max_abs_logit": scale, "bound": bound,
+                            "how": "position 0, same state" if exact else
+                            "the window's 8,192 positions in a linear cache"}
+    rec["rings"] = wrapped
+    checks = {"logits_finite": rec["logits_finite"]
+              and bool(torch.isfinite(got).all()),
+              "vs_recomputed": err <= bound,
+              "ring_law_after_wrap": all(r["law"] for r in wrapped.values()),
+              "peak_under_gate": rec["peak_gb"] < SHAPE_GATE_GB}
+    rec["checks"] = checks
+    emit(rec)
+    del cache, other, logits
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"shape_long_500k {arch}: {checks}")
+    return rec
+
+
+def run_shapes(dev) -> dict:
+    """The reckoning of every arch x shape, then the eight cells: per arch
+    of ``SHAPE_ARCHS``, ``train_4k`` (fresh round state), then fresh bf16
+    weights (seed 0) for ``prefill_32k``, ``decode_32k`` (its row 0 from
+    the prefill) and ``long_500k``. Returns {cell: launches by kernel}."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    timed("shapes_reckoning", shapes_reckoning)
+    paths = {}
+    for arch in SHAPE_ARCHS:
+        short = arch.split("-")[0]
+        _, paths[f"{short}_train_4k"] = timed(f"{short}_train_4k",
+                                              shape_train, dev, arch)
+        params = T.init_params(configs.get_config(arch), 0, dev)
+        _, prompt, last, row_cache, paths[f"{short}_prefill_32k"] = timed(
+            f"{short}_prefill_32k", shape_prefill, dev, arch, params)
+        paths[f"{short}_decode_32k"] = timed(
+            f"{short}_decode_32k", shape_decode_32k, dev, arch, params,
+            prompt, last, row_cache)["launches"]
+        del row_cache
+        paths[f"{short}_long_500k"] = timed(
+            f"{short}_long_500k", shape_long_500k, dev, arch, params)[
+                "launches"]
+        del params
+        torch.cuda.empty_cache()
+    return paths
+
 def main() -> int:
     import torch
 
@@ -5261,6 +5971,7 @@ def main() -> int:
                 dither_int32, hash_int32, int32_ops_per_s)
     torch.cuda.empty_cache()
     timed("upload_before_after", upload_before_after, dev)
+    silu_kernel = timed("kernels_silu", silu_cases, dev)
 
     cohort_cases = timed("cohort_kernels", check_cohort_kernels, dev,
                          hash_int32, int32_ops_per_s)
@@ -5282,6 +5993,7 @@ def main() -> int:
                                    hash_int32)
     _, llm_launches, llm_cases, new_paths = run_llm(dev, dither_int32,
                                                      int32_ops_per_s)
+    shape_paths = run_shapes(dev)
     timed("streamed_uplink", streamed_uplink, dev)
 
     case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5393,6 +6105,28 @@ def main() -> int:
         "bytes_formula": m["bytes_formula"], "d": m["d"],
         "launches_note": "the full-depth round with the taps on (one a "
                          "round); every other path runs with taps off"})
+    for name in ("silu_forward", "silu_backward"):
+        m = silu_kernel[name]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": m["source"],
+            "replaces": None,
+            "launches": new_paths["zamba2_round"][name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_call": m["library_call"], "equal": m["equal"],
+            "bytes_formula": m["bytes_formula"], "n": m["n"],
+            "launches_note": "zamba2-7b's round (its shared block's MLP; "
+                             "its mamba layers, mamba2-1.3b's and the MoE "
+                             "experts take torch's silu); the other paths "
+                             "below",
+            **{f"{path}_launches": counts.get(name, 0)
+               for path, counts in new_paths.items()}})
+    for entry in kernels_line:
+        entry["shapes_launches"] = {cell: counts.get(entry["name"], 0)
+                                    for cell, counts in shape_paths.items()}
+    if not all(e["launches"] for e in kernels_line[-2:]):
+        raise AssertionError("silu.cu was not launched on zamba2-7b's round")
     for name, seconds in _PHASE_SECONDS:
         emit({"phase_seconds": name, "seconds": seconds})
     print(smi, flush=True)

@@ -5,7 +5,7 @@ The population engine draws its latencies and interarrivals through
 of these differ between its CPU and CUDA builds and from XLA's, so each is
 written here as the sequence of correctly rounded operations XLA:CPU
 compiles it to (jax 0.9, jitted): f32 adds, products, true divisions,
-``ref.sqrt_f32`` and single-rounded multiply-adds (``ref.fma_f32``) where
+``ref.sqrt_f32`` and single-rounded multiply-adds (``_fma``) where
 XLA contracts a product into an add. Every operation here rounds the same
 way on both devices, so a draw has the same bits on the card and the CPU.
 
@@ -22,7 +22,9 @@ The laws, found by probing XLA's output and pinned by
   ``log(1 + x)``; bit-exact.
 * ``exp``: Cephes' ``expf`` with XLA's clamps, ``n = floor(fma(x,
   log2(e), 1/2))``, the two-part reduction and the polynomial all as
-  multiply-adds, scaled by ``2**n`` built from its bits; bit-exact.
+  multiply-adds, scaled by ``2**n`` built from its bits, a subnormal
+  result flushed to zero (``ftz``: below x = -87.34 the product falls
+  under 2**-126); bit-exact.
 * ``erfinv``: XLA's ``ErfInv`` for f32, Giles' two-branch polynomial on
   ``w = -log1p(-x*x)`` in multiply-add Horner form; bit-exact.
 * ``ndtri``: jax's Cephes ``ndtri`` with XLA's rewrites — ``(a/b)/z`` as
@@ -32,6 +34,17 @@ The laws, found by probing XLA's output and pinned by
 Over all 2**24 uniforms the counter hash can give, the poisson
 interarrival, the half-normal and the lognormal (sigma 1 and 1.5)
 durations built from these are XLA's bits.
+
+XLA:CPU runs its compiled code with the x86 flush-to-zero and
+denormals-are-zero modes on: an f32 operation reads a subnormal operand as
+a zero of its sign and returns a zero of its sign for a subnormal result.
+``ftz`` spells that flush; the functions here apply it where a subnormal
+can arise in their domain.
+
+``silu_fwd`` and ``silu_bwd`` are ``jax.nn.silu`` and its vjp as XLA:CPU
+compiles them (``logistic`` expanded to ``1 / (1 + exp(-x))``, read from
+the optimised HLO and LLVM IR): the plain version of the silu kernel
+(``csrc/silu.cu``), which runs these operations one for one.
 """
 from __future__ import annotations
 
@@ -41,17 +54,46 @@ import torch
 from repro_torch.kernels.ref import fma_f32, sqrt_f32
 
 
+_TINY = float(np.finfo(np.float32).tiny)  # 2**-126, the least normal f32
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's flush: a subnormal f32 value becomes a zero of its sign;
+    every other value (zeros, normals, infinities, nan) is kept."""
+    return torch.where(x.abs() < _TINY, x * 0.0, x)
+
+
 def _f(v: float) -> float:
     """A constant rounded to f32, as a Python float (exact in either
     device's f32 arithmetic)."""
     return float(np.float32(v))
 
 
+_MID_MASK, _MID = (1 << 29) - 1, 1 << 28  # a float64 on an f32 midpoint
+
+
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``fma_f32`` with a constant addend."""
-    if not isinstance(c, torch.Tensor):
-        c = torch.full_like(a, c)
-    return fma_f32(a, b, c)
+    """Single-rounded f32 ``a*b + c`` (``b`` and ``c`` f32 tensors of
+    ``a``'s shape or f32 values), equal to ``ref.fma_f32``. On the CPU the
+    float64 sum of the exact product is rounded to f32 once, which is the
+    single rounding unless that sum lies on an f32 midpoint or under
+    2**-126 (a second rounding could then move it); those few values, and
+    a CUDA tensor whole, go through ``fma_f32``."""
+    if a.device.type != "cpu":
+        if not isinstance(c, torch.Tensor):
+            c = torch.full_like(a, c)
+        return fma_f32(a, b, c)
+    f64 = lambda v: v.to(torch.float64) if isinstance(v, torch.Tensor) \
+        else float(v)
+    s = a.to(torch.float64) * f64(b) + f64(c)
+    r = s.to(torch.float32)
+    suspect = (((s.view(torch.int64) & _MID_MASK) == _MID)
+               | ((s.abs() < _TINY) & (s != 0)))
+    if bool(suspect.any()):
+        at = lambda v: v[suspect] if isinstance(v, torch.Tensor) \
+            else torch.full_like(r[suspect], v)
+        r[suspect] = fma_f32(a[suspect], at(b), at(c))
+    return r
 
 
 def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
@@ -85,9 +127,9 @@ def log(x: torch.Tensor) -> torch.Tensor:
     y = _fma(y, m, _f(p[2]))
     y1 = _fma(y1, m, _f(p[5]))
     y2 = _fma(y2, m, _f(p[8]))
-    y = fma_f32(y, x3, y1)
-    y = fma_f32(y, x3, y2)
-    y = fma_f32(y, x3, e * _f(-2.12194440e-4))
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, e * _f(-2.12194440e-4))
     m = m - x2 * 0.5
     m = m + y
     return m + e * _f(0.693359375)
@@ -120,14 +162,36 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, _f(-87.8), _f(88.8))
     n = torch.floor(_fma(x, _f(1.44269504088896341), 0.5))
     n = torch.clamp(n, -127.0, 127.0)
-    a = fma_f32(n, _f(-0.693359375), x)
-    a = fma_f32(n, _f(2.12194440e-4), a)
+    a = _fma(n, _f(-0.693359375), x)
+    a = _fma(n, _f(2.12194440e-4), a)
     z = _fma(a, _f(_EXP_P[0]), _f(_EXP_P[1]))
     for c in _EXP_P[2:]:
         z = _fma(z, a, _f(c))
-    z = fma_f32(z, a * a, a) + 1.0
+    z = _fma(z, a * a, a) + 1.0
     pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
-    return z * pow2
+    return ftz(z * pow2)
+
+
+def silu_fwd(x: torch.Tensor):
+    """XLA:CPU's ``jax.nn.silu`` of f32 ``x``: returns ``(y, s)``, ``s =
+    1 / (1 + exp(-x))`` (``exp`` above, a true division) and ``y = x *
+    s``, with the flush (``ftz``) on the input and wherever a subnormal can
+    arise: ``s`` under 2**-126 for x below -87.34, ``y`` of a small x."""
+    x = ftz(x)
+    d = exp(-x) + 1.0
+    s = ftz(torch.ones_like(d) / d)
+    return ftz(x * s), s
+
+
+def silu_bwd(g: torch.Tensor, x: torch.Tensor, s: torch.Tensor):
+    """XLA:CPU's vjp of ``jax.nn.silu`` for cotangent ``g`` at ``x``,
+    ``s`` the forward's: ``fma(g, s, (g * x) * (s * (1 - s)))``, the first
+    product fused into the add, with the flush on the inputs and on every
+    product that can be subnormal (``s * (1 - s)`` cannot: ``s`` is 0 or at
+    least 2**-126 and ``1 - s`` 0 or at least 2**-24)."""
+    g, x = ftz(g), ftz(x)
+    u = ftz(ftz(g * x) * (s * (1 - s)))
+    return ftz(_fma(g, s, u))
 
 
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -148,7 +212,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
         c = torch.where(lt, torch.full_like(x, _f(a)),
                         torch.full_like(x, _f(b)))
-        p = c if p is None else fma_f32(p, w, c)
+        p = c if p is None else _fma(p, w, c)
     big = torch.full_like(x, float(np.finfo(np.float32).max))
     return torch.where(x.abs() == 1.0, x * big, p * x)
 
@@ -189,7 +253,7 @@ def ndtri(p: torch.Tensor) -> torch.Tensor:
     w = s - 0.5
     ww = w * w
     r = _horner(ww, _NDTRI_P0) / _horner(ww, _NDTRI_Q0)
-    big = fma_f32(w * ww, r, w) * _f(-np.sqrt(2.0 * np.pi))
+    big = _fma(w * ww, r, w) * _f(-np.sqrt(2.0 * np.pi))
     v = log(s) * -2.0
     z = sqrt_f32(v)
     first = z - (log(v) * 0.5) / z

@@ -51,9 +51,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype=None,
 
 
 def _project_qkv(cfg: ModelConfig, params, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, folded_rope: bool = False):
     """q (B, S, H, hd), k and v (B, S, KV, hd): projections, bias,
-    qk-norm and rotary embeddings, as the reference orders them."""
+    qk-norm and rotary embeddings, as the reference orders them
+    (``folded_rope``: decode's frequencies, ``layers.rope_frequencies``)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = torch.einsum("bsd,de->bse", x, params["wq"])
@@ -67,8 +68,8 @@ def _project_qkv(cfg: ModelConfig, params, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rms_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, folded_rope)
+    k = apply_rope(k, positions, cfg.rope_theta, folded_rope)
     return q, k, v
 
 
@@ -83,7 +84,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_positions: torch.Tensor, *,
                         window: Optional[int], scale: float,
                         attn_softcap: Optional[float], q_block: int = 512,
-                        kv_block: int = 512) -> torch.Tensor:
+                        kv_block: int = 512,
+                        arange_from: Optional[int] = None) -> torch.Tensor:
     """Causal (optionally windowed) attention without materializing S x S.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd) in
@@ -95,6 +97,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query blocks casts it once, so its gradients from the query blocks
     add in f32; the query block is cast in every KV step, as inside the
     reference's scan, so its gradients from the KV steps add in q's dtype.
+
+    ``arange_from``: the caller's promise that both position vectors are
+    ``arange_from + arange(S)``; the KV blocks that the causal mask and
+    the window leave wholly out of a query block are then skipped, which
+    changes no bit of the output: a skipped block after the diagonal adds
+    ``p = 0`` at ``alpha = 1``, and one before the window, where ``m`` is
+    still ``NEG_INF``, is wiped by the first kept block's ``alpha = 0``
+    (``tests/test_torch_shapes.py`` holds the two loops bit for bit).
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -122,6 +132,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((b, q_block, kvh, g, hd_v), dtype=torch.float32,
                           device=q.device)
         for j in range(nk):
+            if arange_from is not None and _masked_out(i, j, q_block,
+                                                       kv_block, window):
+                continue
             logits = torch.einsum("bqkgd,bskd->bqkgs",
                                   q_i.to(torch.float32), kf[j]) * scale
             logits = softcap(logits, attn_softcap)
@@ -143,17 +156,29 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, hd_v).to(q.dtype)
 
 
+def _masked_out(i: int, j: int, q_block: int, kv_block: int,
+                window: Optional[int]) -> bool:
+    """Whether KV block j lies wholly outside query block i's causal
+    window, positions counted from one origin in both."""
+    q_lo, q_hi = i * q_block, (i + 1) * q_block - 1
+    k_lo, k_hi = j * kv_block, (j + 1) * kv_block - 1
+    return k_lo > q_hi or (window is not None and k_hi <= q_lo - window)
+
+
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
-                    kv_block: int = 512, return_kv: bool = False):
-    """Self-attention over a full sequence (training). x: (B, S, D)."""
+                    kv_block: int = 512, return_kv: bool = False,
+                    arange_from: Optional[int] = None):
+    """Self-attention over a full sequence (training). x: (B, S, D);
+    ``arange_from`` as in ``blockwise_attention``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions)
     out = blockwise_attention(
         q, k, v, positions, positions, window=window,
         scale=_logit_scale(cfg), attn_softcap=cfg.attn_softcap,
-        q_block=min(q_block, s), kv_block=min(kv_block, s))
+        q_block=min(q_block, s), kv_block=min(kv_block, s),
+        arange_from=arange_from)
     out = torch.einsum("bse,ed->bsd", out.reshape(b, s, -1), params["wo"])
     if return_kv:
         return out, (k, v)
@@ -205,13 +230,14 @@ def attention_decode(cfg: ModelConfig, params, x: torch.Tensor, cache: dict,
     position (a Python int). The token's key and value go to their ring
     slot (``ring_slot``) in place; the query attends to every slot whose
     position is valid (``slot_pos`` >= 0, <= pos and, with a window, >
-    pos - window), the logits and p.V in f32 with the attention softcap.
+    pos - window), the logits and p.V in f32 with the attention softcap;
+    the rotary frequencies are the jitted decode's (``folded``).
     Returns (out (B, 1, D), ``cache``, written in place)."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(cfg, params, x, positions)
+    q, k, v = _project_qkv(cfg, params, x, positions, folded_rope=True)
     kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
     slot = ring_slot(pos, kc.shape[1], window)
     kc[:, slot] = k[:, 0].to(kc.dtype)

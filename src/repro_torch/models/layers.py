@@ -11,9 +11,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.ref import fma_f32
+from repro_torch.kernels import silu as _ksilu
 
 
 # ---------------------------------------------------------------------------
@@ -79,20 +80,32 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device=None) -> torch.Tensor:
-    """1 / theta^(2i / head_dim) for i < head_dim / 2, f32."""
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     folded: bool = False) -> torch.Tensor:
+    """1 / theta^(2i / head_dim) for i < head_dim / 2, f32: ``1 / theta **
+    e`` in f32 ops (``e = 2i / head_dim``), or with ``folded`` as the
+    jitted reference's decode step has it, where XLA rewrites that as
+    ``theta ** -e`` and folds it into a constant correctly rounded to f32
+    (taken here in float64 and rounded once). The two differ in the last
+    bit on up to a tenth of the frequencies, which moves a rotation angle
+    by up to 0.025 rad at position 524,287; decode at such positions takes
+    the folded law (``attention.attention_decode``, ``mla.mla_decode``),
+    and the full-sequence paths keep the first (ROADMAP queue C)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
+    if folded:
+        return torch.pow(float(np.float32(theta)),
+                         -exps.to(torch.float64)).to(torch.float32)
     return 1.0 / (theta ** exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0, folded: bool = False) -> torch.Tensor:
     """x: (..., S, H, D) with D even; positions broadcastable to (..., S).
-    Rotates the two halves of the head dim (the reference's layout)."""
+    Rotates the two halves of the head dim (the reference's layout);
+    ``folded`` as in ``rope_frequencies``."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)
+    freqs = rope_frequencies(d, theta, x.device, folded)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -106,26 +119,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-class _SiLU(torch.autograd.Function):
-    """silu by the reference's law on f32: ``x * s`` with ``s =
-    sigmoid(x)``, and as gradient the transpose jax takes of ``x *
-    logistic(x)`` (``logistic``'s jvp ``g * (ans * (1 - ans))``), whose
-    first product XLA:CPU fuses into the add: ``fma(g, s, (g * x) * (s *
-    (1 - s)))``, each other product and difference rounded to f32, ``s``
-    the forward's. One backward for ``torch.autograd.grad`` and the
-    ``torch.func`` transforms, so the round's gradient paths with and
-    without remat agree bit for bit (``F.silu``'s two backward formulas
-    do not). Against ``jax.nn.silu`` on f32 N(0, 16) inputs: 99.6% of the
-    values bit-equal, 99.7% of the gradients (torch's ``sigmoid`` is not
-    XLA's ``1 / (1 + exp(-x))`` in the last bit; the law is exact with
-    XLA's ``s``)."""
+def _batch_first(info, in_dims, *tensors):
+    """``tensors`` with their vmap batch dimension first, an unbatched one
+    expanded to the batch (an elementwise op's vmap rule)."""
+    return tuple(t.movedim(d, 0) if d is not None
+                 else t.expand(info.batch_size, *t.shape)
+                 for t, d in zip(tensors, in_dims))
 
-    generate_vmap_rule = True
+
+class _SiLU(torch.autograd.Function):
+    """silu by the reference's law on f32 (``kernels.silu``): ``x * s``
+    with ``s = 1 / (1 + exp(-x))`` by XLA:CPU's ``exp`` and its flush of
+    subnormals, and as gradient ``fma(g, s, (g * x) * (s * (1 - s)))``,
+    the transpose jax takes of ``x * logistic(x)`` with XLA's fused add
+    (``_SiLUGrad``); bit-equal to the jitted ``jax.nn.silu`` and its vjp.
+    A CUDA tensor runs the kernel (one launch each way), a CPU tensor its
+    plain version. One backward for ``torch.autograd.grad`` and the
+    ``torch.func`` transforms, so the round's gradient paths with and
+    without remat agree bit for bit (``F.silu``'s two backward formulas do
+    not); the op is elementwise, so its vmap rule runs it on the batched
+    tensor whole."""
 
     @staticmethod
     def forward(x):
-        s = torch.sigmoid(x)
-        return x * s, s
+        return _ksilu.silu_forward(x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -135,8 +152,37 @@ class _SiLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _):
+        if g is None:
+            return None
         x, s = ctx.saved_tensors
-        return fma_f32(g, s, (g * x) * (s * (1 - s)))
+        return _SiLUGrad.apply(g, x, s)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        (x,) = _batch_first(info, in_dims, x)
+        return _SiLU.apply(x), (0, 0)
+
+
+class _SiLUGrad(torch.autograd.Function):
+    """silu's gradient (``kernels.silu.silu_backward``) as an op with a
+    vmap rule, so a vmapped ``torch.func.grad`` reaches the kernel too;
+    it has no derivative of its own."""
+
+    @staticmethod
+    def forward(g, x, s):
+        return _ksilu.silu_backward(g, x, s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _):
+        raise NotImplementedError("silu's second derivative is not ported")
+
+    @staticmethod
+    def vmap(info, in_dims, g, x, s):
+        return _SiLUGrad.apply(*_batch_first(info, in_dims, g, x, s)), 0
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,7 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def _queries(cfg: ModelConfig, params, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, folded_rope: bool = False):
     """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), rotated)."""
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -64,27 +64,30 @@ def _queries(cfg: ModelConfig, params, x: torch.Tensor,
     q = torch.einsum("bsr,re->bse", qa, params["wq_b"]).reshape(b, s, h,
                                                               dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta,
+                              folded_rope)
 
 
 def _latents(cfg: ModelConfig, params, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, folded_rope: bool = False):
     """(ckv (B, S, kv_lora_rank) normed, k_rope (B, S, rope) rotated)."""
     ckv = rms_norm(torch.einsum("bsd,dr->bsr", x, params["wkv_a"]),
                    params["kv_a_norm"], cfg.rms_eps)
     k_rope = torch.einsum("bsd,dr->bsr", x, params["wk_rope"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]
+                        cfg.rope_theta, folded_rope)[:, :, 0, :]
     return ckv, k_rope
 
 
 def mla_train(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, *, window: Optional[int] = None,
               q_block: int = 512, kv_block: int = 512,
-              return_latents: bool = False):
+              return_latents: bool = False,
+              arange_from: Optional[int] = None):
     """Full-sequence MLA (training, prefill): the latents expanded to
     per-head keys and values, blockwise attention. x: (B, S, D); with
-    ``return_latents`` also (ckv, k_rope) for the cache."""
+    ``return_latents`` also (ckv, k_rope) for the cache; ``arange_from``
+    as in ``attention.blockwise_attention``."""
     b, s, _ = x.shape
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                      cfg.v_head_dim)
@@ -99,7 +102,8 @@ def mla_train(cfg: ModelConfig, params, x: torch.Tensor,
     out = blockwise_attention(q, k, v, positions, positions, window=window,
                               scale=_mla_scale(cfg), attn_softcap=None,
                               q_block=min(q_block, s),
-                              kv_block=min(kv_block, s))
+                              kv_block=min(kv_block, s),
+                              arange_from=arange_from)
     out = torch.einsum("bse,ed->bsd", out.reshape(b, s, h * dv),
                        params["wo"])
     if return_latents:
@@ -155,8 +159,8 @@ def mla_decode(cfg: ModelConfig, params, x: torch.Tensor, cache: dict,
     h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _queries(cfg, params, x, positions)
-    ckv_t, k_rope_t = _latents(cfg, params, x, positions)
+    q_nope, q_rope = _queries(cfg, params, x, positions, folded_rope=True)
+    ckv_t, k_rope_t = _latents(cfg, params, x, positions, folded_rope=True)
     cc, kc, spos = cache["ckv"], cache["k_rope"], cache["slot_pos"]
     slot = ring_slot(pos, cc.shape[1], window)
     cc[:, slot] = ckv_t[:, 0].to(cc.dtype)

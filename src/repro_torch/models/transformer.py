@@ -215,7 +215,7 @@ def _attn_sublayer(cfg: ModelConfig, p, h: torch.Tensor,
     a_in = _norm(cfg, h, p["ln1"])
     attend = mla_lib.mla_train if cfg.use_mla else attn_lib.attention_train
     a = attend(cfg, p["attn"], a_in, positions, window=window,
-               q_block=q_block, kv_block=kv_block)
+               q_block=q_block, kv_block=kv_block, arange_from=0)
     return _ffn_sublayer(cfg, p, h, a, aux, cfg.capacity_factor)
 
 
@@ -428,12 +428,12 @@ def _attn_sublayer_prefill(cfg: ModelConfig, p, h: torch.Tensor,
     if cfg.use_mla:
         a, (ckv, k_rope) = mla_lib.mla_train(
             cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
-            kv_block=kv_block, return_latents=True)
+            kv_block=kv_block, return_latents=True, arange_from=0)
         _ring_write(layer_cache, {"ckv": ckv, "k_rope": k_rope}, s, window)
     else:
         a, (k, v) = attn_lib.attention_train(
             cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
-            kv_block=kv_block, return_kv=True)
+            kv_block=kv_block, return_kv=True, arange_from=0)
         _ring_write(layer_cache, {"k": k, "v": v}, s, window)
     return _ffn_sublayer(cfg, p, h, a, None, cfg.capacity_factor)[0]
 

@@ -14,7 +14,8 @@ ARCH among qwen3-moe-235b-a22b, deepseek-v3-671b, qwen3-14b,
 mamba2-1.3b, zamba2-7b (default: all five; the state-space models in
 f32 and bf16). ``--silu`` picks the port's silu call sites: ``port`` as
 they are (the reference's law, ``models.layers.silu``, but in the MoE
-experts torch's, ``silu_aten``), ``law`` the reference's law at every
+experts and the mamba layers torch's, ``silu_aten``), ``law`` the
+reference's law at every
 site, ``F`` ``torch.nn.functional.silu`` at every site (the port before
 either), for comparison.
 ``--seeds`` runs the text configs' two rounds from each batch seed
@@ -59,7 +60,7 @@ def _use_f_silu() -> None:
     layers._act = lambda name: f if name == "silu" else act(name)
     moe.silu_aten = f
     import repro_torch.models.mamba2 as mamba2
-    mamba2.silu = f
+    mamba2.silu_aten = f
 
 
 def _stats(js, ts, jx0) -> dict:
@@ -183,7 +184,8 @@ def main(argv=None) -> None:
     if args.silu == "F":
         _use_f_silu()
     elif args.silu == "law":
-        moe.silu_aten = layers.silu
+        import repro_torch.models.mamba2 as mamba2
+        moe.silu_aten = mamba2.silu_aten = layers.silu
     make = TS.make_qafel_round
     init_params, init_state = JT.init_params, JS.init_round_state
     for arch in args.archs:

@@ -290,7 +290,8 @@ def test_serve_slice_entry_points(module, name):
 
 @pytest.mark.parametrize("module", ["repro_torch.launch",
                                     "repro_torch.launch.serve",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.shapes"])
 def test_launch_imports_without_jax(module):
     """The launchers import, with jax and the JAX package blocked, and
     bring neither in."""

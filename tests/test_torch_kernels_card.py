@@ -868,3 +868,47 @@ def test_mixed_state_server_half_card_vs_cpu(arch):
                           else torch.int32), b.view(
                 torch.int16 if b.dtype == torch.bfloat16 else torch.int32)
         assert torch.equal(a, b)
+
+
+SILU_SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45, 1.1e-38,
+                -1.1e-38, 2e-38, float("inf"), float("-inf"), float("nan"),
+                87.5, 88.5, 89.0, -87.5, -88.5, -89.0, 3.4e38, -3.4e38)
+
+
+def _same_or_nan(a, b) -> bool:
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", ((1, 0), (7, 0), (4099, 0), (4099, 1),
+                                      ((1 << 20) + 3, 3)))
+def test_silu_matches_plain_on_card(n, offset):
+    """``csrc/silu.cu`` forward and backward against the plain version
+    (``xla_math.silu_fwd`` / ``silu_bwd``) on the card and on the CPU, bit
+    for bit (a nan as a nan), at lengths that are not multiples of 4 and
+    from a start off the 16-byte boundary (``offset`` floats in): the
+    tail [-88.8, -87.3], N(0, 16) values and the special values; one
+    launch each way."""
+    from repro_torch.kernels import silu, xla_math
+    dev = _card()
+    gen = torch.Generator().manual_seed(n)
+    x = 4 * torch.randn(n + offset, generator=gen)
+    x[: (n + offset) // 2] = -88.8 + 1.5 * torch.rand((n + offset) // 2,
+                                                        generator=gen)
+    sp = torch.tensor(SILU_SPECIAL)
+    x[-min(sp.numel(), n):] = sp[:min(sp.numel(), n)]
+    g = torch.randn(n + offset, generator=gen)
+    g[::5] = 1e-40
+    xc, gc = x.to(dev)[offset:], g.to(dev)[offset:]
+    tkernels.reset_launches()
+    y, s = silu.silu_forward(xc)
+    gx = silu.silu_backward(gc, xc, s)
+    assert tkernels.launches()["silu_forward"] == 1
+    assert tkernels.launches()["silu_backward"] == 1
+    py, ps = xla_math.silu_fwd(xc)
+    pg = xla_math.silu_bwd(gc, xc, ps)
+    cy, cs = xla_math.silu_fwd(x[offset:])
+    cg = xla_math.silu_bwd(g[offset:], x[offset:], cs)
+    for got, card, cpu in ((y, py, cy), (s, ps, cs), (gx, pg, cg)):
+        assert _same_or_nan(got, card) and _same_or_nan(got.cpu(), cpu)
