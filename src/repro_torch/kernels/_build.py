@@ -63,7 +63,7 @@ SIGNATURES = {
     "server_update": ("server_update", (_P, _P, _P, _P, _LL, _I, _F, _F, _I,
                                         _F, _I, _P, _LL, _LL, _P)),
     "round_taps": ("round_taps", (_P, _LL, _P, _I, _P, _P, _P, _P)),
-    "silu": ("silu", (_P, _P, _P, _P, _P, _LL, _I, _P)),
+    "silu": ("silu", (_P, _P, _P, _LL, _I, _P)),
 }
 
 _loaded: Dict[str, object] = {}  # library name -> loaded entry point

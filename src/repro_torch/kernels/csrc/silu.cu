@@ -15,12 +15,13 @@
 // -ftz, so the flush is spelled (ftz below) exactly where the plain
 // version applies it.
 //
-// Forward:  x (n,) -> y, s (n,), f32. s is kept for the backward.
-// Backward: g, x, s (n,) -> gx (n,), f32.
+// Forward:  x (n,) -> y (n,), f32.
+// Backward: g, x (n,) -> gx (n,), f32; s is recomputed from x, the same
+// bits as the forward's, so nothing but x is kept between the two.
 //
-// Bound: bytes. Forward reads 4 and writes 8 B a value, backward reads 12
-// and writes 4; about 40 flops a value forward and 6 backward are far under
-// the card's f32 rate.
+// Bound: bytes. Forward reads 4 and writes 4 B a value, backward reads 8
+// and writes 4; about 40 flops a value forward and 48 backward are far
+// under the card's f32 rate.
 //
 // Design: a grid-stride loop over float4 vectors when every pointer is on
 // a 16-byte boundary, then one value a thread for the tail; any pointer off
@@ -63,19 +64,21 @@ __device__ __forceinline__ float xla_exp(float x) {
   return ftz(__fmul_rn(z, pow2));
 }
 
-struct Fwd {
-  __device__ __forceinline__ static void apply(float xin, float* y,
-                                               float* s) {
-    const float x = ftz(xin);
-    const float d = __fadd_rn(xla_exp(-x), 1.0f);
-    *s = ftz(__fdiv_rn(1.0f, d));
-    *y = ftz(__fmul_rn(x, *s));
-  }
-};
+// s = 1 / (1 + exp(-x)) of a flushed x, flushed.
+__device__ __forceinline__ float logistic(float x) {
+  const float d = __fadd_rn(xla_exp(-x), 1.0f);
+  return ftz(__fdiv_rn(1.0f, d));
+}
 
-__device__ __forceinline__ float bwd(float gin, float xin, float s) {
+__device__ __forceinline__ float fwd(float xin) {
+  const float x = ftz(xin);
+  return ftz(__fmul_rn(x, logistic(x)));
+}
+
+__device__ __forceinline__ float bwd(float gin, float xin) {
   const float g = ftz(gin);
   const float x = ftz(xin);
+  const float s = logistic(x);
   const float u =
       ftz(__fmul_rn(ftz(__fmul_rn(g, x)), __fmul_rn(s, __fsub_rn(1.0f, s))));
   return ftz(__fmaf_rn(g, s, u));
@@ -83,7 +86,7 @@ __device__ __forceinline__ float bwd(float gin, float xin, float s) {
 
 __global__ void __launch_bounds__(kThreads)
 silu_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                float* __restrict__ s, long long n, int vec) {
+                long long n, int vec) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long done = 0;
@@ -91,25 +94,19 @@ silu_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
     const long long nv = n / 4;
     for (long long v = i; v < nv; v += stride) {
       const float4 xv = reinterpret_cast<const float4*>(x)[v];
-      float4 yv, sv;
-      Fwd::apply(xv.x, &yv.x, &sv.x);
-      Fwd::apply(xv.y, &yv.y, &sv.y);
-      Fwd::apply(xv.z, &yv.z, &sv.z);
-      Fwd::apply(xv.w, &yv.w, &sv.w);
-      reinterpret_cast<float4*>(y)[v] = yv;
-      reinterpret_cast<float4*>(s)[v] = sv;
+      reinterpret_cast<float4*>(y)[v] =
+          make_float4(fwd(xv.x), fwd(xv.y), fwd(xv.z), fwd(xv.w));
     }
     done = nv * 4;
   }
   for (long long e = done + i; e < n; e += stride) {
-    Fwd::apply(x[e], y + e, s + e);
+    y[e] = fwd(x[e]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 silu_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                const float* __restrict__ s, float* __restrict__ gx,
-                long long n, int vec) {
+                float* __restrict__ gx, long long n, int vec) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long done = 0;
@@ -118,18 +115,14 @@ silu_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     for (long long v = i; v < nv; v += stride) {
       const float4 gv = reinterpret_cast<const float4*>(g)[v];
       const float4 xv = reinterpret_cast<const float4*>(x)[v];
-      const float4 sv = reinterpret_cast<const float4*>(s)[v];
-      float4 out;
-      out.x = bwd(gv.x, xv.x, sv.x);
-      out.y = bwd(gv.y, xv.y, sv.y);
-      out.z = bwd(gv.z, xv.z, sv.z);
-      out.w = bwd(gv.w, xv.w, sv.w);
-      reinterpret_cast<float4*>(gx)[v] = out;
+      reinterpret_cast<float4*>(gx)[v] =
+          make_float4(bwd(gv.x, xv.x), bwd(gv.y, xv.y), bwd(gv.z, xv.z),
+                      bwd(gv.w, xv.w));
     }
     done = nv * 4;
   }
   for (long long e = done + i; e < n; e += stride) {
-    gx[e] = bwd(g[e], x[e], s[e]);
+    gx[e] = bwd(g[e], x[e]);
   }
 }
 
@@ -139,11 +132,10 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// backward == 0: a = x, out0 = y, out1 = s (b, c unused).
-// backward == 1: a = g, b = x, c = s, out0 = gx (out1 unused).
-extern "C" int silu(const float* a, const float* b, const float* c,
-                    float* out0, float* out1, long long n, int backward,
-                    cudaStream_t stream) {
+// backward == 0: a = x, out = y (b unused).
+// backward == 1: a = g, b = x, out = gx.
+extern "C" int silu(const float* a, const float* b, float* out, long long n,
+                    int backward, cudaStream_t stream) {
   if (n <= 0) return 0;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -152,12 +144,11 @@ extern "C" int silu(const float* a, const float* b, const float* c,
   const long long most = static_cast<long long>(sms) * kBlocksPerSm;
   const int blocks = static_cast<int>(want < 1 ? 1 : (want < most ? want : most));
   if (backward) {
-    const int vec = aligned16(a) && aligned16(b) && aligned16(c) &&
-                    aligned16(out0);
-    silu_bwd_kernel<<<blocks, kThreads, 0, stream>>>(a, b, c, out0, n, vec);
+    const int vec = aligned16(a) && aligned16(b) && aligned16(out);
+    silu_bwd_kernel<<<blocks, kThreads, 0, stream>>>(a, b, out, n, vec);
   } else {
-    const int vec = aligned16(a) && aligned16(out0) && aligned16(out1);
-    silu_fwd_kernel<<<blocks, kThreads, 0, stream>>>(a, out0, out1, n, vec);
+    const int vec = aligned16(a) && aligned16(out);
+    silu_fwd_kernel<<<blocks, kThreads, 0, stream>>>(a, out, n, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

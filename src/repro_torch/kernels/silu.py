@@ -30,36 +30,33 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"expected {tuple(like.shape)} on {like.device}")
 
 
-def silu_forward(x: torch.Tensor):
-    """silu of f32 ``x``: returns ``(y, s)``, ``s`` the logistic the
-    backward takes."""
+def silu_forward(x: torch.Tensor) -> torch.Tensor:
+    """silu of f32 ``x``."""
     _check("x", x, x)
     if not on_card(x):
         return xla_math.silu_fwd(x)
     x = x.contiguous()
-    y, s = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty_like(x)
     if x.numel():
         _build.check("silu", _build.entry("silu")(
-            x.data_ptr(), None, None, y.data_ptr(), s.data_ptr(), x.numel(),
-            0, torch.cuda.current_stream(x.device).cuda_stream))
+            x.data_ptr(), None, y.data_ptr(), x.numel(), 0,
+            torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["silu_forward"] += 1
-    return y, s
+    return y
 
 
-def silu_backward(g: torch.Tensor, x: torch.Tensor,
-                  s: torch.Tensor) -> torch.Tensor:
-    """The gradient of silu at ``x`` for cotangent ``g``, ``s`` the
-    forward's logistic; all three f32 of one shape."""
+def silu_backward(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of silu at ``x`` for cotangent ``g``, both f32 of one
+    shape; the logistic is recomputed from ``x``."""
     _check("x", x, x)
     _check("g", g, x)
-    _check("s", s, x)
     if not on_card(x):
-        return xla_math.silu_bwd(g, x, s)
-    g, x, s = g.contiguous(), x.contiguous(), s.contiguous()
+        return xla_math.silu_bwd(g, x)
+    g, x = g.contiguous(), x.contiguous()
     out = torch.empty_like(x)
     if x.numel():
         _build.check("silu", _build.entry("silu")(
-            g.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(), None,
-            x.numel(), 1, torch.cuda.current_stream(x.device).cuda_stream))
+            g.data_ptr(), x.data_ptr(), out.data_ptr(), x.numel(), 1,
+            torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["silu_backward"] += 1
     return out

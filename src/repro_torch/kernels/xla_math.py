@@ -172,24 +172,31 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     return ftz(z * pow2)
 
 
-def silu_fwd(x: torch.Tensor):
-    """XLA:CPU's ``jax.nn.silu`` of f32 ``x``: returns ``(y, s)``, ``s =
-    1 / (1 + exp(-x))`` (``exp`` above, a true division) and ``y = x *
-    s``, with the flush (``ftz``) on the input and wherever a subnormal can
-    arise: ``s`` under 2**-126 for x below -87.34, ``y`` of a small x."""
-    x = ftz(x)
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    """``s = 1 / (1 + exp(-x))`` of flushed f32 ``x`` (``exp`` above, a
+    true division), flushed: 0 where it would be under 2**-126, for x
+    below -87.34."""
     d = exp(-x) + 1.0
-    s = ftz(torch.ones_like(d) / d)
-    return ftz(x * s), s
+    return ftz(torch.ones_like(d) / d)
 
 
-def silu_bwd(g: torch.Tensor, x: torch.Tensor, s: torch.Tensor):
-    """XLA:CPU's vjp of ``jax.nn.silu`` for cotangent ``g`` at ``x``,
-    ``s`` the forward's: ``fma(g, s, (g * x) * (s * (1 - s)))``, the first
-    product fused into the add, with the flush on the inputs and on every
-    product that can be subnormal (``s * (1 - s)`` cannot: ``s`` is 0 or at
-    least 2**-126 and ``1 - s`` 0 or at least 2**-24)."""
+def silu_fwd(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's ``jax.nn.silu`` of f32 ``x``: ``y = x * s``, ``s`` the
+    logistic (``_logistic``), with the flush (``ftz``) on the input and
+    wherever a subnormal can arise: ``s``, and ``y`` of a small x."""
+    x = ftz(x)
+    return ftz(x * _logistic(x))
+
+
+def silu_bwd(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's vjp of ``jax.nn.silu`` for cotangent ``g`` at ``x``:
+    ``fma(g, s, (g * x) * (s * (1 - s)))``, the first product fused into
+    the add, ``s`` recomputed as the forward takes it (the same bits),
+    with the flush on the inputs and on every product that can be
+    subnormal (``s * (1 - s)`` cannot: ``s`` is 0 or at least 2**-126 and
+    ``1 - s`` 0 or at least 2**-24)."""
     g, x = ftz(g), ftz(x)
+    s = _logistic(x)
     u = ftz(ftz(g * x) * (s * (1 - s)))
     return ftz(_fma(g, s, u))
 

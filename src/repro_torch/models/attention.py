@@ -84,8 +84,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_positions: torch.Tensor, *,
                         window: Optional[int], scale: float,
                         attn_softcap: Optional[float], q_block: int = 512,
-                        kv_block: int = 512,
-                        arange_from: Optional[int] = None) -> torch.Tensor:
+                        kv_block: int = 512) -> torch.Tensor:
     """Causal (optionally windowed) attention without materializing S x S.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd) in
@@ -98,13 +97,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     add in f32; the query block is cast in every KV step, as inside the
     reference's scan, so its gradients from the KV steps add in q's dtype.
 
-    ``arange_from``: the caller's promise that both position vectors are
-    ``arange_from + arange(S)``; the KV blocks that the causal mask and
-    the window leave wholly out of a query block are then skipped, which
-    changes no bit of the output: a skipped block after the diagonal adds
-    ``p = 0`` at ``alpha = 1``, and one before the window, where ``m`` is
-    still ``NEG_INF``, is wiped by the first kept block's ``alpha = 0``
-    (``tests/test_torch_shapes.py`` holds the two loops bit for bit).
+    Both position vectors are one origin plus ``arange(S)``, as every
+    caller's are (training and prefill), so the KV blocks that the causal
+    mask and the window leave wholly out of a query block are known from
+    the block indices and skipped. That changes no bit of the output: a
+    skipped block after the diagonal would add ``p = 0`` at ``alpha =
+    1``, and one before the window, where ``m`` is still ``NEG_INF``,
+    would be wiped by the first kept block's ``alpha = 0``
+    (``tests/test_torch_shapes.py`` holds this loop to the full one bit
+    for bit).
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -132,8 +133,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((b, q_block, kvh, g, hd_v), dtype=torch.float32,
                           device=q.device)
         for j in range(nk):
-            if arange_from is not None and _masked_out(i, j, q_block,
-                                                       kv_block, window):
+            if _masked_out(i, j, q_block, kv_block, window):
                 continue
             logits = torch.einsum("bqkgd,bskd->bqkgs",
                                   q_i.to(torch.float32), kf[j]) * scale
@@ -168,17 +168,14 @@ def _masked_out(i: int, j: int, q_block: int, kv_block: int,
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
-                    kv_block: int = 512, return_kv: bool = False,
-                    arange_from: Optional[int] = None):
-    """Self-attention over a full sequence (training). x: (B, S, D);
-    ``arange_from`` as in ``blockwise_attention``."""
+                    kv_block: int = 512, return_kv: bool = False):
+    """Self-attention over a full sequence (training). x: (B, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions)
     out = blockwise_attention(
         q, k, v, positions, positions, window=window,
         scale=_logit_scale(cfg), attn_softcap=cfg.attn_softcap,
-        q_block=min(q_block, s), kv_block=min(kv_block, s),
-        arange_from=arange_from)
+        q_block=min(q_block, s), kv_block=min(kv_block, s))
     out = torch.einsum("bse,ed->bsd", out.reshape(b, s, -1), params["wo"])
     if return_kv:
         return out, (k, v)

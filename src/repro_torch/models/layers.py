@@ -132,9 +132,10 @@ class _SiLU(torch.autograd.Function):
     with ``s = 1 / (1 + exp(-x))`` by XLA:CPU's ``exp`` and its flush of
     subnormals, and as gradient ``fma(g, s, (g * x) * (s * (1 - s)))``,
     the transpose jax takes of ``x * logistic(x)`` with XLA's fused add
-    (``_SiLUGrad``); bit-equal to the jitted ``jax.nn.silu`` and its vjp.
-    A CUDA tensor runs the kernel (one launch each way), a CPU tensor its
-    plain version. One backward for ``torch.autograd.grad`` and the
+    (``_SiLUGrad``, ``s`` recomputed from ``x``, the only tensor saved);
+    bit-equal to the jitted ``jax.nn.silu`` and its vjp. A CUDA tensor
+    runs the kernel (one launch each way), a CPU tensor its plain
+    version. One backward for ``torch.autograd.grad`` and the
     ``torch.func`` transforms, so the round's gradient paths with and
     without remat agree bit for bit (``F.silu``'s two backward formulas do
     not); the op is elementwise, so its vmap rule runs it on the batched
@@ -146,21 +147,17 @@ class _SiLU(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output[1])
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(inputs[0], output[1])
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
-    def backward(ctx, g, _):
-        if g is None:
-            return None
-        x, s = ctx.saved_tensors
-        return _SiLUGrad.apply(g, x, s)
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _SiLUGrad.apply(g, x)
 
     @staticmethod
     def vmap(info, in_dims, x):
         (x,) = _batch_first(info, in_dims, x)
-        return _SiLU.apply(x), (0, 0)
+        return _SiLU.apply(x), 0
 
 
 class _SiLUGrad(torch.autograd.Function):
@@ -169,8 +166,8 @@ class _SiLUGrad(torch.autograd.Function):
     it has no derivative of its own."""
 
     @staticmethod
-    def forward(g, x, s):
-        return _ksilu.silu_backward(g, x, s)
+    def forward(g, x):
+        return _ksilu.silu_backward(g, x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -181,13 +178,13 @@ class _SiLUGrad(torch.autograd.Function):
         raise NotImplementedError("silu's second derivative is not ported")
 
     @staticmethod
-    def vmap(info, in_dims, g, x, s):
-        return _SiLUGrad.apply(*_batch_first(info, in_dims, g, x, s)), 0
+    def vmap(info, in_dims, g, x):
+        return _SiLUGrad.apply(*_batch_first(info, in_dims, g, x)), 0
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """silu of an f32 tensor by the reference's law (``_SiLU``)."""
-    return _SiLU.apply(x)[0]
+    return _SiLU.apply(x)
 
 
 class _SiLUAten(torch.autograd.Function):
@@ -245,6 +242,19 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
         "w_up": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
         "w_down": dense_init(gen, lead + (d_ff, d_model), d_ff, dtype),
     }
+
+
+def logsumexp(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.logsumexp`` of ``a`` over ``dim``, by its law: ``log(sum(
+    exp(a - m))) + m`` with ``m`` the detached maximum (0 where it is not
+    finite), so its gradient is ``(g / sum) * exp(a - m)``, the exp
+    saved from the forward. ``torch.logsumexp``'s backward takes ``g *
+    exp(a - out)`` instead, whose last bits the chained QAFeL rounds
+    amplify (ROADMAP queue C)."""
+    m = a.detach().amax(dim=dim, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    total = torch.exp(a - m).sum(dim=dim, keepdim=True)
+    return (torch.log(total) + m).squeeze(dim)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -20,12 +20,7 @@ silu(z)`` is taken in y's dtype before ``rms_norm``. softplus is jax's,
 threshold and differs in the last bits). ``A_log``, ``D`` and ``dt_bias``
 are f32 in every config, whatever ``param_dtype`` says, as the
 reference's init makes them: a bf16 model's tree is of mixed dtypes.
-silu here is torch's law (``layers.silu_aten``: ``F.silu`` and ATen's
-fused backward, one launch each way on the card, one backward for both
-gradient paths), as in the MoE experts: the reference's exact law
-(``layers.silu``) put the f32 model's two-round x-hat share in
-tests/test_torch_mamba2_round.py at 86.9%, under its 90% floor, on the
-committed batch (ROADMAP queue C).
+silu is the reference's law exactly (``layers.silu``).
 """
 from __future__ import annotations
 
@@ -36,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm, silu_aten
+from repro_torch.models.layers import dense_init, rms_norm, silu
 
 
 def _conv_channels(cfg: ModelConfig) -> int:
@@ -100,7 +95,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     for i in range(width):
         out = out + (pad[:, i:i + s].to(torch.float32)
                      * w[i].to(torch.float32))
-    return silu_aten(out + b.to(torch.float32)).to(xbc.dtype)
+    return silu(out + b.to(torch.float32)).to(xbc.dtype)
 
 
 def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
@@ -170,8 +165,8 @@ def _gated_out(cfg: ModelConfig, params, y: torch.Tensor, x: torch.Tensor,
     d_skip = params["D"][:, None]
     y = y.to(torch.float32) + x.to(torch.float32) * d_skip
     y = y.reshape(shape).to(dtype)
-    y = rms_norm(y * silu_aten(z.to(torch.float32)).to(y.dtype),
-                 params["norm"], cfg.rms_eps)
+    y = rms_norm(y * silu(z.to(torch.float32)).to(y.dtype), params["norm"],
+                 cfg.rms_eps)
     return torch.einsum("bse,ed->bsd", y, params["out_proj"])
 
 
@@ -236,7 +231,7 @@ def mamba_decode(cfg: ModelConfig, params, xin: torch.Tensor,
     conv_out = torch.einsum("bwc,wc->bc", conv_hist.to(torch.float32),
                             params["conv_w"].to(torch.float32)) \
         + params["conv_b"].to(torch.float32)
-    xbc = silu_aten(conv_out)[:, None, :].to(xin.dtype)
+    xbc = silu(conv_out)[:, None, :].to(xin.dtype)
     cache["conv"].copy_(conv_hist[:, 1:])
     x, bmat, cmat = _split_xbc(cfg, xbc)
     x = x.reshape(b, h, p)

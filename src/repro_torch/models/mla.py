@@ -82,12 +82,10 @@ def _latents(cfg: ModelConfig, params, x: torch.Tensor,
 def mla_train(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, *, window: Optional[int] = None,
               q_block: int = 512, kv_block: int = 512,
-              return_latents: bool = False,
-              arange_from: Optional[int] = None):
+              return_latents: bool = False):
     """Full-sequence MLA (training, prefill): the latents expanded to
     per-head keys and values, blockwise attention. x: (B, S, D); with
-    ``return_latents`` also (ckv, k_rope) for the cache; ``arange_from``
-    as in ``attention.blockwise_attention``."""
+    ``return_latents`` also (ckv, k_rope) for the cache."""
     b, s, _ = x.shape
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                      cfg.v_head_dim)
@@ -102,8 +100,7 @@ def mla_train(cfg: ModelConfig, params, x: torch.Tensor,
     out = blockwise_attention(q, k, v, positions, positions, window=window,
                               scale=_mla_scale(cfg), attn_softcap=None,
                               q_block=min(q_block, s),
-                              kv_block=min(kv_block, s),
-                              arange_from=arange_from)
+                              kv_block=min(kv_block, s))
     out = torch.einsum("bse,ed->bsd", out.reshape(b, s, h * dv),
                        params["wo"])
     if return_latents:

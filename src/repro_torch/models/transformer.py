@@ -66,7 +66,8 @@ from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
-                                       init_gated_mlp, rms_norm, softcap)
+                                       init_gated_mlp, logsumexp, rms_norm,
+                                       softcap)
 
 ATTN_KINDS = ("attn", "local", "global", "attn_shared")
 KINDS = ATTN_KINDS + ("mamba",)
@@ -215,7 +216,7 @@ def _attn_sublayer(cfg: ModelConfig, p, h: torch.Tensor,
     a_in = _norm(cfg, h, p["ln1"])
     attend = mla_lib.mla_train if cfg.use_mla else attn_lib.attention_train
     a = attend(cfg, p["attn"], a_in, positions, window=window,
-               q_block=q_block, kv_block=kv_block, arange_from=0)
+               q_block=q_block, kv_block=kv_block)
     return _ffn_sublayer(cfg, p, h, a, aux, cfg.capacity_factor)
 
 
@@ -351,7 +352,7 @@ def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         lg = logits_fn(cfg, params, h[:, c0:c0 + chunk]).to(torch.float32)
-        lse = torch.logsumexp(lg, dim=-1)
+        lse = logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, labels[:, c0:c0 + chunk, ..., None]
                             .long())[..., 0]
         nll = lse - gold
@@ -428,12 +429,12 @@ def _attn_sublayer_prefill(cfg: ModelConfig, p, h: torch.Tensor,
     if cfg.use_mla:
         a, (ckv, k_rope) = mla_lib.mla_train(
             cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
-            kv_block=kv_block, return_latents=True, arange_from=0)
+            kv_block=kv_block, return_latents=True)
         _ring_write(layer_cache, {"ckv": ckv, "k_rope": k_rope}, s, window)
     else:
         a, (k, v) = attn_lib.attention_train(
             cfg, p["attn"], a_in, positions, window=window, q_block=q_block,
-            kv_block=kv_block, return_kv=True, arange_from=0)
+            kv_block=kv_block, return_kv=True)
         _ring_write(layer_cache, {"k": k, "v": v}, s, window)
     return _ffn_sublayer(cfg, p, h, a, None, cfg.capacity_factor)[0]
 

@@ -8,14 +8,14 @@ tests/test_torch_moe_round.py). A measurement for ROADMAP queue C, not a
 test; on the CPU, one torch thread:
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/round_shares.py \
-        [--silu port|law|F] [--seeds 0,1,2] [--local-sgd] [--self] [ARCH ...]
+        [--silu port|law|F] [--folded-rope] [--seeds 0,1,2] [--local-sgd] \
+        [--self] [ARCH ...]
 
 ARCH among qwen3-moe-235b-a22b, deepseek-v3-671b, qwen3-14b,
 mamba2-1.3b, zamba2-7b (default: all five; the state-space models in
 f32 and bf16). ``--silu`` picks the port's silu call sites: ``port`` as
 they are (the reference's law, ``models.layers.silu``, but in the MoE
-experts and the mamba layers torch's, ``silu_aten``), ``law`` the
-reference's law at every
+experts torch's, ``silu_aten``), ``law`` the reference's law at every
 site, ``F`` ``torch.nn.functional.silu`` at every site (the port before
 either), for comparison.
 ``--seeds`` runs the text configs' two rounds from each batch seed
@@ -23,9 +23,11 @@ instead (remat on) and prints both rounds' figures; ``--local-sgd``
 prints, per seed, how far one client's local steps from the initial
 state land from the reference's (``local_sgd_scan``, jitted): the share
 of the parameters bit-equal and the L2 error relative to the reference's
-change; ``--self`` runs the reference against itself from a state whose
-x and x-hat differ in the last bit on 1% of the coordinates (batch seed
-0), the same figures: what the two-round comparison makes of such a
+change; ``--folded-rope`` gives every path of the port the folded RoPE
+frequencies that its decode takes (``layers.rope_frequencies``);
+``--self`` runs the reference against itself from a state whose x and
+x-hat differ in the last bit on 1% of the coordinates (batch seed 0),
+the same figures: what the two-round comparison makes of such a
 difference with no port in it."""
 import argparse
 import functools
@@ -60,7 +62,7 @@ def _use_f_silu() -> None:
     layers._act = lambda name: f if name == "silu" else act(name)
     moe.silu_aten = f
     import repro_torch.models.mamba2 as mamba2
-    mamba2.silu_aten = f
+    mamba2.silu = f
 
 
 def _stats(js, ts, jx0) -> dict:
@@ -179,13 +181,18 @@ def main(argv=None) -> None:
     ap.add_argument("--seeds", type=lambda s: [int(v) for v in s.split(",")])
     ap.add_argument("--local-sgd", action="store_true")
     ap.add_argument("--self", action="store_true")
+    ap.add_argument("--folded-rope", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     if args.silu == "F":
         _use_f_silu()
     elif args.silu == "law":
-        import repro_torch.models.mamba2 as mamba2
-        moe.silu_aten = mamba2.silu_aten = layers.silu
+        moe.silu_aten = layers.silu
+    if args.folded_rope:
+        freqs = layers.rope_frequencies
+        layers.rope_frequencies = (
+            lambda d, theta, device=None, folded=False: freqs(d, theta,
+                                                              device, True))
     make = TS.make_qafel_round
     init_params, init_state = JT.init_params, JS.init_round_state
     for arch in args.archs:

@@ -192,14 +192,52 @@ def test_long_500k_decode_crosses_the_ring_wrap(arch):
                 assert int(tlc["slot_pos"][0, pos % w]) == pos
 
 
+def _every_block_pair(q, k, v, pos, window, scale, cap, blk):
+    """``blockwise_attention``'s online softmax written out over every
+    query and KV block pair, none skipped: the loop it must equal."""
+    from repro_torch.models.attention import NEG_INF
+    from repro_torch.models.layers import softcap
+    b, s, h, hd = q.shape
+    kvh, n = k.shape[2], s // blk
+    g = h // kvh
+    qb = q.reshape(b, n, blk, kvh, g, hd)
+    kf = [k[:, j * blk:(j + 1) * blk].to(torch.float32) for j in range(n)]
+    vf = [v[:, j * blk:(j + 1) * blk].to(torch.float32) for j in range(n)]
+    p_ = pos.reshape(n, blk)
+    outs = []
+    for i in range(n):
+        qpos = p_[i][None, :, None, None, None]
+        m = torch.full((b, blk, kvh, g), NEG_INF)
+        l, acc = torch.zeros((b, blk, kvh, g)), torch.zeros((b, blk, kvh,
+                                                            g, hd))
+        for j in range(n):
+            lg = softcap(torch.einsum("bqkgd,bskd->bqkgs",
+                                      qb[:, i].to(torch.float32), kf[j])
+                         * scale, cap)
+            kpos = p_[j][None, None, None, None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            lg = torch.where(mask, lg, torch.full_like(lg, NEG_INF))
+            m_new = torch.maximum(m, lg.amax(dim=-1))
+            pr = torch.exp(lg - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + pr.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqkgs,bskd->bqkgd",
+                                                        pr, vf[j])
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.stack(outs, dim=1).reshape(b, s, h, hd).to(q.dtype)
+
+
 @pytest.mark.parametrize("window", (None, 20))
 def test_skipping_masked_blocks_changes_no_bit(window):
-    """``blockwise_attention`` with ``arange_from=0`` (the KV blocks the
-    causal mask and the window leave wholly out are skipped: the prefill
-    at 32,768 positions runs 2,080 of 4,096 block pairs on a global layer)
-    against the full loop over every block pair, on a global layer
-    (``window`` None) and a windowed one, 8 x 8 blocks with the softcap:
-    the output and the gradients of q, k and v bit for bit."""
+    """``blockwise_attention`` skips the KV blocks that the causal mask and
+    the window leave wholly out (the prefill at 32,768 positions runs
+    2,080 of 4,096 block pairs on a global layer); against the same
+    online softmax over every block pair, written out here, on a global
+    layer (``window`` None) and a windowed one, 8 x 8 blocks with the
+    softcap: the output and the gradients of q, k and v bit for bit."""
     from repro_torch.models import attention as TA
     gen = torch.Generator().manual_seed(0)
     b, s, kvh, g, hd, blk = 2, 64, 2, 2, 16, 8
@@ -208,15 +246,16 @@ def test_skipping_masked_blocks_changes_no_bit(window):
     v = torch.randn(b, s, kvh, hd, generator=gen)
     ct = torch.randn(b, s, kvh * g, hd, generator=gen)
     pos = torch.arange(s, dtype=torch.int32)
-    out = {}
-    for skip in (None, 0):
+    out = []
+    for fn in (lambda *a: TA.blockwise_attention(
+            *a, pos, pos, window=window, scale=0.25, attn_softcap=30.0,
+            q_block=blk, kv_block=blk),
+               lambda *a: _every_block_pair(*a, pos, window, 0.25, 30.0,
+                                            blk)):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        o = TA.blockwise_attention(*leaves, pos, pos, window=window,
-                                   scale=0.25, attn_softcap=30.0,
-                                   q_block=blk, kv_block=blk,
-                                   arange_from=skip)
-        out[skip] = [o] + list(torch.autograd.grad(o, leaves, ct))
-    for a, c in zip(out[None], out[0]):
+        o = fn(*leaves)
+        out.append([o] + list(torch.autograd.grad(o, leaves, ct)))
+    for a, c in zip(*out):
         assert torch.equal(a.detach().view(torch.int32),
                            c.detach().view(torch.int32))
     skipped = sum(TA._masked_out(i, j, blk, blk, window)
