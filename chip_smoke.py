@@ -24,7 +24,10 @@ Phases, each printing one JSON line:
    special values (zeros, subnormals, infinities, nan), the length not a
    multiple of 4, from an aligned and a misaligned start: device ms
    against the byte bound, the plain version's and ``F.silu`` /
-   ``aten.silu_backward`` as the library time (``silu_kernel``);
+   ``aten.silu_backward`` as the library time (``silu_kernel``); and the
+   same kernel's ``exp`` alone (``xla_exp``) against ``xla_math.exp`` over
+   those values and in its row mode ``exp(a - m)`` on a (64, 256,000)
+   logits chunk, with ``torch.exp`` as the library time;
 4. the cohort path's kernel shapes the same way: K2 as the cohort upload
    at B = 32 over 624 rows in qsgd4 and qsgd2, at B = 512 (the population
    path) and at B = 8 over d = 1e8, K3 decoding a qsgd2 tier upload at
@@ -233,9 +236,22 @@ Phases, each printing one JSON line:
     card and the CPU, the paper's CNN on the card; codes, broadcasts,
     state and meters bit for bit, the quad card against the CPU, K1
     launches per streamed upload (``streamed_uplink``);
+13b. the flat mesh (``flat_mesh``): a one-rank NCCL group (a
+    ``FileStore`` in a temporary directory under ``build/``), its
+    ``make_sim_mesh(1)`` and ``QAFeL(mesh=)`` on the paper's CNN for 10
+    flushes against the meshless run, bit for bit; then
+    ``kernels.ops.flush_segment`` at d = 1e8, K = 10, qsgd4 both ways, for
+    the 4 segments of a ("data",) extent of 4 and of the (2, 2) fold, one
+    after another on this card with no group, whole and in row chunks of
+    2^16, the segments concatenated against the unsharded flush bit for bit
+    (x, x-hat, m, codes, norms, the taps of the gathered parts), one
+    segment's kernel launches, and the ms of one segment's flush and of
+    the unsharded flush;
 14. one line listing every kernel (``silu_forward`` and ``silu_backward``
     with ``F.silu`` / ``aten.silu_backward`` as the library time, their
-    launches on mamba2-1.3b's round) with its launches on both paths, on
+    launches on mamba2-1.3b's round; ``xla_exp`` with ``torch.exp``, its
+    launches on the LLM round's loss; each kernel's launches in one
+    segment's flush of ``flat_mesh``) with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
     launcher's rounds, the quantizer rounds and the musicgen-large,
     internvl2-1b, mamba2-1.3b, zamba2-7b and qwen3-moe-235b-a22b rounds,
@@ -2966,7 +2982,12 @@ def llm_round(dev) -> tuple:
         "k3_profiled": k3["launches"] == want["qsgd_unpack_dequantize"],
         "server_update_profiled": su["launches"] == 1,
         "other_kernels_idle": all(v == 0 for n, v in launches.items()
-                                  if n not in want),
+                                  if n not in want
+                                  and n not in MODEL_KERNELS),
+        # the loss's exp: one launch a loss chunk (one at seq 64) a step,
+        # and one more in its backward, which recomputes it
+        "xla_exp_per_step": per_round("xla_exp")
+        == 2 * k * qcfg.local_steps,
         "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
         and peak < LLM_PEAK_CAP_GB * 1e9,
         "phases_read": all(phases[name] > 0 for name in LLM_PHASES),
@@ -3044,7 +3065,8 @@ def llm_round(dev) -> tuple:
         **{f"{n}_launches": taps_launches[n] == v
            for n, v in want_taps.items()},
         "other_kernels_idle": all(v == 0 for n, v in taps_launches.items()
-                                  if n not in want_taps),
+                                  if n not in want_taps
+                                  and n not in MODEL_KERNELS),
         "one_added_port_launch": all(
             v == (n == "round_taps")
             for n, v in taps_record["added_port_launches"].items()),
@@ -4064,7 +4086,8 @@ def train_launcher(dev) -> dict:
         and state.t == TRAIN_STEPS + TRAIN_TIMED,
         **{f"{n}_launches": launches[n] == v for n, v in want.items()},
         "other_kernels_idle": all(v == 0 for n, v in launches.items()
-                                  if n not in want),
+                                  if n not in want
+                                  and n not in MODEL_KERNELS),
         "peak_under_gate": peak < LLM_PEAK_CAP_GB * 1e9,
         "upload_bytes_exact": metrics["upload_bytes"]
         == (4 * d + 32 * rows) / 8,
@@ -4139,7 +4162,10 @@ def llm_round_quantizers(dev) -> dict:
         peak = torch.cuda.max_memory_allocated()
         cspec, sspec = make_quantizer(cq).spec, make_quantizer(sq).spec
         qsgd_codes = cspec.kind in ("qsgd", "lowrank")
-        want = {"server_update": QUANT_ROUNDS}
+        # the loss's exp: two launches a client step (one loss chunk at
+        # seq LLM_SEQ; its backward recomputes it)
+        want = {"server_update": QUANT_ROUNDS,
+                "xla_exp": QUANT_ROUNDS * 4 * 2 * qcfg.local_steps}
         if qsgd_codes:
             n = d if cspec.kind == "qsgd" else cspec.rank(d)
             want["qsgd_quantize_pack_threefry"] = QUANT_ROUNDS * 4 * -(
@@ -4359,7 +4385,7 @@ def pool_round(dev, arch: str, layers=None, phase=None) -> tuple:
         **{f"{n}_per_round": per_round(n) == v for n, v in want.items()},
         "other_kernels_idle": all(v == 0 for n, v in launches.items()
                                   if n not in want
-                                  and not n.startswith("silu")),
+                                  and n not in MODEL_KERNELS),
         "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
         and peak < LLM_PEAK_CAP_GB * 1e9,
         "upload_bytes_exact": all(r["upload_bytes"] == upload_want
@@ -5256,6 +5282,12 @@ SILU_SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45, 1.1e-38,
                 -88.5, -89.0, 3.4e38, -3.4e38, 1e-30)
 # per value: the backward recomputes s (the forward's 40 operations)
 SILU_FLOPS = {"silu_forward": 40, "silu_backward": 48}
+# the models' own kernels (silu and the loss's exp), launched by every
+# round on a model that has them, beside the wire path's
+MODEL_KERNELS = ("silu_forward", "silu_backward", "xla_exp")
+# xla_exp's row mode at a chunk of gemma2-2b's loss: 64 positions x its
+# 256,000 classes; about 25 operations a value
+XLA_EXP_ROWS, XLA_EXP_COLS, XLA_EXP_FLOPS = 64, 256_000, 25
 SILU_BYTES = {"silu_forward": 8, "silu_backward": 12}  # per value
 
 
@@ -5340,9 +5372,280 @@ def silu_cases(dev) -> dict:
         out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
         emit({"phase": "silu_kernel", "name": name, **out[name],
               "offset_checks": cases})
-    del x, g
+    out["xla_exp"] = xla_exp_case(dev, xs)
+    del x, g, xs, gs
     torch.cuda.empty_cache()
     return out
+
+
+def xla_exp_case(dev, xs) -> dict:
+    """``silu.xla_exp`` (the same kernel's exp alone) against
+    ``xla_math.exp`` bit for bit (a nan as a nan) over silu's sweep, tail
+    and special values, from an aligned and a misaligned start, one launch
+    each; then the row mode the loss takes, ``exp(a - m)`` with one ``m``
+    a row, on a logits chunk of the gemma2-2b loss's shape
+    (``XLA_EXP_ROWS`` x its 256,000 classes) against the plain version's
+    ``xla_math.exp(a - m)``; median device ms of that mode, the plain
+    version and ``torch.exp`` of the same tensor (the library time: the
+    same bytes, torch's own law), and the byte bound."""
+    import torch
+
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches, silu, xla_math
+
+    checks, errs = {}, []
+    for start in (0, 1):
+        v = torch.cat([torch.zeros(1, device=dev), xs])[start:start
+                                                        + xs.numel()]
+        reset_launches()
+        got = silu.xla_exp(v)
+        checks[f"sweep_offset{start}_one_launch"] = (
+            kernel_launches()["xla_exp"] == 1)
+        want = xla_math.exp(v)
+        checks[f"sweep_offset{start}"] = _same_or_nan(got, want)
+        errs.append(float(torch.nan_to_num((got.double() - want.double())
+                                           .abs(), nan=0.0, posinf=0.0)
+                          .max()))
+        del got, want, v
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a = 8.0 * torch.randn((XLA_EXP_ROWS, XLA_EXP_COLS), generator=gen,
+                          device=dev)
+    a[0, :1000] = -torch.inf
+    m = a.amax(-1, keepdim=True)
+    a[1, :4096] = m[1] - torch.linspace(86.5, 88.8, 4096, device=dev)
+    reset_launches()
+    got = silu.xla_exp(a, m)
+    checks["rows_one_launch"] = kernel_launches()["xla_exp"] == 1
+    want = xla_math.exp(a - m)
+    checks["rows"] = _same_or_nan(got, want)
+    errs.append(float(torch.nan_to_num((got.double() - want.double()).abs(),
+                                       nan=0.0, posinf=0.0).max()))
+    del got, want
+    if not all(checks.values()):
+        raise AssertionError(f"xla_exp: {checks}")
+    n = a.numel()
+    bytes_s = (8 * n + 4 * XLA_EXP_ROWS) / HBM_BYTES_PER_S
+    ops_s = XLA_EXP_FLOPS * n / F32_OPS_PER_S
+    case = {"source": "src/repro_torch/kernels/csrc/silu.cu",
+            "replaces": None, "n": n, "shape": list(a.shape),
+            "equal": True, "max_abs_err": max(errs), "checks": checks,
+            "ms": device_ms(lambda: silu.xla_exp(a, m), 20),
+            "plain_ms": device_ms(lambda: xla_math.exp(a - m), 3),
+            "library_ms": device_ms(lambda: torch.exp(a), 20),
+            "library_call": "torch.exp",
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes_formula": "8 B a value + 4 B a row / 3.35 TB/s"}
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+    emit({"phase": "silu_kernel", "name": "xla_exp", **case})
+    del a, m
+    return case
+
+
+# the flat mesh (launch.mesh, sharding.rules, QAFeL(mesh=)): a one-rank NCCL
+# group on the CNN, then the per-segment flush at d = 1e8 for the segments
+# of a (4,) and a (2, 2) mesh run one after another on this card
+MESH_CNN_FLUSHES = 10
+MESH_D, MESH_K, MESH_SEGMENTS = 10**8, 10, 4
+MESH_CHUNK_ROWS = 1 << 16
+MESH_FOLDS = {"4": (("data",), (4,)), "2x2": (("data", "model"), (2, 2))}
+
+
+def mesh_one_rank(dev) -> dict:
+    """A one-rank NCCL group (a ``FileStore`` in a temporary directory),
+    ``make_sim_mesh(1)`` and ``QAFeL(mesh=)`` driven by the sequential
+    simulator on the paper's CNN for ``MESH_CNN_FLUSHES`` flushes, against
+    the same run with no mesh (run twice before it, the first warming the
+    card): x, x-hat, momentum, the accuracy trace and the meters bit for
+    bit (cuDNN's deterministic algorithms), and both runs' wall seconds;
+    the group is destroyed after."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import QAFeL
+    from repro_torch.examples import federated_celeba as fc
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.sim import AsyncFLSimulator, SimConfig
+
+    qcfg = fc.qafel_config()
+    uploads = MESH_CNN_FLUSHES * qcfg.buffer_size
+
+    def run(mesh):
+        task = fc.celeba_task(dev)
+        algo = QAFeL(qcfg, task.loss_fn, init_cnn(0, device=dev),
+                     device=dev, mesh=mesh)
+        sim = AsyncFLSimulator(algo, SimConfig(
+            concurrency=CONCURRENCY, max_uploads=uploads,
+            eval_every_steps=5), task.client_batches, task.eval_fn)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        return algo, res, time.perf_counter() - t0, kernels.launches()
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        plain, pres, pwall, _ = run(None)  # warms the card up for the next
+        plain, pres, pwall, _ = run(None)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_sim_mesh(1)
+            algo, res, wall, launches = run(mesh)
+            backend = dist.get_backend()
+            full = {name: algo.state.full(name).clone()
+                    for name in ("x_flat", "hidden_flat", "momentum_flat")}
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    checks = {
+        "backend_nccl": backend == "nccl",
+        "flushes": res.server_steps == pres.server_steps == MESH_CNN_FLUSHES,
+        "state": all(bits_equal(v, getattr(plain.state, name))
+                     for name, v in full.items()),
+        "segment_padded": algo.state.x_flat.numel() == CNN_ROWS * 128,
+        "accuracy_trace": [tuple(p) for p in res.accuracy_trace]
+        == [tuple(p) for p in pres.accuracy_trace],
+        "meters": algo.meter.summary() == plain.meter.summary(),
+        "replicas_in_sync": bool(res.metrics["replicas_in_sync"]),
+        "K4_per_flush": launches["buffer_aggregate"] == res.server_steps,
+        "K2_per_flush": launches["qsgd_quantize_pack_batch"]
+        == res.server_steps}
+    record = {"phase": "flat_mesh", "part": "one_rank_nccl_cnn",
+              "uploads": res.uploads, "flushes": res.server_steps,
+              "wall_s": wall, "meshless_wall_s": pwall,
+              "launches": launches, "checks": checks}
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"flat_mesh one-rank checks failed: {checks}")
+    return record
+
+
+def mesh_segments(dev, smi: str) -> dict:
+    """``kernels.ops.flush_segment`` at d = 1e8, K = 10, qsgd4 both ways,
+    for each segment of a (4,) and of a (2, 2) mesh (the segment index
+    folded from each rank's coordinates by ``sharding.rules``), one after
+    another on this card and with no group, whole and in row chunks of
+    ``MESH_CHUNK_ROWS``: the segments concatenated against the unsharded
+    ``server_flush_step`` bit for bit (x, x-hat, m, codes, norms), and the
+    flush taps of the gathered parts against the unsharded flush's; the
+    kernel launches of one segment; median device ms of one segment's
+    flush and of the unsharded flush."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.common import prng
+    from repro_torch.core.qafel import place_flat_on_mesh, segment_rows
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import taps as ktaps
+    from repro_torch.sharding.rules import (flat_segment_index,
+                                            mesh_flat_extent)
+
+    n, k = MESH_D, MESH_K
+    rows = ops.rows_for(n)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(n, generator=gen, device=dev)
+    h = x + 0.01 * torch.randn(n, generator=gen, device=dev)
+    m = 0.02 * torch.randn(n, generator=gen, device=dev)
+    stack = torch.empty((k, rows, 64), dtype=torch.uint8, device=dev)
+    norms = torch.empty((k, rows), device=dev)
+    for i in range(k):
+        delta = 0.05 * torch.randn((1, n), generator=gen, device=dev)
+        p, nm = ops.qsgd_quantize_batch(delta, prng.PRNGKey(100 + i)[None],
+                                        BITS)
+        stack[i], norms[i] = p[0], nm[0]
+    del delta
+    w = torch.tensor([0.1 + 0.01 * i for i in range(k)], device=dev)
+    key2d = prng.PRNGKey(7)[None]
+    kw = dict(bits=BITS, sbits=BITS, lr=1.2, beta=0.3)
+    want = ops.server_flush_step(x, h, m, stack, norms, w, None, key2d,
+                                 n=n, taps=True, **kw)
+    checks, per_segment = {}, None
+    for fold, (names, shape) in MESH_FOLDS.items():
+        for chunk in (None, MESH_CHUNK_ROWS):
+            parts = {name: [] for name in ("x", "h", "m", "p", "nm", "delta",
+                                           "diff", "q")}
+            segs = []
+            for coord in (list(c) for c in
+                          __import__("itertools").product(
+                              *(range(e) for e in shape))):
+                mesh = SimpleNamespace(mesh_dim_names=names, shape=shape,
+                                       get_coordinate=lambda c=coord: c)
+                seg, nseg = flat_segment_index(mesh), mesh_flat_extent(mesh)
+                segs.append(seg)
+                xl, hl, ml = (place_flat_on_mesh(v, mesh, n)
+                              for v in (x, h, m))
+                rows_l = xl.shape[0] // 128
+                r0 = seg * rows_l
+                args = (xl, hl, ml, segment_rows(stack, r0, rows_l),
+                        segment_rows(norms, r0, rows_l), w, None, key2d)
+                kernels.reset_launches()
+                out = ops.flush_segment(*args, seg=seg, nseg=nseg, n=n,
+                                        chunk_rows=chunk, with_parts=True,
+                                        **kw)
+                launches = kernels.launches()
+                if fold == "4" and chunk is None and seg == 0:
+                    per_segment = {
+                        "launches": {name: c for name, c in launches.items()
+                                     if c},
+                        "ms": device_ms(lambda: ops.flush_segment(
+                            *args, seg=seg, nseg=nseg, n=n, **kw), 10)}
+                for name, v in zip(("x", "h", "m"), out[:3]):
+                    parts[name].append(v)
+                parts["p"].append(out[3][0])
+                parts["nm"].append(out[3][1])
+                for name, v in zip(("delta", "diff", "q"), out[4]):
+                    parts[name].append(v)
+                del xl, hl, ml, args, out
+            cat = {name: torch.cat(v) for name, v in parts.items()}
+            del parts
+            tap = ktaps.flush_taps(x, cat["x"][:n], cat["delta"][:n],
+                                   cat["diff"][:n], cat["q"][:n], w)
+            tag = f"{fold}_{'chunks' if chunk else 'whole'}"
+            checks[tag] = {
+                "segments": sorted(segs) == list(range(MESH_SEGMENTS)),
+                "x": bits_equal(cat["x"][:n], want[0]),
+                "hidden": bits_equal(cat["h"][:n], want[1]),
+                "momentum": bits_equal(cat["m"][:n], want[2]),
+                "codes": bits_equal(cat["p"][:rows], want[3][0]),
+                "norms": bits_equal(cat["nm"][:rows], want[3][1]),
+                "taps": bits_equal(tap, want[4]),
+                "padding_zero": bool((cat["x"][n:] == 0).all()
+                                     and (cat["p"][rows:] == 0).all())}
+            del cat
+            torch.cuda.empty_cache()
+    whole_ms = device_ms(lambda: ops.server_flush_step(
+        x, h, m, stack, norms, w, None, key2d, n=n, **kw), 10)
+    record = {"phase": "flat_mesh", "part": "segments_d1e8", "d": n, "k": k,
+              "segments": MESH_SEGMENTS, "chunk_rows": MESH_CHUNK_ROWS,
+              "segment_ms": per_segment["ms"], "unsharded_ms": whole_ms,
+              "segment_launches": per_segment["launches"],
+              "nvidia_smi": smi, "checks": checks}
+    emit(record)
+    failed = [f"{tag}.{name}" for tag, c in checks.items()
+              for name, ok in c.items() if not ok]
+    if failed:
+        raise AssertionError(f"flat_mesh segment checks failed: {failed}")
+    del x, h, m, stack, norms, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def run_flat_mesh(dev, smi: str) -> dict:
+    """The flat mesh phase: ``mesh_one_rank`` then ``mesh_segments``."""
+    return {"one_rank": mesh_one_rank(dev),
+            "segments": mesh_segments(dev, smi)}
 
 
 # the assigned shapes (launch/shapes.py) on one card: gemma2-2b (26 layers,
@@ -5990,6 +6293,8 @@ def main() -> int:
                                                      int32_ops_per_s)
     shape_paths = run_shapes(dev)
     timed("streamed_uplink", streamed_uplink, dev)
+    flat_mesh = timed("flat_mesh", run_flat_mesh, dev, smi)
+    mesh_launches = flat_mesh["segments"]["segment_launches"]
 
     case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
                  "bound_share", "equal", "max_abs_err", "bytes_formula")
@@ -6112,18 +6417,35 @@ def main() -> int:
             "library_call": m["library_call"], "equal": m["equal"],
             "bytes_formula": m["bytes_formula"], "n": m["n"],
             "launches_note": "mamba2-1.3b's round (its conv and gate in "
-                             "each of 48 layers); zamba2-7b's and the other "
-                             "paths below (the MoE experts take torch's "
-                             "silu)",
+                             "each of 48 layers); zamba2-7b's, qwen3-moe's "
+                             "(its experts) and the other paths below",
             **{f"{path}_launches": counts.get(name, 0)
                for path, counts in new_paths.items()}})
+    m = silu_kernel["xla_exp"]
+    kernels_line.append({
+        "name": "xla_exp", "route": "cuda", "source": m["source"],
+        "replaces": None, "launches": llm_launches["xla_exp"],
+        "llm_round_launches": llm_launches["xla_exp"],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "library_call": m["library_call"], "equal": m["equal"],
+        "bytes_formula": m["bytes_formula"], "shape": m["shape"],
+        "launches_note": "gemma2-2b's round (two a loss chunk: the "
+                         "forward and its backward's recompute); the "
+                         "other rounds below",
+        **{f"{path}_launches": counts.get("xla_exp", 0)
+           for path, counts in new_paths.items()}})
     for entry in kernels_line:
         entry["shapes_launches"] = {cell: counts.get(entry["name"], 0)
                                     for cell, counts in shape_paths.items()}
+        entry["flat_mesh_segment_launches"] = mesh_launches.get(
+            entry["name"], 0)
     if not all(e["launches"] and e["zamba2_round_launches"]
-               for e in kernels_line[-2:]):
+               for e in kernels_line[-3:]):
         raise AssertionError("silu.cu was not launched on mamba2-1.3b's "
-                             "and zamba2-7b's rounds")
+                             "and zamba2-7b's rounds, or its exp on the "
+                             "LLM round's loss")
     for name, seconds in _PHASE_SECONDS:
         emit({"phase_seconds": name, "seconds": seconds})
     print(smi, flush=True)

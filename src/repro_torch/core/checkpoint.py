@@ -22,10 +22,15 @@ Format: one ``np.savez`` archive of plain arrays plus a JSON blob
 are not part of it: a resumed ``QAFeL`` fed the same messages continues
 bit-identically.
 
-The port runs on one device: it writes no ``sharding`` entry and loads a
-reference archive only if that archive came from one device. An archive
-of another ``basis_seed`` is refused: the resumed run would derive other
-sketch bases.
+The state vectors are stored at their true length n, whatever the mesh:
+a run on a mesh (``QAFeL(mesh=)``) gathers its segments first, and only
+the rank of the first flat segment writes (the others wait for it). The
+``sharding`` entry records where the archive came from (the segment
+count, the flat axes and their extents, n and the padded length), as the
+reference's does; a load re-places the vectors for the target's mesh, so
+an archive moves between any two meshes, and between either package. An
+archive of another ``basis_seed`` is refused: the resumed run would
+derive other sketch bases.
 """
 from __future__ import annotations
 
@@ -57,12 +62,25 @@ def _host(t) -> np.ndarray:
 
 
 def save_checkpoint(path, algo) -> None:
-    """Write ``algo``'s server-side state (see the module docstring)."""
+    """Write ``algo``'s server-side state (see the module docstring).
+    Under a mesh every rank of it calls this: the gathers are
+    collectives."""
     st, buf = algo.state, algo.buffer
+    mesh = getattr(algo, "mesh", None)
+    ndev, axes, mesh_shape = 1, None, None
+    if mesh is not None:
+        from repro_torch.sharding.rules import (flat_axes, mesh_extent_of,
+                                                mesh_flat_extent)
+        ndev = mesh_flat_extent(mesh)
+        axes = list(flat_axes(mesh))
+        mesh_shape = [mesh_extent_of(mesh, a) for a in axes]
     meta = {
         "version": CHECKPOINT_VERSION,
         "t": int(st.t),
         "layout": _layout_fingerprint(st.layout),
+        "sharding": {"devices": ndev, "axes": axes, "mesh_shape": mesh_shape,
+                     "n": int(st.n),
+                     "n_padded": int(st.x_flat.shape[0]) * ndev},
         "quantizers": {"client": algo.cq.spec.label(),
                        "server": algo.sq.spec.label()},
         "basis_seed": int(algo.basis_seed),
@@ -89,9 +107,8 @@ def save_checkpoint(path, algo) -> None:
                       "history": list(algo.staleness.history),
                       "dropped": list(algo.staleness.dropped)},
     }
-    arrays = {"x_flat": _host(st.x_flat),
-              "hidden_flat": _host(st.hidden_flat),
-              "momentum_flat": _host(st.momentum_flat)}
+    arrays = {name: _host(st.full(name))
+              for name in ("x_flat", "hidden_flat", "momentum_flat")}
     if buf._packed:
         arrays["buf_packed_a"] = np.stack([_host(a) for a, _ in buf._packed])
         arrays["buf_packed_b"] = np.stack([_host(b) for _, b in buf._packed])
@@ -105,8 +122,18 @@ def save_checkpoint(path, algo) -> None:
     if algo._residuals:
         arrays["residual_stack"] = np.stack(
             [_host(r) for r in algo._residuals.values()])
+    group = None
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import flat_group
+        group = flat_group(mesh)
+        if dist.get_rank(group) != 0:
+            dist.barrier(group=group)
+            return
     np.savez(_normalize_path(path), __meta__=np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8), **arrays)
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def _check_compatible(meta: dict, algo) -> None:
@@ -119,15 +146,10 @@ def _check_compatible(meta: dict, algo) -> None:
             "checkpoint layout does not match the model: the archive was "
             "saved for a different parameter structure")
     smeta = meta.get("sharding")
-    if smeta is not None:
-        if smeta["n"] != layout.total_size:
-            raise ValueError(
-                f"checkpoint flat layout n={smeta['n']} does not match the "
-                f"model's coordinate count {layout.total_size}")
-        if smeta["devices"] != 1:
-            raise ValueError(
-                f"checkpoint written by a run on {smeta['devices']} devices: "
-                "the port loads single-device archives only")
+    if smeta is not None and smeta["n"] != layout.total_size:
+        raise ValueError(
+            f"checkpoint flat layout n={smeta['n']} does not match the "
+            f"model's coordinate count {layout.total_size}")
     want_q = {"client": algo.cq.spec.label(), "server": algo.sq.spec.label()}
     if meta["quantizers"] != want_q:
         raise ValueError(f"checkpoint quantizers {meta['quantizers']} != "
@@ -145,11 +167,13 @@ def _check_compatible(meta: dict, algo) -> None:
 
 def load_checkpoint(path, algo):
     """Restore a ``save_checkpoint`` archive of either package into
-    ``algo`` in place, on ``algo``'s device. ``algo`` must be built from
+    ``algo`` in place, on ``algo``'s device and mesh (the vectors
+    re-placed as its segments). ``algo`` must be built from
     the same model and configuration: the layout fingerprint, quantizers,
     basis seed and buffer capacity are verified first, so a failed load
     leaves it intact. Returns ``algo``."""
-    from repro_torch.core.qafel import ServerState  # avoids an import cycle
+    # avoids an import cycle
+    from repro_torch.core.qafel import ServerState, place_flat_on_mesh
 
     with np.load(_normalize_path(path)) as data:
         meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
@@ -161,11 +185,13 @@ def load_checkpoint(path, algo):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     layout = algo.state.layout
-    algo.state = ServerState(
-        x_flat=dev_tensor(arrays["x_flat"]),
-        hidden_flat=dev_tensor(arrays["hidden_flat"]),
-        momentum_flat=dev_tensor(arrays["momentum_flat"]),
-        layout=layout, t=meta["t"])
+    mesh = getattr(algo, "mesh", None)
+    vecs = [dev_tensor(arrays[name]) for name in ("x_flat", "hidden_flat",
+                                                   "momentum_flat")]
+    if mesh is not None:
+        vecs = [place_flat_on_mesh(v, mesh, layout.total_size)
+                for v in vecs]
+    algo.state = ServerState(*vecs, layout=layout, t=meta["t"], mesh=mesh)
 
     bmeta = meta["buffer"]
     buf = algo.buffer

@@ -16,5 +16,7 @@ def fedbuff_config(base: QAFeLConfig) -> QAFeLConfig:
                                server_quantizer="identity")
 
 
-def make_fedbuff(qcfg: QAFeLConfig, loss_fn, params0, device=None) -> QAFeL:
-    return QAFeL(fedbuff_config(qcfg), loss_fn, params0, device=device)
+def make_fedbuff(qcfg: QAFeLConfig, loss_fn, params0, device=None,
+                 mesh=None) -> QAFeL:
+    return QAFeL(fedbuff_config(qcfg), loss_fn, params0, device=device,
+                 mesh=mesh)

@@ -33,6 +33,17 @@ chunk; ``run_client_stream`` sends the upload as row-chunk messages,
 which ``receive`` reassembles (``UpdateBuffer.add_encoded_chunks``) and
 meters as one upload of the unstreamed message's bytes.
 
+``QAFeL(..., mesh=)`` (a ``launch.mesh`` mesh over an initialised
+``torch.distributed`` group) lays the server state over the mesh's flat
+segments: each rank holds its contiguous segment of x, x-hat and the
+momentum (``ServerState``, ``place_flat_on_mesh``) and runs the flush on
+it (``kernels.ops.server_flush_step_sharded``); every rank runs the same
+host protocol from the same seeds, so the buffer, the meters and the
+messages are the same on each. The segments meet in all-gathers only: the
+broadcast's payload rows, the full x-hat a client trains from, the tree
+views, the sparse server chain and ``hidden_drift``, the cohort step's
+member slices. Every bit is the meshless run's.
+
 ``QAFeL(..., telemetry=tracer)`` attaches an ``obs.RunTracer``: one typed
 event per upload, drop, flush and broadcast and, when the tracer has
 ``taps=True``, the client step's and the flush's metric taps on them (one
@@ -276,7 +287,8 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
                        taps: bool = False, residual=None,
                        basis_seed=None, with_loss: bool = False,
                        chunk_rows: Optional[int] = None,
-                       remat: bool = False, new_residual: bool = True):
+                       remat: bool = False, new_residual: bool = True,
+                       mesh=None):
     """Flat x-hat in, wire payloads out, for one client (b = 1) or a
     cohort tier group of b members: ``client_update`` on this task, run by
     ``kernels.ops.cohort_train_encode_step`` (vmapped over the members for
@@ -296,6 +308,8 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
     ``remat`` takes local SGD's gradient through ``torch.autograd``
     (``local_sgd``), at b = 1 only. ``new_residual=False``: a lowrank
     caller that never reads the new residual, which is then not formed.
+    ``mesh``: b > 1 members over its data ranks, each from the full x-hat
+    (``kernels.ops.cohort_train_encode_step``).
     """
     lowrank = spec.kind == "lowrank"
     if lowrank and basis_seed is None:
@@ -304,7 +318,7 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
     if remat and b > 1:
         raise NotImplementedError(
             "remat under the vmapped cohort step (b > 1): torch.func.vmap "
-            "does not run torch.autograd.grad; ROADMAP queue A item 13b")
+            "does not run torch.autograd.grad; ROADMAP queue A item 13b.2")
     return kops.cohort_train_encode_step(
         functools.partial(client_update, loss_fn, qcfg, layout,
                           with_loss=with_loss, remat=remat), hidden_flat,
@@ -312,12 +326,24 @@ def client_update_flat(loss_fn: Callable, qcfg: QAFeLConfig, spec, layout,
         bits=spec.bits if spec.kind in ("qsgd", "lowrank") else None,
         member_chunk=member_chunk, taps=taps,
         group=spec.group if lowrank else None, basis_seed=basis_seed,
-        residual=residual, chunk_rows=chunk_rows, new_residual=new_residual)
+        residual=residual, chunk_rows=chunk_rows, new_residual=new_residual,
+        mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
+
+
+def segment_rows(v: torch.Tensor, r0: int, count: int) -> torch.Tensor:
+    """Rows ``[r0, r0 + count)`` along dim 1 of ``v``, zero past its end
+    (a fresh contiguous tensor)."""
+    out = torch.zeros((v.shape[0], count) + tuple(v.shape[2:]),
+                      dtype=v.dtype, device=v.device)
+    r1 = min(v.shape[1], r0 + count)
+    if r1 > r0:
+        out[:, :r1 - r0] = v[:, r0:r1]
+    return out
 
 
 def _check_upload(payload) -> None:
@@ -342,21 +368,56 @@ def _check_upload(payload) -> None:
         raise ValueError(f"unknown upload kind {kind!r}")
 
 
+def place_flat_on_mesh(flat: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """This rank's segment of a flat f32 vector of true length n (any
+    padding past n is ignored): the vector zero-padded to the mesh's
+    segment-aligned length (``sharding.rules.flat_padded_len``) and cut
+    into ``mesh_flat_extent`` equal segments, ``flat_segment_index``'s.
+    Always a fresh tensor on ``flat``'s device."""
+    from repro_torch.sharding.rules import (flat_padded_len,
+                                            flat_segment_index,
+                                            mesh_flat_extent)
+
+    nseg = mesh_flat_extent(mesh)
+    n_l = flat_padded_len(n, nseg) // nseg
+    a = flat_segment_index(mesh) * n_l
+    out = torch.zeros(n_l, dtype=torch.float32, device=flat.device)
+    b = min(n, a + n_l)
+    if b > a:
+        out[:b - a] = flat.reshape(-1)[a:b]
+    return out
+
+
 @dataclasses.dataclass
 class ServerState:
-    """Flat server state on one device: the full-precision model ``x``, the
-    shared hidden state ``x-hat`` and the momentum, in one layout's
-    coordinates; ``t`` is the server step (model version)."""
+    """Flat server state: the full-precision model ``x``, the shared
+    hidden state ``x-hat`` and the momentum, in one layout's coordinates;
+    ``t`` is the server step (model version). With a ``mesh`` the three
+    are this rank's segments (``place_flat_on_mesh``) and ``full``
+    gathers one to the true length n, once a step (the gathers are
+    collectives: every rank of the mesh takes them in the same order,
+    which the replicated host protocol gives)."""
 
     x_flat: torch.Tensor
     hidden_flat: torch.Tensor
     momentum_flat: torch.Tensor
     layout: TreeLayout
     t: int = 0
+    mesh: Any = dataclasses.field(default=None, repr=False, compare=False)
+    _full: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @staticmethod
-    def init(params0, device) -> "ServerState":
+    def init(params0, device, mesh=None) -> "ServerState":
         flat, layout = flatten_tree(params0, device)
+        if mesh is not None:
+            n = layout.total_size
+            return ServerState(
+                x_flat=place_flat_on_mesh(flat, mesh, n),
+                hidden_flat=place_flat_on_mesh(flat, mesh, n),
+                momentum_flat=place_flat_on_mesh(torch.zeros_like(flat),
+                                                 mesh, n),
+                layout=layout, t=0, mesh=mesh)
         return ServerState(x_flat=flat, hidden_flat=flat.clone(),
                            momentum_flat=torch.zeros_like(flat),
                            layout=layout, t=0)
@@ -365,15 +426,27 @@ class ServerState:
     def n(self) -> int:
         return self.layout.total_size
 
+    def full(self, name: str) -> torch.Tensor:
+        """The flat vector ``name`` ("x_flat", "hidden_flat" or
+        "momentum_flat") at its true length n: the tensor itself without a
+        mesh, else its segments gathered (cached for this step)."""
+        v = getattr(self, name)
+        if self.mesh is None:
+            return v
+        if name not in self._full:
+            from repro_torch.launch.mesh import gather_segments
+            self._full[name] = gather_segments(v, self.mesh)[:self.n]
+        return self._full[name]
+
     @property
     def x(self):
         """Tree view of the full-precision server model."""
-        return self.layout.unflatten(self.x_flat)
+        return self.layout.unflatten(self.full("x_flat"))
 
     @property
     def hidden_tree(self):
         """Tree view of the shared hidden state x-hat."""
-        return self.layout.unflatten(self.hidden_flat)
+        return self.layout.unflatten(self.full("hidden_flat"))
 
     @property
     def hidden(self) -> HiddenState:
@@ -385,11 +458,13 @@ class QAFeL:
     """Server and client logic of Algorithms 1-3, driven by an event loop
     (``sim.events``). ``device=None`` means CUDA; the tests pass "cpu".
     ``telemetry`` is an ``obs.RunTracer`` or None (module docstring).
-    ``basis_seed`` keys the lowrank sketch bases of the run."""
+    ``basis_seed`` keys the lowrank sketch bases of the run. ``mesh``
+    lays the server state over a mesh's flat segments (module
+    docstring); ``device`` is then this rank's."""
 
     def __init__(self, qcfg: QAFeLConfig, loss_fn: Callable, params0,
                  device=None, telemetry=None, basis_seed: int = 0,
-                 chunk_rows: Optional[int] = None):
+                 chunk_rows: Optional[int] = None, mesh=None):
         self.qcfg = qcfg
         # encode the client uploads this many wire rows at a time (bit for
         # bit the unchunked codes); the streamed uplink's default chunk
@@ -409,7 +484,8 @@ class QAFeL:
         self.cq = qcfg.cq()
         self.sq = qcfg.sq()
         self.device = resolve_device(device)
-        self.state = ServerState.init(params0, self.device)
+        self.mesh = mesh
+        self.state = ServerState.init(params0, self.device, mesh)
         self.buffer = UpdateBuffer(capacity=qcfg.buffer_size,
                                    quantizer=self.cq)
         self.meter = TrafficMeter()
@@ -433,7 +509,8 @@ class QAFeL:
             r = self._residuals.get(cid)
             if r is None:
                 if zero is None:
-                    zero = torch.zeros_like(self.state.x_flat)
+                    zero = torch.zeros(self.state.n, dtype=torch.float32,
+                                       device=self.state.x_flat.device)
                 r = zero
             rows.append(r)
         return torch.stack(rows)
@@ -459,8 +536,8 @@ class QAFeL:
             kw = {"residual": self.client_residuals([client]),
                   "basis_seed": self.round_basis_seed()}
         out = client_update_flat(self.loss_fn, self.qcfg, self.cq.spec,
-                                 st.layout, st.hidden_flat, batches, k_train,
-                                 k_enc, taps=self._taps,
+                                 st.layout, st.full("hidden_flat"), batches,
+                                 k_train, k_enc, taps=self._taps,
                                  chunk_rows=self.chunk_rows, **kw)
         if kw:
             self.store_residuals([client], out["residual"])
@@ -497,7 +574,7 @@ class QAFeL:
         k_train, k_enc = prng.split(key)
         st = self.state
         delta = client_update(self.loss_fn, self.qcfg, st.layout,
-                              st.hidden_flat, batches, k_train,
+                              st.full("hidden_flat"), batches, k_train,
                               streamed=True)
         n, bits = st.n, self.cq.spec.bits
         rows = kops.rows_for(n)
@@ -647,14 +724,18 @@ class QAFeL:
         if kind in ("qsgd", "identity"):
             sbits = self.sq.spec.bits if kind == "qsgd" else None
             lowrank_win = batch.kind == "lowrank"
-            out = kops.server_flush_step(
-                st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
-                batch.norms, batch.weights, batch.extra,
-                key.reshape(1, -1) if kind == "qsgd" else None,
-                bits=batch.bits, sbits=sbits, n=batch.n,
-                lr=self.qcfg.server_lr, beta=beta, taps=self._taps,
-                group=batch.group if lowrank_win else None,
-                lseeds=batch.seeds if lowrank_win else None)
+            key2d = key.reshape(1, -1) if kind == "qsgd" else None
+            lkw = dict(group=batch.group if lowrank_win else None,
+                       lseeds=batch.seeds if lowrank_win else None)
+            if self.mesh is None:
+                out = kops.server_flush_step(
+                    st.x_flat, st.hidden_flat, st.momentum_flat, batch.stack,
+                    batch.norms, batch.weights, batch.extra, key2d,
+                    bits=batch.bits, sbits=sbits, n=batch.n,
+                    lr=self.qcfg.server_lr, beta=beta, taps=self._taps,
+                    **lkw)
+            else:
+                out = self._flush_on_mesh(batch, key2d, sbits, beta, lkw)
             x_new, h_new, m_new, payload = out[:4]
             if self._taps:
                 tap_vec = out[4]
@@ -666,13 +747,19 @@ class QAFeL:
             bmsg = frame_packed_message(HIDDEN_BROADCAST, self.sq, enc,
                                         t=st.t)
         else:
+            # under a mesh on the gathered true-n vectors, re-segmented
             x_new, m_new = kops.server_apply_flat(
-                st.x_flat, st.momentum_flat, batch.reduce(),
+                st.full("x_flat"), st.full("momentum_flat"), batch.reduce(),
                 lr=self.qcfg.server_lr, beta=beta)
-            diff = x_new - st.hidden_flat
+            diff = x_new - st.full("hidden_flat")
             bmsg = encode_message_flat(HIDDEN_BROADCAST, self.sq, diff,
                                        st.layout, key, t=st.t)
-            h_new = st.hidden_flat + self.sq.decode_flat(bmsg.payload)
+            h_new = st.full("hidden_flat") + self.sq.decode_flat(
+                bmsg.payload)
+            if self.mesh is not None:
+                x_new, h_new, m_new = (place_flat_on_mesh(v, self.mesh,
+                                                          batch.n)
+                                       for v in (x_new, h_new, m_new))
         self.meter.record(bmsg, n_receivers=n_receivers)
         if self.telemetry is not None:
             extra = ({"taps": named_flush_taps(tap_vec)}
@@ -686,13 +773,45 @@ class QAFeL:
                                 wire_kB=bmsg.wire_bytes / 1e3)
         self.state = ServerState(x_flat=x_new, hidden_flat=h_new,
                                  momentum_flat=m_new, layout=st.layout,
-                                 t=st.t + 1)
+                                 t=st.t + 1, mesh=self.mesh)
         return bmsg
+
+    def _flush_on_mesh(self, batch, key2d, sbits, beta, lkw) -> tuple:
+        """The qsgd / identity flush on this rank's segment: the window's
+        stack rows, norms and ``extra`` elements of the segment (zero past
+        the true rows; a lowrank window's rank-length stack whole), the
+        sharded flush, and the payload's segments gathered and cut to the
+        true rows (n for identity), so the broadcast is the meshless
+        one's."""
+        from repro_torch.launch.mesh import gather_segments
+        from repro_torch.sharding.rules import flat_segment_index
+
+        st, n = self.state, batch.n
+        rows, rows_l = kops.rows_for(n), st.x_flat.shape[0] // kops.LANES
+        r0 = flat_segment_index(self.mesh) * rows_l
+        stack, norms, extra = batch.stack, batch.norms, batch.extra
+        if stack is not None and lkw["group"] is None:
+            stack, norms = (segment_rows(v, r0, rows_l)
+                            for v in (stack, norms))
+        if extra is not None:
+            extra = segment_rows(extra.reshape(1, -1), r0 * kops.LANES,
+                             rows_l * kops.LANES)[0]
+        out = kops.server_flush_step_sharded(
+            st.x_flat, st.hidden_flat, st.momentum_flat, stack, norms,
+            batch.weights, extra, key2d, bits=batch.bits, sbits=sbits,
+            lr=self.qcfg.server_lr, beta=beta, mesh=self.mesh, n=n,
+            taps=self._taps, chunk_rows=self.chunk_rows, **lkw)
+        cut = (rows, rows) if sbits is not None else (n,)
+        payload = tuple(gather_segments(p, self.mesh)[:c]
+                        for p, c in zip(out[3], cut))
+        return out[:3] + (payload,) + out[4:]
 
     # -- invariant checks / metrics ----------------------------------------
     def hidden_drift(self) -> float:
-        """|| x - x-hat || / || x || — the quantization term of Lemma F.9."""
-        x, h = self.state.x_flat, self.state.hidden_flat
+        """|| x - x-hat || / || x || — the quantization term of Lemma F.9,
+        on the true-n vectors (under a mesh gathered first, so the sums
+        are the meshless run's)."""
+        x, h = self.state.full("x_flat"), self.state.full("hidden_flat")
         d = x - h
         num = torch.sqrt(torch.sum(d * d))
         den = torch.clamp(torch.sqrt(torch.sum(x * x)), min=1e-30)

@@ -25,7 +25,7 @@ Counterpart of the baseline round of ``repro/distributed/steps.py``
   model's ``torch.utils.checkpoint`` runs; the values are those of
   ``remat=False``, which takes ``torch.func.grad``, bit for bit (each
   silu is one ``autograd.Function`` with one backward for both,
-  ``models.layers.silu`` and the MoE experts' ``silu_aten``).
+  ``models.layers.silu``, and so is the loss's ``layers.logsumexp``).
 
 **The state is updated in place**, unlike the reference's functional
 round: ``RoundState`` holds x, x-hat and m as one flat buffer each in the
@@ -103,8 +103,9 @@ aux term and the MTP term (``transformer.loss_fn``).
 ``make_prefill_step`` and ``make_decode_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` (the serving side, ``launch.serve``).
 
-Not ported here: the pod-quantized round (ROADMAP queue A item 14d); it
-raises ``NotImplementedError`` naming its item.
+Not ported here: the pod-quantized round (ROADMAP queue A item 14d) and
+the round on a model-parallel mesh (13b.2); each raises
+``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -657,9 +658,12 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     ``_broadcast_qdq`` makes it); the tensors are the round's own and are
     freed or overwritten after the call, so a caller that keeps them
     clones them."""
-    if pod_quantized or mesh is not None:
+    if pod_quantized:
         raise NotImplementedError("the pod-quantized round is ROADMAP queue "
                                   "A item 14d")
+    if mesh is not None:
+        raise NotImplementedError("the round on a model-parallel mesh is "
+                                  "ROADMAP queue A item 13b.2")
     if chunk_rows is not None and int(chunk_rows) <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     del podq_bits

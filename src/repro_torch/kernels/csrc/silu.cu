@@ -1,4 +1,5 @@
-// silu and its gradient by the reference's law, one launch each way.
+// silu and its gradient by the reference's law, one launch each way; and
+// XLA:CPU's exp alone (xla_exp), the cross-entropy's exp(a - m).
 //
 // No Pallas counterpart: the reference's silu is jax.nn.silu inside its
 // jitted model, which XLA:CPU compiles (logistic expanded) as
@@ -18,10 +19,14 @@
 // Forward:  x (n,) -> y (n,), f32.
 // Backward: g, x (n,) -> gx (n,), f32; s is recomputed from x, the same
 // bits as the forward's, so nothing but x is kept between the two.
+// exp:      x (rows, cols), m (rows,) or none -> exp(x - m[row]) (rows,
+// cols), f32: the subtraction rounded once, then xla_exp (no flush of
+// the input, as xla_math.exp has none), so the cross-entropy's a - m is
+// never a tensor of its own.
 //
 // Bound: bytes. Forward reads 4 and writes 4 B a value, backward reads 8
-// and writes 4; about 40 flops a value forward and 48 backward are far
-// under the card's f32 rate.
+// and writes 4, exp reads 4 and writes 4; about 40 flops a value forward,
+// 48 backward and 25 for exp are far under the card's f32 rate.
 //
 // Design: a grid-stride loop over float4 vectors when every pointer is on
 // a 16-byte boundary, then one value a thread for the tail; any pointer off
@@ -126,24 +131,85 @@ silu_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
 }
 
+// One row per blockIdx.y (striding by gridDim.y), its columns over the
+// blocks of x; float4 vectors where the row starts on a 16-byte boundary.
+__global__ void __launch_bounds__(kThreads)
+xla_exp_kernel(const float* __restrict__ x, const float* __restrict__ m,
+               float* __restrict__ out, long long rows, long long cols,
+               int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* xr = x + r * cols;
+    float* outr = out + r * cols;
+    long long done = 0;
+    if (m != nullptr) {
+      const float sub = m[r];
+      if (vec) {
+        const long long nv = cols / 4;
+        for (long long v = i; v < nv; v += stride) {
+          const float4 xv = reinterpret_cast<const float4*>(xr)[v];
+          reinterpret_cast<float4*>(outr)[v] = make_float4(
+              xla_exp(__fsub_rn(xv.x, sub)), xla_exp(__fsub_rn(xv.y, sub)),
+              xla_exp(__fsub_rn(xv.z, sub)), xla_exp(__fsub_rn(xv.w, sub)));
+        }
+        done = nv * 4;
+      }
+      for (long long e = done + i; e < cols; e += stride) {
+        outr[e] = xla_exp(__fsub_rn(xr[e], sub));
+      }
+    } else {
+      if (vec) {
+        const long long nv = cols / 4;
+        for (long long v = i; v < nv; v += stride) {
+          const float4 xv = reinterpret_cast<const float4*>(xr)[v];
+          reinterpret_cast<float4*>(outr)[v] =
+              make_float4(xla_exp(xv.x), xla_exp(xv.y), xla_exp(xv.z),
+                          xla_exp(xv.w));
+        }
+        done = nv * 4;
+      }
+      for (long long e = done + i; e < cols; e += stride) {
+        outr[e] = xla_exp(xr[e]);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// backward == 0: a = x, out = y (b unused).
-// backward == 1: a = g, b = x, out = gx.
+// mode == 0: a = x, out = y (b unused).
+// mode == 1: a = g, b = x, out = gx.
+// mode == 2: a = x (n / cols rows of cols), b = m (one value a row) or
+//            null, out = exp(x - m); cols divides n.
 extern "C" int silu(const float* a, const float* b, float* out, long long n,
-                    int backward, cudaStream_t stream) {
+                    int mode, long long cols, cudaStream_t stream) {
   if (n <= 0) return 0;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (n / 4 + kThreads - 1) / kThreads;
   const long long most = static_cast<long long>(sms) * kBlocksPerSm;
+  if (mode == 2) {
+    if (cols <= 0 || n % cols) return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows = n / cols;
+    const long long by = rows < 65535 ? rows : 65535;
+    const long long want = (cols / 4 + kThreads - 1) / kThreads;
+    long long bx = (most + by - 1) / by;
+    bx = bx < want ? bx : want;
+    bx = bx < 1 ? 1 : bx;
+    const int vec = aligned16(a) && aligned16(out) && cols % 4 == 0;
+    xla_exp_kernel<<<dim3(static_cast<unsigned>(bx), static_cast<unsigned>(by)),
+                     kThreads, 0, stream>>>(a, b, out, rows, cols, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long want = (n / 4 + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 1 ? 1 : (want < most ? want : most));
-  if (backward) {
+  if (mode == 1) {
     const int vec = aligned16(a) && aligned16(b) && aligned16(out);
     silu_bwd_kernel<<<blocks, kThreads, 0, stream>>>(a, b, out, n, vec);
   } else {

@@ -160,8 +160,9 @@ def qsgd_dequantize_stack(packed: torch.Tensor, norms: torch.Tensor,
 
 
 def lowrank_window_delta(stack, norms, weights, seeds, *, bits: int,
-                         group: int, n: int,
-                         eager: bool = False) -> torch.Tensor:
+                         group: int, n: int, eager: bool = False,
+                         elem0: int = 0,
+                         n_out=None) -> torch.Tensor:
     """The weighted expansion of one lowrank flush window -> f32 (n,):
     ``sum_k w_k * S_k^T y_k`` over the padded length, sliced to n.
 
@@ -182,23 +183,37 @@ def lowrank_window_delta(stack, norms, weights, seeds, *, bits: int,
     .reduce`` under a sparse or lowrank server quantizer), which runs this
     op by op: K3's eager variant decodes with a true division by s, each
     product rounds as written, ``w_k * ((repeat(y_k) * sign_k) *
-    fl32(1/sqrt(group)))``, and the sum starts from +0."""
+    fl32(1/sqrt(group)))``, and the sum starts from +0.
+
+    ``n_out`` gives the elements ``[elem0, elem0 + n_out)`` of the same
+    expansion (a group-aligned segment of a mesh's padded flat vector),
+    each the unsplit expansion's bits, zero at ``n`` and past it: the
+    subspace coordinates past the decoded rank read as zero."""
     d_pad = rows_for(n) * _qsgd.LANES
     k = stack.shape[0]
-    y = qsgd_dequantize_stack(stack, norms, bits, d_pad // group,
-                              eager=eager)
     if eager:
+        y = qsgd_dequantize_stack(stack, norms, bits, d_pad // group,
+                                  eager=True)
         acc = torch.zeros(d_pad, dtype=torch.float32, device=y.device)
         for i in range(k):
             acc = acc + weights[i] * _qsgd.sketch_expand(
                 y[i:i + 1], seeds[i], group)[0]
         return acc[:n]
+    width = d_pad if n_out is None else n_out
+    lo, hi = elem0 // group, (elem0 + width) // group
+    y = qsgd_dequantize_stack(stack, norms, bits,
+                              stack.shape[1] * _qsgd.LANES)
+    y = torch.nn.functional.pad(y, (0, max(0, hi - y.shape[1])))
     ws = weights * _qsgd.sketch_scale(group)
-    prods = ws[:, None] * _qsgd.sketch_expand(y, seeds, group, scaled=False)
+    prods = ws[:, None] * _qsgd.sketch_expand(
+        y[:, lo:hi], seeds, group, offset=elem0, scaled=False)
     acc = prods[0]
     for i in range(1, k):
         acc = acc + prods[i]
-    return acc[:n]
+    if n_out is None:
+        return acc[:n]
+    acc[max(0, min(n_out, n - elem0)):] = 0.0
+    return acc
 
 
 def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
@@ -206,7 +221,8 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
                              member_chunk=None, taps: bool = False,
                              group=None, basis_seed=None,
                              residual=None, with_loss: bool = False,
-                             chunk_rows=None, new_residual: bool = True):
+                             chunk_rows=None, new_residual: bool = True,
+                             mesh=None, stacked: bool = False):
     """The client pipeline of one cohort tier group (or of one client,
     b = 1): local SGD from the shared flat x-hat, then one encode launch
     over the members' (b, d) delta stack.
@@ -257,9 +273,28 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
     encode's bit for bit. At b = 1 ``client_update(..., streamed=True)``
     hands back the delta as ``core.qafel.DeltaRows``, and a chunked qsgd
     upload without taps forms it chunk by chunk: the only whole-message
-    outputs are then the codes and the norms."""
+    outputs are then the codes and the norms.
+
+    ``stacked``: the inputs carry a leading member dim even at b = 1, and
+    the step is the cohort's (vmapped, K2 with the counter-hash dither)
+    as for b > 1. With a ``mesh`` (``launch.mesh``) and b > 1 the members
+    are index-padded to a multiple of the data extent D with copies of
+    member 0 (``_index_pad_members``), each data rank trains and encodes
+    its slice of ``ceil(b / D)`` members from the full x-hat it is given,
+    and every output is gathered over the data ranks and cut back to b:
+    each member's bits are the meshless step's (the dither keys on the
+    member's seed and the element, never on the slice). Under a 2-D mesh
+    every model rank of a data rank runs the same slice."""
+    if mesh is not None and b > 1:
+        return _cohort_step_on_mesh(
+            client_update, hidden_flat, batches, k_train, k_enc, b=b,
+            mesh=mesh, bits=bits, member_chunk=member_chunk, taps=taps,
+            group=group, basis_seed=basis_seed, residual=residual,
+            with_loss=with_loss, chunk_rows=chunk_rows,
+            new_residual=new_residual)
     losses = None
-    if b == 1:
+    single = b == 1 and not stacked
+    if single:
         delta = client_update(hidden_flat, batches, k_train, streamed=True)
         if with_loss:
             delta, losses = delta
@@ -283,32 +318,76 @@ def cohort_train_encode_step(client_update, hidden_flat, batches, k_train,
         n = flat2d.shape[1]
     if group is not None:
         out = _lowrank_encode(flat2d, k_enc, bits, group, basis_seed,
-                              residual, taps, chunk_rows, new_residual)
+                              residual, taps, chunk_rows, new_residual,
+                              threefry=single)
     elif bits is None:
         out = _with_upload_taps({"flat": flat2d}, flat2d, bits, taps)
     else:
         rows_fn = ((lambda a, e: delta.rows(a, e)[None]) if flat2d is None
                    else (lambda a, e: flat2d[:, a:e]))
         packed, norms = _encode_stack(rows_fn, n, b, k_enc, bits, chunk_rows,
-                                      hidden_flat.device)
+                                      hidden_flat.device, threefry=single)
         out = _with_upload_taps({"packed": packed, "norms": norms}, flat2d,
                                 bits, taps)
     return (out, losses) if with_loss else out
 
 
+def _index_pad_members(b: int, b_pad: int, batches, k_train, k_enc,
+                       residual=None):
+    """The member dim padded from b to b_pad by copies of member 0 (the
+    caller cuts the padding's outputs off); the lowrank ``residual`` stack
+    pads with the members."""
+    if b_pad == b:
+        return batches, k_train, k_enc, residual
+    idx = torch.cat([torch.arange(b), torch.zeros(b_pad - b,
+                                                  dtype=torch.int64)])
+    take = lambda v: v[idx.to(v.device)]
+    return (tree_map(take, batches), take(torch.as_tensor(k_train)),
+            take(torch.as_tensor(k_enc)),
+            None if residual is None else take(residual))
+
+
+def _cohort_step_on_mesh(client_update, hidden_flat, batches, k_train, k_enc,
+                         *, b: int, mesh, residual=None, with_loss=False,
+                         **kw):
+    """``cohort_train_encode_step`` with its members over the mesh's data
+    ranks (its docstring)."""
+    from repro_torch.launch.mesh import gather_members
+    from repro_torch.sharding.rules import FLAT_AXIS, mesh_data_extent
+
+    nd = mesh_data_extent(mesh)
+    bl = -(-b // nd)
+    batches, k_train, k_enc, residual = _index_pad_members(
+        b, bl * nd, batches, k_train, k_enc, residual)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    i = int(coord[list(mesh.mesh_dim_names).index(FLAT_AXIS)])
+    cut = lambda v: v[i * bl:(i + 1) * bl]
+    res = cohort_train_encode_step(
+        client_update, hidden_flat, tree_map(cut, batches), cut(k_train),
+        cut(k_enc), b=bl, residual=None if residual is None else cut(
+            residual), with_loss=with_loss, stacked=True, **kw)
+    out, losses = res if with_loss else (res, None)
+    out = {name: gather_members(v, mesh)[:b] for name, v in out.items()}
+    if with_loss:
+        return out, gather_members(losses, mesh)[:b]
+    return out
+
+
 def _encode_stack(rows_fn, n: int, b: int, k_enc, bits: int, chunk_rows,
-                  device):
+                  device, threefry: bool):
     """The upload encode of a (b, n) stack whose ranges ``rows_fn(a, e)``
     gives: at b = 1 the threefry K1 of the sequential engine, above it one
     K2 launch whose dither is the counter hash keyed by the first two
     words of each member's key; with ``chunk_rows``, ``chunk_rows`` rows
     at a time (``qsgd_quantize_rows``)."""
-    keys = k_enc if b == 1 else torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
+    keys = k_enc if threefry else torch.as_tensor(k_enc).reshape(b, -1)[:, :2]
     if chunk_rows is not None:
         return qsgd_quantize_rows(rows_fn, n, keys, bits, chunk_rows,
-                                  device=device, b=b, threefry=b == 1)
+                                  device=device, b=b, threefry=threefry)
     flat2d = rows_fn(0, n)
-    if b == 1:
+    if threefry:
         packed, norms = qsgd_quantize(flat2d[0], keys, bits)
         return packed[None], norms[None]
     return qsgd_quantize_batch(flat2d, keys, bits)
@@ -316,8 +395,10 @@ def _encode_stack(rows_fn, n: int, b: int, k_enc, bits: int, chunk_rows,
 
 def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
                     residual, taps: bool, chunk_rows=None,
-                    new_residual: bool = True) -> dict:
-    """The lowrank half of ``cohort_train_encode_step``."""
+                    new_residual: bool = True,
+                    threefry=None) -> dict:
+    """The lowrank half of ``cohort_train_encode_step``; ``threefry``
+    (default: at one member) picks the b = 1 upload's encode."""
     from repro_torch.core.quantizers import (lowrank_expand_flat2d,
                                              lowrank_project_flat2d)
 
@@ -325,11 +406,13 @@ def _lowrank_encode(flat2d, k_enc, bits: int, group: int, basis_seed,
         raise ValueError("a lowrank client step needs the round's basis "
                          "seed pair")
     d = flat2d.shape[1]
+    if threefry is None:
+        threefry = flat2d.shape[0] == 1
     c2d = flat2d if residual is None else flat2d + residual
     y2d = lowrank_project_flat2d(c2d, basis_seed, group)
     packed, norms = _encode_stack(lambda a, e: y2d[:, a:e], y2d.shape[1],
                                   y2d.shape[0], k_enc, bits, chunk_rows,
-                                  y2d.device)
+                                  y2d.device, threefry)
     out = {"packed": packed, "norms": norms}
     if not (new_residual or taps):
         return out
@@ -417,6 +500,117 @@ def server_flush_step(x_flat, hidden_flat, momentum_flat, stack, norms,
     if not taps:
         return out
     return out + (_taps.flush_taps(x_flat, x_new, delta, diff, q, weights),)
+
+
+def flush_segment(x_l, h_l, m_l, stack_l, norms_l, weights, extra_l, key2d,
+                  *, bits, sbits, lr: float, beta, seg: int, nseg: int,
+                  n=None, chunk_rows=None, group=None, lseeds=None,
+                  with_parts: bool = False):
+    """``server_flush_step``'s chain on one segment of a flat state laid
+    over ``nseg`` segments (``sharding.rules``): the segment's x, x-hat
+    and m (``rows_l`` whole wire rows each), its rows of the (K, rows,
+    16*bits) upload stack and norms and its slice of ``extra``, for
+    segment index ``seg``. Every step is elementwise or rowwise, so each
+    element gets the unsharded flush's bits: K4 on the segment's rows,
+    the server update, K2 of the broadcast diff with its dither keyed on
+    the global row ``seg * rows_l`` (``row0``), K3 of its codes and x-hat
+    + q. No collective: a caller may run it for any segment.
+
+    ``chunk_rows`` runs that chain on ``chunk_rows`` rows at a time, each
+    chunk's K2 keyed on its own global row. A lowrank window (``group``,
+    ``lseeds``) passes its whole rank-length stack: the segment's elements
+    alone are expanded (``lowrank_window_delta(elem0=, n_out=)``, zero at
+    the true length ``n`` and past it) and ride the ``extra`` lane.
+
+    Returns the segment's ``(x_new, hidden_new, momentum_new, payload)``,
+    payload ``(packed (rows_l, 16*sbits), norms (rows_l,))`` or ``(diff,)``
+    for an identity broadcast; ``with_parts`` appends the segment's
+    ``(delta, diff, q)`` for the flush taps."""
+    n_l = x_l.shape[0]
+    rows_l = n_l // LANES
+    row0 = seg * rows_l
+    if group is not None:
+        if n is None:
+            raise ValueError("a lowrank segment flush needs the true length "
+                             "n (the padding must not be expanded)")
+        ld = lowrank_window_delta(stack_l, norms_l, weights, lseeds,
+                                  bits=bits, group=group, n=n,
+                                  elem0=row0 * LANES, n_out=n_l)
+        extra_l = ld if extra_l is None else extra_l + ld
+        stack_l = None
+    c = rows_l if chunk_rows is None else max(1, min(int(chunk_rows),
+                                                     rows_l))
+    x_new, h_new, m_new = (torch.empty_like(v) for v in (x_l, h_l, m_l))
+    parts = [torch.empty_like(x_l) for _ in range(3)] if with_parts else None
+    if sbits is None:
+        payload = (torch.empty_like(x_l),)
+    else:
+        payload = (torch.empty((rows_l, 16 * sbits), dtype=torch.uint8,
+                               device=x_l.device),
+                   torch.empty(rows_l, dtype=torch.float32,
+                               device=x_l.device))
+    for r0 in range(0, rows_l, c):
+        r1 = min(rows_l, r0 + c)
+        a, b = r0 * LANES, r1 * LANES
+        ex = None if extra_l is None else extra_l[a:b]
+        if stack_l is not None:
+            delta = buffer_aggregate(stack_l[:, r0:r1].contiguous(),
+                                     norms_l[:, r0:r1].contiguous(), weights,
+                                     bits, b - a)
+            if ex is not None:
+                delta = ex + delta
+        else:
+            delta = ex
+        xc, mc = server_apply_flat(x_l[a:b], m_l[a:b], delta, lr=lr,
+                                   beta=beta)
+        diff = xc - h_l[a:b]
+        if sbits is None:
+            q = diff
+            payload[0][a:b] = diff
+        else:
+            bp, bn = _qsgd.qsgd_quantize_pack_batch(
+                diff.reshape(1, r1 - r0, LANES), key2d, sbits, row0=row0 + r0)
+            payload[0][r0:r1], payload[1][r0:r1] = bp[0], bn[0]
+            q = _qsgd.qsgd_unpack_dequantize(bp[0], bn[0], sbits).reshape(-1)
+        x_new[a:b], m_new[a:b] = xc, mc
+        h_new[a:b] = h_l[a:b] + q
+        if parts is not None:
+            for dst, v in zip(parts, (delta, diff, q)):
+                dst[a:b] = v
+    out = (x_new, h_new, m_new, payload)
+    return out + (tuple(parts),) if with_parts else out
+
+
+def server_flush_step_sharded(x_l, h_l, m_l, stack_l, norms_l, weights,
+                              extra_l, key2d, *, bits, sbits, lr: float,
+                              beta, mesh, n=None, taps: bool = False,
+                              chunk_rows=None, group=None, lseeds=None):
+    """``server_flush_step`` on a flat state laid over ``mesh``'s flat
+    segments, run on every rank of it: ``flush_segment`` on this rank's
+    segment (``sharding.rules.flat_segment_index``). The only collective
+    is the taps': with ``taps=True`` (which needs the true length ``n``)
+    x, x_new, delta, diff and q are gathered over the flat group, cut to
+    the true n and given to the one ``kernels.taps.flush_taps``, so the
+    taps are the unsharded flush's on every mesh. Returns the segment's
+    ``(x_new, hidden_new, momentum_new, payload)`` and with taps the (7,)
+    tap vector."""
+    from repro_torch.launch.mesh import gather_segments
+    from repro_torch.sharding.rules import flat_segment_index, \
+        mesh_flat_extent
+
+    if taps and n is None:
+        raise ValueError("server_flush_step_sharded(taps=True) needs the "
+                         "true length n")
+    out = flush_segment(x_l, h_l, m_l, stack_l, norms_l, weights, extra_l,
+                        key2d, bits=bits, sbits=sbits, lr=lr, beta=beta,
+                        seg=flat_segment_index(mesh),
+                        nseg=mesh_flat_extent(mesh), n=n,
+                        chunk_rows=chunk_rows, group=group, lseeds=lseeds,
+                        with_parts=taps)
+    if not taps:
+        return out
+    full = [gather_segments(v, mesh)[:n] for v in (x_l, out[0], *out[4])]
+    return out[:4] + (_taps.flush_taps(*full, weights),)
 
 
 # ---------------------------------------------------------------------------

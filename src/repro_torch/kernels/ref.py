@@ -342,12 +342,29 @@ def xla_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     result is the same on every device."""
     v = v.movedim(dim, -1)
     while v.shape[-1] > XLA_WINDOW:
-        n = v.shape[-1]
-        windows = -(-n // XLA_WINDOW)
-        pad = windows * XLA_WINDOW - n
-        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
-        v = _in_order(v.reshape(*v.shape[:-1], windows, XLA_WINDOW))
+        v = _window_sums(v)
     return _in_order(v)
+
+
+def _window_sums(v: torch.Tensor) -> torch.Tensor:
+    """One level of ``xla_sum``: the in-order sums of the windows of 32
+    over the last axis, ``tap_front`` zeros in front, with no padded copy
+    of ``v``: the whole windows are a view, and a window cut by the
+    padding sums its values alone (an add of +0 to a sum begun at +0
+    changes no bit: such a sum is never -0)."""
+    n, w = v.shape[-1], XLA_WINDOW
+    windows, f = tap_windows(n), tap_front(n)
+    back = windows * w - n - f
+    w0, w1 = (1 if f else 0), windows - (1 if back else 0)
+    parts = []
+    if f:
+        parts.append(_in_order(v[..., :w - f])[..., None])
+    if w1 > w0:
+        parts.append(_in_order(v[..., w0 * w - f:w1 * w - f].reshape(
+            *v.shape[:-1], w1 - w0, w)))
+    if back:
+        parts.append(_in_order(v[..., (windows - 1) * w - f:])[..., None])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
 def tap_front(n: int) -> int:

@@ -51,10 +51,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype=None,
 
 
 def _project_qkv(cfg: ModelConfig, params, x: torch.Tensor,
-                 positions: torch.Tensor, folded_rope: bool = False):
+                 positions: torch.Tensor, folded_rope: bool = True):
     """q (B, S, H, hd), k and v (B, S, KV, hd): projections, bias,
     qk-norm and rotary embeddings, as the reference orders them
-    (``folded_rope``: decode's frequencies, ``layers.rope_frequencies``)."""
+    (``folded_rope``: the jitted reference's frequencies,
+    ``layers.rope_frequencies``)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = torch.einsum("bsd,de->bse", x, params["wq"])
@@ -168,10 +169,12 @@ def _masked_out(i: int, j: int, q_block: int, kv_block: int,
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
-                    kv_block: int = 512, return_kv: bool = False):
-    """Self-attention over a full sequence (training). x: (B, S, D)."""
+                    kv_block: int = 512, return_kv: bool = False,
+                    folded_rope: bool = True):
+    """Self-attention over a full sequence (training). x: (B, S, D);
+    ``folded_rope=False`` rotates by the eager reference's frequencies."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, params, x, positions)
+    q, k, v = _project_qkv(cfg, params, x, positions, folded_rope)
     out = blockwise_attention(
         q, k, v, positions, positions, window=window,
         scale=_logit_scale(cfg), attn_softcap=cfg.attn_softcap,
@@ -228,13 +231,13 @@ def attention_decode(cfg: ModelConfig, params, x: torch.Tensor, cache: dict,
     slot (``ring_slot``) in place; the query attends to every slot whose
     position is valid (``slot_pos`` >= 0, <= pos and, with a window, >
     pos - window), the logits and p.V in f32 with the attention softcap;
-    the rotary frequencies are the jitted decode's (``folded``).
+    the rotary frequencies are the jitted reference's, as on every path.
     Returns (out (B, 1, D), ``cache``, written in place)."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(cfg, params, x, positions, folded_rope=True)
+    q, k, v = _project_qkv(cfg, params, x, positions)
     kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
     slot = ring_slot(pos, kc.shape[1], window)
     kc[:, slot] = k[:, 0].to(kc.dtype)

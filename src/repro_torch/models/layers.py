@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import silu as _ksilu
+from repro_torch.kernels import xla_math
+from repro_torch.kernels.ref import xla_sum
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +83,19 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None,
-                     folded: bool = False) -> torch.Tensor:
-    """1 / theta^(2i / head_dim) for i < head_dim / 2, f32: ``1 / theta **
-    e`` in f32 ops (``e = 2i / head_dim``), or with ``folded`` as the
-    jitted reference's decode step has it, where XLA rewrites that as
-    ``theta ** -e`` and folds it into a constant correctly rounded to f32
-    (taken here in float64 and rounded once). The two differ in the last
-    bit on up to a tenth of the frequencies, which moves a rotation angle
-    by up to 0.025 rad at position 524,287; decode at such positions takes
-    the folded law (``attention.attention_decode``, ``mla.mla_decode``),
-    and the full-sequence paths keep the first (ROADMAP queue C)."""
+                     folded: bool = True) -> torch.Tensor:
+    """1 / theta^(2i / head_dim) for i < head_dim / 2, f32, by the jitted
+    reference's law (``folded``): XLA rewrites the reference's ``1 / theta
+    ** e`` (``e = 2i / head_dim``) as ``theta ** -e`` and folds it into a
+    constant correctly rounded to f32 (taken here in float64 and rounded
+    once). Read from XLA:CPU's optimised HLO: the jitted prefill step, the
+    decode step and the round without remat hold that constant; the round
+    with remat recomputes it in the backward as ``power(theta, -e)``,
+    whose values on the published head dims are the same. ``folded=False``
+    is the eager reference's ``1 / theta ** e`` in f32 ops (the bf16 op
+    tests compare against it): the two differ in the last bit on up to a
+    third of the frequencies, which moves a rotation angle by up to 0.03
+    rad at position 524,287."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     if folded:
@@ -100,7 +105,7 @@ def rope_frequencies(head_dim: int, theta: float, device=None,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0, folded: bool = False) -> torch.Tensor:
+               theta: float = 10000.0, folded: bool = True) -> torch.Tensor:
     """x: (..., S, H, D) with D even; positions broadcastable to (..., S).
     Rotates the two halves of the head dim (the reference's layout);
     ``folded`` as in ``rope_frequencies``."""
@@ -187,35 +192,6 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _SiLU.apply(x)
 
 
-class _SiLUAten(torch.autograd.Function):
-    """silu by torch's own law: ``F.silu`` forward and ATen's fused
-    ``silu_backward`` (``g * s * (1 + x * (1 - s))``), which is what
-    ``torch.autograd.grad`` of ``F.silu`` runs; ``torch.func.grad`` of
-    ``F.silu`` composes that formula op by op instead, so here too one
-    backward serves both gradient paths."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x):
-        return torch.nn.functional.silu(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(inputs[0])
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return torch.ops.aten.silu_backward(g, x)
-
-
-def silu_aten(x: torch.Tensor) -> torch.Tensor:
-    """silu by torch's law (``_SiLUAten``), one backward for both gradient
-    paths: the MoE experts' activation (``moe._expert_ffn``)."""
-    return _SiLUAten.apply(x)
-
-
 def _act(name: str):
     # jax.nn.gelu is the tanh approximation by default
     return {"silu": silu,
@@ -244,17 +220,83 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``jax.nn.logsumexp`` over the last axis as XLA:CPU compiles it:
+    ``log(sum(exp(a - m))) + m`` with ``m`` the maximum (0 where it is not
+    finite), ``exp`` XLA's with its flush (``kernels.silu.xla_exp``: one
+    launch on the card, ``a - m`` never a tensor of its own), the sum in
+    law 7's order (``ref.xla_sum``) and XLA's ``log``
+    (``xla_math.log``); the gradient ``(g / sum) * exp(a - m)``, which is
+    what jax's transpose gives, its ``exp`` recomputed from ``a`` (the
+    same bits), so no logits-sized tensor is kept between the passes
+    (the loss keeps ``a`` for its gather anyway). ``m`` and the sum ride
+    out as outputs that carry no gradient (how a ``torch.func``-ready
+    Function keeps an intermediate); the op is row-wise, so its vmap rule
+    runs it on the batched tensor whole."""
+
+    @staticmethod
+    def forward(a):
+        m = a.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = xla_sum(_ksilu.xla_exp(a, m), -1)[..., None]
+        return (_log(total) + m)[..., 0], m, total
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, m, total = output
+        ctx.mark_non_differentiable(m, total)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(inputs[0], m, total)
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gt):
+        a, m, total = ctx.saved_tensors
+        return (g[..., None] / total) * _XlaExp.apply(a, m)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        (a,) = _batch_first(info, in_dims, a)
+        return _LogSumExp.apply(a), (0, 0, 0)
+
+
+class _XlaExp(torch.autograd.Function):
+    """``kernels.silu.xla_exp(a, m)`` as an op with a vmap rule, so the
+    backward of a vmapped ``torch.func.grad`` reaches the kernel too; it
+    has no derivative of its own."""
+
+    @staticmethod
+    def forward(a, m):
+        return _ksilu.xla_exp(a, m)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, _):
+        raise NotImplementedError("logsumexp's second derivative is not "
+                                  "ported")
+
+    @staticmethod
+    def vmap(info, in_dims, a, m):
+        return _XlaExp.apply(*_batch_first(info, in_dims, a, m)), 0
+
+
+def _log(v: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log`` of positive normal values (``xla_math.log``),
+    torch's at 0, infinities and nan (-inf, inf, nan as XLA gives them)."""
+    normal = torch.isfinite(v) & (v >= np.finfo(np.float32).tiny)
+    safe = torch.where(normal, v, torch.ones_like(v))
+    return torch.where(normal, xla_math.log(safe), torch.log(v))
+
+
 def logsumexp(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """``jax.nn.logsumexp`` of ``a`` over ``dim``, by its law: ``log(sum(
-    exp(a - m))) + m`` with ``m`` the detached maximum (0 where it is not
-    finite), so its gradient is ``(g / sum) * exp(a - m)``, the exp
-    saved from the forward. ``torch.logsumexp``'s backward takes ``g *
-    exp(a - out)`` instead, whose last bits the chained QAFeL rounds
+    """``jax.nn.logsumexp`` of f32 ``a`` over ``dim`` by XLA:CPU's law
+    (``_LogSumExp``), bit-equal to the jitted reference's with its vjp;
+    ``torch.logsumexp`` takes torch's ``exp``, its own sum order and the
+    backward ``g * exp(a - out)``, whose last bits the QAFeL rounds
     amplify (ROADMAP queue C)."""
-    m = a.detach().amax(dim=dim, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    total = torch.exp(a - m).sum(dim=dim, keepdim=True)
-    return (torch.log(total) + m).squeeze(dim)
+    return _LogSumExp.apply(a.movedim(dim, -1))[0]
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -55,7 +55,7 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def _queries(cfg: ModelConfig, params, x: torch.Tensor,
-             positions: torch.Tensor, folded_rope: bool = False):
+             positions: torch.Tensor):
     """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), rotated)."""
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -64,18 +64,17 @@ def _queries(cfg: ModelConfig, params, x: torch.Tensor,
     q = torch.einsum("bsr,re->bse", qa, params["wq_b"]).reshape(b, s, h,
                                                               dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta,
-                              folded_rope)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def _latents(cfg: ModelConfig, params, x: torch.Tensor,
-             positions: torch.Tensor, folded_rope: bool = False):
+             positions: torch.Tensor):
     """(ckv (B, S, kv_lora_rank) normed, k_rope (B, S, rope) rotated)."""
     ckv = rms_norm(torch.einsum("bsd,dr->bsr", x, params["wkv_a"]),
                    params["kv_a_norm"], cfg.rms_eps)
     k_rope = torch.einsum("bsd,dr->bsr", x, params["wk_rope"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta, folded_rope)[:, :, 0, :]
+                        cfg.rope_theta)[:, :, 0, :]
     return ckv, k_rope
 
 
@@ -156,8 +155,8 @@ def mla_decode(cfg: ModelConfig, params, x: torch.Tensor, cache: dict,
     h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _queries(cfg, params, x, positions, folded_rope=True)
-    ckv_t, k_rope_t = _latents(cfg, params, x, positions, folded_rope=True)
+    q_nope, q_rope = _queries(cfg, params, x, positions)
+    ckv_t, k_rope_t = _latents(cfg, params, x, positions)
     cc, kc, spos = cache["ckv"], cache["k_rope"], cache["slot_pos"]
     slot = ring_slot(pos, cc.shape[1], window)
     cc[:, slot] = ckv_t[:, 0].to(cc.dtype)

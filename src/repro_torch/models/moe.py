@@ -27,15 +27,11 @@ index, and the combine reads each kept copy's row back by its slot. The
 expert FFN's three products are batched matrix products over the experts
 (``torch.einsum``), run in groups of experts whose buffer stays under
 ``EXPERT_GROUP_BYTES`` (one group unless a no-drop capacity meets a long
-prompt); the groups change no value. Their activation is silu by torch's
-law (``layers.silu_aten``, one backward for both gradient paths), not the
-reference's law that the dense MLPs take (``layers.silu``): with the
-reference's law qwen3-moe's reduced two-round x-hat share, which is set by
-where last-bit gradient noise flips a dithered code, fell under its floor
-in tests/test_torch_moe_round.py (ROADMAP queue C).
+prompt); the groups change no value. Their activation is silu by the
+reference's law (``layers.silu``), as the dense MLPs take it.
 
 ``moe_forward_ep`` (expert parallelism, shard_map + all_to_all in the
-reference) is ROADMAP queue A item 13b and raises naming it.
+reference) is ROADMAP queue A item 13b.2 and raises naming it.
 """
 from __future__ import annotations
 
@@ -45,7 +41,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, gated_mlp, init_gated_mlp,
-                                      silu_aten)
+                                      silu)
 
 # the largest (experts, capacity, max(D, F)) buffer of one expert group
 EXPERT_GROUP_BYTES = 1 << 30
@@ -132,7 +128,7 @@ def _expert_ffn(params, xe: torch.Tensor, e0: int, e1: int) -> torch.Tensor:
          for n in ("w_gate", "w_up", "w_down")}
     g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
     u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
-    h = silu_aten(g.to(torch.float32)).to(xe.dtype) * u
+    h = silu(g.to(torch.float32)).to(xe.dtype) * u
     return torch.einsum("ecf,efd->ecd", h, w["w_down"])
 
 
@@ -199,14 +195,14 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
 
 
 def set_ep_mesh(mesh) -> None:
-    """The expert-parallel mesh (ROADMAP queue A item 13b): raises."""
+    """The expert-parallel mesh (ROADMAP queue A item 13b.2): raises."""
     raise NotImplementedError("the expert-parallel MoE (moe_impl='ep') is "
-                              "ROADMAP queue A item 13b")
+                              "ROADMAP queue A item 13b.2")
 
 
 def moe_forward_ep(cfg: ModelConfig, params, x, *,
                    capacity_factor: float = 1.25, data_axis: str = "data"):
     """The expert-parallel MoE (shard_map + all_to_all in the reference):
-    ROADMAP queue A item 13b; raises."""
+    ROADMAP queue A item 13b.2; raises."""
     raise NotImplementedError("the expert-parallel MoE (moe_impl='ep') is "
-                              "ROADMAP queue A item 13b")
+                              "ROADMAP queue A item 13b.2")

@@ -49,7 +49,7 @@ shifted one more position, 0.1 of it added to the loss). As in the
 reference, the prefix layers come on top of the ``n_layers`` routed ones.
 Decode's MoE takes ``decode_capacity_factor`` (None: ``n_experts /
 experts_per_token``, no drops). ``moe_impl="ep"`` is ROADMAP queue A item
-13b and raises naming it.
+13b.2 and raises naming it.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def _check_config(cfg: ModelConfig) -> None:
 def _moe_apply(cfg: ModelConfig, moe_params, f_in: torch.Tensor,
                capacity_factor: float):
     """The MoE execution strategy (``ModelConfig.moe_impl``): "ep" is
-    ROADMAP queue A item 13b and raises."""
+    ROADMAP queue A item 13b.2 and raises."""
     if cfg.moe_impl == "ep":
         return moe_lib.moe_forward_ep(cfg, moe_params, f_in,
                                       capacity_factor=capacity_factor)

@@ -177,8 +177,9 @@ class CohortAsyncFLSimulator(BaseAsyncSimulator):
                       "basis_seed": self.algo.round_basis_seed()}
             out = client_update_flat(
                 self.algo.loss_fn, self.algo.qcfg, q.spec, st.layout,
-                st.hidden_flat, grp_batches, gt, ge, b=b, member_chunk=chunk,
-                taps=self.algo._taps, chunk_rows=self.algo.chunk_rows, **kw)
+                st.full("hidden_flat"), grp_batches, gt, ge, b=b,
+                member_chunk=chunk, taps=self.algo._taps,
+                chunk_rows=self.algo.chunk_rows, mesh=self.algo.mesh, **kw)
             self.groups += 1
             if cids is not None:
                 self.algo.store_residuals(cids[:members.size],

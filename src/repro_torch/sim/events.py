@@ -84,7 +84,8 @@ class BaseAsyncSimulator:
         self.key = prng.PRNGKey(sim_cfg.seed)
         # the algorithm's RunTracer, if one is attached
         self.tracer = getattr(algo, "telemetry", None)
-        self.replicas = [algo.state.hidden_flat.clone()
+        # replicas hold x-hat at its true length n (under a mesh gathered)
+        self.replicas = [algo.state.full("hidden_flat").clone()
                          for _ in range(sim_cfg.track_hidden_replicas)]
         self._last_eval_step = -1
 
@@ -98,7 +99,7 @@ class BaseAsyncSimulator:
         return {}
 
     def verify_replicas(self) -> bool:
-        h = self.algo.state.hidden_flat
+        h = self.algo.state.full("hidden_flat")
         return all(torch.equal(rep, h) for rep in self.replicas)
 
     def _apply_broadcast(self, bmsg, now: float, uploads: int,

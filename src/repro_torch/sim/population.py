@@ -107,6 +107,10 @@ class PopulationAsyncFLSimulator(CohortAsyncFLSimulator):
                  cohort_size: int = 32, *, draws: str = "device",
                  deliver_batch: Optional[int] = None,
                  capacity: Optional[int] = None):
+        if getattr(algo, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the population engine on a mesh is not ported: ROADMAP "
+                "queue A item 13b.2")
         super().__init__(algo, sim_cfg, client_batches_fn, eval_fn,
                          scenario=scenario, cohort_size=cohort_size)
         if draws not in ("device", "host"):

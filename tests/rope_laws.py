@@ -1,10 +1,11 @@
-"""Prints how far the port's decode lands from the jitted reference's
-because of the two RoPE frequency laws the port runs: its full-sequence
-paths (training, prefill) rotate keys by ``1 / theta ** e`` in f32 ops,
-its decode (``attention_decode``, ``mla_decode``) rotates queries and
-the new key by the folded ``theta ** -e`` rounded once, which is what
-the jitted reference's decode step takes (``layers.rope_frequencies``).
-A measurement for ROADMAP queue C, not a test; on the CPU:
+"""Prints how far a decode lands from the jitted reference's when its
+keys were rotated by the other RoPE frequency law: ``1 / theta ** e`` in
+f32 ops (the eager reference's, ``layers.rope_frequencies(folded=
+False)``) against the folded ``theta ** -e`` rounded once that every
+jitted program of the reference takes, and that the port now takes on
+every path; a prefill on the first law followed by a decode on the second
+makes this gap. A measurement for ROADMAP queue C, not a test; on the
+CPU:
 
     PYTHONPATH=src python tests/rope_laws.py [--seed 0]
 
@@ -12,9 +13,9 @@ At gemma2-2b's attention shape (8 query heads over 4 KV heads of 256,
 theta 10,000, attention softcap 50) one decode query at position ``p``
 attends to the keys of the positions before it: all 32,768 at
 ``decode_32k``'s last position 32,767, and the 8,192 of
-``long_500k``'s window at 524,287. The keys are rotated by the prefill's
-law (the port) and by the folded law (the jitted reference, whose
-prefill and decode take one law); the query by the folded law. Printed:
+``long_500k``'s window at 524,287. The keys are rotated by the unfolded
+law and by the folded law (the jitted reference, whose prefill and
+decode take one law); the query by the folded law. Printed:
 the largest rotation-angle difference over the keys, the logits' largest
 difference, and the attention output's L2 error relative to its norm.
 The values are N(0, 1) from ``--seed``; no model weights."""
@@ -47,7 +48,7 @@ def decode_gap(pos: int, keys: int, seed: int) -> dict:
         logits[folded] = lg
         out[folded] = torch.einsum("bhqs,bshd->bqhd", torch.softmax(lg, -1),
                                    vx)
-    f_a = rope_frequencies(HEAD_DIM, THETA).double()
+    f_a = rope_frequencies(HEAD_DIM, THETA, folded=False).double()
     f_b = rope_frequencies(HEAD_DIM, THETA, folded=True).double()
     angle = float((kpos.double()[:, None] * (f_a - f_b)).abs().max())
     return {"angle_rad": angle,

@@ -1,31 +1,30 @@
-"""Prints how close two reduced QAFeL rounds of the port come to the
+"""Prints how close the port's reduced QAFeL rounds come to the
 reference's jitted round, with remat on (``torch.autograd.grad``) and off
-(``torch.func.grad``): the share of x-hat bit-equal and x's change and
-the momentum's L2 errors, as the round tests measure them (their
-``_rounds`` helpers: the same initial state, batches and keys; the MoE
-configs from the reference's jitted init, as in
-tests/test_torch_moe_round.py). A measurement for ROADMAP queue C, not a
-test; on the CPU, one torch thread:
+(``torch.func.grad``): each round's share of x-hat bit-equal and x's
+change and the momentum's L2 errors, as the round tests measure them
+(their ``_rounds`` helpers: two rounds, one at a time from equal inputs,
+``test_torch_llm_round.compare_rounds``; the MoE configs from the
+reference's jitted init, as in tests/test_torch_moe_round.py). A
+measurement for ROADMAP queue C, not a test; on the CPU, one torch
+thread:
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/round_shares.py \
-        [--silu port|law|F] [--folded-rope] [--seeds 0,1,2] [--local-sgd] \
-        [--self] [ARCH ...]
+        [--silu port|F] [--seeds 0,1,2] [--local-sgd] [--self] [ARCH ...]
 
 ARCH among qwen3-moe-235b-a22b, deepseek-v3-671b, qwen3-14b,
 mamba2-1.3b, zamba2-7b (default: all five; the state-space models in
 f32 and bf16). ``--silu`` picks the port's silu call sites: ``port`` as
-they are (the reference's law, ``models.layers.silu``, but in the MoE
-experts torch's, ``silu_aten``), ``law`` the reference's law at every
-site, ``F`` ``torch.nn.functional.silu`` at every site (the port before
-either), for comparison.
-``--seeds`` runs the text configs' two rounds from each batch seed
-instead (remat on) and prints both rounds' figures; ``--local-sgd``
+they are (the reference's law, ``models.layers.silu``, at every site),
+``F`` ``torch.nn.functional.silu`` at every site (the port before), for
+comparison.
+``--seeds`` runs the text configs' two rounds chained, each side's round
+2 from its own round-1 state (the comparison the tests dropped), from
+each batch seed instead (remat on) and prints both rounds' figures;
+``--local-sgd``
 prints, per seed, how far one client's local steps from the initial
 state land from the reference's (``local_sgd_scan``, jitted): the share
 of the parameters bit-equal and the L2 error relative to the reference's
-change; ``--folded-rope`` gives every path of the port the folded RoPE
-frequencies that its decode takes (``layers.rope_frequencies``);
-``--self`` runs the reference against itself from a state whose x and
+change; ``--self`` runs the reference against itself from a state whose x and
 x-hat differ in the last bit on 1% of the coordinates (batch seed 0),
 the same figures: what the two-round comparison makes of such a
 difference with no port in it."""
@@ -49,7 +48,7 @@ from repro_torch.models import transformer as TT
 
 import test_torch_archs_round as A
 import test_torch_mamba2_round
-from test_torch_llm_round import _flat_bits
+from test_torch_llm_round import _flat_bits, round_figures
 
 MOE = ("qwen3-moe-235b-a22b", "deepseek-v3-671b")
 ALL = MOE + ("qwen3-14b", "mamba2-1.3b", "zamba2-7b")
@@ -60,7 +59,7 @@ def _use_f_silu() -> None:
     f = torch.nn.functional.silu
     act = layers._act
     layers._act = lambda name: f if name == "silu" else act(name)
-    moe.silu_aten = f
+    moe.silu = f
     import repro_torch.models.mamba2 as mamba2
     mamba2.silu = f
 
@@ -177,22 +176,14 @@ def reference_against_itself(arch: str) -> list:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("archs", nargs="*", default=list(ALL))
-    ap.add_argument("--silu", choices=("port", "law", "F"), default="port")
+    ap.add_argument("--silu", choices=("port", "F"), default="port")
     ap.add_argument("--seeds", type=lambda s: [int(v) for v in s.split(",")])
     ap.add_argument("--local-sgd", action="store_true")
     ap.add_argument("--self", action="store_true")
-    ap.add_argument("--folded-rope", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     if args.silu == "F":
         _use_f_silu()
-    elif args.silu == "law":
-        moe.silu_aten = layers.silu
-    if args.folded_rope:
-        freqs = layers.rope_frequencies
-        layers.rope_frequencies = (
-            lambda d, theta, device=None, folded=False: freqs(d, theta,
-                                                              device, True))
     make = TS.make_qafel_round
     init_params, init_state = JT.init_params, JS.init_round_state
     for arch in args.archs:
@@ -223,9 +214,11 @@ def main(argv=None) -> None:
                 else:
                     runs = {"float32": A._rounds(arch)}
                 for dtype, out in runs.items():
-                    s = _stats(out["jstate"], out["tstate"], out["jx0"])
-                    print(f"{tag} {dtype} remat={remat}: {_line(s)}",
-                          flush=True)
+                    for r, rec in enumerate(out["rounds"], 1):
+                        s = round_figures(rec)
+                        s["hidden_equal"] = s.pop("hidden")
+                        print(f"{tag} {dtype} remat={remat} round {r}: "
+                              f"{_line(s)}", flush=True)
             TS.make_qafel_round = make
         JT.init_params, JS.init_round_state = init_params, init_state
 

@@ -11,20 +11,21 @@ Bit for bit: the batches against the reference's numpy stream; the
 server half (``accumulate`` and ``server_half`` from the same K packed
 messages and weights, on each model's own tree) against the reference's
 jitted server half (tests/test_torch_llm_round.py's ``_reference_half``).
-Within the bounds of tests/test_torch_llm_round.py: two whole rounds of
-the reference's jitted round and of the port's from the same state,
-batches, keys and unequal staleness weights (losses, x's change and the
-momentum in L2, the share of x-hat bit-equal). These three are proxies
-for the model math's last-bit differences (the gradients agree with the
-reference's as gemma2-2b's do, tests/test_torch_archs.py): each flip of
-a client's stochastic rounding moves a coordinate by a whole step, and
-how many flip depends on the batch and on the CPU's thread count (the
-module runs on one torch thread). Measured at this batch on one thread:
-x-hat 95.09% (internvl2) and 90.09% (musicgen; 90.1-90.7% over 1-8
-threads) bit-equal, x and m within 1.4e-3 to 4.3e-3; at other batches a
-bound is missed with gradients as close (sequence 64: musicgen's m
-5.8e-3; sequence 24 with one sequence a client: internvl2's x-hat
-88.0%). The launcher's command
+Within the bounds of tests/test_torch_llm_round.py: two rounds of the
+reference's jitted round and of the port's on the same batches, keys and
+unequal staleness weights, compared one round at a time from equal
+inputs (``compare_rounds``: round 2 of the port from the reference's
+round-1 state), each round's losses, x's change and the momentum in L2,
+and the share of x-hat bit-equal at 95%. These are proxies for the model
+math's last-bit differences (the gradients agree with the reference's as
+gemma2-2b's do, tests/test_torch_archs.py): each flip of a client's
+stochastic rounding moves a coordinate by a whole step, and how many
+flip depends on the batch and on the CPU's thread count (the module runs
+on one torch thread). Chained over two rounds, each side from its own
+round-1 state, the share measured how the rounds amplify that noise
+(musicgen 90.09%, 90.1-90.7% over 1-8 threads); one round at a time it
+is 98.3-98.6% (tests/test_torch_llm_round.py says why the chain went).
+The launcher's command
 line on the CPU for both, and its refusal of internvl2-1b's default
 ``--seq 128``, which its 256 patch embeddings do not leave room for.
 """
@@ -49,9 +50,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.examples import federated_llm
 from repro_torch.launch import train
 from test_torch_archs import one_thread  # noqa: F401
-from test_torch_llm_round import (HIDDEN_EQUAL_FLOOR, LOSS_RTOL, QCFG,
-                                  STATE_L2_RTOL, _flat_bits,
-                                  _reference_half, _same)
+from test_torch_llm_round import (LOSS_RTOL, QCFG, _reference_half, _same,
+                                  check_rounds, compare_rounds)
 
 ARCHS = ("internvl2-1b", "musicgen-large")
 SEQ, LOCAL = 32, federated_llm.LOCAL_BATCH  # a prefix of 16 in the VLM's 32
@@ -59,35 +59,35 @@ SEQ, LOCAL = 32, federated_llm.LOCAL_BATCH  # a prefix of 16 in the VLM's 32
 
 def _rounds(arch: str) -> dict:
     """Two rounds of the reference's jitted round and of the port's from
-    the reference's initial state, on the same batches and keys."""
+    the reference's initial state, on the same batches and keys, one round
+    at a time from equal inputs (``compare_rounds``)."""
     jc, tc = JC.get_reduced(arch), TC.get_reduced(arch)
     jq, tq = JConfig(**QCFG), QAFeLConfig(**QCFG)
     jround = jax.jit(JS.make_qafel_round(jc, jq, remat=False))
     tround = TS.make_qafel_round(tc, tq)
     jstate = JS.init_round_state(jc, jax.random.PRNGKey(0))
     tstate = round_state_from_jax(jax.device_get(jstate), device="cpu")
-    jx0 = _flat_bits(jax.device_get(jstate.x))
     weights = np.array([0.9, 1.0, 0.7, 0.5], np.float32)
     rng_j, rng_t = np.random.default_rng(0), np.random.default_rng(0)
     k, p = QCFG["buffer_size"], QCFG["local_steps"]
-    jloss, tloss, shapes = [], [], None
-    for step in range(2):
+    shapes = {}
+
+    def batch_pair(step):
         raw = jbatch(jc, rng_j, k * p * LOCAL, SEQ)
         jb = {n: jnp.asarray(v).reshape((k, p, LOCAL) + v.shape[1:])
               for n, v in raw.items()}
-        jstate, jmet = jround(jstate, jb, jnp.asarray(weights),
-                              jax.random.PRNGKey(step))
         tb = train.round_batch(tc, tq, rng_t, LOCAL, SEQ, "cpu")
         assert set(tb) == set(jb)
         assert all(np.array_equal(tb[n].numpy(), np.asarray(jb[n]))
                    for n in jb)
-        shapes = {n: tuple(v.shape) for n, v in tb.items()}
-        tstate, tmet = tround(tstate, tb, torch.from_numpy(weights),
-                              prng.PRNGKey(step))
-        jloss.append(float(jmet["loss"]))
-        tloss.append(float(tmet["loss"]))
-    return dict(jstate=jax.device_get(jstate), tstate=tstate, jx0=jx0,
-                jloss=jloss, tloss=tloss, shapes=shapes)
+        shapes.update({n: tuple(v.shape) for n, v in tb.items()})
+        return jb, tb
+
+    recs = compare_rounds(jround, tround, jstate, tstate, batch_pair,
+                          weights)
+    return dict(rounds=recs, shapes=shapes,
+                jloss=[r["jloss"] for r in recs],
+                tloss=[r["tloss"] for r in recs])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -103,19 +103,7 @@ def test_two_rounds_match_reference(arch):
         assert out["shapes"]["tokens"] == out["shapes"]["labels"] == \
             lead + (SEQ, cfg.audio_codebooks)
     np.testing.assert_allclose(out["tloss"], out["jloss"], rtol=LOSS_RTOL)
-    js, ts = out["jstate"], out["tstate"]
-    assert ts.t == int(js.t) == 2
-    jh, th = _flat_bits(js.hidden), _flat_bits(ts.hidden)
-    share = float(np.mean(jh.view(np.int32) == th.view(np.int32)))
-    print(f"{arch}: x-hat bit-equal after 2 rounds: {share:.6f}")
-    assert share >= HIDDEN_EQUAL_FLOOR
-    for name, base in (("x", out["jx0"]), ("momentum", 0.0)):
-        a = _flat_bits(getattr(js, name)) - base
-        b = _flat_bits(getattr(ts, name)) - base
-        rel = float(np.linalg.norm(b.astype(np.float64) - a)
-                    / np.linalg.norm(a))
-        print(f"{arch}: {name} after 2 rounds, L2 error {rel:.3e}")
-        assert rel <= STATE_L2_RTOL, (name, rel)
+    check_rounds(out["rounds"], arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

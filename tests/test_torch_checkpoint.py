@@ -2,7 +2,8 @@
 after any upload and resume bit-identically; archives written by the JAX
 package load in the port and the reverse, and both runs continue bit for
 bit on the quad task; mismatched layouts, quantizers, capacities,
-multi-device and lowrank archives are refused before anything changes.
+flat lengths and lowrank archives are refused before anything changes,
+and an archive written on a mesh (its vectors at the true length) loads.
 
 Every comparison is exact (``np.array_equal`` on the f32 bit patterns):
 x, x-hat, momentum, the TrafficMeter summary and the staleness history.
@@ -177,8 +178,9 @@ def test_port_archive_continues_in_the_reference(tmp_path):
 
 
 def test_mismatches_are_refused(tmp_path):
-    """Another layout, quantizer or capacity, a multi-device archive or one
-    with lowrank state: refused, and the target keeps its state."""
+    """Another layout, quantizer, capacity or flat length, or lowrank
+    state: refused, and the target keeps its state; an archive whose
+    sharding entry says two devices (its vectors canonical) loads."""
     import json
     path = tmp_path / "ckpt.npz"
     save_checkpoint(path, drive(make_talgo(), 0, 4))
@@ -206,8 +208,14 @@ def test_mismatches_are_refused(tmp_path):
     sharded = rewrite("sharded.npz", sharding={
         "devices": 2, "axes": ["data"], "mesh_shape": [2], "n": n,
         "n_padded": 512})
-    with pytest.raises(ValueError, match="devices"):
-        load_checkpoint(sharded, make_talgo())
+    loaded = load_checkpoint(sharded, make_talgo())
+    assert loaded.state.t == 1 and np.array_equal(
+        loaded.state.x_flat.numpy(), arrays["x_flat"])
+    longer = rewrite("longer.npz", sharding={
+        "devices": 2, "axes": ["data"], "mesh_shape": [2], "n": n + 1,
+        "n_padded": 512})
+    with pytest.raises(ValueError, match="coordinate count"):
+        load_checkpoint(longer, make_talgo())
     single = rewrite("single.npz", sharding={
         "devices": 1, "axes": None, "mesh_shape": None, "n": n,
         "n_padded": n})

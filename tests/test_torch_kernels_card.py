@@ -911,3 +911,33 @@ def test_silu_matches_plain_on_card(n, offset):
     cg = xla_math.silu_bwd(g[offset:], x[offset:])
     for got, card, cpu in ((y, py, cy), (gx, pg, cg)):
         assert _same_or_nan(got, card) and _same_or_nan(got.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,offset", ((1, 4099, 0), (1, 4099, 1),
+                                              (3, 50288, 0), (5, 1027, 2)))
+def test_xla_exp_matches_plain_on_card(rows, cols, offset):
+    """``csrc/silu.cu``'s exp alone (``silu.xla_exp``) against
+    ``xla_math.exp`` on the card and on the CPU, bit for bit (a nan as a
+    nan), from a start ``offset`` floats off the 16-byte boundary:
+    elementwise, and row by row as the loss takes it (``exp(a - m)``, one
+    ``m`` a row; the special values and a subnormal tail in the rows);
+    one launch each."""
+    from repro_torch.kernels import silu, xla_math
+    dev = _card()
+    gen = torch.Generator().manual_seed(cols)
+    a = 8 * torch.randn(rows * cols + offset, generator=gen)
+    sp = torch.tensor(SILU_SPECIAL)
+    a[offset:offset + sp.numel()] = sp
+    x = a[offset:].reshape(rows, cols)
+    m = x.amax(-1, keepdim=True).nan_to_num(0.0)
+    x[-1, 100:200] = m[-1] - torch.linspace(86.5, 88.8, 100)
+    xd = a.to(dev)[offset:].reshape(rows, cols)
+    for args, cpu_in in (((xd.reshape(-1),), x.reshape(-1)),
+                         ((xd, m.to(dev)), x - m)):
+        tkernels.reset_launches()
+        got = silu.xla_exp(*args)
+        assert tkernels.launches()["xla_exp"] == 1
+        card = xla_math.exp(args[0] if len(args) == 1 else args[0] - args[1])
+        assert _same_or_nan(got, card)
+        assert _same_or_nan(got.cpu(), xla_math.exp(cpu_in))

@@ -20,13 +20,24 @@ Bit for bit (``np.array_equal`` on the bit patterns):
   metering (``payload_wire_bytes``).
 
 Within a tolerance, the model math differing in its last bits (tests/
-test_torch_transformer.py): two whole rounds of the reference's jitted
-round (compiled once) and the port's from the same state, batches, keys
-and unequal staleness weights: the losses within ``LOSS_RTOL``; x's change
-and the momentum within ``STATE_L2_RTOL`` in L2; the share of x-hat's
-coordinates equal bit for bit is printed (``-s``) and held above
-``HIDDEN_EQUAL_FLOOR`` (a coordinate differs where the clients' near-equal
-deltas quantize to other codes). A bf16 reduced config's two local steps:
+test_torch_transformer.py): two rounds of the reference's jitted round
+(compiled once) and of the port's on the same batches, keys and unequal
+staleness weights, compared one round at a time from equal inputs: round
+1 from the reference's initial state, round 2 of the port from the
+reference's round-1 state, copied into the port's own state tensors in
+place (``load_state_``). After each round the losses within
+``LOSS_RTOL``; x's change over the round and the momentum within
+``STATE_L2_RTOL`` in L2; the share of x-hat's coordinates equal bit for
+bit is printed (``-s``) and held above ``HIDDEN_EQUAL_FLOOR`` (a
+coordinate differs where the clients' near-equal deltas quantize to other
+codes). The chained comparison it replaces, each side's round 2 from its
+own round-1 state, measured how two rounds amplify last-bit noise, not
+the port: the reference against itself, from a state one ulp off on 1%
+of the coordinates, kept 74.2% of qwen3-moe's x-hat after round 2, and
+taking XLA's ``exp`` in the loss moved qwen3-moe's chained share from
+88.4% to 74.5% and mamba2-1.3b's (f32) from 93.2% to 87.0%, under their
+floors, while each round alone held 97.9% and 98.6%.
+A bf16 reduced config's two local steps:
 the losses within ``BF16_SGD_LOSS_ATOL``, the deltas on the coordinates
 the reference moved against floors that the same run with y kept in f32
 misses.
@@ -60,9 +71,8 @@ from repro_torch.launch.train import round_batch
 from repro_torch.kernels import ops as tops
 
 LOSS_RTOL = 1e-5            # round losses (measured 2.9e-7)
-HIDDEN_EQUAL_FLOOR = 0.9    # share of x-hat bit-equal after 2 rounds
-STATE_L2_RTOL = 5e-3        # x - x_0 and m after 2 rounds, L2 relative
-                            # (measured 8.0e-4 and 9.0e-4)
+HIDDEN_EQUAL_FLOOR = 0.95   # share of x-hat bit-equal after each round
+STATE_L2_RTOL = 5e-3        # x's change over a round and m, L2 relative
 # bf16 local SGD at the reduced gemma2-2b (measured; the control is the
 # same run with y kept in f32)
 BF16_SGD_LOSS_ATOL = 1e-3      # step losses near 6.2 (measured 3.8e-4)
@@ -333,9 +343,94 @@ def test_wire_bytes_match_reference_metering():
 _CACHE = {}
 
 
+def load_state_(tstate, jstate) -> None:
+    """The reference's round state (numpy trees) copied into the port's
+    ``RoundState`` in place: its flat buffers, its side leaves and ``t``."""
+    src = round_state_from_jax(jstate, device="cpu")
+    with torch.no_grad():
+        for f, g in zip(tstate.flat, src.flat):
+            f.copy_(g)
+        for name in ("x", "hidden", "momentum"):
+            for a, b in zip(tree_leaves(getattr(tstate, name)),
+                            tree_leaves(getattr(src, name))):
+                a.copy_(b)
+    tstate.t = src.t
+
+
+def compare_rounds(jround, tround, jstate, tstate, batch_pair, weights,
+                   rounds: int = 2, control_key=None) -> list:
+    """``rounds`` rounds of the reference's jitted round and of the port's,
+    one at a time from equal inputs: round r of both from the reference's
+    state after round r - 1 (the port's loaded in place, ``load_state_``).
+    ``batch_pair(step) -> (reference batch, port batch)``. Returns one
+    record a round: the reference's x before it (``x0``), its state after
+    it (``jstate``), the port's x, x-hat and m after it as f32 vectors
+    (``port``), both losses, the port's metrics and whether the round
+    returned the state it was given (``same_obj``); with ``control_key``,
+    from round 2 on, the reference's round on that key (``control``)."""
+    recs = []
+    jstate = jax.device_get(jstate)
+    for step in range(rounds):
+        jb, tb = batch_pair(step)
+        if step:
+            load_state_(tstate, jstate)
+        rec = {"x0": _flat_bits(jstate.x)}
+        if control_key is not None and step:
+            rec["control"] = jax.device_get(jround(
+                jstate, jb, jnp.asarray(weights),
+                jax.random.PRNGKey(control_key))[0])
+        jstate, jmet = jround(jstate, jb, jnp.asarray(weights),
+                              jax.random.PRNGKey(step))
+        jstate = jax.device_get(jstate)
+        new, tmet = tround(tstate, tb, torch.from_numpy(weights),
+                           prng.PRNGKey(step))
+        rec.update(jstate=jstate, jloss=float(jmet["loss"]),
+                   tloss=float(tmet["loss"]), port_metrics=tmet,
+                   same_obj=new is tstate, t=new.t,
+                   port={n: _flat_bits(getattr(new, n))
+                         for n in ("x", "hidden", "momentum")})
+        tstate = new
+        recs.append(rec)
+    return recs
+
+
+def round_figures(rec, other=None) -> dict:
+    """One round's figures: the share of x-hat bit-equal to the
+    reference's, and x's change over the round and the momentum as L2
+    errors relative to the reference's; ``other`` (a state's trees) in the
+    port's place, e.g. the control."""
+    js = rec["jstate"]
+    got = rec["port"] if other is None else {
+        n: _flat_bits(getattr(other, n)) for n in ("x", "hidden",
+                                                    "momentum")}
+    jh = _flat_bits(js.hidden)
+    out = {"hidden": float(np.mean(jh.view(np.int32)
+                                   == got["hidden"].view(np.int32)))}
+    for name, base in (("x", rec["x0"]), ("momentum", 0.0)):
+        a = _flat_bits(getattr(js, name)) - base
+        b = got[name] - base
+        out[name] = float(np.linalg.norm(b.astype(np.float64) - a)
+                          / np.linalg.norm(a))
+    return out
+
+
+def check_rounds(recs, tag: str, floor: float = HIDDEN_EQUAL_FLOOR,
+                 bound: float = STATE_L2_RTOL) -> None:
+    """Each round's x-hat share at least ``floor``, x's change and m
+    within ``bound``; the figures printed (``-s``)."""
+    for r, rec in enumerate(recs, 1):
+        f = round_figures(rec)
+        print(f"{tag} round {r}: x-hat bit-equal {f['hidden']:.6f}, x "
+              f"{f['x']:.3e}, m {f['momentum']:.3e} (L2)")
+        assert rec["t"] == int(rec["jstate"].t) == r
+        assert f["hidden"] >= floor, (r, f)
+        assert f["x"] <= bound and f["momentum"] <= bound, (r, f)
+
+
 def _rounds():
     """Two rounds of the reference's jitted round (one compile) and of the
-    port's from the same state, batches and keys; cached for the module."""
+    port's, one at a time from equal inputs (``compare_rounds``); cached
+    for the module."""
     if _CACHE:
         return _CACHE
     jc, tc = JC.get_reduced("gemma2-2b"), TC.get_reduced("gemma2-2b")
@@ -344,53 +439,35 @@ def _rounds():
     tround = TS.make_qafel_round(tc, tq)
     jstate = JS.init_round_state(jc, jax.random.PRNGKey(0))
     tstate = round_state_from_jax(jax.device_get(jstate), device="cpu")
-    jx0 = _flat_bits(jax.device_get(jstate.x))
     weights = np.array([0.9, 1.0, 0.7, 0.5], np.float32)
     rng_j, rng_t = np.random.default_rng(0), np.random.default_rng(0)
     from repro.data.synthetic import synthetic_batch_for_config as jbatch
-    jm, tm = [], []
-    for step in range(2):
+
+    def batch_pair(step):
         raw = jbatch(jc, rng_j, 4 * 2 * 2, 64)
         jb = {k: jnp.asarray(v).reshape((4, 2, 2) + v.shape[1:])
               for k, v in raw.items()}
-        jstate, jmet = jround(jstate, jb, jnp.asarray(weights),
-                              jax.random.PRNGKey(step))
-        jm.append(float(jmet["loss"]))
         tb = round_batch(tc, tq, rng_t, federated_llm.LOCAL_BATCH, 64,
                          "cpu")
         assert all(np.array_equal(tb[k].numpy(), np.asarray(jb[k]))
                    for k in jb)
-        tstate, tmet = tround(tstate, tb, torch.from_numpy(weights),
-                              prng.PRNGKey(step))
-        tm.append(tmet)
-    _CACHE.update(jstate=jax.device_get(jstate), tstate=tstate, jx0=jx0,
-                  jloss=jm, port_metrics=tm)
+        return jb, tb
+
+    recs = compare_rounds(jround, tround, jstate, tstate, batch_pair,
+                          weights)
+    _CACHE.update(rounds=recs, tstate=tstate,
+                  port_metrics=[r["port_metrics"] for r in recs])
     return _CACHE
 
 
 def test_two_rounds_match_reference():
     out = _rounds()
-    tl = [float(m["loss"]) for m in out["port_metrics"]]
-    np.testing.assert_allclose(tl, out["jloss"], rtol=LOSS_RTOL)
-    js, ts = out["jstate"], out["tstate"]
-    assert ts.t == int(js.t) == 2
-    jh, th = _flat_bits(js.hidden), _flat_bits(ts.hidden)
-    share = float(np.mean(jh.view(np.int32) == th.view(np.int32)))
-    print(f"x-hat bit-equal after 2 rounds: {share:.6f} of "
-          f"{jh.size:,} coordinates")
-    assert share >= HIDDEN_EQUAL_FLOOR
-    # x's change over the rounds and the momentum, each in L2 relative to
-    # the reference's
-    for name, base in (("x", out["jx0"]), ("momentum", 0.0)):
-        a = _flat_bits(getattr(js, name)) - base
-        b = _flat_bits(getattr(ts, name)) - base
-        rel = float(np.linalg.norm(b.astype(np.float64) - a)
-                    / np.linalg.norm(a))
-        print(f"{name} after 2 rounds: L2 error {rel:.3e} of the "
-              "reference's")
-        assert rel <= STATE_L2_RTOL, (name, rel)
-    assert TreeLayout.of(ts.hidden) == TreeLayout.of(
-        params_from_jax(js.hidden, device="cpu"))
+    recs = out["rounds"]
+    np.testing.assert_allclose([r["tloss"] for r in recs],
+                               [r["jloss"] for r in recs], rtol=LOSS_RTOL)
+    check_rounds(recs, "gemma2-2b")
+    assert TreeLayout.of(out["tstate"].hidden) == TreeLayout.of(
+        params_from_jax(recs[-1]["jstate"].hidden, device="cpu"))
 
 
 def test_round_refuses_what_it_does_not_port():

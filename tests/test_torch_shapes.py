@@ -12,7 +12,11 @@ wraps (524,288 = 64 * 8,192), on the reduced gemma2-2b (window 8,192 on
 every attention layer, as ``long_500k`` sets) and the reduced mamba2-1.3b
 (no window), from a cache filled from a numpy seed: the port's logits and
 cache against the reference's jitted ``decode_step`` within the serving
-tests' 1e-5.
+tests' 1e-5. And a served program whole: the reduced gemma2-2b's one
+super-block prefills 4,096 tokens and decodes two more, against the
+jitted reference's ``make_prefill_step`` then ``make_decode_step``, whose
+programs both rotate by the folded RoPE frequencies (read from XLA:CPU's
+optimised HLO), as the port's prefill and decode now do.
 """
 import jax
 import jax.numpy as jnp
@@ -22,11 +26,13 @@ import torch
 
 from repro import configs as JC
 from repro.core.qafel import QAFeLConfig as JQAFeLConfig
+from repro.distributed import steps as JS
 from repro.launch import shapes as JSH
 from repro.models import transformer as JT
 from repro_torch import configs as TC
 from repro_torch.convert import cache_from_jax, params_from_jax
 from repro_torch.core.qafel import QAFeLConfig
+from repro_torch.distributed import steps as TS
 from repro_torch.launch import shapes as TSH
 from repro_torch.models import transformer as TT
 
@@ -190,6 +196,47 @@ def test_long_500k_decode_crosses_the_ring_wrap(arch):
                                       jlc["slot_pos"])
                 w = jlc["slot_pos"].shape[-1]
                 assert int(tlc["slot_pos"][0, pos % w]) == pos
+
+
+PROMPT = 4096  # the prefill's length, then two decode steps
+QK_SCALE = 3.0  # wq and wk scaled so the attention is sharper than at init
+
+
+def test_prefill_then_decode_takes_one_rope_law():
+    """The reduced gemma2-2b (head_dim 64, whose folded and unfolded RoPE
+    frequencies differ on 10 of 32; one local and one global layer) with
+    its query and key projections scaled by ``QK_SCALE``: a prefill of
+    ``PROMPT`` tokens and two decode steps, the port's logits against the
+    jitted reference's ``make_prefill_step`` and ``make_decode_step``
+    within ``SERVE_RTOL`` of the largest. Measured at this seed: the
+    prefill's logits 5.3e-6 off, the decode steps' 3.0e-6 and 4.4e-6;
+    with the prefill on the unfolded law and the decode on the folded one
+    (the port before), 3.3e-5, 3.9e-5 and 1.3e-4."""
+    jc, tc = JC.get_reduced("gemma2-2b"), TC.get_reduced("gemma2-2b")
+    assert jc.head_dim == 64 and jc.n_layers == 2
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: a * QK_SCALE if getattr(path[-1], "key", "") in (
+            "wq", "wk") else a, JT.init_params(jc, jax.random.PRNGKey(0)))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(1).integers(
+        0, jc.vocab, (1, PROMPT + 2)).astype(np.int32)
+    jl, jcache = jax.jit(JS.make_prefill_step(jc, max_len=PROMPT + 2))(
+        jp, {"tokens": jnp.asarray(toks[:, :PROMPT])})
+    tl, tcache = TS.make_prefill_step(tc, max_len=PROMPT + 2)(
+        tp, {"tokens": torch.from_numpy(toks[:, :PROMPT])})
+    jdec, tdec = jax.jit(JS.make_decode_step(jc)), TS.make_decode_step(tc)
+    for pos in (None, PROMPT, PROMPT + 1):
+        if pos is not None:
+            tok = toks[:, pos:pos + 1]
+            jl, jcache = jdec(jp, jcache, {"tokens": jnp.asarray(tok)},
+                              jnp.int32(pos))
+            tl, tcache = tdec(tp, tcache, {"tokens": torch.from_numpy(tok)},
+                              pos)
+        want = np.asarray(jl, np.float32)
+        err = np.abs(tl.numpy().astype(np.float64) - want).max()
+        print(f"position {pos}: logits within {err:.3e} of "
+              f"{np.abs(want).max():.3f}")
+        assert err <= SERVE_RTOL * np.abs(want).max(), (pos, err)
 
 
 def _every_block_pair(q, k, v, pos, window, scale, cap, blk):

@@ -15,9 +15,14 @@ of the silu kernel) spells it whole and is the reference's bit for bit,
 on N(0, 16) inputs, on the tail and on the special values. Its one
 backward serves ``torch.autograd.grad`` (the round with remat) and
 ``torch.func`` (without) alike, and a silu model's loss gradient is the
-same both ways. The MoE experts' silu keeps torch's law
-(``layers.silu_aten``: ``F.silu`` and ATen's fused backward), also with
-one backward for both paths.
+same both ways; every silu of the models takes it, the MoE experts'
+too.
+
+The cross-entropy's ``layers.logsumexp`` is ``jax.nn.logsumexp`` as
+XLA:CPU compiles it (``log(sum(exp(a - m))) + m`` with XLA's ``exp`` and
+its flush, the sum in law 7's windows of 32, XLA's ``log``; the gradient
+``(g / sum) * exp(a - m)``), bit for bit, its vjp too, on every gradient
+path.
 """
 import jax
 import jax.numpy as jnp
@@ -230,43 +235,80 @@ def _gradients_with_and_without_remat(arch):
 
 
 def test_silu_model_gradient_same_with_and_without_remat():
-    """qwen3-moe's reduced config (silu in its experts' FFN, torch's law,
-    ``layers.silu_aten``): the loss gradient of every leaf with remat
-    (``torch.autograd.grad`` through ``torch.utils.checkpoint``, the
-    round's default) and without (``torch.func.grad``, the launcher's)
-    bit-identical."""
+    """qwen3-moe's reduced config (silu in its experts' FFN): the loss
+    gradient of every leaf with remat (``torch.autograd.grad`` through
+    ``torch.utils.checkpoint``, the round's default) and without
+    (``torch.func.grad``, the launcher's) bit-identical."""
     _gradients_with_and_without_remat("qwen3-moe-235b-a22b")
 
 
 def test_both_silu_laws_model_gradient_same_with_and_without_remat():
-    """deepseek-v3's reduced config, whose dense prefix layers and shared
-    expert take the reference's law (``layers.silu``) and its routed
-    experts torch's (``layers.silu_aten``): the loss gradient the same
+    """deepseek-v3's reduced config (silu in its dense prefix layers, its
+    shared expert and its routed experts): the loss gradient the same
     with and without remat, bit for bit."""
     _gradients_with_and_without_remat("deepseek-v3-671b")
 
 
-def test_aten_silu_is_torch_autograd_silu_on_every_path():
-    """The MoE experts' silu (``layers.silu_aten``): ``F.silu``'s values and
-    the gradient ``torch.autograd.grad`` takes of ``F.silu`` (ATen's fused
-    ``silu_backward``), bit for bit, under ``torch.autograd.grad``,
-    ``torch.func.grad``, ``torch.func.vjp`` and a vmapped
-    ``torch.func.grad`` alike."""
-    x, g = (torch.from_numpy(a) for a in _inputs(3))
-    xr = x.clone().requires_grad_()
-    y = torch.nn.functional.silu(xr)
-    want = torch.autograd.grad(y, xr, g)[0]
-    xr = x.clone().requires_grad_()
-    got_y = layers.silu_aten(xr)
-    assert np.array_equal(_bits(got_y), _bits(y))
-    got = {
-        "autograd": torch.autograd.grad(got_y, xr, g)[0],
-        "func.grad": torch.func.grad(
-            lambda t: (layers.silu_aten(t) * g).sum())(x),
-        "func.vjp": torch.func.vjp(layers.silu_aten, x)[1](g)[0],
-        "vmap": torch.func.vmap(torch.func.grad(
-            lambda t, c: (layers.silu_aten(t) * c).sum()))(
-                x.reshape(64, -1), g.reshape(64, -1)).reshape(-1),
-    }
-    for name, v in got.items():
-        assert np.array_equal(_bits(v), _bits(want)), name
+def _lse_inputs():
+    """Seeded (8, 4,096) f32 logits: N(0, 64) rows, a row with one -inf,
+    a row all -inf, a row whose exp has a subnormal tail (a - m in
+    [-88.8, -86.5], where XLA flushes), a row whose largest value stands
+    87.5 over the rest; and a cotangent (0 on the all -inf row)."""
+    rng = np.random.default_rng(0)
+    a = (rng.standard_normal((8, 4096)) * 8).astype(np.float32)
+    a[1, 7] = -np.inf
+    a[2] = -np.inf
+    a[3, 100:200] = a[3].max() - rng.uniform(86.5, 88.8, 100).astype(
+        np.float32)
+    a[4, 5] = a[4].max() + 87.5
+    g = rng.standard_normal(8).astype(np.float32)
+    g[2] = 0.0
+    return a, g
+
+
+@pytest.mark.parametrize("path", ["autograd", "func.grad", "vmap"])
+def test_logsumexp_is_the_jitted_reference(path):
+    """``layers.logsumexp`` and its vjp against the jitted
+    ``jax.nn.logsumexp`` (last axis), bit for bit, under
+    ``torch.autograd.grad``, ``torch.func.grad`` and a vmapped
+    ``torch.func.grad``."""
+    a, g = _lse_inputs()
+    want = np.asarray(jax.jit(lambda x: jax.nn.logsumexp(x, axis=-1))(a))
+    want_g = np.asarray(jax.jit(lambda x, c: jax.vjp(
+        lambda y: jax.nn.logsumexp(y, axis=-1), x)[1](c)[0])(a, g))
+    at, gt = torch.from_numpy(a), torch.from_numpy(g)
+    if path == "autograd":
+        x = at.clone().requires_grad_()
+        out = layers.logsumexp(x, -1)
+        got = torch.autograd.grad(out, x, gt)[0]
+    elif path == "func.grad":
+        out = layers.logsumexp(at, -1)
+        got = torch.func.grad(
+            lambda x: (layers.logsumexp(x, -1) * gt).sum())(at)
+    else:
+        fn = torch.func.vmap(torch.func.grad_and_value(
+            lambda x, c: (layers.logsumexp(x, -1) * c).sum()))
+        got, _ = fn(at.reshape(2, 4, -1), gt.reshape(2, 4))
+        out = torch.func.vmap(lambda x: layers.logsumexp(x, -1))(
+            at.reshape(2, 4, -1))
+        got, out = got.reshape(8, -1), out.reshape(-1)
+    assert np.array_equal(_bits(out), want.view(np.int32))
+    assert np.array_equal(_bits(got), want_g.view(np.int32))
+
+
+def test_logsumexp_over_a_middle_axis():
+    """``dim`` other than the last: the same bits as over the last axis of
+    the moved tensor, the gradient moved back."""
+    a, _ = _lse_inputs()
+    at = torch.from_numpy(a[:4, :96].reshape(4, 3, 32).copy())
+    x = at.clone().requires_grad_()
+    out = layers.logsumexp(x, 1)
+    want = np.asarray(jax.jit(lambda y: jax.nn.logsumexp(y, axis=1))(
+        at.numpy()))
+    assert np.array_equal(_bits(out), want.view(np.int32))
+    g = torch.ones_like(out)
+    want_g = np.asarray(jax.jit(lambda y, c: jax.vjp(
+        lambda z: jax.nn.logsumexp(z, axis=1), y)[1](c)[0])(
+            at.numpy(), g.numpy()))
+    assert np.array_equal(_bits(torch.autograd.grad(out, x, g)[0]),
+                          want_g.view(np.int32))

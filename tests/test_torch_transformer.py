@@ -328,7 +328,8 @@ def _bf16_op(m, name):
                 lambda x, s: TL.rms_norm(x, s, 1e-6, True), [x, bf(256, .1)])
     if name == "apply_rope":
         return (lambda x: JL.apply_rope(x, jpos),
-                lambda x: TL.apply_rope(x, tpos), [bf((2, 48, 4, 64))])
+                lambda x: TL.apply_rope(x, tpos, folded=False),
+                [bf((2, 48, 4, 64))])
     if name == "softcap":
         return (lambda x: JL.softcap(x, 30.0), lambda x: TL.softcap(x, 30.0),
                 [bf((2, 48, 256), 40.0)])
@@ -339,7 +340,8 @@ def _bf16_op(m, name):
     if name == "attention_train":
         kw = dict(window=16, q_block=16, kv_block=16)
         return (lambda p, x: JA.attention_train(jc, p, x, jpos, **kw),
-                lambda p, x: TA.attention_train(tc, p, x, tpos, **kw),
+                lambda p, x: TA.attention_train(tc, p, x, tpos,
+                                                folded_rope=False, **kw),
                 [first(m["jp"]["layers"]["pos1_global"]["attn"]), x])
     assert name == "embed_inputs"
     return (lambda e: JT._embed_inputs(jc, {"embed": e}, m["jb"]),
