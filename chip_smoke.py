@@ -247,11 +247,24 @@ Phases, each printing one JSON line:
     (x, x-hat, m, codes, norms, the taps of the gathered parts), one
     segment's kernel launches, and the ms of one segment's flush and of
     the unsharded flush;
+13c. the LLM round on a ("data", "model") mesh (``model_mesh``): a
+    one-rank NCCL group on a (1, 1) mesh; gemma2-2b at full width cut to
+    2 layers, ``make_qafel_round(mesh=)`` against the meshless round from
+    the same seeds for 2 rounds (the second with taps): x, x-hat, m, the
+    loss, the wire bytes and the taps bit for bit on host copies; the
+    launcher at 26 layers under the group (its host mesh) for 2 rounds:
+    peak against the meshless launcher's (within 5%), K1 / K3 / update
+    launches, one more round profiled (ms, device launches); then the
+    ``mesh_reckoning`` lines: each arch at the LLM round's settings and
+    at ``train_4k`` on (1, 4), (2, 2), (4, 1) and (16, 16), the
+    reference's per-rank state bytes and the port's per-rank round
+    reckoned on its layout, against the 60 GB gate;
 14. one line listing every kernel (``silu_forward`` and ``silu_backward``
     with ``F.silu`` / ``aten.silu_backward`` as the library time, their
     launches on mamba2-1.3b's round; ``xla_exp`` with ``torch.exp``, its
     launches on the LLM round's loss; each kernel's launches in one
-    segment's flush of ``flat_mesh``) with its launches on both paths, on
+    segment's flush of ``flat_mesh`` and in the mesh launcher's rounds of
+    ``model_mesh``) with its launches on both paths, on
     the family's runs, on the population run, on the LLM round, the
     launcher's rounds, the quantizer rounds and the musicgen-large,
     internvl2-1b, mamba2-1.3b, zamba2-7b and qwen3-moe-235b-a22b rounds,
@@ -1465,6 +1478,36 @@ def profiled_counts(dev, engine: str, uploads: int) -> dict:
     return runs
 
 
+# profiled quartets at most for one tap launch check (``profiled_tap_diff``)
+TAP_PROFILE_ATTEMPTS = 3
+
+
+def profiled_tap_diff(dev, engine: str, uploads: int):
+    """``tap_launch_diff`` of a quartet of ``profiled_counts``. The
+    profiler drops activity records under load and never adds one; a
+    quartet whose check fails where it shows such loss (two runs of one
+    configuration with different totals, or a tap kernel profiled fewer
+    times than its counter launched it) is profiled anew, up to
+    ``TAP_PROFILE_ATTEMPTS`` quartets, each judged alone. A quartet that
+    fails with no loss seen fails the check. Returns the last quartet's
+    runs and its diff, with every quartet's summary under "attempts"."""
+    attempts = []
+    for _ in range(TAP_PROFILE_ATTEMPTS):
+        runs = profiled_counts(dev, engine, uploads)
+        on = runs[True][0]
+        diff = tap_launch_diff(runs, on["res"].server_steps,
+                               on["client_steps"])
+        attempts.append({k: diff[k] for k in (
+            "kernels_off_per_run", "kernels_on_per_run",
+            "record_loss_bound", "tap_records_short", "differing_kernels",
+            "ok")})
+        lost = diff["record_loss_bound"] > 0 or diff["tap_records_short"] > 0
+        if diff["ok"] or not lost:
+            break
+    diff["attempts"] = attempts
+    return runs, diff
+
+
 def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
     """The profiled launches of the taps-on runs against the runs with no
     tracer: the tap kernels launched once per flush and once per client
@@ -1484,6 +1527,9 @@ def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
         return sum(c for k, c in kern.items() if name in k)
 
     per = {t: [split(r["counts"]) for r in rs] for t, rs in runs.items()}
+    short = sum(max(0, r["launches"][c] - tap(kern, c + "_kernel"))
+                for t, rs in runs.items() for r, (kern, _) in zip(rs, per[t])
+                for c in ("flush_taps", "upload_taps"))
     merged = {t: {k: max(kern.get(k, 0) for kern, _ in ps)
                   for k in set().union(*(kern for kern, _ in ps))}
               for t, ps in per.items()}
@@ -1502,6 +1548,7 @@ def tap_launch_diff(runs: dict, flushes: int, steps: int) -> dict:
     return {"kernels_off_per_run": totals[None],
             "kernels_on_per_run": totals[True],
             "record_loss_bound": loss,
+            "tap_records_short": short,
             "flush_taps_kernels": tap(k_on, "flush_taps_kernel"),
             "upload_taps_kernels": tap(k_on, "upload_taps_kernel"),
             "copies_off_per_run": [c for _, c in per[None]],
@@ -1652,9 +1699,7 @@ def telemetry_cohort(dev, out_dir: Path) -> dict:
     flushes, groups = on["res"].server_steps, on["client_steps"]
     trace = check_trace(on, out_dir / "telemetry_cohort.jsonl")
     lo, ln = off["launches"], on["launches"]
-    runs = profiled_counts(dev, "cohort", TELEMETRY_PROFILED_UPLOADS)
-    diff = tap_launch_diff(runs, runs[True][0]["res"].server_steps,
-                           runs[True][0]["client_steps"])
+    _, diff = profiled_tap_diff(dev, "cohort", TELEMETRY_PROFILED_UPLOADS)
     timed = {"off": [], "on": []}
     for t in (None, True, True, None):
         r = traced_cnn_run(dev, t, engine="cohort", uploads=COHORT_UPLOADS)
@@ -1703,11 +1748,10 @@ def telemetry_main_path(dev, out_dir: Path, uploads: int = 10) -> dict:
     uploads with taps on, profiled beside the same run with no tracer:
     the state bit-identical, the trace valid, one more launch per client
     step and per flush."""
-    runs = profiled_counts(dev, "sequential", uploads)
+    runs, diff = profiled_tap_diff(dev, "sequential", uploads)
     off, on = runs[None][0], runs[True][0]
     flushes, steps = on["res"].server_steps, on["client_steps"]
     trace = check_trace(on, out_dir / "telemetry_main.jsonl")
-    diff = tap_launch_diff(runs, flushes, steps)
     lo, ln = off["launches"], on["launches"]
     checks = {
         "state_bit_identical": same_state(off["algo"], on["algo"]),
@@ -2757,7 +2801,8 @@ def run_population(dev, hash_int32: dict) -> tuple:
 # settings (qsgd4 both ways, K = 4, P = 2, local batch 2, sequence 64),
 # every message encoded in row chunks of LLM_CHUNK_ROWS, remat on (the
 # round's default); one warm-up round, 2 measured, 1 profiled
-LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 26, 64, 2
+# LLM_ROUNDS measured rounds (2 until model_mesh took their time)
+LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_ROUNDS = "gemma2-2b", 26, 64, 1
 LLM_CHUNK_ROWS = 1 << 20
 # the round's peak by count of its buffers (PERF.md section 5): x, x-hat
 # and m in bf16 (6 B an element), the f32 sum buf (4 B), a client's y and
@@ -3960,8 +4005,11 @@ TRAIN_ARGV = ["--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--seq", "128",
 # layer activations, and the 256,000-wide logits with their softcap,
 # softmax and gradient
 TRAIN_ACTIVATION_BYTES = 26 * 126e3 * 1024 + 3.5e9
+_PEAKS = {}  # the meshless launcher's peak bytes, read by model_mesh
 QUANT_LAYERS = 2
-QUANT_ROUNDS = 2  # the first cold, the second timed warm
+# one round a pair, cold (2 until model_mesh took their time: the warm
+# second round ran within 1% of the first)
+QUANT_ROUNDS = 1
 QUANT_PAIRS = (("lowrank4g32", "top_k0.1"), ("rand_k0.1", "rand_k0.1"),
                ("identity", "identity"))
 
@@ -4004,6 +4052,7 @@ def train_launcher(dev) -> dict:
     total_s = time.perf_counter() - t0
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
+    _PEAKS["train_launcher"] = peak
     state = out["state"]
     d = sum(t.numel() for t in tree_leaves(state.x))
     rows = -(-d // 128)
@@ -5648,6 +5697,260 @@ def run_flat_mesh(dev, smi: str) -> dict:
             "segments": mesh_segments(dev, smi)}
 
 
+# the LLM round on a ("data", "model") mesh: a one-rank NCCL group on a
+# (1, 1) mesh; gemma2-2b at full width cut to 2 layers (the quantizer
+# rounds' cut, d = 745,558,272), mesh vs meshless from the same seeds, the
+# second round with taps; then the launcher at full depth under the group
+MODEL_MESH_LAYERS, MODEL_MESH_ROUNDS = 2, 2
+MODEL_MESH_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--checkpoint-dir")]
+MODEL_MESH_PEAK_RATIO = 1.05  # the mesh launcher's peak over the meshless
+# the meshes reckoned per rank for the later four-card call
+RECKON_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1),
+                 "16x16": (16, 16)}
+
+
+def _model_mesh_pair(dev, mesh) -> dict:
+    """gemma2-2b at full width and ``MODEL_MESH_LAYERS`` layers: the mesh
+    round and the meshless round from the same seeds, state and batches,
+    ``MODEL_MESH_ROUNDS`` rounds (remat, row chunks of ``LLM_CHUNK_ROWS``,
+    the LLM round's K, P, batch and seq; the last with taps), compared
+    after each on host copies: x, x-hat, m, the loss, the wire bytes and
+    the taps bit for bit; each round's ms by CUDA events."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common import prng
+    from repro_torch.distributed.steps import (init_round_state,
+                                               make_qafel_round)
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.launch.train import round_batch
+
+    cfg = configs.get_config(LLM_ARCH).replace(n_layers=MODEL_MESH_LAYERS)
+    qcfg = fl.qafel_config(4)
+    states = {"meshless": init_round_state(cfg, 0, dev),
+              "mesh": init_round_state(cfg, 0, dev, mesh=mesh)}
+    fns = {(name, taps): make_qafel_round(
+        cfg, qcfg, chunk_rows=LLM_CHUNK_ROWS, taps=taps,
+        mesh=mesh if name == "mesh" else None)
+        for name in states for taps in (False, True)}
+    d = fns[("mesh", False)].plan.d
+    rng = np.random.default_rng(0)
+    weights = torch.ones(qcfg.buffer_size)
+    rounds = []
+    for step in range(MODEL_MESH_ROUNDS):
+        taps = step == MODEL_MESH_ROUNDS - 1
+        batch = round_batch(cfg, qcfg, rng, fl.LOCAL_BATCH, LLM_SEQ, dev)
+        met, ms = {}, {}
+        for name in states:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            states[name], met[name] = fns[(name, taps)](
+                states[name], batch, weights, prng.PRNGKey(step))
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end)
+        host = {name: [f.cpu() for f in st.flat]
+                for name, st in states.items()}
+        checks = {
+            n: bits_equal(a, b[:a.numel()]) for n, a, b in zip(
+                ("x", "hidden", "momentum"), host["meshless"],
+                host["mesh"])}
+        del host
+        a, b = met["meshless"], met["mesh"]
+        checks.update(
+            loss=bits_equal(a["loss"].cpu(), b["loss"].cpu()),
+            upload_bytes=a["upload_bytes"] == b["upload_bytes"],
+            broadcast_bytes=a["broadcast_bytes"] == b["broadcast_bytes"])
+        if taps:
+            checks["taps"] = bits_equal(a["taps"].cpu(), b["taps"].cpu())
+        rounds.append({"step": step, "taps": taps, "ms": ms,
+                       "loss": float(b["loss"]), "checks": checks})
+        del batch, met
+    del states, fns
+    torch.cuda.empty_cache()
+    return {"d": d, "layers": MODEL_MESH_LAYERS, "rounds": rounds}
+
+
+def _model_mesh_launcher(dev) -> dict:
+    """``launch.train.run`` at the train_launcher phase's settings (no
+    checkpoint) for its ``TRAIN_STEPS`` rounds under the one-rank group,
+    which takes the reference's host mesh: peak ``max_memory_allocated``
+    against the meshless launcher's in this call, K1 / K3 / update
+    launches by counters set to 0 just before and read just after, then
+    one more round of its round function profiled (ms by CUDA events,
+    device launches, idle share)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.staleness import staleness_weight
+    from repro_torch.distributed.steps import make_qafel_round
+    from repro_torch.kernels import launches as kernel_launches
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train
+
+    args = train.parse_args(MODEL_MESH_ARGV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = train.run(args)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    mesh, state = out["mesh"], out["state"]
+    cfg = configs.get_config(args.arch)
+    qcfg = train.qafel_config(args)
+    round_fn = make_qafel_round(cfg, qcfg, remat=False,
+                                chunk_rows=train.CHUNK_ROWS, mesh=mesh)
+    d = round_fn.plan.d
+    rows = -(-d // 128)
+    chunks = -(-rows // train.CHUNK_ROWS)
+    k = args.buffer_k
+    local = args.global_batch // (k * args.local_steps)
+    batch = train.round_batch(cfg, qcfg, np.random.default_rng(args.seed + 1),
+                              local, args.seq, dev)
+    weights = staleness_weight(torch.zeros(k)).to(dev)
+    (state, met), prof = _profiled(lambda: round_fn(
+        state, batch, weights, train.round_key(args.seed, TRAIN_STEPS)))
+    want = {"qsgd_quantize_pack_threefry": TRAIN_STEPS * (k + 1) * chunks,
+            "qsgd_unpack_dequantize": TRAIN_STEPS * (k + 1),
+            "server_update": TRAIN_STEPS}
+    meshless = _PEAKS.get("train_launcher")
+    record = {"argv": MODEL_MESH_ARGV, "d": d, "mesh": list(mesh.shape),
+              "segment": state.flat[0].numel(),
+              "losses": out["losses"].tolist(), "loop_s": out["seconds"],
+              "profiled_round": prof, "ms": prof["wall_ms"],
+              "loss_profiled_round": float(met["loss"]),
+              "launches": {n: v for n, v in launches.items() if v},
+              "peak_bytes": peak, "peak_gb": peak / 1e9,
+              "meshless_peak_gb": None if meshless is None
+              else meshless / 1e9,
+              "peak_ratio": None if meshless is None else peak / meshless}
+    record["checks"] = {
+        "losses_finite": all(math.isfinite(v) for v in record["losses"]),
+        **{f"{n}_launches": launches[n] == v for n, v in want.items()},
+        "other_kernels_idle": all(v == 0 for n, v in launches.items()
+                                  if n not in want
+                                  and n not in MODEL_KERNELS),
+        "peak_within_5pct": meshless is not None
+        and peak <= MODEL_MESH_PEAK_RATIO * meshless}
+    del out, state, batch, round_fn
+    torch.cuda.empty_cache()
+    return record
+
+
+def mesh_reckoning() -> list:
+    """For each arch of the registry, at the LLM round's settings and at
+    ``train_4k``, on each of ``RECKON_MESHES``: the reference's per-rank
+    state bytes (``sharding.rules.sharded_bytes`` of ``state_pspecs``,
+    the launcher's rules, FSDP off), and the port's per-rank round by the
+    count of its buffers on its layout: the three flat segments in the
+    state's dtype, the f32 ``buf`` segment and one segment message's codes
+    and norms over ``padded d / n``; the client's shards and their
+    gradients (and, with more than one segment, its working copy of
+    x-hat's shards); with more than one "model" rank the f32 segment
+    delta and the largest leaf in f32 in flight, else the chunk
+    transients; ``LLM_TRANSIENT_BYTES``' activations; and whether that
+    fits the 60 GB gate. Nothing is allocated (``meta``)."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed.steps import abstract_round_state
+    from repro_torch.launch.shapes import input_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+
+    rows_out = []
+    for arch in sorted(configs.list_archs()):
+        cfg = configs.get_config(arch)
+        params = T.abstract_params(cfg)
+        leaves = tree_leaves(params)
+        d = sum(t.numel() for t in leaves)
+        base = max(set(t.dtype for t in leaves),
+                   key=lambda dt: sum(t.numel() for t in leaves
+                                      if t.dtype == dt))
+        item = leaves[0].new_empty((), dtype=base).element_size()
+        big = max(t.numel() for t in leaves)
+        for settings in ("llm_round", "train_4k"):
+            state = (abstract_round_state(cfg) if settings == "llm_round"
+                     else input_specs(cfg, "train_4k")["state"])
+            for name, (nd, nm) in RECKON_MESHES.items():
+                mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                                       shape=(nd, nm))
+                rules = R.ShardingRules(mesh=mesh)
+                ref_state = R.sharded_bytes(
+                    state, R.state_pspecs(rules, cfg, state), mesh)
+                n = nd * nm
+                seg = R.flat_padded_len(d, n) // n
+                local = sum(t.numel() // R.shard_extent(mesh, sp)
+                            for t, sp in zip(leaves, R.spec_leaves(
+                                R.param_pspecs(rules, cfg, params))))
+                parts = {
+                    "segments": 3 * item * seg, "buf": 4 * seg,
+                    "message": seg // 2 + 4 * -(-seg // 128),
+                    "client": 2 * item * local
+                    + (item * local if n > 1 else 0),
+                    "in_flight": (4 * seg + 4 * big if nm > 1
+                                  else 4 * 4 * 128 * LLM_CHUNK_ROWS),
+                    "activations": LLM_TRANSIENT_BYTES
+                    - 4 * 4 * 128 * LLM_CHUNK_ROWS}
+                total = sum(parts.values())
+                rows_out.append({
+                    "phase": "mesh_reckoning", "arch": arch,
+                    "settings": settings, "mesh": name, "d": d,
+                    "ref_state_bytes_per_rank": ref_state,
+                    "port_round_bytes_per_rank": total,
+                    "port_round_gb": total / 1e9, "parts": parts,
+                    "fits_60gb": total < LLM_PEAK_CAP_GB * 1e9,
+                    "round_ported": cfg.family == "dense"
+                    and cfg.modality == "text" and not cfg.n_experts
+                    and not cfg.use_mla})
+    for row in rows_out:
+        emit(row)
+    return rows_out
+
+
+def model_mesh(dev, smi: str) -> dict:
+    """The LLM round on a ("data", "model") mesh on this card: a one-rank
+    NCCL group (a ``FileStore`` under ``build/``) on a (1, 1) mesh,
+    ``_model_mesh_pair`` then ``_model_mesh_launcher``; the group is
+    destroyed after; then ``mesh_reckoning``. Returns the launches of the
+    launcher's rounds by kernel."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_sim_mesh2d
+
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        backend = dist.get_backend()
+        pair = _model_mesh_pair(dev, make_sim_mesh2d((1, 1)))
+        launcher = _model_mesh_launcher(dev)
+    finally:
+        dist.destroy_process_group()
+    reckoning = mesh_reckoning()
+    checks = {"backend_nccl": backend == "nccl",
+              **{f"round{r['step']}_{k}": ok for r in pair["rounds"]
+                 for k, ok in r["checks"].items()},
+              **{f"launcher_{k}": ok for k, ok in launcher["checks"].items()},
+              "reckoning_lines": len(reckoning)
+              == 2 * len(RECKON_MESHES) * 10}
+    record = {"phase": "model_mesh", "nvidia_smi": smi, "pair": pair,
+              "launcher": launcher, "checks": checks}
+    emit(record)
+    if not all(checks.values()):
+        raise AssertionError(f"model_mesh checks failed: "
+                             f"{[k for k, ok in checks.items() if not ok]}")
+    return launcher["launches"]
+
+
 # the assigned shapes (launch/shapes.py) on one card: gemma2-2b (26 layers,
 # local/global windows) and mamba2-1.3b (48 layers, recurrent cache) at full
 # width through make_qafel_round, transformer.prefill and decode_step
@@ -6295,6 +6598,7 @@ def main() -> int:
     timed("streamed_uplink", streamed_uplink, dev)
     flat_mesh = timed("flat_mesh", run_flat_mesh, dev, smi)
     mesh_launches = flat_mesh["segments"]["segment_launches"]
+    model_mesh_launches = timed("model_mesh", model_mesh, dev, smi)
 
     case_keys = ("d", "ms", "plain_ms", "bound_ms", "bound_by",
                  "bound_share", "equal", "max_abs_err", "bytes_formula")
@@ -6440,6 +6744,8 @@ def main() -> int:
         entry["shapes_launches"] = {cell: counts.get(entry["name"], 0)
                                     for cell, counts in shape_paths.items()}
         entry["flat_mesh_segment_launches"] = mesh_launches.get(
+            entry["name"], 0)
+        entry["model_mesh_launches"] = model_mesh_launches.get(
             entry["name"], 0)
     if not all(e["launches"] and e["zamba2_round_launches"]
                for e in kernels_line[-3:]):

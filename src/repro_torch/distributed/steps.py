@@ -103,8 +103,38 @@ aux term and the MTP term (``transformer.loss_fn``).
 ``make_prefill_step`` and ``make_decode_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` (the serving side, ``launch.serve``).
 
-Not ported here: the pod-quantized round (ROADMAP queue A item 14d) and
-the round on a model-parallel mesh (13b.2); each raises
+**On a ("data", "model") mesh** (``make_qafel_round(mesh=)``, the dense
+attention decoders: gemma2-2b, codeqwen1.5-7b, qwen3-14b, granite-34b and
+their reduced configs) the round is tensor-parallel (``_mesh_round``):
+
+* x, x-hat and m are the flat substrate's segments over the mesh's flat
+  axes (``RoundState.on_mesh``: data-major, rows padded,
+  ``sharding.rules``); ``state.flat`` holds this rank's three segments.
+* Once a round the clients' x-hat shards (``sharding.rules
+  .param_pspecs``; whole leaves where the model extent is 1) are cut from
+  the segments leaf by leaf, each leaf's range broadcast by the ranks
+  that hold it (none with one segment: the shards are views of it).
+* Each client runs local SGD on its shards (``models.transformer
+  .loss_fn(tp=)``), its batch split over "data" where ``batch_pspecs``
+  splits it (the gradients summed over "data"), else replicated. Its
+  delta is brought to this rank's segment of the global flat rows, leaf
+  by leaf over "model", and K1 encodes the segment at its global row
+  offset (the threefry dither is keyed by the global row, so the codes do
+  not depend on the mesh); K3 adds it, weighted, into ``buf``'s segment.
+* The server half runs on each segment (``server_half`` at the segment's
+  rows): the update kernel, K1's broadcast and K3's x-hat + q.
+* With ``taps`` each segment's window partials are gathered over the flat
+  group in segment order before ``round_taps``; ``on_message`` sees the
+  whole messages, the segments' codes gathered.
+
+A rank holds its segments, its shards (their gradients and the client's
+working copy) and, beyond them, at most one leaf's range or one segment
+in flight. On a (n, 1) mesh the model runs the meshless ops, and the
+round is the meshless round bit for bit.
+
+Not ported here: the pod-quantized round (ROADMAP queue A item 14d); on
+a mesh, the other families (MoE, MLA, Mamba2, the hybrid, the VLM prefix,
+audio codebooks) and the other quantizers (13b.2); each raises
 ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
@@ -118,7 +148,8 @@ from torch.profiler import record_function
 
 from repro_torch.common import prng
 from repro_torch.common.device import to_device
-from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.common.tree import (tree_flatten, tree_leaves, tree_map,
+                                     tree_unflatten)
 from repro_torch.core.qafel import QAFeLConfig, client_update_flat
 from repro_torch.core.protocol import payload_wire_bytes
 from repro_torch.core.quantizers import (QuantizerSpec, SplitFlat,
@@ -156,6 +187,41 @@ class RoundState:
     momentum: Any
     t: int = 0
     flat: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    mesh: Any = None
+
+    @staticmethod
+    def on_mesh(x, hidden, momentum, mesh, t: int = 0) -> "RoundState":
+        """A state on ``mesh``'s flat segments (``sharding.rules``): this
+        rank's segment of each tree's flat vector, zero-padded past d, in
+        the trees' one dtype, as ``flat``; ``x``, ``hidden`` and
+        ``momentum`` are trees of views of the segments where the mesh has
+        one segment, else None (``gather_tree`` assembles them)."""
+        from repro_torch.sharding.rules import (flat_padded_len,
+                                                flat_segment_index,
+                                                mesh_flat_extent)
+
+        layout = TreeLayout.of(x)
+        if len(set(layout.dtypes)) != 1:
+            raise NotImplementedError(
+                "a mixed-dtype state on a mesh (Mamba2, the hybrid) is "
+                "ROADMAP queue A item 13b.2")
+        nseg = mesh_flat_extent(mesh)
+        n_l = flat_padded_len(layout.total_size, nseg) // nseg
+        a = flat_segment_index(mesh) * n_l
+        flats = []
+        for tree in (x, hidden, momentum):
+            leaves = tree_leaves(tree)
+            seg = torch.zeros(n_l, dtype=leaves[0].dtype,
+                              device=leaves[0].device)
+            off = 0
+            for leaf, size in zip(leaves, layout.sizes):
+                lo, hi = max(off, a), min(off + size, a + n_l)
+                if lo < hi:
+                    seg[lo - a:hi - a] = leaf.reshape(-1)[lo - off:hi - off]
+                off += size
+            flats.append(seg)
+        return RoundState(*_segment_trees(layout, flats, nseg), t=t,
+                          flat=tuple(flats), mesh=mesh)
 
     @staticmethod
     def from_trees(x, hidden, momentum, t: int = 0) -> "RoundState":
@@ -179,6 +245,14 @@ class RoundState:
 
     def clone(self) -> "RoundState":
         """A copy that later rounds on this state leave untouched."""
+        if self.mesh is not None:
+            from repro_torch.sharding.rules import mesh_flat_extent
+            flats = tuple(f.clone() for f in self.flat)
+            layout = (None if self.x is None else TreeLayout.of(self.x))
+            trees = (_segment_trees(layout, flats, 1) if layout is not None
+                     and mesh_flat_extent(self.mesh) == 1
+                     else (None, None, None))
+            return RoundState(*trees, t=self.t, flat=flats, mesh=self.mesh)
         if self.flat is None:
             return RoundState(*(tree_map(torch.clone, tr) for tr in
                                 (self.x, self.hidden, self.momentum)),
@@ -190,6 +264,14 @@ class RoundState:
                  for f, tr in zip(flats, (self.x, self.hidden,
                                           self.momentum))]
         return RoundState(*trees, t=self.t, flat=flats)
+
+
+def _segment_trees(layout: TreeLayout, flats, nseg: int) -> tuple:
+    """The three trees of views of one-segment flats (None each where the
+    mesh has more segments)."""
+    if nseg != 1:
+        return None, None, None
+    return tuple(layout.unflatten(f[:layout.total_size]) for f in flats)
 
 
 def _base_dtype(layout: TreeLayout) -> str:
@@ -241,13 +323,17 @@ def _sides(state: RoundState, layout: TreeLayout) -> list:
     return out
 
 
-def init_round_state(cfg: ModelConfig, seed: int = 0,
-                     device=None) -> RoundState:
+def init_round_state(cfg: ModelConfig, seed: int = 0, device=None,
+                     mesh=None) -> RoundState:
     """Random parameters (``transformer.init_params``) as x and x-hat,
-    zero momentum, t = 0, on ``device`` (None: the card)."""
+    zero momentum, t = 0, on ``device`` (None: the card); with a ``mesh``
+    this rank's segments of them (``RoundState.on_mesh``; every rank draws
+    the same parameters from the seed)."""
     params = T.init_params(cfg, seed, device)
-    return RoundState.from_trees(params, params,
-                                 tree_map(torch.zeros_like, params))
+    zeros = tree_map(torch.zeros_like, params)
+    if mesh is not None:
+        return RoundState.on_mesh(params, params, zeros, mesh)
+    return RoundState.from_trees(params, params, zeros)
 
 
 def abstract_round_state(cfg: ModelConfig) -> RoundState:
@@ -541,7 +627,8 @@ def _fix_apply(sides, packed, norms, bits: int) -> None:
 def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
                 qcfg: QAFeLConfig, d: int,
                 chunk_rows: Optional[int] = None,
-                taps: Optional[torch.Tensor] = None, sides=()):
+                taps: Optional[torch.Tensor] = None, sides=(),
+                row0: int = 0, total_rows: Optional[int] = None):
     """The server half of the round on the flat state (x, x-hat and m:
     d values each in one dtype, f32 or bf16), in place, from the clients'
     weighted sum ``buf`` (``accumulate``), rounded where the reference's
@@ -579,6 +666,11 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
     added, and every bit is the reference's, which rounds each leaf to
     its own dtype only when it splits its f32 vector into the tree.
 
+    ``row0`` and ``total_rows`` make the state one segment of a flat
+    vector on a mesh (``_mesh_round``): its d values are the wire rows
+    ``[row0, row0 + ceil(d/128))`` of a message of ``total_rows`` rows,
+    and the broadcast's dither is keyed by those global rows.
+
     Returns the broadcast as a pair of tensors: ``(packed, norms)`` for
     qsgd, else ``_broadcast_qdq``'s ``msg``; ``buf`` ends holding the
     diff."""
@@ -606,12 +698,13 @@ def server_half(x_flat, hidden_flat, momentum_flat, buf, k_server, *,
             _shadow(sides, x_flat, hidden_flat, momentum_flat)
             return msg
         sbits = spec.bits
-        if chunk_rows is None:
+        if chunk_rows is None and total_rows is None:
             packed, norms = kops.qsgd_quantize(buf, k_server, sbits)
         else:
+            rows = _ref.rows_for(d) if chunk_rows is None else chunk_rows
             packed, norms = (t[0] for t in kops.qsgd_quantize_rows(
-                lambda a, e: buf[None, a:e], d, k_server, sbits, chunk_rows,
-                device=buf.device))
+                lambda a, e: buf[None, a:e], d, k_server, sbits, rows,
+                device=buf.device, row0=row0, total_rows=total_rows))
         _kq.qsgd_unpack_dequantize(
             packed, norms, sbits, acc=hidden_flat,
             tap_diff=None if taps is None else buf[:d],
@@ -657,16 +750,22 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
     tensors (``message_tensors``; a non-qsgd broadcast as
     ``_broadcast_qdq`` makes it); the tensors are the round's own and are
     freed or overwritten after the call, so a caller that keeps them
-    clones them."""
+    clones them.
+
+    ``mesh`` (a ("data", "model") mesh of ``launch.mesh``) runs the round
+    tensor-parallel on this rank's segments and shards (``_mesh_round``,
+    module docstring; ``check_mesh_round`` says what it refuses); the
+    returned function's ``plan`` is its ``MeshPlan``."""
     if pod_quantized:
         raise NotImplementedError("the pod-quantized round is ROADMAP queue "
                                   "A item 14d")
-    if mesh is not None:
-        raise NotImplementedError("the round on a model-parallel mesh is "
-                                  "ROADMAP queue A item 13b.2")
     if chunk_rows is not None and int(chunk_rows) <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     del podq_bits
+    if mesh is not None:
+        return _mesh_round(cfg, qcfg, mesh, remat=remat,
+                           window_override=window_override, taps=taps,
+                           chunk_rows=chunk_rows, on_message=on_message)
     cq = make_quantizer(qcfg.client_quantizer).spec
     sq = make_quantizer(qcfg.server_quantizer).spec
 
@@ -738,6 +837,358 @@ def make_qafel_round(cfg: ModelConfig, qcfg: QAFeLConfig, *,
         state.t += 1
         return state, metrics
 
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# The round on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+
+def check_mesh_round(cfg: ModelConfig, qcfg: QAFeLConfig, mesh) -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, for what the
+    round on a mesh does not port: every family but the dense attention
+    decoders, the quantizers but qsgd, and a "pod" axis."""
+    what = None
+    if cfg.use_mla:
+        what = f"MLA ({cfg.arch_id})"
+    elif cfg.n_experts:
+        what = f"the MoE layers of {cfg.arch_id} (moe_impl={cfg.moe_impl})"
+    elif any(k not in ("attn", "local", "global") for k in cfg.layer_pattern):
+        what = f"Mamba2 and the hybrid ({cfg.arch_id})"
+    elif cfg.modality == "vlm":
+        what = f"the VLM prefix ({cfg.arch_id})"
+    elif cfg.modality == "audio":
+        what = f"audio codebooks ({cfg.arch_id})"
+    elif (make_quantizer(qcfg.client_quantizer).spec.kind != "qsgd"
+          or make_quantizer(qcfg.server_quantizer).spec.kind != "qsgd"):
+        what = (f"the quantizers {qcfg.client_quantizer} / "
+                f"{qcfg.server_quantizer} (qsgd only)")
+    if what is not None:
+        raise NotImplementedError(f"the round on a model-parallel mesh: "
+                                  f"{what} is ROADMAP queue A item 13b.2")
+    if "pod" in tuple(mesh.mesh_dim_names):
+        raise NotImplementedError("a mesh with a \"pod\" axis is the "
+                                  "pod-quantized round, ROADMAP queue A "
+                                  "item 14d")
+
+
+class MeshPlan:
+    """The round's layout on ``mesh`` (``_mesh_round``): the parameters'
+    global ``layout`` (d coordinates), each leaf's spec
+    (``sharding.rules.param_pspecs``) and its shard on this rank, the
+    client's ``local_layout`` of the shards, and this rank's segment: the
+    flat coordinates ``[a, a + n_l)``, of which ``n_real`` lie below d,
+    the wire rows from ``row0`` of ``rows`` in all."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        from repro_torch.launch.mesh import flat_group, tensor_parallel
+        from repro_torch.sharding import rules as R
+
+        abstract = T.abstract_params(cfg)
+        leaves, self.treedef = tree_flatten(abstract)
+        self.layout = TreeLayout.of(abstract)
+        self.d = d = self.layout.total_size
+        self.specs = R.spec_leaves(R.param_pspecs(R.ShardingRules(mesh),
+                                                  cfg, abstract))
+        self.tp = tensor_parallel(mesh)
+        self.shard_dim = []
+        local = []
+        for leaf, spec in zip(leaves, self.specs):
+            axes = [i for i, e in enumerate(spec) if R.spec_axes(e)]
+            if any(R.spec_axes(spec[i]) != ("model",) for i in axes):
+                raise NotImplementedError(
+                    f"a spec {spec} on a mesh: FSDP and expert parallelism "
+                    "are ROADMAP queue A item 13b.2")
+            dim = axes[0] if axes and self.tp.size > 1 else None
+            self.shard_dim.append(dim)
+            shape = list(leaf.shape)
+            if dim is not None:
+                shape[dim] //= self.tp.size
+            local.append(torch.empty(shape, dtype=leaf.dtype,
+                                     device="meta"))
+        self.local_layout = TreeLayout.of(tree_unflatten(self.treedef,
+                                                         local))
+        self.offsets = np.concatenate([[0], np.cumsum(self.layout.sizes)])
+        self.local_offsets = np.concatenate(
+            [[0], np.cumsum(self.local_layout.sizes)])
+        self.nseg = R.mesh_flat_extent(mesh)
+        self.seg = R.flat_segment_index(mesh)
+        self.n_l = R.flat_padded_len(d, self.nseg) // self.nseg
+        self.a = self.seg * self.n_l
+        self.n_real = max(0, min(self.n_l, d - self.a))
+        self.rows = _ref.rows_for(d)
+        self.row0 = self.a // _ref.LANES
+        self.group = flat_group(mesh) if self.nseg > 1 else None
+
+    def leaf(self, seg: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's flat values from the segments ``seg`` (this rank's):
+        a view of it with one segment, else the leaf's range broadcast
+        piece by piece by the ranks that hold it (a collective of the
+        flat group)."""
+        off, size = int(self.offsets[i]), self.layout.sizes[i]
+        if self.nseg == 1:
+            return seg[off:off + size]
+        import torch.distributed as dist
+
+        out = torch.empty(size, dtype=seg.dtype, device=seg.device)
+        for s in range(off // self.n_l, -(-(off + size) // self.n_l)):
+            lo, hi = max(off, s * self.n_l), min(off + size,
+                                                 (s + 1) * self.n_l)
+            piece = out[lo - off:hi - off]
+            if s == self.seg:
+                piece.copy_(seg[lo - self.a:hi - self.a])
+            dist.broadcast(piece, src=dist.get_global_rank(self.group, s),
+                           group=self.group)
+        return out
+
+    def shard(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's shard of leaf i from its flat values."""
+        t = full.view(self.layout.shapes[i])
+        dim = self.shard_dim[i]
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.tp.size
+        return t.narrow(dim, self.tp.rank * n, n)
+
+    def client_flat(self, seg: torch.Tensor) -> torch.Tensor:
+        """The clients' x-hat shards as one flat vector in
+        ``local_layout``: with one segment, a view of it; else cut leaf by
+        leaf (one leaf in flight)."""
+        if self.nseg == 1:
+            return seg[:self.d]
+        out = torch.empty(self.local_layout.total_size, dtype=seg.dtype,
+                          device=seg.device)
+        for i in range(len(self.layout.sizes)):
+            lo, hi = self.local_offsets[i], self.local_offsets[i + 1]
+            out[lo:hi] = self.shard(self.leaf(seg, i), i).reshape(-1)
+        return out
+
+    def segment_rows(self, delta) -> Callable:
+        """``rows_fn(a, e)`` of the client's delta (``core.qafel
+        .DeltaRows`` in ``local_layout``) on this rank's segment: the
+        (1, e - a) f32 values of the segment's elements ``[a, e)``.
+        With one "model" rank the shards are the leaves and the rows are
+        formed on request; else each leaf's delta is gathered over
+        "model" (one leaf in flight) into the segment's f32 values."""
+        if self.tp.size == 1:
+            return lambda a, e: delta.rows(self.a + a, self.a + e)[None]
+        from repro_torch.launch.mesh import all_gather_cat
+
+        seg = torch.zeros(self.n_real, dtype=torch.float32,
+                          device=delta.x_hat_flat.device)
+        for i in range(len(self.layout.shapes)):
+            lo, hi = self.local_offsets[i], self.local_offsets[i + 1]
+            part = delta.rows(int(lo), int(hi)).view(
+                self.local_layout.shapes[i])
+            dim = self.shard_dim[i]
+            full = (part if dim is None
+                    else all_gather_cat(part, dim, self.tp.group)).reshape(-1)
+            off = int(self.offsets[i])
+            a, b = max(off, self.a), min(off + full.numel(),
+                                         self.a + self.n_real)
+            if a < b:
+                seg[a - self.a:b - self.a] = full[a - off:b - off]
+            del part, full
+        return lambda a, e: seg[None, a:e]
+
+    def full_message(self, packed: torch.Tensor, norms: torch.Tensor):
+        """The whole message's codes and norms from each segment's (its
+        rows below ``rows``; a segment's padding rows zero)."""
+        pad = self.n_l // _ref.LANES - packed.shape[0]
+        if pad:
+            packed = torch.cat([packed, packed.new_zeros(
+                (pad,) + tuple(packed.shape[1:]))])
+            norms = torch.cat([norms, norms.new_zeros(pad)])
+        return self.gather(packed)[:self.rows], self.gather(norms)[:self.rows]
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every segment's ``t`` concatenated along ``dim`` in segment
+        order (``t`` itself with one segment)."""
+        if self.nseg == 1:
+            return t
+        from repro_torch.launch.mesh import all_gather_cat
+        return all_gather_cat(t, dim, self.group)
+
+    def batch_split(self, batch: Dict[str, torch.Tensor]) -> bool:
+        """Whether ``batch_pspecs(batch_dim=2)`` splits the local batch
+        over "data"."""
+        from types import SimpleNamespace
+
+        from repro_torch.sharding.rules import ShardingRules, batch_pspecs
+        if self.tp.data_size == 1:
+            return False
+        rules = ShardingRules(SimpleNamespace(
+            mesh_dim_names=("data", "model"),
+            shape=(self.tp.data_size, self.tp.size)))
+        specs = batch_pspecs(rules, batch, batch_dim=2)
+        return any(len(sp) > 2 and sp[2] is not None
+                   for sp in tree_leaves(specs) if isinstance(sp, tuple))
+
+
+def gather_tree(state: RoundState, name: str, plan: "MeshPlan"):
+    """One of a mesh state's trees (``"x"``, ``"hidden"``,
+    ``"momentum"``) assembled leaf by leaf on every rank of the flat group
+    (a collective; one leaf in flight beside the result)."""
+    i = ("x", "hidden", "momentum").index(name)
+    seg = state.flat[i]
+    leaves = [plan.leaf(seg, j).clone().view(shape)
+              for j, shape in enumerate(plan.layout.shapes)]
+    return tree_unflatten(plan.treedef, leaves)
+
+
+def _segment_server(plan: MeshPlan, state: RoundState, buf, w, k_server,
+                    *, qcfg: QAFeLConfig, chunk_rows: Optional[int],
+                    taps: bool) -> tuple:
+    """``server_half`` on this rank's segment from its weighted sum
+    ``buf``, at the segment's global rows; with ``taps`` the segments'
+    window partials gathered in segment order and finished
+    (``round_taps``). Returns the segment's broadcast codes and norms
+    and the (7,) taps or None."""
+    x_seg, h_seg, m_seg = state.flat
+    n, dev = plan.n_real, buf.device
+    tw = _ref.tap_windows(n)
+    partials = (torch.zeros((_ref.ROUND_TAP_SUMS, tw), dtype=torch.float32,
+                            device=dev) if taps else None)
+    if n:
+        packed, norms = server_half(
+            x_seg[:n], h_seg[:n], m_seg[:n], buf, k_server, qcfg=qcfg, d=n,
+            chunk_rows=chunk_rows, taps=partials, row0=plan.row0,
+            total_rows=plan.rows)
+    else:
+        bits = make_quantizer(qcfg.server_quantizer).spec.bits
+        packed = torch.zeros((0, 16 * bits), dtype=torch.uint8, device=dev)
+        norms = torch.zeros(0, dtype=torch.float32, device=dev)
+    if partials is None:
+        return packed, norms, None
+    seg_windows = plan.n_l // _ref.XLA_WINDOW
+    if seg_windows != tw:
+        partials = torch.cat([partials, partials.new_zeros(
+            (_ref.ROUND_TAP_SUMS, seg_windows - tw))], dim=1)
+    partials = plan.gather(partials, dim=1)[
+        :, :_ref.tap_windows(plan.d)].contiguous()
+    with record_function("server"):
+        return packed, norms, round_taps(partials, w)
+
+
+def mesh_server_half(plan: MeshPlan, state: RoundState, uploads, weights,
+                     k_server, *, qcfg: QAFeLConfig,
+                     chunk_rows: Optional[int] = None,
+                     taps: bool = False) -> tuple:
+    """The mesh round's server half fed whole upload messages (``uploads``:
+    (packed, norms) pairs of d values each, as ``on_message`` shows them):
+    each message's rows of this rank's segment added, weighted, into its
+    ``buf`` segment (K3), then ``_segment_server``; ``state`` (on the
+    mesh) updated in place. Returns the whole broadcast (codes, norms) and
+    the taps or None."""
+    dev = state.flat[0].device
+    w = to_device(torch.as_tensor(weights, dtype=torch.float32), dev)
+    bits = make_quantizer(qcfg.client_quantizer).spec.bits
+    n = plan.n_real
+    r0, r1 = plan.row0, plan.row0 + _ref.rows_for(n)
+    buf = torch.zeros(plan.n_l, dtype=torch.float32, device=dev)
+    for k, (packed, norms) in enumerate(uploads):
+        if n:
+            accumulate(buf[:n], packed[r0:r1].contiguous(),
+                       norms[r0:r1].contiguous(), w[k:k + 1], bits=bits,
+                       d=n)
+    packed, norms, tap = _segment_server(plan, state, buf, w, k_server,
+                                         qcfg=qcfg, chunk_rows=chunk_rows,
+                                         taps=taps)
+    return plan.full_message(packed, norms), tap
+
+
+def _mesh_round(cfg: ModelConfig, qcfg: QAFeLConfig, mesh, *, remat: bool,
+                window_override: Optional[int], taps: bool,
+                chunk_rows: Optional[int],
+                on_message: Optional[Callable]) -> Callable:
+    """``make_qafel_round(mesh=)``'s round function (module docstring);
+    its ``plan`` attribute is the ``MeshPlan``."""
+    from repro_torch.core.qafel import client_update
+    from repro_torch.launch.mesh import copy_to_data
+
+    check_mesh_round(cfg, qcfg, mesh)
+    plan = MeshPlan(cfg, mesh)
+    if taps and plan.nseg > 1 and plan.d % _ref.XLA_WINDOW:
+        raise NotImplementedError(
+            "the round's taps on a mesh need d a multiple of 32 (no tap "
+            "window across two segments); ROADMAP queue A item 13b.2")
+    bits = make_quantizer(qcfg.client_quantizer).spec.bits
+    sbits = make_quantizer(qcfg.server_quantizer).spec.bits
+    n = plan.n_real
+    upload_bytes, broadcast_bytes = (payload_wire_bytes(packed_qsgd_payload(
+        None, None, b, plan.d, plan.layout)) for b in (bits, sbits))
+    # wire rows an upload encode takes at a time (the segment's whole)
+    upload_rows = (max(1, _ref.rows_for(n)) if chunk_rows is None
+                   else chunk_rows)
+
+    def round_fn(state: RoundState, batch: Dict[str, torch.Tensor],
+                 weights, key):
+        k_clients, k_server = prng.split(key)
+        if state.mesh is None:  # a meshless state, placed once
+            state = RoundState.on_mesh(state.x, state.hidden,
+                                       state.momentum, mesh, state.t)
+        dev = state.flat[0].device
+        w = to_device(torch.as_tensor(weights, dtype=torch.float32), dev)
+        ckeys = prng.split(k_clients, qcfg.buffer_size)
+        split = plan.batch_split(batch)
+        tp = plan.tp if split else dataclasses.replace(
+            plan.tp, data_size=1, data_rank=0, data_group=None)
+
+        def loss(params, b, key):
+            del key
+            if split:
+                params = tree_map(lambda p: copy_to_data(p, tp), params)
+            return T.loss_fn(cfg, params, b, remat=remat,
+                             window_override=window_override, tp=tp)[0]
+
+        def rows_of(v):
+            if not split:
+                return v
+            m = v.shape[1] // tp.data_size
+            return v[:, tp.data_rank * m:(tp.data_rank + 1) * m]
+
+        client_hidden = plan.client_flat(state.flat[1])
+        buf = torch.zeros(plan.n_l, dtype=torch.float32, device=dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for k in range(qcfg.buffer_size):
+            k_train, k_enc = prng.split(ckeys[k])
+            batches_k = {name: rows_of(v[k]) for name, v in batch.items()}
+            with record_function("client"):
+                delta, losses = client_update(
+                    loss, qcfg, plan.local_layout, client_hidden, batches_k,
+                    k_train, with_loss=True, remat=remat, streamed=True)
+                rows_fn = plan.segment_rows(delta)
+                packed, norms = (t[0] for t in kops.qsgd_quantize_rows(
+                    rows_fn, n, k_enc, bits, upload_rows, device=dev,
+                    row0=plan.row0, total_rows=plan.rows))
+                del delta, rows_fn
+            if on_message is not None:
+                on_message("upload", k, *plan.full_message(packed, norms))
+            with record_function("accumulate"):
+                if n:
+                    accumulate(buf[:n], packed, norms, w[k:k + 1],
+                               bits=bits, d=n)
+            del packed, norms
+            loss_sum = loss_sum + losses.mean()
+        del client_hidden
+        packed, norms, tap = _segment_server(
+            plan, state, buf, w, k_server, qcfg=qcfg, chunk_rows=chunk_rows,
+            taps=taps)
+        del buf
+        if on_message is not None:
+            on_message("broadcast", qcfg.buffer_size,
+                       *plan.full_message(packed, norms))
+        del packed, norms
+        metrics = {"loss": loss_sum / qcfg.buffer_size,
+                   "upload_bytes": upload_bytes,
+                   "broadcast_bytes": broadcast_bytes}
+        if tap is not None:
+            metrics["taps"] = tap
+        state.t += 1
+        return state, metrics
+
+    round_fn.plan = plan
     return round_fn
 
 

@@ -108,7 +108,7 @@ def qsgd_encode_chunks(rows_fn, n: int, keys, bits: int, chunk_rows: int,
 
 def qsgd_quantize_rows(rows_fn, n: int, keys, bits: int, chunk_rows: int, *,
                        device, b: int = 1, threefry: bool = True,
-                       row0: int = 0):
+                       row0: int = 0, total_rows=None):
     """The whole (B, rows) message stack of ``qsgd_encode_chunks`` (same
     arguments; ``b`` the stack's B): only the codes and the norms exist
     whole. Returns ``(packed (b, rows, 16*bits), norms (b, rows))``, bit
@@ -119,7 +119,8 @@ def qsgd_quantize_rows(rows_fn, n: int, keys, bits: int, chunk_rows: int, *,
     norms = torch.empty((b, rows), dtype=torch.float32, device=device)
     for r0, r1, p, nm in qsgd_encode_chunks(rows_fn, n, keys, bits,
                                             chunk_rows, threefry=threefry,
-                                            row0=row0):
+                                            row0=row0,
+                                            total_rows=total_rows):
         packed[:, r0:r1], norms[:, r0:r1] = p, nm
     return packed, norms
 

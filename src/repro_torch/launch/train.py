@@ -1,8 +1,12 @@
 """Training launcher: QAFeL rounds for an architecture on one device.
 
 The port of ``repro/launch/train.py``, with its flags and ``--device``
-(None: the card). The reference builds a host mesh, which on one card is
-one device, so the port builds none. Each round is one call of
+(None: the card). Under an initialised ``torch.distributed`` process
+group it takes the reference's mesh (``launch.mesh.make_host_mesh()``
+below 256 ranks, ``make_production_mesh()`` at 256) and runs the round
+on it (``make_qafel_round(mesh=)``, the state on the mesh's flat
+segments; a rank outside the mesh returns at once); without a group it
+builds none. Each round is one call of
 ``distributed.steps.make_qafel_round(cfg, qcfg, remat=False)`` on
 ``global_batch // (K * local_steps)`` sequences per client and local
 step, the tokens from the reference's numpy stream
@@ -44,7 +48,8 @@ from repro_torch.common.device import resolve_device, to_device
 from repro_torch.core.qafel import QAFeLConfig
 from repro_torch.core.staleness import staleness_weight
 from repro_torch.data.synthetic import check_seq, synthetic_batch_for_config
-from repro_torch.distributed.steps import (RoundState, init_round_state,
+from repro_torch.distributed.steps import (RoundState, gather_tree,
+                                           init_round_state,
                                            make_qafel_round)
 
 CHUNK_ROWS = 1 << 20  # wire rows per encode chunk (bit-invisible)
@@ -99,6 +104,20 @@ def round_batch(cfg, qcfg: QAFeLConfig, rng: np.random.Generator,
         (k, p, local) + v.shape[1:]), device) for name, v in b.items()}
 
 
+def launcher_mesh():
+    """The reference's choice of mesh under an initialised process group
+    (``make_host_mesh()`` below 256 ranks, ``make_production_mesh()`` at
+    256), else None."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return (make_host_mesh() if dist.get_world_size() < 256
+            else make_production_mesh())
+
+
 def run(args: argparse.Namespace,
         state: Optional[RoundState] = None) -> dict:
     """The launcher's loop. ``state`` (e.g. the reference's, carried
@@ -117,11 +136,15 @@ def run(args: argparse.Namespace,
         raise ValueError(f"--global-batch {args.global_batch} is below K * "
                          f"local steps = "
                          f"{qcfg.buffer_size * qcfg.local_steps}")
+    mesh = launcher_mesh()
+    if mesh is not None and mesh.get_coordinate() is None:
+        return {"state": None, "losses": torch.zeros(0), "metrics": {},
+                "checkpoint": None, "seconds": 0.0, "mesh": mesh}
     round_fn = make_qafel_round(cfg, qcfg, remat=False,
-                                chunk_rows=CHUNK_ROWS)
+                                chunk_rows=CHUNK_ROWS, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     if state is None:
-        state = init_round_state(cfg, args.seed, dev)
+        state = init_round_state(cfg, args.seed, dev, mesh=mesh)
     weights = to_device(staleness_weight(torch.zeros(qcfg.buffer_size)), dev)
     losses, metrics = [], {}
     t0 = time.time()
@@ -137,12 +160,16 @@ def run(args: argparse.Namespace,
     seconds = time.time() - t0
     path = None
     if args.checkpoint_dir:
-        path = save_checkpoint(args.checkpoint_dir, args.steps,
-                               {"x": state.x}, {"arch": args.arch})
-        print("checkpoint:", path)
+        x = state.x
+        if x is None:  # segments over several ranks: x leaf by leaf
+            x = gather_tree(state, "x", round_fn.plan)
+        if mesh is None or round_fn.plan.seg == 0:
+            path = save_checkpoint(args.checkpoint_dir, args.steps,
+                                   {"x": x}, {"arch": args.arch})
+            print("checkpoint:", path)
     return {"state": state, "losses": torch.stack(losses) if losses else
             torch.zeros(0), "metrics": metrics, "checkpoint": path,
-            "seconds": seconds}
+            "seconds": seconds, "mesh": mesh}
 
 
 def main(argv=None) -> dict:

@@ -7,6 +7,15 @@ flash-attention recurrence in plain torch, the reference's order of
 blocks), so the S x S logit matrix is never materialized. The logits,
 softmax and value sums run in f32.
 
+On a mesh's "model" axis (``attention_train(tp=)``, more than one
+rank) the projections are this rank's shards by ``sharding.rules``
+(``_attention_tp``): where the rule splits the query heads whole over the
+ranks, each rank attends with its own query heads (and its own KV heads
+where those divide too, else all of them, gathered); where it cuts a
+flattened heads x head_dim dim that the head count does not divide, the
+projections are gathered over "model" before their reshape (as GSPMD
+does) and every rank attends with every head; ``wo`` is row-parallel.
+
 Serving: ``init_attn_cache`` (a per-layer KV cache; with a window, a ring
 buffer of ``min(window, max_len)`` slots), ``prefill_into_cache`` and
 ``attention_decode`` (one token against the cache, the logits and p.V in
@@ -22,7 +31,9 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.models.layers import (apply_rope, column_parallel,
+                                       dense_init, rms_norm, row_parallel,
+                                       softcap, tp_active)
 
 NEG_INF = -2.0e38
 
@@ -166,13 +177,96 @@ def _masked_out(i: int, j: int, q_block: int, kv_block: int,
     return k_lo > q_hi or (window is not None and k_hi <= q_lo - window)
 
 
+def _heads(cfg: ModelConfig, t: torch.Tensor, n: int, scale,
+           positions: torch.Tensor, rotate: bool = True) -> torch.Tensor:
+    """A projection's (B, S, n * hd) as (B, S, n, hd) heads, qk-normed by
+    ``scale`` (None: no norm) and rotated (``rotate``), as
+    ``_project_qkv`` orders them."""
+    b, s, _ = t.shape
+    t = t.reshape(b, s, n, cfg.hd)
+    if cfg.qk_norm and scale is not None:
+        t = rms_norm(t, scale, cfg.rms_eps)
+    return apply_rope(t, positions, cfg.rope_theta) if rotate else t
+
+
+def _attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
+                  positions: torch.Tensor, *, window: Optional[int],
+                  q_block: int, kv_block: int, tp) -> torch.Tensor:
+    """``attention_train`` on this rank's shards (module docstring): x
+    replicated over "model", the output summed over it. A replicated
+    tensor (a norm scale, a gathered projection) that enters this rank's
+    heads passes ``copy_to_model``, so its gradient sums the ranks'."""
+    from repro_torch.launch import mesh as M
+
+    b, s, _ = x.shape
+    h, kv, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.hd, tp.size
+    norm = {n: params.get(n + "_norm") if cfg.qk_norm else None
+            for n in ("q", "k")}
+    xc = M.copy_to_model(x, tp)
+    proj = {}
+    for name, n in (("q", h), ("k", kv), ("v", kv)):
+        t, sharded = column_parallel(x, params["w" + name], n * hd, tp, xc)
+        if cfg.attn_bias:
+            bias = params["b" + name]
+            t = t + (M.split_to_model(bias, -1, tp) if sharded else bias)
+        proj[name] = (t, sharded)
+    local = lambda v: None if v is None else M.copy_to_model(v, tp)
+    q, q_sharded = proj["q"]
+    if q_sharded and h % m == 0:  # this rank's query heads
+        hl = h // m
+        q = _heads(cfg, q, hl, local(norm["q"]), positions)
+        k, v = proj["k"][0], proj["v"][0]
+        if proj["k"][1] and kv % m == 0:
+            k = _heads(cfg, k, kv // m, local(norm["k"]), positions)
+            v = _heads(cfg, v, kv // m, None, positions, rotate=False)
+        else:  # every KV head, then those of this rank's query heads
+            if proj["k"][1]:
+                k, v = (M.gather_from_model(t, -1, tp) for t in (k, v))
+            k = M.copy_to_model(_heads(cfg, k, kv, norm["k"], positions),
+                                tp)
+            v = M.copy_to_model(_heads(cfg, v, kv, None, positions,
+                                       rotate=False), tp)
+            g = h // kv
+            first = tp.rank * hl
+            if hl % g == 0:
+                keep = torch.arange(first // g, (first + hl) // g)
+            elif g % hl == 0:
+                keep = torch.tensor([first // g])
+            else:
+                keep = torch.arange(first, first + hl) // g
+            keep = keep.to(x.device)
+            k, v = k.index_select(2, keep), v.index_select(2, keep)
+        sharded = True
+    else:  # every head on every rank
+        full = [M.gather_from_model(t, -1, tp) if sh else t
+                for t, sh in (proj["q"], proj["k"], proj["v"])]
+        q = _heads(cfg, full[0], h, norm["q"], positions)
+        k = _heads(cfg, full[1], kv, norm["k"], positions)
+        v = _heads(cfg, full[2], kv, None, positions, rotate=False)
+        sharded = False
+    out = blockwise_attention(
+        q, k, v, positions, positions, window=window,
+        scale=_logit_scale(cfg), attn_softcap=cfg.attn_softcap,
+        q_block=min(q_block, s), kv_block=min(kv_block, s))
+    return row_parallel(out.reshape(b, s, -1), params["wo"], sharded, tp)
+
+
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
                     kv_block: int = 512, return_kv: bool = False,
-                    folded_rope: bool = True):
+                    folded_rope: bool = True, tp=None):
     """Self-attention over a full sequence (training). x: (B, S, D);
-    ``folded_rope=False`` rotates by the eager reference's frequencies."""
+    ``folded_rope=False`` rotates by the eager reference's frequencies.
+    ``tp`` (``launch.mesh.TensorParallel``): the parameters are this
+    rank's shards on a "model" axis of more than one rank
+    (``_attention_tp``)."""
+    if tp_active(tp):
+        if return_kv or not folded_rope:
+            raise NotImplementedError(
+                "serving on a mesh is ROADMAP queue A item 13b.2")
+        return _attention_tp(cfg, params, x, positions, window=window,
+                             q_block=q_block, kv_block=kv_block, tp=tp)
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions, folded_rope)
     out = blockwise_attention(

@@ -5,6 +5,12 @@ Counterpart of ``repro/models/layers.py``. Images are channel-last
 activation dtype, as the reference does; a matrix product runs in its
 operands' dtype (``torch.einsum``: f32 in, or bf16 in with f32
 accumulation on the card).
+
+On a mesh's "model" axis (``tp``, a ``launch.mesh.TensorParallel`` of
+more than one rank) the products take this rank's shards by
+``sharding.rules.param_pspecs`` (``column_parallel``, ``row_parallel``,
+``gated_mlp``) and the loss's ``logsumexp`` runs over the vocabulary
+shards (``sharded_logsumexp``); with one rank they are the meshless ops.
 """
 from __future__ import annotations
 
@@ -199,13 +205,66 @@ def _act(name: str):
             "relu": torch.relu}[name]
 
 
-def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def tp_active(tp) -> bool:
+    """Whether ``tp`` (a ``launch.mesh.TensorParallel`` or None) splits
+    the model over more than one "model" rank."""
+    return tp is not None and tp.size > 1
+
+
+def column_parallel(x: torch.Tensor, w: torch.Tensor, n_out: int, tp,
+                    xc: Optional[torch.Tensor] = None):
+    """``x @ w`` for a column-parallel weight of global shape (d, n_out)
+    and this rank's shard ``w`` of it, ``x`` (..., d) replicated over
+    "model": ``(y, sharded)``. Sharded on its output dim (``w`` (d, n_out
+    / m)), y is this rank's slice of the output (``sharded``), from
+    ``xc``, ``x`` through ``launch.mesh.copy_to_model``; on its input dim
+    (the rule's fallback, ``w`` (d / m, n_out)), the product of this
+    rank's slice of x, summed over "model"; whole, the meshless product.
+    Without ``tp`` the meshless product."""
+    from repro_torch.launch import mesh as M
+
+    if not tp_active(tp) or (w.shape[-1] == n_out
+                          and w.shape[0] == x.shape[-1]):
+        return torch.einsum("...d,de->...e", x, w), False
+    if w.shape[-1] != n_out:
+        xc = M.copy_to_model(x, tp) if xc is None else xc
+        return torch.einsum("...d,de->...e", xc, w), True
+    return M.reduce_from_model(torch.einsum(
+        "...d,de->...e", M.split_to_model(x, -1, tp), w), tp), False
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, sharded: bool,
+                 tp) -> torch.Tensor:
+    """``h @ w`` for a row-parallel weight and this rank's shard ``w``:
+    ``h`` this rank's slice of the input (``sharded``, ``w`` its rows)
+    or replicated; a product of row shards is summed over "model"."""
+    from repro_torch.launch import mesh as M
+
+    if not tp_active(tp) or (not sharded and w.shape[0] == h.shape[-1]):
+        return torch.einsum("...f,fd->...d", h, w)
+    if not sharded:
+        h = M.split_to_model(h, -1, tp)
+    return M.reduce_from_model(torch.einsum("...f,fd->...d", h, w), tp)
+
+
+def gated_mlp(params, x: torch.Tensor, act: str = "silu", *, tp=None,
+              d_ff: Optional[int] = None) -> torch.Tensor:
     """SwiGLU-style gated MLP: down(act(gate(x)) * up(x)), the activation
-    in f32."""
-    g = torch.einsum("...d,df->...f", x, params["w_gate"])
-    u = torch.einsum("...d,df->...f", x, params["w_up"])
+    in f32. With ``tp`` (more than one "model" rank) the weights are this
+    rank's shards of a ``d_ff``-wide MLP (``column_parallel``,
+    ``row_parallel``)."""
+    if not tp_active(tp):
+        g = torch.einsum("...d,df->...f", x, params["w_gate"])
+        u = torch.einsum("...d,df->...f", x, params["w_up"])
+        h = _act(act)(g.to(torch.float32)).to(x.dtype) * u
+        return torch.einsum("...f,fd->...d", h, params["w_down"])
+    from repro_torch.launch import mesh as M
+
+    xc = M.copy_to_model(x, tp)
+    g, sharded = column_parallel(x, params["w_gate"], d_ff, tp, xc)
+    u, _ = column_parallel(x, params["w_up"], d_ff, tp, xc)
     h = _act(act)(g.to(torch.float32)).to(x.dtype) * u
-    return torch.einsum("...f,fd->...d", h, params["w_down"])
+    return row_parallel(h, params["w_down"], sharded, tp)
 
 
 def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -297,6 +356,45 @@ def logsumexp(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
     backward ``g * exp(a - out)``, whose last bits the QAFeL rounds
     amplify (ROADMAP queue C)."""
     return _LogSumExp.apply(a.movedim(dim, -1))[0]
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """``_LogSumExp`` over the last axis split across a group (the
+    vocabulary shards of "model"): the row maximum is the group's max, the
+    ``exp`` sum each rank's ``xla_sum`` of its shard summed over the group;
+    the gradient ``(g / sum) * exp(a - m)`` of this rank's shard."""
+
+    @staticmethod
+    def forward(a, group):
+        import torch.distributed as dist
+
+        m = a.amax(dim=-1, keepdim=True).contiguous()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = xla_sum(_ksilu.xla_exp(a, m), -1)[..., None].contiguous()
+        dist.all_reduce(total, group=group)
+        return (_log(total) + m)[..., 0], m, total
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, m, total = output
+        ctx.mark_non_differentiable(m, total)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(inputs[0], m, total)
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gt):
+        a, m, total = ctx.saved_tensors
+        return (g[..., None] / total) * _XlaExp.apply(a, m), None
+
+
+def sharded_logsumexp(a: torch.Tensor, tp) -> torch.Tensor:
+    """``logsumexp`` over the last axis of f32 ``a``, this rank's shard of
+    the axis over "model" (``tp``; the meshless ``logsumexp`` with one
+    rank)."""
+    if not tp_active(tp):
+        return logsumexp(a, -1)
+    return _ShardedLogSumExp.apply(a, tp.group)[0]
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -50,6 +50,18 @@ reference, the prefix layers come on top of the ``n_layers`` routed ones.
 Decode's MoE takes ``decode_capacity_factor`` (None: ``n_experts /
 experts_per_token``, no drops). ``moe_impl="ep"`` is ROADMAP queue A item
 13b.2 and raises naming it.
+
+**On a mesh** (``loss_fn(tp=)``, a ``launch.mesh.TensorParallel`` of more
+than one "model" rank): the dense attention decoders run on this rank's
+shards by ``sharding.rules.param_pspecs`` (``attention.attention_train``,
+``layers.gated_mlp``); the embedding's vocabulary rows are this rank's
+(the lookup of the others masked to zero, then summed over "model"), the
+logits stay split over the vocabulary, and ``_chunked_xent`` takes the
+row maximum and the ``exp`` sum over "model" (``layers
+.sharded_logsumexp``) and the gold logit from the rank that holds it.
+With a batch split over "data" (``tp.data_size``) the loss's sum and
+count are summed over "data". With one rank on each axis every op is the
+meshless one.
 """
 from __future__ import annotations
 
@@ -67,7 +79,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed_init, gated_mlp,
                                        init_gated_mlp, logsumexp, rms_norm,
-                                       softcap)
+                                       sharded_logsumexp, softcap,
+                                       tp_active)
 
 ATTN_KINDS = ("attn", "local", "global", "attn_shared")
 KINDS = ATTN_KINDS + ("mamba",)
@@ -210,18 +223,24 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor):
 
 def _attn_sublayer(cfg: ModelConfig, p, h: torch.Tensor,
                    positions: torch.Tensor, *, window, aux,
-                   q_block: int, kv_block: int):
+                   q_block: int, kv_block: int, tp=None):
     """Pre-norm attention (or MLA) and MLP (or MoE, its aux added to
-    ``aux``) with residuals (gemma: post-norms too)."""
+    ``aux``) with residuals (gemma: post-norms too); ``tp`` as in
+    ``loss_fn``."""
     a_in = _norm(cfg, h, p["ln1"])
-    attend = mla_lib.mla_train if cfg.use_mla else attn_lib.attention_train
-    a = attend(cfg, p["attn"], a_in, positions, window=window,
-               q_block=q_block, kv_block=kv_block)
-    return _ffn_sublayer(cfg, p, h, a, aux, cfg.capacity_factor)
+    if cfg.use_mla:
+        a = mla_lib.mla_train(cfg, p["attn"], a_in, positions,
+                              window=window, q_block=q_block,
+                              kv_block=kv_block)
+    else:
+        a = attn_lib.attention_train(cfg, p["attn"], a_in, positions,
+                                     window=window, q_block=q_block,
+                                     kv_block=kv_block, tp=tp)
+    return _ffn_sublayer(cfg, p, h, a, aux, cfg.capacity_factor, tp=tp)
 
 
 def _ffn_sublayer(cfg: ModelConfig, p, h: torch.Tensor, a: torch.Tensor,
-                  aux, capacity_factor: float):
+                  aux, capacity_factor: float, tp=None):
     """The block's second half after its attention output ``a``: the
     residual, then the MLP or the MoE at ``capacity_factor`` (its aux
     added to ``aux`` unless that is None, as in serving)."""
@@ -234,7 +253,7 @@ def _ffn_sublayer(cfg: ModelConfig, p, h: torch.Tensor, a: torch.Tensor,
         if aux is not None:
             aux = aux + moe_aux
     else:
-        f = gated_mlp(p["mlp"], f_in, cfg.mlp_act)
+        f = gated_mlp(p["mlp"], f_in, cfg.mlp_act, tp=tp, d_ff=cfg.d_ff)
     if cfg.norm_scale_plus_one:
         f = _norm(cfg, f, p["post_ln2"])
     return h + f, aux
@@ -247,18 +266,37 @@ def _window_for(cfg: ModelConfig, kind: str,
     return window_override  # None for full attention
 
 
-def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
+def _vocab_lookup(embed: torch.Tensor, tok: torch.Tensor, vocab: int,
+                  tp) -> torch.Tensor:
+    """``embed[tok]`` for this rank's rows ``embed`` of a (vocab, D) table
+    split over "model": the other ranks' tokens looked up as zeros, then
+    the sum over "model"."""
+    n = embed.shape[0]
+    if not tp_active(tp) or n == vocab:
+        return embed[tok]
+    from repro_torch.launch.mesh import reduce_from_model
+
+    local = tok - tp.rank * n
+    own = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return reduce_from_model(
+        torch.where(own[..., None], rows, torch.zeros_like(rows)), tp)
+
+
+def _embed_inputs(cfg: ModelConfig, params, inputs,
+                  tp=None) -> torch.Tensor:
     """The token embeddings: audio sums the codebooks' (B, S, D)
     embeddings with Python's ``sum``, as the reference does: ((0 + e0) +
     e1) + ..., each add rounded to the parameters' dtype (as the eager
     and the jitted reference round it); a VLM puts ``patch_embeddings``,
-    cast to that dtype, in front of the text's."""
+    cast to that dtype, in front of the text's. ``tp``: the vocabulary
+    split over "model" (``_vocab_lookup``)."""
     tok = inputs["tokens"].long()
     if cfg.modality == "audio":  # tok (B, S, CB), embed (CB, V, D)
         h = sum(params["embed"][c][tok[:, :, c]]
                 for c in range(cfg.audio_codebooks))
     else:
-        h = params["embed"][tok]
+        h = _vocab_lookup(params["embed"], tok, cfg.vocab, tp)
         if cfg.modality == "vlm" and "patch_embeddings" in inputs:
             h = torch.cat([inputs["patch_embeddings"].to(h.dtype), h], dim=1)
     if cfg.norm_scale_plus_one:  # gemma: scale embeddings by sqrt(d)
@@ -269,14 +307,15 @@ def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, inputs, *,
             window_override: Optional[int] = None, remat: bool = True,
-            q_block: int = 512, kv_block: int = 512):
+            q_block: int = 512, kv_block: int = 512, tp=None):
     """Full-sequence forward. Returns (final-normed hidden (B, S, D), aux);
     the logits are taken chunked by ``loss_fn`` / ``logits_fn``.
     ``remat`` recomputes each super-block in the backward pass
     (``torch.utils.checkpoint``); it runs under ``torch.autograd``, not
-    under ``torch.func.grad``, so the round's local SGD takes it off."""
+    under ``torch.func.grad``, so the round's local SGD takes it off.
+    ``tp`` as in ``loss_fn``."""
     _check_config(cfg)
-    h = _embed_inputs(cfg, params, inputs)
+    h = _embed_inputs(cfg, params, inputs, tp)
     s = h.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -292,7 +331,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
                 cfg, shared if kind == "attn_shared"
                 else layer_slice[f"pos{i}_{kind}"], h, positions,
                 window=_window_for(cfg, kind, window_override), aux=aux,
-                q_block=q_block, kv_block=kv_block)
+                q_block=q_block, kv_block=kv_block, tp=tp)
         return h, aux
 
     def prefix_block(h, aux, p):
@@ -325,25 +364,45 @@ def forward(cfg: ModelConfig, params, inputs, *,
     return _norm(cfg, h, params["final_norm"]), aux
 
 
-def logits_fn(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def logits_fn(cfg: ModelConfig, params, h: torch.Tensor,
+              tp=None) -> torch.Tensor:
     """Full logits of a (B, S, D) hidden, softcapped: (B, S, V), or (B, S,
-    CB, V) for audio."""
+    CB, V) for audio. ``tp``: the head (or the tied embedding) is this
+    rank's vocabulary shard, and so are the logits."""
     if cfg.modality == "audio":
         lg = torch.einsum("bsd,cdv->bscv", h, params["audio_heads"])
-    elif cfg.tie_embeddings:
-        lg = torch.einsum("bsd,vd->bsv", h, params["embed"])
     else:
-        lg = torch.einsum("bsd,dv->bsv", h, params["head"])
+        w = params["embed"] if cfg.tie_embeddings else params["head"]
+        if tp_active(tp) and w.numel() != cfg.vocab * cfg.d_model:
+            from repro_torch.launch.mesh import copy_to_model
+            h = copy_to_model(h, tp)
+        lg = torch.einsum("bsd,vd->bsv" if cfg.tie_embeddings
+                          else "bsd,dv->bsv", h, w)
     return softcap(lg, cfg.final_softcap)
+
+
+def _gold(lg: torch.Tensor, labels: torch.Tensor, vocab: int,
+          tp) -> torch.Tensor:
+    """The labels' logits; of logits split over "model" (``tp``), each
+    from the rank that holds its vocabulary row, summed over "model"."""
+    n = lg.shape[-1]
+    if not tp_active(tp) or n == vocab:
+        return torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    from repro_torch.launch.mesh import reduce_from_model
+
+    local = labels.long() - tp.rank * n
+    own = (local >= 0) & (local < n)
+    g = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return reduce_from_model(torch.where(own, g, torch.zeros_like(g)), tp)
 
 
 def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor,
-                  chunk: int) -> torch.Tensor:
+                  chunk: int, tp=None) -> torch.Tensor:
     """Next-token cross-entropy over sequence chunks (the largest divisor
     of S not above ``chunk``), so (B, S, V) logits never exist at once.
     Audio's labels are (B, S, CB): a position's loss is the mean over its
-    codebooks, taken before the mask."""
+    codebooks, taken before the mask. ``tp`` as in ``loss_fn``."""
     s = h.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
@@ -351,30 +410,48 @@ def _chunked_xent(cfg: ModelConfig, params, h: torch.Tensor,
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
-        lg = logits_fn(cfg, params, h[:, c0:c0 + chunk]).to(torch.float32)
-        lse = logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[:, c0:c0 + chunk, ..., None]
-                            .long())[..., 0]
+        lg = logits_fn(cfg, params, h[:, c0:c0 + chunk],
+                       tp).to(torch.float32)
+        if tp_active(tp) and lg.shape[-1] != cfg.vocab:
+            lse = sharded_logsumexp(lg, tp)
+        else:
+            lse = logsumexp(lg, dim=-1)
+        gold = _gold(lg, labels[:, c0:c0 + chunk], cfg.vocab, tp)
         nll = lse - gold
         if cfg.modality == "audio":
             nll = nll.mean(-1)  # over the codebooks
         m_c = mask[:, c0:c0 + chunk]
         tot = tot + torch.sum(nll * m_c)
         cnt = cnt + torch.sum(m_c)
+    if tp is not None and tp.data_size > 1:  # the batch split over "data"
+        from repro_torch.launch.mesh import all_reduce_data, reduce_from_data
+        tot, cnt = reduce_from_data(tot, tp), all_reduce_data(cnt, tp)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *,
             window_override: Optional[int] = None, remat: bool = True,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, tp=None):
     """Causal-LM loss. batch: the inputs ({"tokens"}, + "patch_embeddings"
     for a VLM), "labels" (+ optional "loss_mask", (B, S)). A VLM scores
     only the text span, the last ``labels.shape[1]`` positions. With MTP
     (deepseek) 0.1 of the MTP head's cross-entropy on the labels shifted
     one more position (the last repeated) is added. Returns (loss +
-    ``router_aux_coef`` * aux, {"xent", "aux"})."""
+    ``router_aux_coef`` * aux, {"xent", "aux"}).
+
+    ``tp`` (``launch.mesh.TensorParallel``): ``params`` are this rank's
+    shards of a dense attention decoder on a mesh, and ``batch`` its
+    slice of a batch split over ``tp.data_size`` "data" ranks (module
+    docstring); the loss is the whole batch's on every rank."""
+    if tp_active(tp) and (cfg.family != "dense" or cfg.modality != "text"
+                       or cfg.use_mla or cfg.n_experts
+                       or any(k not in ("attn", "local", "global")
+                              for k in cfg.layer_pattern)):
+        raise NotImplementedError(
+            f"{cfg.arch_id} on a model-parallel mesh: only the dense "
+            "attention decoders are ported (ROADMAP queue A item 13b.2)")
     h, aux = forward(cfg, params, batch, window_override=window_override,
-                     remat=remat)
+                     remat=remat, tp=tp)
     labels = batch["labels"]
     # the prefix positions of a VLM carry no labels
     h_text = h[:, -labels.shape[1]:] if cfg.modality == "vlm" else h
@@ -382,7 +459,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     if mask is None:
         mask = torch.ones(labels.shape[:2], dtype=torch.float32,
                           device=h.device)
-    loss = _chunked_xent(cfg, params, h_text, labels, mask, loss_chunk)
+    loss = _chunked_xent(cfg, params, h_text, labels, mask, loss_chunk, tp)
     if cfg.use_mtp:  # one depth-1 block over h predicts a token further
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)

@@ -1,27 +1,37 @@
 """The ranks of tests/test_torch_mesh.py: one gloo group of ``WORLD``
 processes on the CPU runs the port's flat mesh (``launch.mesh``,
 ``QAFeL(mesh=)``, the sharded flush, the cohort step and engine, the
-checkpoint reshard) and rank 0 writes what they made under ``OUT`` as
-``.npz`` and ``.json`` files, which the test holds against the
-reference's unsharded paths. Not a test; imports neither jax nor the JAX
-package:
+checkpoint reshard) and the LLM round on ("data", "model") meshes
+(``make_qafel_round(mesh=)``, ``LLM_CASES``), and rank 0 writes what they
+made under ``OUT`` as ``.npz`` and ``.json`` files, which the test holds
+against the reference's paths. Not a test; imports neither jax nor the
+JAX package:
 
-    PYTHONPATH=src:tests python tests/mesh_ranks.py OUT
+    PYTHONPATH=src:tests python tests/mesh_ranks.py OUT [--llm]
 
-The inputs come from seeds (``flush_inputs``, ``TARGETS``), so the test
-builds the same ones.
+The inputs come from seeds (``flush_inputs``, ``TARGETS``, ``llm_batch``),
+so the test builds the same ones; the LLM round's states and messages are
+the test's (``OUT/llm_in.npz``: the reference's initial and round-1
+states, the port's meshless round's messages), which with ``--llm`` the
+ranks wait for after their flat mesh; without it the LLM cases are not
+run.
 """
 from __future__ import annotations
 
 import json
+import os
 import socket
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as pytree_leaves
 
+from repro_torch import configs as TC
 from repro_torch.common import prng
 from repro_torch.core import QAFeL, QAFeLConfig, make_quantizer
 from repro_torch.core import save_checkpoint
@@ -29,10 +39,14 @@ from repro_torch.core.protocol import (CLIENT_UPDATE, decode_message_flat,
                                        frame_cohort_messages)
 from repro_torch.core.qafel import (client_update_flat, place_flat_on_mesh,
                                     segment_rows)
+from repro_torch.core.quantizers import TreeLayout
+from repro_torch.distributed import steps as TS
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (gather_segments, make_host_mesh,
                                      make_production_mesh, make_sim_mesh,
                                      make_sim_mesh2d)
+from repro_torch.launch.train import round_batch
+from repro_torch.models import transformer as T
 from repro_torch.obs import RunTracer
 from repro_torch.sharding.rules import flat_segment_index
 
@@ -56,6 +70,33 @@ MESHES = {"4": lambda: make_sim_mesh(4),
           "2x2": lambda: make_sim_mesh2d((2, 2))}
 COHORT_B = 5  # members of the cohort step, over 4 (and 2) data ranks
 SIM = dict(concurrency=8, max_uploads=40, eval_every_steps=1, seed=0)
+
+
+# the LLM round on a ("data", "model") mesh: reduced configs, K = 2, P = 1,
+# a local batch of 2 (which 4 data ranks do not divide: replicated) at
+# seq 32; case: (arch, mesh shape, rounds, remat)
+LLM_Q = dict(client_lr=3e-2, server_lr=1.0, server_momentum=0.3,
+             buffer_size=2, local_steps=1, client_quantizer="qsgd4",
+             server_quantizer="qsgd4")
+LLM_LOCAL, LLM_SEQ = 2, 32
+LLM_WEIGHTS = np.array([0.9, 0.7], np.float32)
+LLM_CASES = {
+    "gemma2-2b_4x1": ("gemma2-2b", (4, 1), 1, False),
+    "gemma2-2b_2x2": ("gemma2-2b", (2, 2), 2, False),
+    "gemma2-2b_2x2_remat": ("gemma2-2b", (2, 2), 1, True),
+    "gemma2-2b_1x4": ("gemma2-2b", (1, 4), 1, False),
+    "granite-34b_1x4": ("granite-34b", (1, 4), 1, False),
+    # the qkv biases and the qk-norm, from the port's seed-0 state
+    "codeqwen1.5-7b_2x2": ("codeqwen1.5-7b", (2, 2), 1, False),
+    "qwen3-14b_1x4": ("qwen3-14b", (1, 4), 1, False),
+}
+SEEDED = ("codeqwen1.5-7b", "qwen3-14b")  # states from init_round_state
+# the production meshes, reckoned by their shapes alone
+PRODUCTION_MESHES = {"16x16": {"data": 16, "model": 16},
+                     "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+LLM_TAPS = "gemma2-2b_4x1"  # the case run with taps on
+LLM_WATCHED = "gemma2-2b_1x4"  # the case whose allocations rank 0 records
+STATE = ("x", "hidden", "momentum")
 
 
 def qcfg(**kw) -> dict:
@@ -283,7 +324,149 @@ def mesh_api() -> dict:
     return out
 
 
-def _rank(rank: int, world: int, port: int, out: str) -> None:
+def llm_batch(cfg, step: int) -> dict:
+    """Round ``step``'s batch (K, P, local, seq) from the numpy stream of
+    seed 0, as the launcher draws it."""
+    rng = np.random.default_rng(0)
+    q = QAFeLConfig(**LLM_Q)
+    for _ in range(step + 1):
+        batch = round_batch(cfg, q, rng, LLM_LOCAL, LLM_SEQ, "cpu")
+    return batch
+
+
+def llm_state(inputs, arch: str, r: int, mesh):
+    """The reference's state before round ``r + 1`` (``llm_in.npz``) on
+    ``mesh``'s segments; a ``SEEDED`` arch's the port's seed-0 state."""
+    if arch in SEEDED:
+        return TS.init_round_state(TC.get_reduced(arch), 0, "cpu", mesh)
+    layout = TreeLayout.of(T.abstract_params(TC.get_reduced(arch)))
+    trees = [layout.unflatten(torch.from_numpy(
+        inputs[f"{arch}/r{r}/{n}"].copy())) for n in STATE]
+    return TS.RoundState.on_mesh(*trees, mesh,
+                                 t=int(inputs[f"{arch}/r{r}/t"]))
+
+
+class _Largest(TorchDispatchMode):
+    """Records the largest floating tensor an op makes, but this rank's
+    shards (``shapes``, their gradients too) and the client's working copy
+    (``numels``)."""
+
+    def __init__(self, shapes, numels):
+        super().__init__()
+        self.shapes, self.numels = set(shapes), set(numels)
+        self.numel, self.shape = 0, None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in pytree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and t.numel() > self.numel
+                    and tuple(t.shape) not in self.shapes
+                    and t.numel() not in self.numels):
+                self.numel, self.shape = t.numel(), list(t.shape)
+        return out
+
+
+def launcher_argv(ckpt) -> list:
+    """``launch.train``'s command line of the launcher case: reduced
+    gemma2-2b, 2 rounds, a checkpoint under ``ckpt``."""
+    return ["--arch", "gemma2-2b", "--reduced", "--steps", "2", "--seq",
+            str(LLM_SEQ), "--global-batch", "8", "--device", "cpu",
+            "--checkpoint-dir", str(ckpt)]
+
+
+def run_launcher(out: Path) -> dict:
+    """``launch.train.run`` under the 4-rank group: the reference's host
+    mesh, (1, 1) on rank 0 (the other ranks are outside it and return at
+    once). Returns what this rank ran: its mesh coordinate, the losses,
+    x's f32 bits as a list and the checkpoint's path."""
+    from repro_torch.launch import train
+
+    res = train.run(train.parse_args(launcher_argv(out / "ckpt_mesh")))
+    state = res["state"]
+    return {"coordinate": res["mesh"].get_coordinate(),
+            "losses": res["losses"].tolist(),
+            "x": None if state is None else
+            state.flat[0].view(torch.int32).tolist(),
+            "checkpoint": res["checkpoint"]}
+
+
+def run_llm(inputs, out: Path) -> tuple:
+    """Every ``LLM_CASES`` round from the reference's states, and on (2, 2)
+    the server half fed the meshless round's messages: x, x-hat and m
+    gathered to d, the losses, the wire bytes and the taps."""
+    arrays, info = {}, {}
+    for case, (arch, shape, rounds, remat) in LLM_CASES.items():
+        cfg = TC.get_reduced(arch)
+        mesh = make_sim_mesh2d(shape)
+        fn = TS.make_qafel_round(cfg, QAFeLConfig(**LLM_Q), remat=remat,
+                                 mesh=mesh, taps=case == LLM_TAPS)
+        plan = fn.plan
+        for r in range(rounds):
+            state = llm_state(inputs, arch, r, mesh)
+            watch = (case == LLM_WATCHED and r == 0
+                     and dist.get_rank() == 0)
+            mode = _Largest(plan.local_layout.shapes,
+                            [plan.local_layout.total_size])
+            args = (state, llm_batch(cfg, r), torch.from_numpy(LLM_WEIGHTS),
+                    prng.PRNGKey(r))
+            if watch:
+                with mode:
+                    state, met = fn(*args)
+                info["largest"] = {
+                    "numel": mode.numel, "shape": mode.shape,
+                    "segment": plan.n_l, "leaf": max(plan.layout.sizes)}
+            else:
+                state, met = fn(*args)
+            for name, f in zip(STATE, state.flat):
+                arrays[f"{case}_{r + 1}_{name}"] = \
+                    plan.gather(f)[:plan.d].numpy()
+            info[f"{case}_{r + 1}"] = {
+                "loss": float(met["loss"]), "t": state.t,
+                "upload_bytes": met["upload_bytes"],
+                "broadcast_bytes": met["broadcast_bytes"]}
+            if "taps" in met:
+                arrays[f"{case}_{r + 1}_taps"] = met["taps"].numpy()
+    info["launcher"] = run_launcher(out)
+    cfg = TC.get_reduced("gemma2-2b")
+    mesh = make_sim_mesh2d((2, 2))
+    plan = TS.MeshPlan(cfg, mesh)
+    state = llm_state(inputs, "gemma2-2b", 0, mesh)
+    uploads = [(torch.from_numpy(inputs[f"msg/upload{k}_packed"]),
+                torch.from_numpy(inputs[f"msg/upload{k}_norms"]))
+               for k in range(LLM_Q["buffer_size"])]
+    (packed, norms), tap = TS.mesh_server_half(
+        plan, state, uploads, torch.from_numpy(LLM_WEIGHTS),
+        prng.split(prng.PRNGKey(0))[1], qcfg=QAFeLConfig(**LLM_Q),
+        taps=True)
+    for name, f in zip(STATE, state.flat):
+        arrays[f"half_{name}"] = plan.gather(f)[:plan.d].numpy()
+    arrays.update(half_packed=packed.numpy(), half_norms=norms.numpy(),
+                  half_taps=tap.numpy())
+    return arrays, info
+
+
+def write_npz(path: Path, arrays: dict) -> None:
+    """``np.savez`` to ``path``, which appears whole (written beside it,
+    then renamed)."""
+    tmp = path.with_name(path.name + ".part")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def wait_for(path, timeout: float = 600.0):
+    """``path`` once it exists (the test writes ``llm_in.npz`` while the
+    ranks run their flat mesh)."""
+    t0 = time.time()
+    while not Path(path).exists():
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+    return path
+
+
+def _rank(rank: int, world: int, port: int, out: str, llm: bool) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
@@ -305,6 +488,11 @@ def _rank(rank: int, world: int, port: int, out: str) -> None:
                            for k, v in run_cohort_step(mesh).items()})
             info[f"sim_{mname}"] = run_sim(mesh)
         arrays.update(run_reshard(out))
+        if llm:
+            with np.load(wait_for(out / "llm_in.npz")) as inputs:
+                a, i = run_llm(inputs, out)
+            arrays.update({f"llm_{k}": v for k, v in a.items()})
+            info["llm"] = i
         if rank == 0:
             np.savez(out / "ranks.npz", **arrays)
             (out / "ranks.json").write_text(json.dumps(info))
@@ -322,8 +510,9 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     out = Path(argv[0])
     out.mkdir(parents=True, exist_ok=True)
-    torch.multiprocessing.spawn(_rank, args=(WORLD, _free_port(), str(out)),
-                                nprocs=WORLD)
+    torch.multiprocessing.spawn(
+        _rank, args=(WORLD, _free_port(), str(out), "--llm" in argv[1:]),
+        nprocs=WORLD)
 
 
 if __name__ == "__main__":

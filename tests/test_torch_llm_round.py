@@ -84,6 +84,17 @@ QCFG = dict(client_lr=3e-2, server_lr=1.0, server_momentum=0.3,
             server_quantizer="qsgd4")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(a) -> np.ndarray:
     a = a.detach().cpu() if isinstance(a, torch.Tensor) else a
     if isinstance(a, torch.Tensor):
@@ -485,6 +496,26 @@ def test_round_refuses_what_it_does_not_port():
                                              server_quantizer=kind))
     TS.make_prefill_step(cfg)
     TS.make_decode_step(cfg)
+    # on a model-parallel mesh the dense decoders run
+    # (tests/test_torch_mesh.py); the other families, the other quantizers
+    # (13b.2) and a "pod" axis (14d) stay refused
+    from types import SimpleNamespace
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    for arch, what in (("deepseek-v3-671b", "MLA"),
+                       ("qwen3-moe-235b-a22b", "MoE"),
+                       ("mamba2-1.3b", "Mamba2"), ("zamba2-7b", "hybrid"),
+                       ("internvl2-1b", "VLM"), ("musicgen-large", "audio")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*13b.2"):
+            TS.make_qafel_round(TC.get_reduced(arch), q, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="MoE.*ep.*13b.2"):
+        TS.make_qafel_round(TC.get_reduced("qwen3-moe-235b-a22b").replace(
+            moe_impl="ep"), q, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="top_k0.1.*13b.2"):
+        TS.make_qafel_round(cfg, QAFeLConfig(server_quantizer="top_k0.1"),
+                            mesh=mesh)
+    with pytest.raises(NotImplementedError, match="14d"):
+        TS.make_qafel_round(cfg, q, mesh=SimpleNamespace(
+            mesh_dim_names=("pod", "data", "model"), shape=(1, 1, 1)))
     # remat under the vmapped cohort step stays refused
     flat, layout = flatten_tree({"w": torch.zeros(8)})
     with pytest.raises(NotImplementedError, match="13b"):

@@ -64,6 +64,18 @@ from repro_torch.kernels import qsgd as tkq
 from repro_torch.kernels import ref
 from repro_torch.kernels import taps as ttaps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LOSS_RTOL = 1e-5        # round losses (qsgd4's bound; measured below)
 STATE_L2_RTOL = 5e-3    # x - x_0 and m after a round, L2 relative
 KINDS = ["identity", "top_k0.1", "rand_k0.1", "lowrank4g32"]

@@ -56,6 +56,18 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import taps as ttaps
 from repro_torch.kernels.server_update import server_update_
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WHOLE_ROUND_RTOL = 1e-5  # whole rounds, relative per tap (measured 1.6e-6)
 QCFG = dict(client_lr=3e-2, server_lr=1.0, server_momentum=0.3,
             buffer_size=4, local_steps=2, client_quantizer="qsgd4",

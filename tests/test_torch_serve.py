@@ -41,6 +41,18 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SERVE_RTOL = 1e-5         # prefill / decode logits and caches (<= 2.7e-6)
 DECODE_VS_FORWARD = 2e-3  # the reference's own bound
 FLIP_MARGIN = 1e-4        # a top-2 margin under this may flip a token

@@ -33,6 +33,18 @@ from repro_torch.data import FederatedPartition, SyntheticCelebA
 from repro_torch.examples import federated_celeba, quickstart
 from repro_torch.sim import SimConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N_SAMPLES, N_CLIENTS, UPLOADS = 200, 20, 20
 # metered as the reference meters: 4 bits per coordinate + one f32 per row
 BYTES_PER_UPLOAD = (4 * 79_842) // 8 + 4 * 624

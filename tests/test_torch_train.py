@@ -52,6 +52,18 @@ from repro_torch.common.tree import tree_flatten, tree_leaves
 from repro_torch.convert import round_state_from_jax
 from repro_torch.launch import train
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LOSS_RTOL = 1e-5       # round losses (the decoder's bound; measured 1e-7)
 STATE_L2_RTOL = 5e-3   # x - x_0 after three rounds, L2 relative
 ARGV = ["--arch", "gemma2-2b", "--reduced", "--steps", "3", "--seq", "32",

@@ -52,6 +52,18 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, restored after: the suite
+    runs six workers on the CPU's cores, where a pool of threads per
+    worker spends its time waiting on the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # model math: relative to the largest magnitude of the reference's values
 FWD_RTOL = 1e-5   # hidden states and layer outputs (measured <= 1e-6)
 GRAD_RTOL = 2e-5  # gradients, per leaf (measured <= 2.2e-6)
