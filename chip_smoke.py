@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the ten CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build of the eleven CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), timed; the int32 instructions
    per element of the in-kernel threefry dither and of the batched
    encode's counter hash, by pipe, and the decode kernels' int32
@@ -24,10 +24,17 @@ Phases, each printing one JSON line:
    special values (zeros, subnormals, infinities, nan), the length not a
    multiple of 4, from an aligned and a misaligned start: device ms
    against the byte bound, the plain version's and ``F.silu`` /
-   ``aten.silu_backward`` as the library time (``silu_kernel``); and the
-   same kernel's ``exp`` alone (``xla_exp``) against ``xla_math.exp`` over
-   those values and in its row mode ``exp(a - m)`` on a (64, 256,000)
-   logits chunk, with ``torch.exp`` as the library time;
+   ``aten.silu_backward`` as the library time, registers and blocks an
+   SM, and the same at mamba2-1.3b's conv output and gate at the round's
+   seq 64 and at ``train_4k`` (``silu_kernel``); then the loss's
+   logsumexp (``csrc/logsumexp.cu``: the forward, its sum-only and
+   log-only modes, the backward) against its plain version
+   (``logsumexp.plain_*``) bit for bit on a (64, 256,000) chunk, a view
+   one float off the 16-byte grid and one loss chunk (128 rows) of each
+   pool vocabulary, special rows included; the device launches of a
+   forward (amax and the kernel: 2) and a backward (1) by the profiler;
+   device ms against ``torch.logsumexp`` / ``torch.exp`` and the byte
+   bound (``logsumexp_kernel``);
 4. the cohort path's kernel shapes the same way: K2 as the cohort upload
    at B = 32 over 624 rows in qsgd4 and qsgd2, at B = 512 (the population
    path) and at B = 8 over d = 1e8, K3 decoding a qsgd2 tier upload at
@@ -261,7 +268,8 @@ Phases, each printing one JSON line:
     reckoned on its layout, against the 60 GB gate;
 14. one line listing every kernel (``silu_forward`` and ``silu_backward``
     with ``F.silu`` / ``aten.silu_backward`` as the library time, their
-    launches on mamba2-1.3b's round; ``xla_exp`` with ``torch.exp``, its
+    launches on mamba2-1.3b's round; ``logsumexp_forward`` /
+    ``logsumexp_backward`` with ``torch.logsumexp`` / ``torch.exp``, their
     launches on the LLM round's loss; each kernel's launches in one
     segment's flush of ``flat_mesh`` and in the mesh launcher's rounds of
     ``model_mesh``) with its launches on both paths, on
@@ -3029,10 +3037,10 @@ def llm_round(dev) -> tuple:
         "other_kernels_idle": all(v == 0 for n, v in launches.items()
                                   if n not in want
                                   and n not in MODEL_KERNELS),
-        # the loss's exp: one launch a loss chunk (one at seq 64) a step,
-        # and one more in its backward, which recomputes it
-        "xla_exp_per_step": per_round("xla_exp")
-        == 2 * k * qcfg.local_steps,
+        # the loss's logsumexp: one launch a loss chunk (one at seq 64) a
+        # step each way
+        "logsumexp_per_step": all(per_round(n) == k * qcfg.local_steps
+                                  for n in LSE_KERNELS),
         "peak_under_reckoning": peak <= LLM_PEAK_SLACK * reckoning
         and peak < LLM_PEAK_CAP_GB * 1e9,
         "phases_read": all(phases[name] > 0 for name in LLM_PHASES),
@@ -4005,7 +4013,35 @@ TRAIN_ARGV = ["--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--seq", "128",
 # layer activations, and the 256,000-wide logits with their softcap,
 # softmax and gradient
 TRAIN_ACTIVATION_BYTES = 26 * 126e3 * 1024 + 3.5e9
-_PEAKS = {}  # the meshless launcher's peak bytes, read by model_mesh
+_PEAKS = {}  # the meshless launcher's peak above its base, read by model_mesh
+
+
+def _cycle_bytes() -> int:
+    """The bytes a full garbage collection frees now: tensors held only by
+    reference cycles, which otherwise wait for an uncertain later
+    collection."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    return before - torch.cuda.memory_allocated()
+
+
+def _launcher_base() -> tuple:
+    """``(base, cycle_bytes)`` before a launcher's measured run: the bytes
+    still allocated after a full garbage collection (``_cycle_bytes``, what
+    earlier phases left in cycles), with the peak statistics reset; a
+    launcher's own peak is its peak less ``base``."""
+    import torch
+
+    cycles = _cycle_bytes()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), cycles
 QUANT_LAYERS = 2
 # one round a pair, cold (2 until model_mesh took their time: the warm
 # second round ran within 1% of the first)
@@ -4043,8 +4079,7 @@ def train_launcher(dev) -> dict:
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     args = train.parse_args(TRAIN_ARGV)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    base, cycles_before = _launcher_base()
     reset_launches()
     t0 = time.perf_counter()
     out = train.run(args)
@@ -4052,7 +4087,8 @@ def train_launcher(dev) -> dict:
     total_s = time.perf_counter() - t0
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
-    _PEAKS["train_launcher"] = peak
+    cycles_after = _cycle_bytes()
+    _PEAKS["train_launcher"] = peak - base
     state = out["state"]
     d = sum(t.numel() for t in tree_leaves(state.x))
     rows = -(-d // 128)
@@ -4118,7 +4154,9 @@ def train_launcher(dev) -> dict:
         "loop_s": out["seconds"],
         "run_s": total_s, "launches": {n: v for n, v in launches.items()
                                        if v},
-        "peak_bytes": peak, "peak_gb": peak / 1e9,
+        "peak_bytes": peak, "peak_gb": peak / 1e9, "base_bytes": base,
+        "cycle_bytes_before": cycles_before,
+        "cycle_bytes_after": cycles_after,
         "peak_reckoning_gb": reckoning / 1e9,
         "peak_predicted_gb": prediction / 1e9,
         "upload_bytes": metrics["upload_bytes"],
@@ -4211,10 +4249,11 @@ def llm_round_quantizers(dev) -> dict:
         peak = torch.cuda.max_memory_allocated()
         cspec, sspec = make_quantizer(cq).spec, make_quantizer(sq).spec
         qsgd_codes = cspec.kind in ("qsgd", "lowrank")
-        # the loss's exp: two launches a client step (one loss chunk at
-        # seq LLM_SEQ; its backward recomputes it)
+        # the loss's logsumexp: one launch each way a client step (one
+        # loss chunk at seq LLM_SEQ)
         want = {"server_update": QUANT_ROUNDS,
-                "xla_exp": QUANT_ROUNDS * 4 * 2 * qcfg.local_steps}
+                **{n: QUANT_ROUNDS * 4 * qcfg.local_steps
+                   for n in LSE_KERNELS}}
         if qsgd_codes:
             n = d if cspec.kind == "qsgd" else cspec.rank(d)
             want["qsgd_quantize_pack_threefry"] = QUANT_ROUNDS * 4 * -(
@@ -5331,13 +5370,29 @@ SILU_SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45, 1.1e-38,
                 -88.5, -89.0, 3.4e38, -3.4e38, 1e-30)
 # per value: the backward recomputes s (the forward's 40 operations)
 SILU_FLOPS = {"silu_forward": 40, "silu_backward": 48}
-# the models' own kernels (silu and the loss's exp), launched by every
-# round on a model that has them, beside the wire path's
-MODEL_KERNELS = ("silu_forward", "silu_backward", "xla_exp")
-# xla_exp's row mode at a chunk of gemma2-2b's loss: 64 positions x its
-# 256,000 classes; about 25 operations a value
-XLA_EXP_ROWS, XLA_EXP_COLS, XLA_EXP_FLOPS = 64, 256_000, 25
+# the models' own kernels (silu and the loss's logsumexp), launched by
+# every round on a model that has them, beside the wire path's (the
+# logsumexp's sum-only and log-only modes run only on a "model" axis of
+# more than one rank, so on one card they stay idle)
+MODEL_KERNELS = ("silu_forward", "silu_backward", "logsumexp_max",
+                 "logsumexp_forward", "logsumexp_backward")
+LSE_KERNELS = ("logsumexp_max", "logsumexp_forward", "logsumexp_backward")
 SILU_BYTES = {"silu_forward": 8, "silu_backward": 12}  # per value
+SILU_SOURCE = "src/repro_torch/kernels/csrc/silu.cu"
+SILU_SHAPE_ARCH = "mamba2-1.3b"  # its conv output and gate in each layer
+# the loss's logsumexp (csrc/logsumexp.cu): the timed chunk (64 positions
+# of gemma2-2b's 256,000 classes), one loss chunk of the LLM round (local
+# batch 2 x seq 64 = 128 rows) at each pool vocabulary a round path runs
+# (internvl2-1b's 151,655 is off the 16-byte grid), and a misaligned view
+LSE_TIMED = (64, 256_000)
+LSE_ARCHS = ("gemma2-2b", "mamba2-1.3b", "zamba2-7b", "qwen3-moe-235b-a22b",
+             "deepseek-v3-671b", "internvl2-1b")
+LSE_SOURCE = "src/repro_torch/kernels/csrc/logsumexp.cu"
+# operations a value: the row max's compare; the subtraction, exp (about
+# 25) and the add of the forward pass; the subtraction, exp and the
+# product backward
+LSE_FLOPS = {"logsumexp_max": 1, "logsumexp_forward": 27,
+             "logsumexp_backward": 27}
 
 
 def _same_or_nan(a, b) -> bool:
@@ -5348,14 +5403,30 @@ def _same_or_nan(a, b) -> bool:
                  | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def silu_cases(dev) -> dict:
+def _max_abs_err(pairs) -> float:
+    import torch
+
+    return max(float(torch.nan_to_num((a.double() - b.double()).abs(),
+                                      nan=0.0, posinf=0.0).max())
+               for a, b in pairs)
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+
+
+def silu_cases(dev, build_dir: Path) -> dict:
     """``kernels.silu``'s two launches against the plain version
     (``xla_math.silu_fwd`` / ``silu_bwd``) on the card, bit for bit (a
     nan as a nan), over the sweep, the tail and the special values, from
-    an aligned and from a misaligned start; one launch each way by the
-    counters; median device ms of the kernel, the plain version, and
-    ``F.silu`` / ``aten.silu_backward`` on the same tensor as the library
-    time; the byte bound. Returns {"silu_forward": case,
+    an aligned and from a misaligned start (1 / d by ``__frcp_rn``); one
+    launch each way by the counters; median device ms of the kernel, the
+    plain version, and ``F.silu`` / ``aten.silu_backward`` on the same
+    tensor as the library time; the byte bound; each kernel's registers
+    and blocks an SM; then the same at mamba2-1.3b's round shapes
+    (``silu_round_shapes``). Returns {"silu_forward": case,
     "silu_backward": case}."""
     import torch
 
@@ -5385,11 +5456,8 @@ def silu_cases(dev) -> dict:
               and counts["silu_backward"] == 1}
         if not all(ok.values()):
             raise AssertionError(f"silu from offset {start}: {ok}")
-        cases[start] = {
-            "checks": ok, "max_abs_err": max(
-                float(torch.nan_to_num((a.double() - b.double()).abs(),
-                                       nan=0.0, posinf=0.0).max())
-                for a, b in ((y, py), (gx, pg)))}
+        cases[start] = {"checks": ok,
+                        "max_abs_err": _max_abs_err(((y, py), (gx, pg)))}
     del y, gx, py, pg
     xs, gs = x[:n], g[:n]
     out = {}
@@ -5400,95 +5468,283 @@ def silu_cases(dev) -> dict:
         "silu_backward": (lambda: silu.silu_backward(gs, xs),
                           lambda: xla_math.silu_bwd(gs, xs),
                           lambda: torch.ops.aten.silu_backward(gs, xs))}
+    lib = build_dir / "libsilu.so"
     for name, (kernel, plain, library) in fns.items():
-        bytes_s = SILU_BYTES[name] * n / HBM_BYTES_PER_S
-        ops_s = SILU_FLOPS[name] * n / F32_OPS_PER_S
         out[name] = {
-            "source": "src/repro_torch/kernels/csrc/silu.cu",
-            "replaces": None, "n": n, "equal": True,
+            "source": SILU_SOURCE, "replaces": None, "n": n, "equal": True,
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
             "ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 3),
             "library_ms": device_ms(library, 20),
             "library_call": "torch.nn.functional.silu" if "forward" in name
             else "torch.ops.aten.silu_backward",
-            "bound_ms": 1e3 * max(bytes_s, ops_s),
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            **_bound(SILU_BYTES[name] * n, SILU_FLOPS[name] * n),
             "bytes_formula": f"{SILU_BYTES[name]} B a value / 3.35 TB/s",
+            "resources": kernel_resources(
+                lib, "silu_fwd_kernel" if "forward" in name
+                else "silu_bwd_kernel", 256),
             "checked": {"sweep": [SILU_SWEEP, -100.0, 100.0],
                         "tail": [SILU_TAIL, -88.8, -87.3],
                         "special": list(map(str, SILU_SPECIAL)),
-                        "offsets_floats": [0, 1], "length": n}}
-        out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
+                        "offsets_floats": [0, 1], "length": n,
+                        "reciprocal": "__frcp_rn"}}
+        case = out[name]
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        case["library_bound_share"] = case["bound_ms"] / case["library_ms"]
+        case["target_met"] = case["ms"] <= case["library_ms"]
+    del x, g, xs, gs
+    torch.cuda.empty_cache()
+    shapes = silu_round_shapes(dev)
+    for name in fns:
+        out[name]["round_shapes"] = {k: v[name] for k, v in shapes.items()}
         emit({"phase": "silu_kernel", "name": name, **out[name],
               "offset_checks": cases})
-    out["xla_exp"] = xla_exp_case(dev, xs)
-    del x, g, xs, gs
+    return out
+
+
+def silu_round_shapes(dev) -> dict:
+    """silu at mamba2-1.3b's round shapes: its conv output (d_inner + 2 x
+    groups x state channels) and its gate (d_inner), at the LLM round's
+    local batch and seq and at ``train_4k``'s: the kernel each way bit
+    for bit against the plain version at the round's seq (the plain
+    version's temporaries at ``train_4k`` would take gigabytes), median
+    device ms of the kernel and the library call, and the byte bound."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import silu, xla_math
+
+    cfg = get_config(SILU_SHAPE_ARCH)
+    conv = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    runs = {"seq64": (fl.LOCAL_BATCH, LLM_SEQ),
+            "train_4k": (SHAPE_TRAIN_LOCAL[SILU_SHAPE_ARCH], 4096)}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for run, (b, s) in runs.items():
+        for what, width in (("conv", conv), ("gate", cfg.d_inner)):
+            shape = (b, s, width)
+            x = 4.0 * torch.randn(shape, generator=gen, device=dev)
+            g = torch.randn(shape, generator=gen, device=dev)
+            n = x.numel()
+            row = {"shape": list(shape), "n": n}
+            if run == "seq64":
+                row["equal"] = (
+                    _same_or_nan(silu.silu_forward(x), xla_math.silu_fwd(x))
+                    and _same_or_nan(silu.silu_backward(g, x),
+                                     xla_math.silu_bwd(g, x)))
+                if not row["equal"]:
+                    raise AssertionError(f"silu at {shape} differs from its "
+                                         "plain version")
+            cells = {
+                "silu_forward": (lambda: silu.silu_forward(x),
+                                 lambda: torch.nn.functional.silu(x)),
+                "silu_backward": (lambda: silu.silu_backward(g, x),
+                                  lambda: torch.ops.aten.silu_backward(g,
+                                                                       x))}
+            key = f"{what}_{run}"
+            out[key] = {}
+            for name, (kernel, library) in cells.items():
+                c = {**row, "ms": device_ms(kernel, 20),
+                     "library_ms": device_ms(library, 20),
+                     **_bound(SILU_BYTES[name] * n, SILU_FLOPS[name] * n)}
+                c["bound_share"] = c["bound_ms"] / c["ms"]
+                out[key][name] = c
+            del x, g
     torch.cuda.empty_cache()
     return out
 
 
-def xla_exp_case(dev, xs) -> dict:
-    """``silu.xla_exp`` (the same kernel's exp alone) against
-    ``xla_math.exp`` bit for bit (a nan as a nan) over silu's sweep, tail
-    and special values, from an aligned and a misaligned start, one launch
-    each; then the row mode the loss takes, ``exp(a - m)`` with one ``m``
-    a row, on a logits chunk of the gemma2-2b loss's shape
-    (``XLA_EXP_ROWS`` x its 256,000 classes) against the plain version's
-    ``xla_math.exp(a - m)``; median device ms of that mode, the plain
-    version and ``torch.exp`` of the same tensor (the library time: the
-    same bytes, torch's own law), and the byte bound."""
+def _lse_logits(rows: int, cols: int, dev, seed: int, offset: int = 0):
+    """(rows, cols) f32 logits of N(0, 64) on the card, ``offset`` floats
+    into their storage, with the special rows: silu's special values in
+    row 0, row 1 all -inf, a run whose exp flushes (a - m in [-88.8,
+    -86.5]) in row 2, a maximum 87.5 over the rest in row 3."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = 8.0 * torch.randn(rows * cols + offset, generator=gen, device=dev)
+    a = buf[offset:].view(rows, cols)
+    sp = torch.tensor(SILU_SPECIAL, device=dev)[:cols]
+    a[0, :sp.numel()] = sp
+    a[1] = -torch.inf
+    k = min(cols, 4096)
+    a[2, :k] = a[2].amax() - torch.linspace(86.5, 88.8, k, device=dev)
+    a[3, 7 % cols] = a[3].amax() + 87.5
+    return a
+
+
+def _lse_check(dev, rows: int, cols: int, seed: int, offset: int = 0,
+               profile: bool = False) -> dict:
+    """The loss kernel at one shape against its plain version, bit for bit
+    (a nan as a nan): the forward's lse, m and sum, the sum-only and
+    log-only modes, the backward (a subnormal quotient in the last row);
+    one launch each by the counters and, with ``profile``, the device
+    launches of the forward (the row max and the pass: 2) and the backward
+    (1) by the profiler."""
     import torch
 
     from repro_torch.kernels import launches as kernel_launches
-    from repro_torch.kernels import reset_launches, silu, xla_math
+    from repro_torch.kernels import logsumexp as klse
+    from repro_torch.kernels import reset_launches
 
-    checks, errs = {}, []
-    for start in (0, 1):
-        v = torch.cat([torch.zeros(1, device=dev), xs])[start:start
-                                                        + xs.numel()]
-        reset_launches()
-        got = silu.xla_exp(v)
-        checks[f"sweep_offset{start}_one_launch"] = (
-            kernel_launches()["xla_exp"] == 1)
-        want = xla_math.exp(v)
-        checks[f"sweep_offset{start}"] = _same_or_nan(got, want)
-        errs.append(float(torch.nan_to_num((got.double() - want.double())
-                                           .abs(), nan=0.0, posinf=0.0)
-                          .max()))
-        del got, want, v
-    gen = torch.Generator(device=dev).manual_seed(13)
-    a = 8.0 * torch.randn((XLA_EXP_ROWS, XLA_EXP_COLS), generator=gen,
-                          device=dev)
-    a[0, :1000] = -torch.inf
-    m = a.amax(-1, keepdim=True)
-    a[1, :4096] = m[1] - torch.linspace(86.5, 88.8, 4096, device=dev)
+    a = _lse_logits(rows, cols, dev, seed, offset)
+    g = torch.randn(rows, generator=torch.Generator(device=dev)
+                    .manual_seed(seed + 1), device=dev)
+    g[-1] = 1e-37
     reset_launches()
-    got = silu.xla_exp(a, m)
-    checks["rows_one_launch"] = kernel_launches()["xla_exp"] == 1
-    want = xla_math.exp(a - m)
-    checks["rows"] = _same_or_nan(got, want)
-    errs.append(float(torch.nan_to_num((got.double() - want.double()).abs(),
-                                       nan=0.0, posinf=0.0).max()))
-    del got, want
+    got = klse.forward(a)
+    m2, t2 = klse.sum_exp(a, a.amax(-1, keepdim=True))
+    lse2 = klse.log_plus(t2, m2)
+    da = klse.backward(g, a, got[1], got[2])
+    counts = kernel_launches()
+    want = klse.plain_forward(a)
+    want_da = klse.plain_backward(g, a, want[1], want[2])
+    checks = {
+        "lse": _same_or_nan(got[0], want[0]), "m": _same_or_nan(got[1],
+                                                               want[1]),
+        "sum": _same_or_nan(got[2], want[2]),
+        "sum_only": _same_or_nan(t2, want[2]) and _same_or_nan(m2, want[1]),
+        "log_only": _same_or_nan(lse2, want[0]),
+        "grad": _same_or_nan(da, want_da),
+        "one_launch_each": all(counts[f"logsumexp_{k}"] == 1 for k in (
+            "max", "forward", "sum", "log", "backward"))}
+    out = {"shape": [rows, cols], "offset_floats": offset,
+           "max_abs_err": _max_abs_err(zip(got + (da,),
+                                           want + (want_da,)))}
+    if profile:
+        fwd = device_launches(lambda: klse.forward(a))
+        bwd = device_launches(lambda: klse.backward(g, a, got[1], got[2]))
+        out["forward_device_launches"] = sum(c for _, c in fwd)
+        out["backward_device_launches"] = sum(c for _, c in bwd)
+        out["forward_kinds"] = [n[:60] for n, _ in fwd]
+        checks["forward_two_launches"] = out["forward_device_launches"] == 2
+        checks["backward_one_launch"] = out["backward_device_launches"] == 1
+    out["checks"] = checks
     if not all(checks.values()):
-        raise AssertionError(f"xla_exp: {checks}")
-    n = a.numel()
-    bytes_s = (8 * n + 4 * XLA_EXP_ROWS) / HBM_BYTES_PER_S
-    ops_s = XLA_EXP_FLOPS * n / F32_OPS_PER_S
-    case = {"source": "src/repro_torch/kernels/csrc/silu.cu",
-            "replaces": None, "n": n, "shape": list(a.shape),
-            "equal": True, "max_abs_err": max(errs), "checks": checks,
-            "ms": device_ms(lambda: silu.xla_exp(a, m), 20),
-            "plain_ms": device_ms(lambda: xla_math.exp(a - m), 3),
-            "library_ms": device_ms(lambda: torch.exp(a), 20),
-            "library_call": "torch.exp",
-            "bound_ms": 1e3 * max(bytes_s, ops_s),
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes_formula": "8 B a value + 4 B a row / 3.35 TB/s"}
-    case["bound_share"] = case["bound_ms"] / case["ms"]
-    emit({"phase": "silu_kernel", "name": "xla_exp", **case})
-    del a, m
-    return case
+        raise AssertionError(f"logsumexp at {rows} x {cols}: {checks}")
+    return out
+
+
+def logsumexp_cases(dev, build_dir: Path) -> dict:
+    """``kernels.logsumexp`` against its plain version (``plain_forward``,
+    ``plain_backward``) on the card at the timed chunk, one loss chunk of
+    each pool vocabulary (``LSE_ARCHS``) and a view one float off the
+    16-byte boundary; then median device ms of each kernel (the row max,
+    the forward pass, the backward), of the forward whole (both), of the
+    plain versions, of ``torch.amax``, ``torch.logsumexp`` and
+    ``torch.exp`` of the same tensor (the library times: the forward
+    whole against ``torch.logsumexp``, the row max against ``torch.amax``,
+    the backward against ``torch.exp``, which moves its bytes), and the
+    byte bounds, at the timed chunk and at gemma2-2b's and mamba2-1.3b's
+    loss chunks; each kernel's registers and blocks an SM. Returns
+    {name: case} for ``LSE_KERNELS``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import federated_llm as fl
+    from repro_torch.kernels import logsumexp as klse
+    from repro_torch.kernels import taps
+
+    chunk = fl.LOCAL_BATCH * LLM_SEQ
+    checked = {"timed": _lse_check(dev, *LSE_TIMED, 21, profile=True),
+               "misaligned": _lse_check(dev, 8, LSE_TIMED[1], 22, offset=1)}
+    for i, arch in enumerate(LSE_ARCHS):
+        checked[arch] = _lse_check(dev, chunk, get_config(arch).vocab,
+                                   30 + i, profile=arch == LLM_ARCH)
+    torch.cuda.empty_cache()
+    timings = {}
+    for label, (rows, cols) in (
+            ("timed", LSE_TIMED),
+            ("gemma2-2b_chunk", (chunk, get_config("gemma2-2b").vocab)),
+            ("mamba2-1.3b_chunk", (chunk, get_config("mamba2-1.3b").vocab))):
+        a = _lse_logits(rows, cols, dev, 40)
+        g = torch.randn(rows, generator=torch.Generator(device=dev)
+                        .manual_seed(41), device=dev)
+        lse, m, total = klse.forward(a)
+        scratch = klse._scratch(a, rows)
+        n = a.numel()
+
+        def row_max(a=a, scratch=scratch, rows=rows, cols=cols):
+            klse._launch(klse._MAX, a=a, scratch=scratch, rows=rows, n=cols)
+
+        row_max()
+
+        def forward_pass(a=a, m=m, total=total, lse=lse, scratch=scratch,
+                         rows=rows, cols=cols):
+            klse._launch(klse._FORWARD, a=a, m=m, total=total, lse=lse,
+                         scratch=scratch, rows=rows, n=cols)
+
+        cells = {
+            "logsumexp_max": {
+                "ms": device_ms(row_max, 20),
+                "plain_ms": device_ms(lambda: a.amax(-1, keepdim=True), 20),
+                "library_ms": device_ms(lambda: torch.amax(a, -1), 20),
+                **_bound(4 * n + 4 * rows * klse.MAX_PARTS,
+                         LSE_FLOPS["logsumexp_max"] * n)},
+            "logsumexp_forward": {
+                "ms": device_ms(forward_pass, 20),
+                "whole_ms": device_ms(lambda: klse.forward(a), 20),
+                "plain_ms": device_ms(lambda: klse.plain_forward(a), 3),
+                "library_ms": device_ms(lambda: torch.logsumexp(a, -1), 20),
+                **_bound(4 * n + 12 * rows,
+                         LSE_FLOPS["logsumexp_forward"] * n)},
+            "logsumexp_backward": {
+                "ms": device_ms(lambda: klse.backward(g, a, m, total), 20),
+                "plain_ms": device_ms(
+                    lambda: klse.plain_backward(g, a, m, total), 3),
+                "library_ms": device_ms(lambda: torch.exp(a), 20),
+                **_bound(8 * n + 12 * rows,
+                         LSE_FLOPS["logsumexp_backward"] * n)}}
+        for c in cells.values():
+            c["bound_share"] = c["bound_ms"] / c["ms"]
+        fwd = cells["logsumexp_forward"]
+        # the function's bound: a read once, whatever the kernels re-read
+        fwd["whole_bound_share"] = fwd["bound_ms"] / fwd["whole_ms"]
+        fwd["target_met"] = fwd["whole_ms"] <= fwd["library_ms"]
+        cells["logsumexp_max"]["target_met"] = (
+            cells["logsumexp_max"]["ms"] <= cells["logsumexp_max"]
+            ["library_ms"])
+        bwd = cells["logsumexp_backward"]
+        bwd["target_met"] = bwd["ms"] <= bwd["library_ms"]
+        timings[label] = {"shape": [rows, cols], **cells}
+        del a, g, lse, m, total, scratch, cells
+    torch.cuda.empty_cache()
+    lib = build_dir / "liblogsumexp.so"
+    resources = {
+        "logsumexp_max": kernel_resources(lib, "row_max_kernel", 256),
+        "logsumexp_forward": kernel_resources(
+            lib, "lse_forward_kernel", taps.THREADS,
+            taps._smem_bytes(1, 1)),
+        "logsumexp_backward": kernel_resources(lib, "lse_backward_kernel",
+                                               256)}
+    err = max(c["max_abs_err"] for c in checked.values())
+    out = {}
+    for name, call, formula in (
+            ("logsumexp_max", "torch.amax",
+             "4 B a value + 256 B a row / 3.35 TB/s"),
+            ("logsumexp_forward", "torch.logsumexp",
+             "4 B a value + 12 B a row / 3.35 TB/s"),
+            ("logsumexp_backward", "torch.exp",
+             "8 B a value + 12 B a row / 3.35 TB/s")):
+        t = timings["timed"][name]
+        out[name] = {
+            "source": LSE_SOURCE, "replaces": None, "shape": list(LSE_TIMED),
+            "equal": True, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "library_call": call, "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bytes_formula": formula,
+            "resources": resources[name], "timings": {
+                k: v[name] for k, v in timings.items()},
+            "checked": {k: {"shape": v["shape"], "offset": v["offset_floats"]}
+                        for k, v in checked.items()}}
+        emit({"phase": "logsumexp_kernel", "name": name, **out[name],
+              "checks": {k: v["checks"] for k, v in checked.items()},
+              "profiled": {k: {key: v[key] for key in (
+                  "forward_device_launches", "backward_device_launches",
+                  "forward_kinds")}
+                  for k, v in checked.items()
+                  if "forward_device_launches" in v}})
+    return out
 
 
 # the flat mesh (launch.mesh, sharding.rules, QAFeL(mesh=)): a one-rank NCCL
@@ -5777,7 +6033,8 @@ def _model_mesh_launcher(dev) -> dict:
     """``launch.train.run`` at the train_launcher phase's settings (no
     checkpoint) for its ``TRAIN_STEPS`` rounds under the one-rank group,
     which takes the reference's host mesh: peak ``max_memory_allocated``
-    against the meshless launcher's in this call, K1 / K3 / update
+    above its base (``_launcher_base``) against the meshless launcher's
+    in this call, K1 / K3 / update
     launches by counters set to 0 just before and read just after, then
     one more round of its round function profiled (ms by CUDA events,
     device launches, idle share)."""
@@ -5792,13 +6049,13 @@ def _model_mesh_launcher(dev) -> dict:
     from repro_torch.launch import train
 
     args = train.parse_args(MODEL_MESH_ARGV)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    base, cycles_before = _launcher_base()
     reset_launches()
     out = train.run(args)
     torch.cuda.synchronize()
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
+    cycles_after = _cycle_bytes()
     mesh, state = out["mesh"], out["state"]
     cfg = configs.get_config(args.arch)
     qcfg = train.qafel_config(args)
@@ -5825,9 +6082,13 @@ def _model_mesh_launcher(dev) -> dict:
               "loss_profiled_round": float(met["loss"]),
               "launches": {n: v for n, v in launches.items() if v},
               "peak_bytes": peak, "peak_gb": peak / 1e9,
-              "meshless_peak_gb": None if meshless is None
+              "base_bytes": base, "own_peak_gb": (peak - base) / 1e9,
+              "cycle_bytes_before": cycles_before,
+              "cycle_bytes_after": cycles_after,
+              "meshless_own_peak_gb": None if meshless is None
               else meshless / 1e9,
-              "peak_ratio": None if meshless is None else peak / meshless}
+              "peak_ratio": None if meshless is None
+              else (peak - base) / meshless}
     record["checks"] = {
         "losses_finite": all(math.isfinite(v) for v in record["losses"]),
         **{f"{n}_launches": launches[n] == v for n, v in want.items()},
@@ -5835,7 +6096,7 @@ def _model_mesh_launcher(dev) -> dict:
                                   if n not in want
                                   and n not in MODEL_KERNELS),
         "peak_within_5pct": meshless is not None
-        and peak <= MODEL_MESH_PEAK_RATIO * meshless}
+        and peak - base <= MODEL_MESH_PEAK_RATIO * meshless}
     del out, state, batch, round_fn
     torch.cuda.empty_cache()
     return record
@@ -6572,7 +6833,8 @@ def main() -> int:
                 dither_int32, hash_int32, int32_ops_per_s)
     torch.cuda.empty_cache()
     timed("upload_before_after", upload_before_after, dev)
-    silu_kernel = timed("kernels_silu", silu_cases, dev)
+    silu_kernel = timed("kernels_silu", silu_cases, dev, build_dir)
+    lse_kernel = timed("kernels_logsumexp", logsumexp_cases, dev, build_dir)
 
     cohort_cases = timed("cohort_kernels", check_cohort_kernels, dev,
                          hash_int32, int32_ops_per_s)
@@ -6720,26 +6982,34 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "library_call": m["library_call"], "equal": m["equal"],
             "bytes_formula": m["bytes_formula"], "n": m["n"],
+            "target_met": m["target_met"],
+            "round_shapes": {k: {key: c[key] for key in (
+                "shape", "ms", "library_ms", "bound_ms", "bound_share")}
+                for k, c in m["round_shapes"].items()},
             "launches_note": "mamba2-1.3b's round (its conv and gate in "
                              "each of 48 layers); zamba2-7b's, qwen3-moe's "
                              "(its experts) and the other paths below",
             **{f"{path}_launches": counts.get(name, 0)
                for path, counts in new_paths.items()}})
-    m = silu_kernel["xla_exp"]
-    kernels_line.append({
-        "name": "xla_exp", "route": "cuda", "source": m["source"],
-        "replaces": None, "launches": llm_launches["xla_exp"],
-        "llm_round_launches": llm_launches["xla_exp"],
-        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        "library_call": m["library_call"], "equal": m["equal"],
-        "bytes_formula": m["bytes_formula"], "shape": m["shape"],
-        "launches_note": "gemma2-2b's round (two a loss chunk: the "
-                         "forward and its backward's recompute); the "
-                         "other rounds below",
-        **{f"{path}_launches": counts.get("xla_exp", 0)
-           for path, counts in new_paths.items()}})
+    for name in LSE_KERNELS:
+        m = lse_kernel[name]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": m["source"],
+            "replaces": None, "launches": llm_launches[name],
+            "llm_round_launches": llm_launches[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_call": m["library_call"], "equal": m["equal"],
+            "bytes_formula": m["bytes_formula"], "shape": m["shape"],
+            "target_met": m["timings"]["timed"]["target_met"],
+            "chunk_timings": {k: {key: c[key] for key in (
+                "ms", "library_ms", "bound_ms", "bound_share")}
+                for k, c in m["timings"].items()},
+            "launches_note": "gemma2-2b's round (one a loss chunk and "
+                             "client step); the other rounds below",
+            **{f"{path}_launches": counts.get(name, 0)
+               for path, counts in new_paths.items()}})
     for entry in kernels_line:
         entry["shapes_launches"] = {cell: counts.get(entry["name"], 0)
                                     for cell, counts in shape_paths.items()}
@@ -6748,10 +7018,10 @@ def main() -> int:
         entry["model_mesh_launches"] = model_mesh_launches.get(
             entry["name"], 0)
     if not all(e["launches"] and e["zamba2_round_launches"]
-               for e in kernels_line[-3:]):
+               for e in kernels_line[-5:]):
         raise AssertionError("silu.cu was not launched on mamba2-1.3b's "
-                             "and zamba2-7b's rounds, or its exp on the "
-                             "LLM round's loss")
+                             "and zamba2-7b's rounds, or logsumexp.cu on "
+                             "the LLM rounds' loss")
     for name, seconds in _PHASE_SECONDS:
         emit({"phase_seconds": name, "seconds": seconds})
     print(smi, flush=True)

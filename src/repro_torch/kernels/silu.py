@@ -9,11 +9,6 @@ through the plain version (``xla_math.silu_fwd`` / ``silu_bwd``), a CUDA
 tensor as one launch of the kernel, adding one to
 ``LAUNCHES["silu_forward"]`` or ``LAUNCHES["silu_backward"]``; a failed
 build or launch raises, and any other device raises.
-
-``xla_exp`` is the same kernel's ``exp`` alone, ``exp(x - m)`` row by row:
-the cross-entropy's ``logsumexp`` (``models.layers.logsumexp``) by
-XLA:CPU's law, one launch (``LAUNCHES["xla_exp"]``), plain version
-``xla_math.exp``.
 """
 from __future__ import annotations
 
@@ -24,7 +19,7 @@ from repro_torch.kernels import xla_math
 from repro_torch.kernels.qsgd import on_card
 
 # launches since the last reset (``kernels.reset_launches``)
-LAUNCHES = {"silu_forward": 0, "silu_backward": 0, "xla_exp": 0}
+LAUNCHES = {"silu_forward": 0, "silu_backward": 0}
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -44,7 +39,7 @@ def silu_forward(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel():
         _build.check("silu", _build.entry("silu")(
-            x.data_ptr(), None, y.data_ptr(), x.numel(), 0, 0,
+            x.data_ptr(), None, y.data_ptr(), x.numel(), 0,
             torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["silu_forward"] += 1
     return y
@@ -61,34 +56,7 @@ def silu_backward(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel():
         _build.check("silu", _build.entry("silu")(
-            g.data_ptr(), x.data_ptr(), out.data_ptr(), x.numel(), 1, 0,
+            g.data_ptr(), x.data_ptr(), out.data_ptr(), x.numel(), 1,
             torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["silu_backward"] += 1
-    return out
-
-
-def xla_exp(x: torch.Tensor, m=None) -> torch.Tensor:
-    """XLA:CPU's f32 ``exp`` of ``x - m`` (``m`` None: of ``x``), ``m`` an
-    f32 tensor of ``x``'s shape with a last dimension of 1 (one value a
-    row of ``x``'s last dimension); the subtraction rounds once. On the
-    card one launch, which forms no ``x - m`` tensor."""
-    _check("x", x, x)
-    if m is not None:
-        _check("m", m, m)
-        if m.shape != x.shape[:-1] + (1,) or m.device != x.device:
-            raise ValueError(f"xla_exp: m {tuple(m.shape)} on {m.device}, "
-                             f"expected {tuple(x.shape[:-1]) + (1,)} on "
-                             f"{x.device}")
-    if not on_card(x):
-        return xla_math.exp(x if m is None else x - m)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if x.numel():
-        cols = x.shape[-1] if m is not None else x.numel()
-        mp = None if m is None else m.contiguous()
-        _build.check("silu", _build.entry("silu")(
-            x.data_ptr(), None if mp is None else mp.data_ptr(),
-            out.data_ptr(), x.numel(), 2, cols,
-            torch.cuda.current_stream(x.device).cuda_stream))
-        LAUNCHES["xla_exp"] += 1
     return out

@@ -57,7 +57,7 @@ SMEM_BYTES = {"flush_taps": _smem_bytes(5, FLUSH_SUMS),
               "round_taps": _smem_bytes(5, _ref.ROUND_TAP_SUMS)}
 
 
-def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
+def row_counters(device: torch.device, rows: int) -> torch.Tensor:
     """At least ``rows`` per-row completion counters on ``device``: int32
     zeros, made at first use (one fill launch) and grown by doubling. Each
     launch's last blocks set them back to 0, so launches on one stream
@@ -70,7 +70,7 @@ def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
     return c
 
 
-def _scratch_slots(n: int) -> int:
+def scratch_slots(n: int) -> int:
     """Scratch floats per sum of a row of n values (``tap_reduce.cuh``'s
     ``scratch_slots``): its level-1 sums of 1,024 values and the levels
     above them."""
@@ -95,14 +95,14 @@ def flush_taps(x_old: torch.Tensor, x_new: torch.Tensor, delta: torch.Tensor,
     if not on_card(x_old):
         return _ref.flush_taps(x_old, x_new, delta, diff, q, weights)
     k = 0 if weights is None else weights.shape[0]
-    partials = torch.empty(_scratch_slots(n) * FLUSH_SUMS, dtype=torch.float32,
+    partials = torch.empty(scratch_slots(n) * FLUSH_SUMS, dtype=torch.float32,
                            device=dev)
     out = torch.empty(7, dtype=torch.float32, device=dev)
     fn = _build.entry("flush_taps")
     _build.check("flush_taps", fn(
         x_old.data_ptr(), x_new.data_ptr(), delta.data_ptr(),
         diff.data_ptr(), q.data_ptr(), weights.data_ptr() if k else None, k,
-        n, partials.data_ptr(), _row_counters(dev, 1).data_ptr(),
+        n, partials.data_ptr(), row_counters(dev, 1).data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["flush_taps"] += 1
     return out
@@ -126,13 +126,13 @@ def round_taps(partials: torch.Tensor,
     if not on_card(partials):
         return _ref.round_taps_finish(partials, weights)
     k = 0 if weights is None else weights.shape[0]
-    scratch = torch.empty(_scratch_slots(windows) * _ref.ROUND_TAP_SUMS,
+    scratch = torch.empty(scratch_slots(windows) * _ref.ROUND_TAP_SUMS,
                           dtype=torch.float32, device=dev)
     out = torch.empty(7, dtype=torch.float32, device=dev)
     fn = _build.entry("round_taps")
     _build.check("round_taps", fn(
         partials.data_ptr(), windows, weights.data_ptr() if k else None, k,
-        scratch.data_ptr(), _row_counters(dev, 1).data_ptr(),
+        scratch.data_ptr(), row_counters(dev, 1).data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["round_taps"] += 1
     return out
@@ -165,7 +165,7 @@ def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
                              "packed must be 4-byte aligned")
     if not on_card(flat2d):
         return _ref.upload_taps(flat2d, packed, norms, bits)
-    partials = torch.empty(b * _scratch_slots(d) * UPLOAD_SUMS, dtype=torch.float32,
+    partials = torch.empty(b * scratch_slots(d) * UPLOAD_SUMS, dtype=torch.float32,
                            device=dev)
     out = torch.empty((b, 2), dtype=torch.float32, device=dev)
     fn = _build.entry("upload_taps")
@@ -173,7 +173,7 @@ def upload_taps(flat2d: torch.Tensor, packed: Optional[torch.Tensor] = None,
         flat2d.data_ptr(), None if packed is None else packed.data_ptr(),
         None if norms is None else norms.data_ptr(), b, d,
         0 if bits is None else bits, partials.data_ptr(),
-        _row_counters(dev, b).data_ptr(), out.data_ptr(),
+        row_counters(dev, b).data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["upload_taps"] += 1
     return out

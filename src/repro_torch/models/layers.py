@@ -20,9 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import logsumexp as _klse
 from repro_torch.kernels import silu as _ksilu
-from repro_torch.kernels import xla_math
-from repro_torch.kernels.ref import xla_sum
 
 
 # ---------------------------------------------------------------------------
@@ -280,25 +279,21 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 class _LogSumExp(torch.autograd.Function):
-    """``jax.nn.logsumexp`` over the last axis as XLA:CPU compiles it:
-    ``log(sum(exp(a - m))) + m`` with ``m`` the maximum (0 where it is not
-    finite), ``exp`` XLA's with its flush (``kernels.silu.xla_exp``: one
-    launch on the card, ``a - m`` never a tensor of its own), the sum in
-    law 7's order (``ref.xla_sum``) and XLA's ``log``
-    (``xla_math.log``); the gradient ``(g / sum) * exp(a - m)``, which is
-    what jax's transpose gives, its ``exp`` recomputed from ``a`` (the
-    same bits), so no logits-sized tensor is kept between the passes
-    (the loss keeps ``a`` for its gather anyway). ``m`` and the sum ride
-    out as outputs that carry no gradient (how a ``torch.func``-ready
-    Function keeps an intermediate); the op is row-wise, so its vmap rule
-    runs it on the batched tensor whole."""
+    """``jax.nn.logsumexp`` over the last axis as XLA:CPU compiles it
+    (``kernels.logsumexp``): ``log(sum(exp(a - m))) + m`` with ``m`` the
+    maximum (0 where it is not finite), XLA's ``exp`` with its flush, the
+    sum in law 7's order and XLA's ``log``, on the card two launches (the
+    row max, then one pass); the gradient ``(g / sum) * exp(a - m)``, which is what
+    jax's transpose gives, one launch (``_LogSumExpGrad``), its ``exp``
+    recomputed from ``a`` (the same bits), so no logits-sized tensor is
+    kept between the passes (the loss keeps ``a`` for its gather anyway).
+    ``m`` and the sum ride out as outputs that carry no gradient (how a
+    ``torch.func``-ready Function keeps an intermediate); the op is
+    row-wise, so its vmap rule runs it on the batched tensor whole."""
 
     @staticmethod
     def forward(a):
-        m = a.amax(dim=-1, keepdim=True)
-        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-        total = xla_sum(_ksilu.xla_exp(a, m), -1)[..., None]
-        return (_log(total) + m)[..., 0], m, total
+        return _klse.forward(a)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -310,7 +305,7 @@ class _LogSumExp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _gm, _gt):
         a, m, total = ctx.saved_tensors
-        return (g[..., None] / total) * _XlaExp.apply(a, m)
+        return _LogSumExpGrad.apply(g, a, m, total)
 
     @staticmethod
     def vmap(info, in_dims, a):
@@ -318,14 +313,14 @@ class _LogSumExp(torch.autograd.Function):
         return _LogSumExp.apply(a), (0, 0, 0)
 
 
-class _XlaExp(torch.autograd.Function):
-    """``kernels.silu.xla_exp(a, m)`` as an op with a vmap rule, so the
+class _LogSumExpGrad(torch.autograd.Function):
+    """``kernels.logsumexp.backward`` as an op with a vmap rule, so the
     backward of a vmapped ``torch.func.grad`` reaches the kernel too; it
     has no derivative of its own."""
 
     @staticmethod
-    def forward(a, m):
-        return _ksilu.xla_exp(a, m)
+    def forward(g, a, m, total):
+        return _klse.backward(g, a, m, total)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -337,16 +332,9 @@ class _XlaExp(torch.autograd.Function):
                                   "ported")
 
     @staticmethod
-    def vmap(info, in_dims, a, m):
-        return _XlaExp.apply(*_batch_first(info, in_dims, a, m)), 0
-
-
-def _log(v: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's f32 ``log`` of positive normal values (``xla_math.log``),
-    torch's at 0, infinities and nan (-inf, inf, nan as XLA gives them)."""
-    normal = torch.isfinite(v) & (v >= np.finfo(np.float32).tiny)
-    safe = torch.where(normal, v, torch.ones_like(v))
-    return torch.where(normal, xla_math.log(safe), torch.log(v))
+    def vmap(info, in_dims, g, a, m, total):
+        return _LogSumExpGrad.apply(
+            *_batch_first(info, in_dims, g, a, m, total)), 0
 
 
 def logsumexp(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -361,8 +349,9 @@ def logsumexp(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
 class _ShardedLogSumExp(torch.autograd.Function):
     """``_LogSumExp`` over the last axis split across a group (the
     vocabulary shards of "model"): the row maximum is the group's max, the
-    ``exp`` sum each rank's ``xla_sum`` of its shard summed over the group;
-    the gradient ``(g / sum) * exp(a - m)`` of this rank's shard."""
+    ``exp`` sum each rank's law-7 sum of its shard (``kernels.logsumexp
+    .sum_exp``) summed over the group, then the log (``log_plus``); the
+    gradient ``(g / sum) * exp(a - m)`` of this rank's shard."""
 
     @staticmethod
     def forward(a, group):
@@ -370,10 +359,9 @@ class _ShardedLogSumExp(torch.autograd.Function):
 
         m = a.amax(dim=-1, keepdim=True).contiguous()
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-        total = xla_sum(_ksilu.xla_exp(a, m), -1)[..., None].contiguous()
+        m, total = _klse.sum_exp(a, m)
         dist.all_reduce(total, group=group)
-        return (_log(total) + m)[..., 0], m, total
+        return _klse.log_plus(total, m), m, total
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -385,7 +373,7 @@ class _ShardedLogSumExp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _gm, _gt):
         a, m, total = ctx.saved_tensors
-        return (g[..., None] / total) * _XlaExp.apply(a, m), None
+        return _LogSumExpGrad.apply(g, a, m, total), None
 
 
 def sharded_logsumexp(a: torch.Tensor, tp) -> torch.Tensor:

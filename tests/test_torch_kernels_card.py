@@ -913,31 +913,65 @@ def test_silu_matches_plain_on_card(n, offset):
         assert _same_or_nan(got, card) and _same_or_nan(got.cpu(), cpu)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows,cols,offset", ((1, 4099, 0), (1, 4099, 1),
-                                              (3, 50288, 0), (5, 1027, 2)))
-def test_xla_exp_matches_plain_on_card(rows, cols, offset):
-    """``csrc/silu.cu``'s exp alone (``silu.xla_exp``) against
-    ``xla_math.exp`` on the card and on the CPU, bit for bit (a nan as a
-    nan), from a start ``offset`` floats off the 16-byte boundary:
-    elementwise, and row by row as the loss takes it (``exp(a - m)``, one
-    ``m`` a row; the special values and a subnormal tail in the rows);
-    one launch each."""
-    from repro_torch.kernels import silu, xla_math
-    dev = _card()
-    gen = torch.Generator().manual_seed(cols)
+def _lse_rows(rows, cols, offset, seed):
+    """(rows, cols) logits of N(0, 64) on the CPU, ``offset`` floats into
+    their storage: the special values in row 0, -inf in row 1 whole, a
+    tail whose exp flushes (a - m in [-88.8, -86.5]) in the last row."""
+    gen = torch.Generator().manual_seed(seed)
     a = 8 * torch.randn(rows * cols + offset, generator=gen)
-    sp = torch.tensor(SILU_SPECIAL)
-    a[offset:offset + sp.numel()] = sp
-    x = a[offset:].reshape(rows, cols)
-    m = x.amax(-1, keepdim=True).nan_to_num(0.0)
-    x[-1, 100:200] = m[-1] - torch.linspace(86.5, 88.8, 100)
-    xd = a.to(dev)[offset:].reshape(rows, cols)
-    for args, cpu_in in (((xd.reshape(-1),), x.reshape(-1)),
-                         ((xd, m.to(dev)), x - m)):
+    x = a[offset:].view(rows, cols)
+    sp = torch.tensor(SILU_SPECIAL)[:cols]
+    x[0, :sp.numel()] = sp
+    if rows > 2:
+        x[1] = -torch.inf
+    k = min(cols, 300)
+    x[-1, :k] = x[-1].amax() - torch.linspace(86.5, 88.8, k)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,offset", (
+    (3, 1, 0), (5, 31, 1), (4, 32, 0), (3, 33, 2), (6, 1024, 0),
+    (3, 1025, 1), (2, 32768, 0), (3, 32769, 3), (128, 50288, 0),
+    (64, 256000, 0), (8, 256000, 1)))
+def test_logsumexp_matches_plain_on_card(rows, cols, offset):
+    """``csrc/logsumexp.cu`` against its plain version
+    (``logsumexp.plain_*``) on the card and on the CPU, bit for bit (a nan
+    as a nan), at every padding change of law 7's levels and the pool's
+    vocabularies, both plans (short and long rows), from a start
+    ``offset`` floats off the 16-byte boundary: the forward (lse, m, the
+    sum), the sum-only and log-only modes, the backward with a cotangent
+    a row and with one broadcast from a scalar (stride 0); one launch
+    each (the forward two: the row max, then the pass)."""
+    from repro_torch.kernels import logsumexp as klse
+    dev = _card()
+    x = _lse_rows(rows, cols, offset, cols)
+    g = torch.randn(rows, generator=torch.Generator().manual_seed(1))
+    g[-1] = 1e-37  # a subnormal quotient, flushed
+    xd = torch.cat([torch.zeros(offset), x.reshape(-1)]).to(dev)[
+        offset:].view(rows, cols)
+    gd = g.to(dev)
+    tkernels.reset_launches()
+    got = klse.forward(xd)
+    counts = tkernels.launches()
+    assert counts["logsumexp_max"] == 1 and counts["logsumexp_forward"] == 1
+    card = klse.plain_forward(xd)
+    cpu = klse.plain_forward(x)
+    for a, b, c in zip(got, card, cpu):
+        assert _same_or_nan(a, b) and _same_or_nan(a.cpu(), c)
+    _, m, total = got
+    raw = xd.amax(-1, keepdim=True)
+    tkernels.reset_launches()
+    m2, t2 = klse.sum_exp(xd, raw.clone())
+    lse2 = klse.log_plus(t2, m2)
+    counts = tkernels.launches()
+    assert counts["logsumexp_sum"] == 1 and counts["logsumexp_log"] == 1
+    assert _same_or_nan(m2, m) and _same_or_nan(t2, total)
+    assert _same_or_nan(lse2, got[0])
+    for cot in (gd, torch.full((), 0.25, device=dev).expand(rows)):
         tkernels.reset_launches()
-        got = silu.xla_exp(*args)
-        assert tkernels.launches()["xla_exp"] == 1
-        card = xla_math.exp(args[0] if len(args) == 1 else args[0] - args[1])
-        assert _same_or_nan(got, card)
-        assert _same_or_nan(got.cpu(), xla_math.exp(cpu_in))
+        da = klse.backward(cot, xd, m, total)
+        assert tkernels.launches()["logsumexp_backward"] == 1
+        assert _same_or_nan(da, klse.plain_backward(cot, xd, m, total))
+    assert _same_or_nan(klse.backward(gd, xd, m, total).cpu(),
+                        klse.plain_backward(g, x, *cpu[1:]))
